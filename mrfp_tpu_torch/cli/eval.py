@@ -1,0 +1,177 @@
+"""Multi-domain evaluation entry point (main.py:876-913), PyTorch port.
+
+    python -m mrfp_tpu_torch.cli.eval --ckpt model.pth --data-root /data \
+        --domains bdd100k cityscapes synthia mapillary gtav
+
+    python -m mrfp_tpu_torch.cli.eval --device cuda --synthetic \
+        --synthetic-hw 1024 2048 --max-images 4
+
+Reads a reference PyTorch ``.pth`` checkpoint; without ``--ckpt`` the model
+has seeded random weights. ``--device cuda`` runs the hand-written kernels
+and exits non-zero when no CUDA device is present; it never falls back to
+the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+from typing import Dict, Optional, Sequence
+
+import torch
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="mrfp_tpu_torch multi-domain eval")
+    p.add_argument("--ckpt", default=None,
+                   help="reference .pth checkpoint (default: seeded random weights)")
+    p.add_argument("--data-root", default="/data")
+    p.add_argument("--domains", nargs="+",
+                   default=["bdd100k", "cityscapes", "synthia", "mapillary", "gtav"],
+                   help="domain names, or 'all' for the 5-domain reference sweep")
+    p.add_argument("--trunk", default="resnet-50")
+    p.add_argument("--variant", default="D16")
+    p.add_argument("--eval-size", type=int, default=1536)
+    p.add_argument("--max-images", type=int, default=None)
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--synthetic-hw", type=int, nargs=2, default=(256, 512),
+                   metavar=("H", "W"), help="synthetic image size (smoke tests)")
+    p.add_argument("--strict-pairs", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="drop images whose label size mismatches (reference "
+                        "behavior, main.py:894); --no-strict-pairs crops to "
+                        "the common extent")
+    p.add_argument("--json-out", default=None,
+                   help="also write the results dict to this file")
+    p.add_argument("--bucket", type=int, default=None,
+                   help="pad eval shapes up to multiples of N (logits deviate "
+                        "near padded borders). Default: exact shapes, the "
+                        "reference protocol")
+    p.add_argument("--eval-batch", type=int, default=1,
+                   help="group N same-shape images per forward (exact-shape "
+                        "protocol only; ignored with --bucket)")
+    p.add_argument("--step-timeout", type=float, default=None,
+                   help="watchdog: exit 75 (restartable) when no image batch "
+                        "syncs within this window. Default: 1800 s on cuda, "
+                        "off on cpu; 0 disables")
+    p.add_argument("--corrupt", choices=["fog", "rain"], default=None,
+                   help="apply a synthetic adverse-weather corruption to every "
+                        "eval image (mrfp_tpu/data/weather.py)")
+    p.add_argument("--severity", type=int, default=2,
+                   help="corruption severity 1..4 (with --corrupt)")
+    p.add_argument("--parity", action="store_true",
+                   help="declare this run a reference-parity measurement: "
+                        "refuses any protocol deviation (--bucket, --eval-batch "
+                        ">1, --dtype bfloat16, --no-strict-pairs, --corrupt)")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
+                   help="compute dtype. float32 (TF32 off) is the reference "
+                        "parity protocol; bfloat16 runs the forward under "
+                        "autocast, logits stay float32")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    return p.parse_args(argv)
+
+
+def check_parity_protocol(args) -> None:
+    """--parity: fail fast on any flag that breaks the reference protocol."""
+    violations = []
+    if args.bucket is not None:
+        violations.append("--bucket (padded borders deviate ~0.04 mIoU)")
+    if args.eval_batch != 1:
+        violations.append("--eval-batch >1 (near-tie argmax flips)")
+    if args.dtype != "float32":
+        violations.append("--dtype bfloat16 (borderline argmaxes differ)")
+    if not args.strict_pairs:
+        violations.append("--no-strict-pairs (reference drops mismatches)")
+    if args.corrupt:
+        violations.append("--corrupt (synthetic weather is not the "
+                          "reference's rendered-dataset protocol)")
+    if violations:
+        raise SystemExit("--parity refuses protocol deviations:\n  "
+                         + "\n  ".join(violations))
+
+
+def load_model(args, device: torch.device):
+    from mrfp_tpu_torch.models import build_mrfp
+    from mrfp_tpu_torch.weights import load_torch_checkpoint
+
+    gen = None if args.ckpt else torch.Generator().manual_seed(0)
+    model = build_mrfp("cpu", generator=gen, trunk=args.trunk, variant=args.variant)
+    if args.ckpt:
+        if os.path.isdir(args.ckpt) or not args.ckpt.endswith(".pth"):
+            raise NotImplementedError(
+                f"{args.ckpt}: only reference .pth checkpoints load; Orbax run "
+                f"directories are not ported yet (ROADMAP item A13)")
+        load_torch_checkpoint(model, args.ckpt)
+    return model.to(device)
+
+
+def _dataset(args, domain: str):
+    if args.synthetic:
+        from mrfp_tpu_torch.data import SyntheticDataset
+        ds = SyntheticDataset(length=4, hw=tuple(args.synthetic_hw))
+        ds.name = domain
+    else:
+        # the JAX package's dataset catalog is jax-free but imports PIL, so
+        # it loads only here, for real data
+        from mrfp_tpu.data.datasets import DATASETS, VAL_SPLITS, domain_root
+        ds = DATASETS[domain](root=domain_root(args.data_root, domain),
+                              split=VAL_SPLITS[domain], train=False,
+                              eval_size=args.eval_size)
+    if args.corrupt:
+        from mrfp_tpu.data.weather import CorruptedDataset
+        ds = CorruptedDataset(ds, args.corrupt, args.severity)
+    return ds
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, dict]:
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    if args.parity:
+        check_parity_protocol(args)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: torch.cuda.is_available() is False "
+                         "(use --device cpu to run the plain versions on the CPU)")
+    device = torch.device(args.device)
+    if args.dtype == "float32" and device.type == "cuda":
+        # fp32 parity means full fp32: cuDNN convs default to TF32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    # armed before the first device contact: model upload and the kernel
+    # build count toward the first-beat window
+    from mrfp_tpu_torch.utils.watchdog import watchdog_from_arg
+    watchdog = watchdog_from_arg(args.step_timeout, accelerator=device.type == "cuda")
+    model = load_model(args, device)
+
+    from mrfp_tpu_torch.train.evaluator import SegEvaluator
+    evaluator = SegEvaluator(
+        model, strict_pairs=args.strict_pairs, bucket=args.bucket,
+        eval_batch=args.eval_batch, device=device,
+        autocast_dtype=torch.bfloat16 if args.dtype == "bfloat16" else None)
+    domains = args.domains
+    if domains == ["all"]:
+        domains = ["bdd100k", "cityscapes", "synthia", "mapillary", "gtav"]
+    results = {}
+    for domain in domains:
+        res = evaluator.run(_dataset(args, domain), max_images=args.max_images,
+                            heartbeat=watchdog.beat if watchdog else None)
+        print(f"Number of images dropped: {res['dropped']}")
+        results[domain] = {
+            "mean_iu": res["mean_iu"], "acc": res["acc"], "fwavacc": res["fwavacc"],
+            "images": res["scored"], "pixels": int(res["hist"].sum()),
+            "images_per_s": res["scored"] / res["seconds"],
+            "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
+                       else "cpu")}
+    if watchdog is not None:
+        watchdog.stop()
+    print(json.dumps(results, indent=2))
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(results, f)
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,97 @@
+"""ASPP and the DeepLabV3+ decoder heads (deepv3.py:64-126,197-219), NCHW.
+
+Concat order is load-bearing for checkpoint parity: ASPP output channels are
+[image-pool(256), 1x1(256), d6(256), d12(256), d18(256)] -> 1280
+(deepv3.py:114-126), and the decoder concat is [bot_fine(48), upsampled
+bot_aspp(256)] -> 304 (deepv3.py:350-353). Module names follow the
+reference's state_dict (``aspp.features.0.0``, ``aspp.img_conv.1``,
+``bot_fine.0``, ``final1.3``, ...).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from mrfp_tpu_torch.nn.layers import avg_pool_global, conv2d
+from mrfp_tpu_torch.nn.norms import batch_norm
+from mrfp_tpu_torch.ops.resize import resize_bilinear_align_corners
+
+
+def aspp_rates(output_stride: int, rates: Tuple[int, ...] = (6, 12, 18)) -> Tuple[int, ...]:
+    """Dilation rates scaled by output stride (deepv3.py:82-91)."""
+    scale = {8: 2.0, 4: 4.0, 16: 1.0, 32: 0.5}.get(output_stride)
+    if scale is None:
+        raise ValueError(f"output stride {output_stride} not supported")
+    return tuple(int(r * scale) for r in rates)
+
+
+def conv_bn_relu(cin: int, cout: int, kernel_size: int = 1, padding: int = 0,
+                 dilation: int = 1) -> list:
+    """[conv, BatchNorm, ReLU], to splice into an ``nn.Sequential``."""
+    return [conv2d(cin, cout, kernel_size, 1, padding, dilation),
+            batch_norm(cout), nn.ReLU(inplace=True)]
+
+
+class ConvBNReLU(nn.Sequential):
+    """conv -> Norm2d -> ReLU; children ``0``, ``1``, ``2`` as in the reference."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 1,
+                 padding: int = 0, dilation: int = 1):
+        super().__init__(*conv_bn_relu(cin, cout, kernel_size, padding, dilation))
+
+
+class ASPP(nn.Module):
+    """Atrous Spatial Pyramid Pooling (deepv3.py:64-126).
+
+    ``valid_hw`` = (vh, vw), in this feature map's coordinates, restricts the
+    image-level pooling to the valid region when the input was bottom/right
+    zero-padded up to a shape bucket (train/evaluator.py).
+    """
+
+    def __init__(self, in_ch: int = 2048, reduction_dim: int = 256,
+                 output_stride: int = 16):
+        super().__init__()
+        self.features = nn.ModuleList(
+            [ConvBNReLU(in_ch, reduction_dim, 1)]
+            + [ConvBNReLU(in_ch, reduction_dim, 3, padding=r, dilation=r)
+               for r in aspp_rates(output_stride)])
+        self.img_conv = ConvBNReLU(in_ch, 256, 1)
+
+    def forward(self, x: torch.Tensor, valid_hw: Optional[Tuple[int, int]] = None,
+                impl: Optional[str] = None) -> torch.Tensor:
+        # image-level features first (deepv3.py:117-122)
+        if valid_hw is None:
+            img = avg_pool_global(x)
+        else:
+            vh, vw = (int(v) for v in valid_hw)
+            img = avg_pool_global(x[:, :, :vh, :vw])
+        img = self.img_conv(img)
+        img = resize_bilinear_align_corners(img, x.shape[2:], impl)
+        return torch.cat([img] + [f(x) for f in self.features], dim=1)
+
+
+class DeepLabDecoder(nn.Module):
+    """bot_fine / bot_aspp / final1 of DeepLabV3+ (deepv3.py:200-216).
+
+    A model subclasses it so that these heads sit at the top level of its
+    state_dict, where the reference keeps them. ``decode`` returns dec1 at
+    the low-level (H/4) resolution; the classifier belongs to the model.
+    """
+
+    def __init__(self, aspp_ch: int = 1280, low_ch: int = 256):
+        super().__init__()
+        self.bot_fine = ConvBNReLU(low_ch, 48, 1)
+        self.bot_aspp = ConvBNReLU(aspp_ch, 256, 1)
+        # one Sequential: 0 conv, 1 bn, 2 relu, 3 conv, 4 bn, 5 relu
+        self.final1 = nn.Sequential(*conv_bn_relu(304, 256, 3, padding=1),
+                                    *conv_bn_relu(256, 256, 3, padding=1))
+
+    def decode(self, aspp_out: torch.Tensor, low_level: torch.Tensor,
+               impl: Optional[str] = None) -> torch.Tensor:
+        dec0_up = self.bot_aspp(aspp_out)
+        dec0_fine = self.bot_fine(low_level)
+        dec0_up = resize_bilinear_align_corners(dec0_up, low_level.shape[2:], impl)
+        return self.final1(torch.cat([dec0_fine, dec0_up], dim=1))

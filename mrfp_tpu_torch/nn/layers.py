@@ -1,0 +1,65 @@
+"""Conv / pool / init helpers, NCHW.
+
+torch's ``nn.Conv2d(padding=int)`` already pads symmetrically before
+striding, which is the semantics the JAX package rebuilds by hand
+(mrfp_tpu/nn/layers.py:26-56), so the helpers here are thin. Random init
+mirrors the reference and takes an explicit ``torch.Generator``:
+backbone convs kaiming-normal fan_out (network/Resnet.py:561-563), head convs
+kaiming-normal fan_in (network/mynn.py:38-55), norms at weight 1, bias 0.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def conv2d(cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
+           padding: int = 0, dilation: int = 1, bias: bool = False) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, kernel_size, stride=stride, padding=padding,
+                     dilation=dilation, bias=bias)
+
+
+def max_pool_3x3_s2() -> nn.MaxPool2d:
+    """torch nn.MaxPool2d(kernel_size=3, stride=2, padding=1)."""
+    return nn.MaxPool2d(kernel_size=3, stride=2, padding=1)
+
+
+def avg_pool_global(x: torch.Tensor) -> torch.Tensor:
+    """AdaptiveAvgPool2d(1): NCHW -> NC11."""
+    return x.mean(dim=(2, 3), keepdim=True)
+
+
+@torch.no_grad()
+def kaiming_normal_(weight: torch.Tensor, mode: str,
+                    generator: torch.Generator) -> None:
+    """kaiming_normal_(nonlinearity='relu') drawn from ``generator`` on the
+    CPU, then copied to ``weight``'s device (the same numbers on any device)."""
+    o, i, kh, kw = weight.shape
+    fan = (o if mode == "fan_out" else i) * kh * kw
+    std = math.sqrt(2.0 / fan)
+    draw = torch.randn(weight.shape, generator=generator, dtype=torch.float32)
+    weight.copy_(draw * std)
+
+
+@torch.no_grad()
+def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random init of every conv and norm of ``model``, in module
+    order. Convs of the backbone (``layer0``..``layer4``) take fan_out, the
+    heads fan_in."""
+    for name, m in model.named_modules():
+        if isinstance(m, nn.Conv2d):
+            mode = "fan_out" if name.startswith("layer") else "fan_in"
+            kaiming_normal_(m.weight, mode, generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.BatchNorm2d, nn.InstanceNorm2d)):
+            if m.weight is not None:
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            if getattr(m, "running_mean", None) is not None:
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+    return model

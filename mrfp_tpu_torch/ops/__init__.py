@@ -1,0 +1,10 @@
+"""Compute primitives: the bilinear resize and the confusion matrix, each a
+hand-written CUDA kernel on CUDA tensors and a plain PyTorch version on CPU
+tensors. ``LAUNCHES`` counts kernel launches per wrapper."""
+
+from mrfp_tpu_torch.ops._build import LAUNCHES, reset_launches
+from mrfp_tpu_torch.ops.hist import confusion_matrix_update, fast_hist
+from mrfp_tpu_torch.ops.resize import resize_bilinear_align_corners
+
+__all__ = ["LAUNCHES", "reset_launches", "confusion_matrix_update", "fast_hist",
+           "resize_bilinear_align_corners"]

@@ -1,0 +1,228 @@
+"""Multi-domain evaluation driver (main.py:876-913 + metrics.py), PyTorch.
+
+Per domain: stream images, run the eval forward, accumulate the C x C
+confusion matrix ON THE DEVICE (only the final histogram crosses to the
+host). Images whose label size differs from the image are dropped and
+counted, like main.py:894,910-911 (``strict_pairs=False`` crops them to the
+common extent instead).
+
+Eval shape protocol, as in mrfp_tpu/train/evaluator.py: every image runs at
+its EXACT native shape by default (main.py:896). ``eval_batch=N`` groups N
+same-shape images per forward (exact: eval-mode BN has no cross-image
+coupling; partial groups are padded with all-ignore dummies). ``bucket=N``
+pads images up to a multiple of N with label 255 and masks ASPP's image
+pooling to the valid region; logits near the padded border still differ
+from the exact-shape protocol.
+
+Images cross host->device as they come off the dataset (uint8 for real
+data, 4x fewer bytes than float32), from pinned memory with
+``non_blocking=True`` and two batches in flight; the device casts them to
+float NCHW.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import math
+import time
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mrfp_tpu_torch.ops.hist import confusion_matrix_update
+
+
+def pad_to_bucket(img: np.ndarray, lbl: np.ndarray, bucket: int = 128,
+                  ignore_index: int = 255):
+    """Pad HWC image + HW label up to the next bucket multiple (bottom/right)."""
+    h, w = lbl.shape
+    bh = int(math.ceil(h / bucket)) * bucket
+    bw = int(math.ceil(w / bucket)) * bucket
+    if (bh, bw) == (h, w):
+        return img, lbl
+    pimg = np.zeros((bh, bw, img.shape[-1]), img.dtype)
+    pimg[:h, :w] = img
+    plbl = np.full((bh, bw), ignore_index, lbl.dtype)
+    plbl[:h, :w] = lbl
+    return pimg, plbl
+
+
+class SegEvaluator:
+    """Streaming per-domain mIoU evaluator on one device.
+
+    ``model``: an eval-mode module mapping NCHW float images to NCHW logits,
+    already on ``device``. ``autocast_dtype``: run the forward under
+    ``torch.autocast`` in that dtype (e.g. ``torch.bfloat16``); None keeps
+    float32.
+    """
+
+    def __init__(self, model, num_classes: int = 19, bucket: Optional[int] = None,
+                 strict_pairs: bool = True, eval_batch: int = 1,
+                 device="cuda", autocast_dtype: Optional[torch.dtype] = None):
+        self.model = model
+        self.num_classes = num_classes
+        self.bucket = bucket
+        self.strict_pairs = strict_pairs
+        self.eval_batch = max(1, int(eval_batch))
+        self.device = torch.device(device)
+        self.autocast_dtype = autocast_dtype
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def _step(self, hist: torch.Tensor, image: torch.Tensor, label: torch.Tensor,
+              valid_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        # wire format -> float NCHW on the device
+        x = image.permute(0, 3, 1, 2).float().contiguous()
+        amp = (contextlib.nullcontext() if self.autocast_dtype is None else
+               torch.autocast(self.device.type, dtype=self.autocast_dtype))
+        with amp:
+            logits = self.model(x, valid_hw=valid_hw)
+        pred = logits.argmax(dim=1)
+        return confusion_matrix_update(hist, pred, label, self.num_classes)
+
+    @torch.inference_mode()
+    def run(self, dataset, max_images: Optional[int] = None, log=print,
+            heartbeat=None) -> Dict[str, object]:
+        """Evaluate ``dataset``. ``heartbeat`` is called every few images,
+        after a device sync, so a step watchdog can tell a slow sweep from a
+        wedged device."""
+        hist = torch.zeros((self.num_classes, self.num_classes), dtype=torch.int32,
+                           device=self.device)
+        dropped = 0
+        scored = 0
+        synced_at = 0
+        n = len(dataset) if max_images is None else min(len(dataset), max_images)
+        # bucket mode takes one valid_hw per forward, so it runs batch 1
+        eb = self.eval_batch if self.bucket is None else 1
+        pad_total = 0  # dummy slots spent padding partial groups
+        shapes_seen = set()
+        t0 = time.perf_counter()
+
+        def _sync_heartbeat():
+            nonlocal synced_at
+            if heartbeat is not None and scored - synced_at >= 4:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                heartbeat()
+                synced_at = scored
+
+        def _host_samples() -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+            nonlocal dropped
+            for i in range(n):
+                sample = dataset[i]
+                # uint8 wire format: integer samples ship as they are
+                img = np.asarray(sample["image"])
+                if img.dtype != np.uint8:
+                    img = img.astype(np.float32)
+                lbl = np.asarray(sample["label"])
+                if lbl.dtype != np.uint8:
+                    lbl = lbl.astype(np.int32)
+                if img.shape[:2] != lbl.shape:
+                    if self.strict_pairs:
+                        dropped += 1  # reference: count+skip (main.py:910-911)
+                        continue
+                    h = min(img.shape[0], lbl.shape[0])
+                    w = min(img.shape[1], lbl.shape[1])
+                    img, lbl = img[:h, :w], lbl[:h, :w]
+                yield img, lbl
+
+        def _groups():
+            """Host batches: (images NHWC, labels NHW, real count, valid_hw)."""
+            pending: Dict[tuple, list] = {}
+            for img, lbl in _host_samples():
+                if self.bucket is not None:
+                    vh, vw = lbl.shape
+                    img, lbl = pad_to_bucket(img, lbl, self.bucket)
+                    yield img[None], lbl[None], 1, (vh, vw)
+                    continue
+                shapes_seen.add(lbl.shape)
+                pending.setdefault(lbl.shape, []).append((img, lbl))
+                if len(pending[lbl.shape]) == eb:
+                    yield _stack(pending.pop(lbl.shape)) + (eb, None)
+            for items in pending.values():  # final partial groups
+                yield _stack(items) + (len(items), None)
+
+        def _stack(items):
+            nonlocal pad_total
+            real = len(items)
+            pad_total += eb - real
+            if real < eb:
+                # all-ignore dummies (label 255 never touches the hist)
+                pad = (np.zeros_like(items[0][0]), np.full_like(items[0][1], 255))
+                items = items + [pad] * (eb - real)
+            return (np.stack([im for im, _ in items]),
+                    np.stack([lb for _, lb in items]))
+
+        # two batches in flight: batch i+1 is copied while batch i runs
+        buf = []
+        for img, lbl, real, valid_hw in _groups():
+            buf.append((self._to_device(img), self._to_device(lbl), real, valid_hw))
+            if len(buf) >= 2:
+                image, label, real, vhw = buf.pop(0)
+                hist = self._step(hist, image, label, vhw)
+                scored += real
+                _sync_heartbeat()
+        while buf:
+            image, label, real, vhw = buf.pop(0)
+            hist = self._step(hist, image, label, vhw)
+            scored += real
+            _sync_heartbeat()
+
+        n_shapes = len(shapes_seen)
+        if eb > 1 and pad_total > 0 and (n_shapes > 3 or pad_total * 2 > max(scored, 1)):
+            logging.getLogger(__name__).warning(
+                "eval_batch=%d on a mixed-shape domain: %d distinct shapes, "
+                "%d padded dummy forwards for %d real images — consider "
+                "eval_batch=1 or bucket mode for this domain", eb, n_shapes,
+                pad_total, scored)
+        hist_np = hist.cpu().numpy().astype(np.int64)  # syncs the device
+        seconds = time.perf_counter() - t0
+        result = evaluate_hist(hist_np, dataset_name=getattr(dataset, "name", "?"),
+                               id2cat=getattr(dataset, "id2cat", None), log=log)
+        result.update(dropped=dropped, scored=scored, seconds=seconds)
+        return result
+
+
+def evaluate_hist(hist: np.ndarray, dataset_name: str = "?",
+                  id2cat=None, log=print) -> Dict[str, object]:
+    """metrics.evaluate_eval/print_evaluate_results (metrics.py:60-120):
+    acc, acc_cls, per-class IoU table with precision/recall/TP/FP/FN, mIoU,
+    fwavacc. Rows of ``hist`` are ground truth, columns prediction."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        acc = np.diag(hist).sum() / hist.sum()
+        acc_cls = np.nanmean(np.diag(hist) / hist.sum(axis=1))
+        iu = np.diag(hist) / (hist.sum(axis=1) + hist.sum(axis=0) - np.diag(hist))
+        freq = hist.sum(axis=1) / hist.sum()
+        mean_iu = np.nanmean(iu)
+        fwavacc = (freq[freq > 0] * iu[freq > 0]).sum()
+
+        tp = np.diag(hist).astype(np.float64)
+        fp = hist.sum(axis=1) - tp
+        fn = hist.sum(axis=0) - tp
+        precision = tp / (tp + fp)
+        recall = tp / (tp + fn)
+
+    id2cat = id2cat or {i: str(i) for i in range(hist.shape[0])}
+    log(f"Dataset name: {dataset_name}")
+    log("label_id      label    iU    Precision Recall TP     FP    FN")
+    total = hist.sum()
+    for idx in range(hist.shape[0]):
+        with np.errstate(divide="ignore", invalid="ignore"):
+            # fp/tp and fn/tp print inf/nan at tp=0, like the reference
+            # (metrics.py:110-113)
+            log(f"{idx:2d}    {str(id2cat.get(idx, '')):>13}   "
+                f"{iu[idx] * 100:5.1f}  {precision[idx]:5.1f}     "
+                f"{recall[idx]:5.1f}  {100 * tp[idx] / total:5.1f}  "
+                f"{fp[idx] / tp[idx]:5.1f}   {fn[idx] / tp[idx]:5.1f}")
+    log(f"mean {mean_iu}")
+    logging.info("[dataset %s], [acc %.5f], [acc_cls %.5f], [mean_iu %.5f], "
+                 "[fwavacc %.5f]", dataset_name, acc, acc_cls, mean_iu, fwavacc)
+    return {"acc": float(acc), "acc_cls": float(acc_cls),
+            "mean_iu": float(mean_iu), "fwavacc": float(fwavacc),
+            "iu": iu, "hist": hist}

@@ -1,0 +1,119 @@
+"""Weights for the port: from the JAX variable tree, or from a reference .pth.
+
+The port keeps the reference's state_dict key layout, so both reduce to
+``load_state_dict(strict=True)``:
+
+- ``state_dict_from_jax`` maps the JAX ``MRFP`` tree (nested dicts of numpy
+  arrays; no JAX import) to the port's keys, as
+  mrfp_tpu/train/export_torch.py::export_state_dict does for the reference:
+  conv kernels HWIO -> OIHW, BN scale/bias/mean/var ->
+  weight/bias/running_mean/running_var, ``num_batches_tracked`` = 0.
+- ``load_torch_checkpoint`` reads the reference's on-disk container
+  ``{'epoch', 'state_dict'}`` (keys ``module.``-prefixed by DataParallel)
+  and drops the train-only OC-branch tensors, which the eval forward never
+  reads.
+"""
+
+from __future__ import annotations
+
+import logging
+import re
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+def _conv(sd: dict, ref: str, node: Dict[str, Any]) -> None:
+    sd[f"{ref}.weight"] = _t(np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1)))
+    if "bias" in node:
+        sd[f"{ref}.bias"] = _t(node["bias"])
+
+
+def _norm(sd: dict, ref: str, node: Dict[str, Any],
+          stats: Optional[Dict[str, Any]]) -> None:
+    """BatchNorm (with stats) or affine InstanceNorm (without)."""
+    sd[f"{ref}.weight"] = _t(node["scale"])
+    sd[f"{ref}.bias"] = _t(node["bias"])
+    if stats:
+        sd[f"{ref}.running_mean"] = _t(stats["mean"])
+        sd[f"{ref}.running_var"] = _t(stats["var"])
+        sd[f"{ref}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+
+def _conv_bn(sd: dict, ref: str, node: dict, stats: dict) -> None:
+    """A JAX ConvBNReLU {conv, bn} -> Sequential children ``.0``/``.1``."""
+    _conv(sd, f"{ref}.0", node["conv"])
+    _norm(sd, f"{ref}.1", node["bn"], stats.get("bn"))
+
+
+def state_dict_from_jax(params: Dict[str, Any],
+                        batch_stats: Optional[Dict[str, Any]] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX ``MRFP`` (resnet-50) variables -> the port's state_dict."""
+    stats = batch_stats or {}
+    sd: Dict[str, torch.Tensor] = {}
+    bp, bst = params["backbone"], stats.get("backbone", {})
+    _conv(sd, "layer0.0", bp["conv1"])
+    stem = "bn1" if "bn1" in bp else "bn1_iw"
+    _norm(sd, "layer0.1", bp[stem], bst.get(stem))
+    for L in (1, 2, 3, 4):
+        lyr, lst = bp[f"layer{L}"], bst.get(f"layer{L}", {})
+        for blk in sorted(lyr, key=lambda n: int(re.sub(r"\D", "", n))):
+            b, bs = lyr[blk], lst.get(blk, {})
+            ref = f"layer{L}.{int(blk[len('block'):])}"
+            for i in (1, 2, 3):
+                _conv(sd, f"{ref}.conv{i}", b[f"conv{i}"])
+                _norm(sd, f"{ref}.bn{i}", b[f"bn{i}"], bs.get(f"bn{i}"))
+            if "downsample_conv" in b:
+                _conv(sd, f"{ref}.downsample.0", b["downsample_conv"])
+                _norm(sd, f"{ref}.downsample.1", b["downsample_bn"],
+                      bs.get("downsample_bn"))
+            if "instance_norm_layer" in b:
+                _norm(sd, f"{ref}.instance_norm_layer", b["instance_norm_layer"],
+                      None)
+    ap, ast = params["aspp"], stats.get("aspp", {})
+    for name in ap:
+        ref = "aspp.img_conv" if name == "img_conv" else \
+            f"aspp.features.{int(name[len('feat'):])}"
+        _conv_bn(sd, ref, ap[name], ast.get(name, {}))
+    dp, dst = params["decoder"], stats.get("decoder", {})
+    for name, ref in (("bot_fine", "bot_fine"), ("bot_aspp", "bot_aspp")):
+        _conv_bn(sd, ref, dp[name], dst.get(name, {}))
+    for name, j in (("final1_0", 0), ("final1_1", 3)):
+        _conv(sd, f"final1.{j}", dp[name]["conv"])
+        _norm(sd, f"final1.{j + 1}", dp[name]["bn"], dst.get(name, {}).get("bn"))
+    _conv(sd, "final2.0", params["final2"])
+    return sd
+
+
+def _is_oc_key(key: str) -> bool:
+    """OClayerK / OCdeclayerK / OCK_bn / OCK_decbn (deepv3.py:221-237)."""
+    return key.split(".", 1)[0].startswith("OC")
+
+
+def eval_state_dict(sd: Dict[str, torch.Tensor]
+                    ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """A reference state_dict -> (the port's eval state_dict, dropped OC
+    keys): strips DataParallel's ``module.`` and drops the OC branch."""
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in sd.items()}
+    dropped = sorted(k for k in sd if _is_oc_key(k))
+    return {k: v for k, v in sd.items() if not _is_oc_key(k)}, dropped
+
+
+def load_torch_checkpoint(model: nn.Module, path: str) -> Dict[str, Any]:
+    """Load a reference .pth (``{'epoch', 'state_dict'}`` or a bare
+    state_dict) into ``model`` strictly; returns a report."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    sd, dropped = eval_state_dict(blob.get("state_dict", blob))
+    model.load_state_dict(sd, strict=True)
+    logging.getLogger(__name__).info(
+        "loaded %d tensors from %s; dropped %d train-only OC-branch tensors",
+        len(sd), path, len(dropped))
+    return {"loaded": len(sd), "dropped": dropped}
