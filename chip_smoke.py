@@ -21,10 +21,20 @@ bf16 batch-8 step with the gates on and off; then drives
 ``mrfp_tpu_torch.cli.train`` for 6 steps and resumes it to 8, checking that
 every resize kernel was launched there.
 
+Fused statistics (``cfg.train.fuse_bn_stats``): holds dot_with_stats
+against its plain version at the 15 shapes of the step's 36 bottleneck 1x1s,
+and the row mix, the channel sums and the NP+ apply at the OC and NP+
+shapes; drives the public functions of those three (no train or eval path
+runs them); takes one fp32 fused step through the kernels, through the plain
+versions and unfused, and times the bf16 fused step beside the unfused one;
+then drives one bf16 batch-8 fused step and counts its 36 dot_with_stats
+launches. Every kernel's line carries its bound on this card and the time
+of the PyTorch call that computes the same function.
+
 Any failure raises and exits non-zero; the last line of stdout is the JSON
 verdict, printed only when every phase passed. With ``--profile DIR`` it
 also writes torch.profiler kernel tables of one fp32 eval forward and of
-one bf16 train step to DIR.
+one bf16 train step, unfused and fused, to DIR.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -92,10 +103,63 @@ BILINEAR_TRAIN_SHAPES = [
     ("train logits from H/4", TRAIN_N, 19, (192, 192), (768, 768)),
 ] + RESIZE_SHAPES[:3]
 # the four parameters whose gradients the kernel-vs-plain step compares
+# the fused fp32 step's fixture: every residual branch's last BN scale x DAMP
+# (tests/test_torch_train.py::ref_damped, ROADMAP C3)
+DAMP = 0.1
 GRAD_KEYS = ("layer0.0.weight", "layer1.0.conv1.weight", "aspp.img_conv.0.weight",
              "final2.0.weight")
 RESIZE_KERNELS = ("resize_bilinear", "resize_bilinear_bwd", "resize_nearest",
                   "resize_nearest_bwd")
+# (name, Cin, Cout, side, sites): the 15 distinct shapes of the 36 bottleneck
+# 1x1 conv + BN pairs of the batch-8 768x768 step (side: the output's H = W)
+DOT_STATS_SHAPES = [
+    ("layer1 conv1 block0", 64, 64, 192, 1),
+    ("layer1 conv3 + downsample", 64, 256, 192, 4),
+    ("layer1 conv1 blocks1-2", 256, 64, 192, 2),
+    ("layer2 conv1 block0", 256, 128, 192, 1),
+    ("layer2 conv3", 128, 512, 96, 4),
+    ("layer2 downsample (stride 2)", 256, 512, 96, 1),
+    ("layer2 conv1 blocks1-3", 512, 128, 96, 3),
+    ("layer3 conv1 block0", 512, 256, 96, 1),
+    ("layer3 conv3", 256, 1024, 48, 6),
+    ("layer3 downsample (stride 2)", 512, 1024, 48, 1),
+    ("layer3 conv1 blocks1-5", 1024, 256, 48, 5),
+    ("layer4 conv1 block0", 1024, 512, 48, 1),
+    ("layer4 conv3", 512, 2048, 48, 3),
+    ("layer4 downsample", 1024, 2048, 48, 1),
+    ("layer4 conv1 blocks1-2", 2048, 512, 48, 2),
+]
+DOT_STATS_FP32 = ("layer1 conv1 block0", "layer3 conv3", "layer4 downsample")
+# the card's published peaks (H100 SXM, dense): HBM bytes/s and FLOP/s; fp32
+# products run on the CUDA cores (TF32 off), bf16 ones may use the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+
+
+class Cost:
+    """The least time the card could take for a sum of calls: per call, the
+    larger of its bytes (each input read once, each output written once)
+    over the memory rate and its operations over the peak rate of their
+    type."""
+
+    def __init__(self):
+        self.bound_ms = self.bytes_ms = self.ops_ms = 0.0
+
+    def add(self, nbytes: float, flops: float = 0.0, dtype=torch.bfloat16, times: int = 1):
+        b = nbytes / HBM_BYTES_PER_S * 1e3
+        o = flops / PEAK_FLOPS[dtype] * 1e3
+        self.bound_ms += times * max(b, o)
+        self.bytes_ms += times * b
+        self.ops_ms += times * o
+        return max(b, o)
+
+    def fields(self) -> dict:
+        return {"bound_ms": self.bound_ms,
+                "bound_by": "bytes" if self.bytes_ms >= self.ops_ms else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
@@ -132,10 +196,14 @@ def phase_build():
     _build.load_library()
     print(f"build: {_build.library_path().name} in {time.perf_counter() - t0:.3f} s")
     log = _build.library_path().with_suffix(".log")
-    if log.exists():  # ptxas: registers and spills per kernel
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"ptxas: {line.strip()}")
+    if log.exists():  # ptxas: registers and spills per kernel, summed up
+        text = log.read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        stores = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", text))
+        loads = sum(int(b) for b in re.findall(r"(\d+) bytes spill loads", text))
+        print(f"ptxas: {len(regs)} kernels, {min(regs, default=0)}-{max(regs, default=0)} "
+              f"registers, {stores} bytes of spill stores, {loads} of spill loads "
+              f"(per kernel: {log})")
 
 
 def phase_resize(gen) -> float:
@@ -188,10 +256,19 @@ def phase_hist(gen) -> dict:
         hist = torch.zeros(c, c, dtype=torch.int32, device="cuda")
         k_ms = median_ms(lambda: update(hist, pred, label, c))
         p_ms = median_ms(lambda: update(hist, pred, label, c, impl="plain"))
+        # the library call: one bincount of the kept pixels' flat indices
+        lab = label.long()
+        keep = (lab < c) & (pred >= 0) & (pred < c)
+        flat = (lab * c + pred)[keep]
+        l_ms = median_ms(lambda: torch.bincount(flat, minlength=c * c))
+        cost = Cost()
+        cost.add(nbytes(pred, label, hist))
         print(f"confusion_matrix C={c} pred/label {tuple(shape)}: exactly equal "
-              f"({got.sum().item()} counted); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+              f"({got.sum().item()} counted); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bincount {l_ms:.4f} ms, bound {cost.bound_ms:.4f} ms")
         if c == 19:
-            out = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms}
+            out = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                   **cost.fields()}
     return out
 
 
@@ -265,8 +342,10 @@ def phase_nearest(cuda_gen) -> dict:
     """Kernels A and B against their plain versions at the OC shapes."""
     from mrfp_tpu_torch.ops import cuda_resize
     from mrfp_tpu_torch.ops.resize import nearest_table, resize_nearest
+    import torch.nn.functional as F
     worst = {"resize_nearest": 0.0, "resize_nearest_bwd": 0.0}
-    times = {k: [0.0, 0.0] for k in worst}  # bf16 sums: kernel, plain
+    times = {k: [0.0, 0.0, 0.0] for k in worst}  # bf16 sums: kernel, plain, library
+    costs = {k: Cost() for k in worst}
     for dtype in (torch.bfloat16, torch.float32):
         for name, c, (h, w), rule in NEAREST_SHAPES:
             x = torch.randn((TRAIN_N, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
@@ -287,30 +366,37 @@ def phase_nearest(cuda_gen) -> dict:
             rule_name, arg = next(iter(rule.items()))
             ty = nearest_table(h, rule_name, arg[0], x.device)
             tx = nearest_table(w, rule_name, arg[1], x.device)
+            out_hw = list(yk.shape[2:])
             with torch.no_grad():
                 ms = {"resize_nearest": (
                     median_ms(lambda: cuda_resize.resize_nearest_cuda(x, ty, tx), runs=10),
-                    median_ms(lambda: cuda_resize.resize_nearest_plain(x, ty, tx), runs=10)),
+                    median_ms(lambda: cuda_resize.resize_nearest_plain(x, ty, tx), runs=10),
+                    median_ms(lambda: F.interpolate(x, size=out_hw, mode="nearest"), runs=10)),
                       "resize_nearest_bwd": (
                     median_ms(lambda: cuda_resize.resize_nearest_bwd_cuda(g, ty, tx, h, w),
                               runs=10),
                     median_ms(lambda: cuda_resize.resize_nearest_bwd_plain(g, ty, tx, h, w),
-                              runs=10))}
+                              runs=10),
+                    median_ms(lambda: torch.ops.aten.upsample_nearest2d_backward(
+                        g, out_hw, list(x.shape)), runs=10))}
             gb = 2 * yk.numel() * yk.element_size() / 1e9  # one read, one write of out
             print(f"resize_nearest {_dtype_name(dtype)} {name} ({TRAIN_N},{c},{h},{w})->"
                   f"{tuple(yk.shape[2:])}: forward exactly equal, kernel "
                   f"{ms['resize_nearest'][0]:.4f} ms ({gb / ms['resize_nearest'][0] * 1e3:.0f}"
-                  f" GB/s), plain {ms['resize_nearest'][1]:.4f} ms; backward max_abs_err "
+                  f" GB/s), plain {ms['resize_nearest'][1]:.4f} ms, F.interpolate "
+                  f"{ms['resize_nearest'][2]:.4f} ms; backward max_abs_err "
                   f"{err:.3e}, kernel {ms['resize_nearest_bwd'][0]:.4f} ms, plain "
-                  f"{ms['resize_nearest_bwd'][1]:.4f} ms")
+                  f"{ms['resize_nearest_bwd'][1]:.4f} ms, aten backward "
+                  f"{ms['resize_nearest_bwd'][2]:.4f} ms")
             if dtype == torch.bfloat16:
                 for k in times:
-                    times[k][0] += ms[k][0]
-                    times[k][1] += ms[k][1]
+                    for i in range(3):
+                        times[k][i] += ms[k][i]
+                    costs[k].add(nbytes(x, yk))  # forward: x in, y out; backward: g in, gx out
             del x, xk, xp, yk, yp, g
         torch.cuda.empty_cache()
-    return {k: {"max_abs_err": worst[k], "ms": times[k][0], "plain_ms": times[k][1]}
-            for k in worst}
+    return {k: {"max_abs_err": worst[k], "ms": times[k][0], "plain_ms": times[k][1],
+                "library_ms": times[k][2], **costs[k].fields()} for k in worst}
 
 
 def phase_bilinear_train(cuda_gen) -> dict:
@@ -318,10 +404,12 @@ def phase_bilinear_train(cuda_gen) -> dict:
     against their plain versions at the train and eval shapes. Returns the
     two kernels' entries: worst error, and kernel and plain ms summed over
     the five train shapes in bf16 (the step's own resizes)."""
+    import torch.nn.functional as F
     from mrfp_tpu_torch.ops import cuda_resize
     from mrfp_tpu_torch.ops.resize import bilinear_taps, resize_bilinear_align_corners
-    out = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    out = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
            for k in ("resize_bilinear", "resize_bilinear_bwd")}
+    costs = {k: Cost() for k in out}
     for dtype in (torch.bfloat16, torch.float32):
         for name, n, c, (h, w), size in BILINEAR_TRAIN_SHAPES:
             x = torch.randn((n, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
@@ -353,17 +441,23 @@ def phase_bilinear_train(cuda_gen) -> dict:
             with torch.no_grad():
                 ms = {"resize_bilinear": (
                     median_ms(lambda: cuda_resize.resize_bilinear_cuda(x, ty, tx), runs=10),
-                    median_ms(lambda: cuda_resize.resize_bilinear_plain(x, ty, tx), runs=10)),
+                    median_ms(lambda: cuda_resize.resize_bilinear_plain(x, ty, tx), runs=10),
+                    median_ms(lambda: F.interpolate(x, size=size, mode="bilinear",
+                                                    align_corners=True), runs=10)),
                       "resize_bilinear_bwd": (
                     median_ms(lambda: cuda_resize.resize_bilinear_bwd_cuda(g, ty, tx, h, w),
                               runs=10),
                     median_ms(lambda: cuda_resize.resize_bilinear_bwd_plain(g, ty, tx, h, w),
-                              runs=10))}
+                              runs=10),
+                    median_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                        g, list(size), list(x.shape), True), runs=10))}
             for k, err in (("resize_bilinear", fwd_err), ("resize_bilinear_bwd", bwd_err)):
                 out[k]["max_abs_err"] = max(out[k]["max_abs_err"], err)
                 if dtype == torch.bfloat16 and name.startswith("train"):
                     out[k]["ms"] += ms[k][0]
                     out[k]["plain_ms"] += ms[k][1]
+                    out[k]["library_ms"] += ms[k][2]
+                    costs[k].add(nbytes(x, g))  # x in / y out, or g in / gx out
             gb = (g.numel() + x.numel()) * g.element_size() / 1e9
             print(f"resize_bilinear {_dtype_name(dtype)} {name} ({n},{c},{h},{w})->{size}: "
                   f"forward max_abs_err {fwd_err:.3e}, kernel {ms['resize_bilinear'][0]:.4f} ms, "
@@ -371,10 +465,276 @@ def phase_bilinear_train(cuda_gen) -> dict:
                   f"{bwd_err:.3e} (|grad| max {xp.grad.float().abs().max().item():.3e}), "
                   f"kernel {ms['resize_bilinear_bwd'][0]:.4f} ms "
                   f"({gb / ms['resize_bilinear_bwd'][0] * 1e3:.0f} GB/s), "
-                  f"plain {ms['resize_bilinear_bwd'][1]:.4f} ms")
+                  f"plain {ms['resize_bilinear_bwd'][1]:.4f} ms; library forward / backward "
+                  f"{ms['resize_bilinear'][2]:.4f} / {ms['resize_bilinear_bwd'][2]:.4f} ms")
             del x, xk, xp, yk, yp, g
         torch.cuda.empty_cache()
+    for k in out:
+        out[k].update(costs[k].fields())
     return out
+
+
+def phase_dot_stats(cuda_gen) -> dict:
+    """dot_with_stats against its plain version at the 15 shapes of the 36
+    fused sites in bf16 (the strided downsamples from a stride-2 slice), and
+    at three of them in fp32 (TF32 off). Bounds, with u = 2^-24: y within
+    2*K*u*(|w| @ |x|) of plain (two fp32 GEMMs of depth K), plus one bf16
+    ulp (2^-7 |y|) in bf16; each sum within 2^-15 of the summed magnitudes
+    of the kernel's own stored y (the sum of y and of y^2 in float64)."""
+    import torch.nn.functional as F
+    from mrfp_tpu_torch.ops import cuda_dot_stats
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cases = [(n, ci, co, s, k, torch.bfloat16) for n, ci, co, s, k in DOT_STATS_SHAPES]
+    cases += [(n, ci, co, s, k, torch.float32) for n, ci, co, s, k in DOT_STATS_SHAPES
+              if n in DOT_STATS_FP32]
+    worst, totals, cost = 0.0, [0.0, 0.0, 0.0], Cost()
+    for name, cin, cout, side, sites, dtype in cases:
+        stride = 2 if "stride 2" in name else 1
+        x = torch.randn((TRAIN_N, cin, side * stride, side * stride), device=DEV,
+                        generator=cuda_gen).to(dtype)[:, :, ::stride, ::stride]
+        w = (torch.randn((cout, cin), device=DEV, generator=cuda_gen) * cin ** -0.5).to(dtype)
+        yk, s1k, s2k = cuda_dot_stats.dot_with_stats_cuda(x, w)
+        yp, s1p, s2p = cuda_dot_stats.dot_with_stats_plain(x, w)
+        torch.cuda.synchronize()
+        xc = x.contiguous().float().reshape(TRAIN_N, cin, -1)
+        mag = torch.matmul(w.float().abs(), xc.abs()).reshape(yp.shape)
+        allowed = 2 * cin * 2.0 ** -24 * mag + 1e-30
+        if dtype == torch.bfloat16:
+            allowed = allowed + 2.0 ** -7 * yp.float().abs()
+        diff = (yk.float() - yp.float()).abs()
+        over = (diff - allowed).max().item()
+        yd = yk.double()
+        sum_err = max(((s1k.double() - yd.sum((0, 2, 3))).abs()
+                       - 2.0 ** -15 * yd.abs().sum((0, 2, 3))).max().item(),
+                      ((s2k.double() - (yd * yd).sum((0, 2, 3))).abs()
+                       - 2.0 ** -15 * (yd * yd).sum((0, 2, 3))).max().item())
+        # kernel vs plain sums, relative to the summed magnitudes (diagnostic)
+        s_rel = max(((s1k.double() - s1p.double()).abs()
+                     / yd.abs().sum((0, 2, 3))).max().item(),
+                    ((s2k.double() - s2p.double()).abs() / (yd * yd).sum((0, 2, 3))).max().item())
+        if over > 0 or sum_err > 0 or not torch.isfinite(yk).all():
+            raise AssertionError(f"dot_with_stats {name} {dtype}: kernel vs plain exceeds the "
+                                 f"bound by {over:.3e} (y) / {sum_err:.3e} (sums)")
+        err = diff.max().item()
+        worst = max(worst, err)
+        del mag, allowed, diff, yd, xc
+        w4 = w[:, :, None, None]
+        k_ms = median_ms(lambda: cuda_dot_stats.dot_with_stats_cuda(x, w), runs=10)
+        p_ms = median_ms(lambda: cuda_dot_stats.dot_with_stats_plain(x, w), runs=10)
+        l_ms = median_ms(lambda: torch.var_mean(F.conv2d(x, w4), dim=(0, 2, 3)), runs=10)
+        flops = 2.0 * TRAIN_N * cin * cout * side * side
+        bound = Cost().add(nbytes(x, w, yk, s1k, s2k), flops, dtype)
+        print(f"dot_with_stats {_dtype_name(dtype)} {name} ({TRAIN_N},{cin},{side},{side})"
+              f"x({cout},{cin}), {sites} site(s): y max_abs_err {err:.3e} (|y| max "
+              f"{yp.float().abs().max().item():.3e}), sums vs plain {s_rel:.3e} of the summed "
+              f"magnitudes; kernel "
+              f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, "
+              f"conv2d+var_mean {l_ms:.4f} ms, bound {bound:.4f} ms")
+        if dtype == torch.bfloat16:
+            for i, t in enumerate((k_ms, p_ms, l_ms)):
+                totals[i] += sites * t
+            cost.add(nbytes(x, w, yk, s1k, s2k), flops, dtype, times=sites)
+        del x, w, yk, yp
+    torch.cuda.empty_cache()
+    print(f"dot_with_stats bf16, the 36 sites of a batch-{TRAIN_N} step: kernel "
+          f"{totals[0]:.3f} ms, plain {totals[1]:.3f} ms, conv2d+var_mean {totals[2]:.3f} ms, "
+          f"bound {cost.bound_ms:.3f} ms")
+    return {"max_abs_err": worst, "ms": totals[0], "plain_ms": totals[1],
+            "library_ms": totals[2], **cost.fields()}
+
+
+def _nearest_idx(size: int, rule: str, arg) -> tuple:
+    from mrfp_tpu_torch.ops.resize import _nearest_idx_from_scale, _nearest_idx_from_size
+    idx = (_nearest_idx_from_scale(size, float(arg)) if rule == "scale"
+           else _nearest_idx_from_size(size, int(arg)))
+    return tuple(int(i) for i in idx)
+
+
+def phase_row_mix(cuda_gen) -> dict:
+    """take_rows (row_mix with the one-hot P, and with P^T for the gradient)
+    against the plain versions at the seven OC shapes, along H for the even
+    ones and W for the odd: a copy and sums of at most two terms, so both
+    directions must be exactly equal. Times in bf16, summed over the seven,
+    forward plus backward; the library calls index_select / index_add_."""
+    from mrfp_tpu_torch.ops import cuda_row_mix
+    from mrfp_tpu_torch.ops.resize import onehot_rows
+    totals, cost = [0.0, 0.0, 0.0], Cost()
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (name, c, (h, w), rule) in enumerate(NEAREST_SHAPES):
+            dim = 2 if i % 2 == 0 else 3
+            rule_name, arg = next(iter(rule.items()))
+            size = (h, w)[dim - 2]
+            idx = _nearest_idx(size, rule_name, arg[dim - 2])
+            p = onehot_rows(idx, size, DEV)
+            pt = onehot_rows(idx, size, DEV, transpose=True)
+            x = torch.randn((TRAIN_N, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
+            yk, yp = cuda_row_mix.row_mix_cuda(x, p, dim), cuda_row_mix.row_mix_plain(x, p, dim)
+            g = torch.randn(yk.shape, device=DEV, generator=cuda_gen).to(dtype)
+            gk = cuda_row_mix.row_mix_cuda(g, pt, dim)
+            gp = cuda_row_mix.row_mix_plain(g, pt, dim)
+            torch.cuda.synchronize()
+            ti = torch.as_tensor(idx, device=DEV)
+            if not (torch.equal(yk, yp) and torch.equal(yk, x.index_select(dim, ti))
+                    and torch.equal(gk, gp)):
+                raise AssertionError(f"row_mix {name} dim {dim} {dtype}: kernel != plain "
+                                     f"(forward {torch.equal(yk, yp)}, "
+                                     f"backward {torch.equal(gk, gp)})")
+            ms = [median_ms(lambda: cuda_row_mix.row_mix_cuda(x, p, dim), runs=10)
+                  + median_ms(lambda: cuda_row_mix.row_mix_cuda(g, pt, dim), runs=10),
+                  median_ms(lambda: cuda_row_mix.row_mix_plain(x, p, dim), runs=10)
+                  + median_ms(lambda: cuda_row_mix.row_mix_plain(g, pt, dim), runs=10),
+                  median_ms(lambda: x.index_select(dim, ti), runs=10)
+                  + median_ms(lambda: torch.zeros_like(x).index_add_(dim, ti, g), runs=10)]
+            print(f"row_mix {_dtype_name(dtype)} {name} ({TRAIN_N},{c},{h},{w}) along "
+                  f"{'HW'[dim - 2]} -> {tuple(yk.shape[2:])}: forward and backward exactly "
+                  f"equal; forward + backward kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, "
+                  f"index_select + index_add_ {ms[2]:.4f} ms")
+            if dtype == torch.bfloat16:
+                for j in range(3):
+                    totals[j] += ms[j]
+                # each direction reads one map and P, writes the other map
+                cost.add(nbytes(x, yk, p))
+                cost.add(nbytes(g, gk, pt))
+            del x, yk, yp, g, gk, gp
+        torch.cuda.empty_cache()
+    return {"max_abs_err": 0.0, "ms": totals[0], "plain_ms": totals[1],
+            "library_ms": totals[2], **cost.fields()}
+
+
+def phase_channel_sums(cuda_gen) -> dict:
+    """channel_sums at the layer1 conv3 output (8,256,192,192), bf16 (the
+    train dtype) and fp32: each sum within 2^-15 of the summed magnitudes of
+    the float64 sum. The library call is one var_mean."""
+    from mrfp_tpu_torch.ops import cuda_channel_sums
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn((TRAIN_N, 256, CROP // 4, CROP // 4), device=DEV, generator=cuda_gen)
+             + 0.5).to(dtype)
+        s1k, s2k = cuda_channel_sums.channel_sums_cuda(x)
+        s1p, s2p = cuda_channel_sums.channel_sums_plain(x)
+        xd = x.double()
+        exact1, exact2 = xd.sum((0, 2, 3)), (xd * xd).sum((0, 2, 3))
+        mag1 = xd.abs().sum((0, 2, 3))
+        del xd
+        over = max(((s1k.double() - exact1).abs() - 2.0 ** -15 * mag1).max().item(),
+                   ((s2k.double() - exact2).abs() - 2.0 ** -15 * exact2).max().item())
+        err = max((s1k - s1p).abs().max().item(), (s2k - s2p).abs().max().item())
+        if over > 0:
+            raise AssertionError(f"channel_sums {dtype}: exceeds the bound by {over:.3e}")
+        k_ms = median_ms(lambda: cuda_channel_sums.channel_sums_cuda(x), runs=10)
+        p_ms = median_ms(lambda: cuda_channel_sums.channel_sums_plain(x), runs=10)
+        l_ms = median_ms(lambda: torch.var_mean(x, dim=(0, 2, 3)), runs=10)
+        cost = Cost()
+        cost.add(nbytes(x, s1k, s2k), 3.0 * x.numel(), torch.float32)
+        print(f"channel_sums {_dtype_name(dtype)} {tuple(x.shape)}: max abs diff vs "
+              f"plain {err:.3e} (|s2| max {s2p.abs().max().item():.3e}); kernel {k_ms:.4f} ms "
+              f"({nbytes(x) / k_ms / 1e6:.0f} GB/s), plain {p_ms:.4f} ms, var_mean "
+              f"{l_ms:.4f} ms, bound {cost.bound_ms:.4f} ms")
+        if dtype == torch.bfloat16:
+            out = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                   **cost.fields()}
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_np_plus(cuda_gen) -> dict:
+    """np_plus_apply at the two NP+ sites of the batch-8 step, (8,64,192,192)
+    and (8,256,192,192), in bf16: kernel and plain round the same fp32 ops,
+    so they must be exactly equal. The library call is one addcmul with the
+    coefficients in x's dtype (the JAX package's form)."""
+    from mrfp_tpu_torch.ops import cuda_np_plus
+    totals, cost = [0.0, 0.0, 0.0], Cost()
+    for c in (64, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((TRAIN_N, c, CROP // 4, CROP // 4), device=DEV,
+                            generator=cuda_gen).to(dtype)
+            alpha = torch.randn((TRAIN_N, c, 1, 1), device=DEV, generator=cuda_gen)
+            shift = torch.randn((TRAIN_N, c, 1, 1), device=DEV, generator=cuda_gen)
+            got = cuda_np_plus.np_plus_apply_cuda(x, alpha, shift)
+            ref = cuda_np_plus.np_plus_apply_plain(x, alpha, shift)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"np_plus_apply C={c} {dtype}: kernel != plain, max "
+                                     f"{(got.float() - ref.float()).abs().max().item()}")
+            a, b = alpha.to(dtype), shift.to(dtype)
+            ms = (median_ms(lambda: cuda_np_plus.np_plus_apply_cuda(x, alpha, shift), runs=10),
+                  median_ms(lambda: cuda_np_plus.np_plus_apply_plain(x, alpha, shift), runs=10),
+                  median_ms(lambda: torch.addcmul(b, x, a), runs=10))
+            print(f"np_plus_apply {_dtype_name(dtype)} {tuple(x.shape)}: exactly equal; "
+                  f"kernel {ms[0]:.4f} ms ({2 * nbytes(x) / ms[0] / 1e6:.0f} GB/s), plain "
+                  f"{ms[1]:.4f} ms, addcmul {ms[2]:.4f} ms")
+            if dtype == torch.bfloat16:
+                for j in range(3):
+                    totals[j] += ms[j]
+                cost.add(nbytes(x, got, alpha, shift))
+            del x, got, ref
+    torch.cuda.empty_cache()
+    return {"max_abs_err": 0.0, "ms": totals[0], "plain_ms": totals[1],
+            "library_ms": totals[2], **cost.fields()}
+
+
+def phase_public_paths(cuda_gen) -> dict:
+    """The public functions of the three kernels no train or eval path runs
+    (as in the JAX package), driven as a user calls them, with the counts
+    set to 0 just before and read just after: the OC branch's first nearest
+    resize (x1.205, (8,64,192,192) bf16) as two take_rows and its gradient,
+    checked against resize_nearest (the forward exactly; the gradient, which
+    the two take_rows round twice, within 2^-6 of its summed magnitudes); channel_stats of
+    the layer1 conv3 output and its gradient, checked against the plain
+    version; NP+ with the fused apply at both NP+ sites, checked against the
+    train path's NP+ on the same draws (bf16 outputs: one ulp)."""
+    from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
+    from mrfp_tpu_torch.ops.np_plus import normalization_perturbation_plus_fused
+    from mrfp_tpu_torch.ops.resize import resize_nearest, take_rows
+    from mrfp_tpu_torch.ops.stats import channel_stats
+    from mrfp_tpu_torch.perturb.np_plus import draw_np_plus, np_plus
+    side = CROP // 4
+    idx = _nearest_idx(side, "scale", 1.205)
+    x = torch.randn((TRAIN_N, 64, side, side), device=DEV, generator=cuda_gen).to(torch.bfloat16)
+    g = torch.randn((TRAIN_N, 64, len(idx), len(idx)), device=DEV,
+                    generator=cuda_gen).to(torch.bfloat16)
+    big = torch.randn((TRAIN_N, 256, side, side), device=DEV,
+                      generator=cuda_gen).to(torch.bfloat16)
+    draws = torch.Generator().manual_seed(5)
+    noise = [draw_np_plus(draws, TRAIN_N, c, DEV) for c in (64, 256)]
+    xa, xb = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    bg = big.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    reset_launches()
+    y = take_rows(take_rows(xa, idx, 2), idx, 3)
+    y.backward(g)
+    mean, var = channel_stats(bg)
+    (mean.sum() + var.sum()).backward()
+    nps = [normalization_perturbation_plus_fused(nz, f) for nz, f in zip(noise, (x, big))]
+    torch.cuda.synchronize()
+    launched = {k: LAUNCHES[k] for k in ("row_mix", "channel_sums", "np_plus_apply")}
+    ref = resize_nearest(xb, scale=(1.205, 1.205))
+    ref.backward(g)
+    mean_p, var_p = channel_stats(big, impl="plain")
+    for f, nz, got in zip((x, big), noise, nps):
+        torch.testing.assert_close(got, np_plus(f, nz), atol=1e-2, rtol=8e-3)
+    torch.cuda.synchronize()
+    # the two take_rows round their partial sums in bf16 once each,
+    # resize_nearest its sum once: each rounding is within 2^-8 of the summed
+    # magnitudes (the gradient of |g|, in fp32)
+    xm = torch.zeros(x.shape, device=DEV, requires_grad=True)
+    resize_nearest(xm, scale=(1.205, 1.205), impl="plain").backward(g.float().abs())
+    grad_over = ((xa.grad.float() - xb.grad.float()).abs() - 2.0 ** -6 * xm.grad).max().item()
+    ok = (torch.equal(y, ref) and grad_over <= 0
+          and torch.allclose(mean, mean_p, rtol=1e-5, atol=1e-6)
+          and torch.allclose(var, var_p, rtol=1e-4, atol=1e-5)
+          and bool(torch.isfinite(bg.grad).all()))
+    print(f"public paths: launches {launched}; take_rows x2 == resize_nearest forward: "
+          f"{torch.equal(y, ref)}, backward max_abs_err "
+          f"{(xa.grad.float() - xb.grad.float()).abs().max().item():.3e}; channel_stats "
+          f"mean/var max diff vs plain {(mean - mean_p).abs().max().item():.3e} / "
+          f"{(var - var_p).abs().max().item():.3e}; fused NP+ within one bf16 ulp of the "
+          f"train path's NP+")
+    if not ok or min(launched.values()) <= 0:
+        raise AssertionError(f"public paths: checks {ok}, launches {launched}")
+    return launched
 
 
 def _train_cfg(batch: int, dtype: str):
@@ -444,16 +804,18 @@ def phase_train_step(gen, profile_dir) -> None:
     img8, lbl8 = _batch(gen, TRAIN_N)
     np0, np1 = draw_np_plus(draws, TRAIN_N, 64, DEV), draw_np_plus(draws, TRAIN_N, 256, DEV)
     torch.cuda.reset_peak_memory_stats()
+    cfg8f = cfg8.replace(train=dataclasses.replace(cfg8.train, fuse_bn_stats=True))
     for gates in ((True, True, True), (False, False, False)):
         p = PerturbArgs(*gates, np0, np1)
-        row = {}
-        for impl in (None, "plain"):
-            row[impl or "kernel"] = median_ms(
-                lambda: train_step(state, img8, lbl8, cfg8, perturb=p, impl=impl),
-                runs=5, warmup=1)
-        print(f"train step bf16 {TRAIN_N}x{CROP}x{CROP}, gates {'on' if gates[0] else 'off'}: "
-              f"kernel path {row['kernel']:.3f} ms, plain path {row['plain']:.3f} ms "
-              f"(median of 5)")
+        for c, label in ((cfg8, "unfused"), (cfg8f, "fuse_bn_stats")):
+            row = {}
+            for impl in (None, "plain"):
+                row[impl or "kernel"] = median_ms(
+                    lambda: train_step(state, img8, lbl8, c, perturb=p, impl=impl),
+                    runs=5, warmup=1)
+            print(f"train step bf16 {TRAIN_N}x{CROP}x{CROP} {label}, gates "
+                  f"{'on' if gates[0] else 'off'}: kernel path {row['kernel']:.3f} ms, "
+                  f"plain path {row['plain']:.3f} ms (median of 5)")
     print(f"train step bf16 peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -485,20 +847,133 @@ def phase_train_step(gen, profile_dir) -> None:
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
         p = PerturbArgs(True, True, True, np0, np1)
-        train_step(state, img8, lbl8, cfg8, perturb=p)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            train_step(state, img8, lbl8, cfg8, perturb=p)
+        for c, name in ((cfg8, "profile_bf16_train_step.txt"),
+                        (cfg8f, "profile_bf16_fused_train_step.txt")):
+            train_step(state, img8, lbl8, c, perturb=p)
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-        Path(profile_dir).mkdir(parents=True, exist_ok=True)
-        out = Path(profile_dir) / "profile_bf16_train_step.txt"
-        out.write_text(f"wall {wall:.3f} ms (host clock, profiler on)\n{table}")
-        print(f"profile: {out}")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                train_step(state, img8, lbl8, c, perturb=p)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+            Path(profile_dir).mkdir(parents=True, exist_ok=True)
+            out = Path(profile_dir) / name
+            out.write_text(f"wall {wall:.3f} ms (host clock, profiler on)\n{table}")
+            print(f"profile: {out}")
     del state
     torch.cuda.empty_cache()
+
+
+def phase_fused_step(gen) -> dict:
+    """The ``fuse_bn_stats`` train path. One fp32 step (TF32 off) at batch 2,
+    768x768, all gates on, the same draws, from one state: the damped
+    fixture of the CPU tests (every ``bn3.weight`` x``DAMP``), where fp32
+    flips few ReLUs and the early layers' gradients are well conditioned
+    (ROADMAP C3). Two controls, each the same plain step on an input
+    perturbed by a small relative amount, say how far rounding alone moves
+    the gradients:
+
+    - fused through every kernel against fused through every plain version:
+      loss 1e-4 relative; each of the four gradients within 1e-3 or within
+      a third of the 1e-7-input control, whichever is larger. The two paths
+      differ by last bits: the resize kernels', and cuBLAS's split-K order
+      in the plain version of the layer3 and layer4 1x1s with Cin >= 1024
+      (elsewhere the kernel's fp32 y and its fp64 sums equal the plain ones
+      bit for bit);
+    - fused plain against unfused plain (one-pass against two-pass
+      variance): loss within 1e-5 relative, each gradient within the
+      1e-6-input control (tests/test_train_step.py bounds the JAX package's
+      fused-vs-unfused step by the same control).
+
+    Then the main path: one bf16 batch-8 fused step through ``train_step``
+    with the counts set to 0 just before and read just after; it must launch
+    dot_with_stats 36 times (once per bottleneck 1x1) and every resize
+    kernel."""
+    from mrfp_tpu_torch.cli.train import build_state
+    from mrfp_tpu_torch.models.mrfp import PerturbArgs
+    from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
+    from mrfp_tpu_torch.perturb.np_plus import draw_np_plus
+    from mrfp_tpu_torch.train.state import create_train_state
+    from mrfp_tpu_torch.train.step import train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _train_cfg(2, "float32")
+    cfg_f = cfg.replace(train=dataclasses.replace(cfg.train, fuse_bn_stats=True))
+    base = build_state(cfg, torch.device(DEV))
+    with torch.no_grad():
+        for k, prm in base.model.named_parameters():
+            if k.endswith("bn3.weight"):
+                prm.mul_(DAMP)
+    img, lbl = _batch(gen, 2)
+    x = img.float()
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(3)).to(DEV)
+    draws = torch.Generator().manual_seed(2)
+    gates_on = PerturbArgs(True, True, True, draw_np_plus(draws, 2, 64, DEV),
+                           draw_np_plus(draws, 2, 256, DEV))
+    runs = {"fused kernel": (cfg_f, None, x),
+            "fused plain": (cfg_f, "plain", x),
+            "fused plain, input x(1+1e-7 noise)": (cfg_f, "plain", x * (1 + 1e-7 * noise)),
+            "unfused plain": (cfg, "plain", x),
+            "unfused plain, input x(1+1e-6 noise)": (cfg, "plain", x * (1 + 1e-6 * noise))}
+    losses, grads = {}, {}
+    for name, (c, impl, inp) in runs.items():
+        st = create_train_state(copy.deepcopy(base.model), c.train)
+        losses[name] = train_step(st, inp, lbl, c, perturb=gates_on, impl=impl)["loss"].item()
+        params = dict(st.model.named_parameters())
+        grads[name] = {k: params[k].grad.clone() for k in GRAD_KEYS}
+        del st
+    del base
+    torch.cuda.empty_cache()
+
+    def compare(a, b):
+        return (abs(losses[a] - losses[b]) / abs(losses[b]),
+                {k: _rel(grads[a][k], grads[b][k]) for k in GRAD_KEYS})
+
+    kp_loss, kp = compare("fused kernel", "fused plain")
+    c7_loss, c7 = compare("fused plain, input x(1+1e-7 noise)", "fused plain")
+    fu_loss, fu = compare("fused plain", "unfused plain")
+    c6_loss, c6 = compare("unfused plain, input x(1+1e-6 noise)", "unfused plain")
+    print(f"fused step R50-D16 MRFP+ 2x{CROP}x{CROP} fp32 (TF32 off), all gates on, "
+          f"bn3 scales x{DAMP}: losses {losses}")
+    print(f"fused step: kernel path vs plain path: loss rel {kp_loss:.3e}, gradients {kp}; "
+          f"control (plain, input perturbed 1e-7): loss rel {c7_loss:.3e}, gradients {c7}")
+    print(f"fused step: fused plain vs unfused plain: loss rel {fu_loss:.3e}, gradients {fu}; "
+          f"control (unfused, input perturbed 1e-6): loss rel {c6_loss:.3e}, gradients {c6}")
+    if not all(math.isfinite(v) for v in losses.values()) or kp_loss > 1e-4:
+        raise AssertionError(f"fused step: loss kernel vs plain {losses}")
+    bad = {k: v for k, v in kp.items() if not v <= max(1e-3, c7[k] / 3)}
+    if bad:
+        raise AssertionError(f"fused step: kernel vs plain path beyond 1e-3 and a third of "
+                             f"the 1e-7 control: {bad}")
+    bad = {k: v for k, v in fu.items() if not v <= c6[k]}
+    if not fu_loss <= 1e-5 or bad:
+        raise AssertionError(f"fused step: fused vs unfused: loss {fu_loss:.3e} (bound 1e-5), "
+                             f"gradients beyond the 1e-6 control: {bad}")
+
+    # the main path: one bf16 batch-8 fused step, counted
+    torch.backends.cudnn.allow_tf32 = True
+    cfg8 = _train_cfg(TRAIN_N, "bfloat16")
+    cfg8 = cfg8.replace(train=dataclasses.replace(cfg8.train, fuse_bn_stats=True))
+    state = build_state(cfg8, torch.device(DEV))
+    img8, lbl8 = _batch(gen, TRAIN_N)
+    p = PerturbArgs(True, True, True, draw_np_plus(draws, TRAIN_N, 64, DEV),
+                    draw_np_plus(draws, TRAIN_N, 256, DEV))
+    torch.cuda.synchronize()
+    reset_launches()
+    loss = train_step(state, img8, lbl8, cfg8, perturb=p)["loss"].item()
+    torch.cuda.synchronize()
+    launched = dict(LAUNCHES)
+    print(f"fused step bf16 {TRAIN_N}x{CROP}x{CROP}, gates on, through train_step: loss "
+          f"{loss:.6f}; launches {launched}")
+    if not math.isfinite(loss) or launched["dot_with_stats"] != 36 \
+            or min(launched[k] for k in RESIZE_KERNELS) <= 0:
+        raise AssertionError(f"fused step: loss {loss}, launches {launched} (want 36 "
+                             f"dot_with_stats and every resize kernel)")
+    del state
+    torch.cuda.empty_cache()
+    return launched
 
 
 def _metrics(run_dir: str):
@@ -596,7 +1071,13 @@ def main(argv=None) -> None:
     bilinear = phase_bilinear_train(cuda_gen)
     bilinear["resize_bilinear"]["max_abs_err"] = max(
         bilinear["resize_bilinear"]["max_abs_err"], resize_err)
+    dot_stats = phase_dot_stats(cuda_gen)
+    row_mix = phase_row_mix(cuda_gen)
+    channel_sums = phase_channel_sums(cuda_gen)
+    np_plus = phase_np_plus(cuda_gen)
+    public_launches = phase_public_paths(cuda_gen)
     phase_train_step(gen, args.profile)
+    fused_launches = phase_fused_step(gen)
     train_launches = phase_cli_train()
     src = "mrfp_tpu_torch/csrc/"
     kernels = [
@@ -617,7 +1098,22 @@ def main(argv=None) -> None:
         dict(name="confusion_matrix", route="cuda", source=src + "confusion_matrix.cu",
              replaces="mrfp_tpu/ops/pallas_hist.py:50",
              launches=eval_launches["confusion_matrix"], **hist),
+        dict(name="dot_with_stats", route="cuda", source=src + "dot_stats.cu",
+             replaces="mrfp_tpu/ops/pallas_dot_stats.py:112",
+             launches=fused_launches["dot_with_stats"], **dot_stats),
+        dict(name="row_mix", route="cuda", source=src + "row_mix.cu",
+             replaces="mrfp_tpu/ops/pallas_resize.py:74",
+             launches=public_launches["row_mix"], **row_mix),
+        dict(name="channel_sums", route="cuda", source=src + "channel_sums.cu",
+             replaces="mrfp_tpu/ops/pallas_stats.py:88",
+             launches=public_launches["channel_sums"], **channel_sums),
+        dict(name="np_plus_apply", route="cuda", source=src + "np_plus_apply.cu",
+             replaces="mrfp_tpu/ops/pallas_np_plus.py:31",
+             launches=public_launches["np_plus_apply"], **np_plus),
     ]
+    if min(k["launches"] for k in kernels) <= 0:
+        raise AssertionError(f"a kernel was not launched on its path: "
+                             f"{[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -113,14 +113,13 @@ def _dataset(args, domain: str):
         ds = SyntheticDataset(length=4, hw=tuple(args.synthetic_hw))
         ds.name = domain
     else:
-        # the JAX package's dataset catalog is jax-free but imports PIL, so
-        # it loads only here, for real data
-        from mrfp_tpu.data.datasets import DATASETS, VAL_SPLITS, domain_root
+        # the dataset catalog imports PIL, so it loads only here, for real data
+        from mrfp_tpu_torch.data.datasets import DATASETS, VAL_SPLITS, domain_root
         ds = DATASETS[domain](root=domain_root(args.data_root, domain),
                               split=VAL_SPLITS[domain], train=False,
                               eval_size=args.eval_size)
     if args.corrupt:
-        from mrfp_tpu.data.weather import CorruptedDataset
+        from mrfp_tpu_torch.data.weather import CorruptedDataset
         ds = CorruptedDataset(ds, args.corrupt, args.severity)
     return ds
 

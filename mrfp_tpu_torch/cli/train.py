@@ -120,10 +120,9 @@ def build_dataset(args, cfg, train: bool = True):
             return SyntheticDataset(length=args.batch_size * 8,
                                     hw=(args.crop_size, args.crop_size))
         return SyntheticDataset(length=4, hw=(args.crop_size, args.crop_size), seed=7)
-    # the JAX package's dataset catalog is jax-free but imports PIL, so it
-    # loads only here, for real data
-    from mrfp_tpu.data.datasets import (DATASETS, TRAIN_SPLITS, VAL_SPLITS,
-                                        ConcatDataset, domain_root)
+    # the dataset catalog imports PIL, so it loads only here, for real data
+    from mrfp_tpu_torch.data.datasets import (DATASETS, TRAIN_SPLITS, VAL_SPLITS,
+                                              ConcatDataset, domain_root)
     parts = []
     for src in args.source.split("+"):  # '+'-joined sources concatenate (main.py:821)
         parts.append(DATASETS[src](

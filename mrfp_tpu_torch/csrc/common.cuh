@@ -34,4 +34,49 @@ inline int grid_for(int64_t items, int64_t per_block, int per_sm) {
   return (int)(want < cap ? want : cap);
 }
 
+// Second pass of a two-pass column sum: out1[c] = sum over p of
+// part1[p * cols + c], the same for part2, for p = 0 .. parts - 1, summed in
+// Acc (float or double) and rounded once to float. Each of 8 thread rows sums
+// every 8th partial in order, then one thread adds the 8 row sums in order: a
+// fixed order, so two runs agree bit for bit (no atomics). Consecutive
+// threads take consecutive columns, so the loads coalesce.
+constexpr int kReduceCols = 32;
+constexpr int kReduceRows = 8;
+
+template <typename Acc>
+__global__ void reduce_partials_kernel(const Acc* __restrict__ part1,
+                                       const Acc* __restrict__ part2, int parts, int cols,
+                                       float* __restrict__ out1, float* __restrict__ out2) {
+  __shared__ Acc sh1[kReduceRows][kReduceCols + 1];
+  __shared__ Acc sh2[kReduceRows][kReduceCols + 1];
+  const int c = blockIdx.x * kReduceCols + threadIdx.x;
+  Acc a = 0, b = 0;
+  if (c < cols) {
+    for (int p = threadIdx.y; p < parts; p += kReduceRows) {
+      a += part1[(int64_t)p * cols + c];
+      b += part2[(int64_t)p * cols + c];
+    }
+  }
+  sh1[threadIdx.y][threadIdx.x] = a;
+  sh2[threadIdx.y][threadIdx.x] = b;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < cols) {
+    Acc s1 = 0, s2 = 0;
+    for (int r = 0; r < kReduceRows; ++r) {
+      s1 += sh1[r][threadIdx.x];
+      s2 += sh2[r][threadIdx.x];
+    }
+    out1[c] = (float)s1;
+    out2[c] = (float)s2;
+  }
+}
+
+template <typename Acc>
+void launch_reduce_partials(const Acc* part1, const Acc* part2, int parts, int cols,
+                            float* out1, float* out2, cudaStream_t s) {
+  const dim3 block(kReduceCols, kReduceRows);
+  reduce_partials_kernel<Acc><<<(cols + kReduceCols - 1) / kReduceCols, block, 0, s>>>(
+      part1, part2, parts, cols, out1, out2);
+}
+
 }  // namespace

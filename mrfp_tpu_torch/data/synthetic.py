@@ -1,10 +1,10 @@
 """Data-free stand-in dataset, numpy only.
 
 A copy of mrfp_tpu/data/datasets.py::SyntheticDataset: the same seeds give
-the same images and labels. It lives here because ``mrfp_tpu.data`` imports
-PIL at package level. Real domains (``DATASETS``, ``VAL_SPLITS``,
-``domain_root``, ``data/weather.py``) are imported from ``mrfp_tpu.data``
-inside the function that needs them (``cli/eval.py``).
+the same images and labels. It lives apart from the real domains
+(``data/datasets.py``, ``data/weather.py``) because those import PIL, which
+loads only inside the function that needs real data (``cli/train.py``,
+``cli/eval.py``).
 """
 
 from __future__ import annotations

@@ -11,15 +11,43 @@ kaiming-normal fan_in (network/mynn.py:38-55), norms at weight 1, bias 0.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
+
+from mrfp_tpu_torch.ops.dot_stats import dot_with_stats
 
 
 def conv2d(cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
            padding: int = 0, dilation: int = 1, bias: bool = False) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, kernel_size, stride=stride, padding=padding,
                      dilation=dilation, bias=bias)
+
+
+def conv1x1_with_stats(conv: nn.Conv2d, x: torch.Tensor, impl: Optional[str] = None):
+    """A bias-free 1x1 ``conv`` through ``dot_with_stats``: returns ``(y, s1,
+    s2, n)``, the conv output and the fp32 sums of it and its square per
+    channel over its ``n`` = N*H*W values (mrfp_tpu/nn/layers.py:94-124,
+    ``DotConv1x1Stats``). It reads ``conv.weight`` as it is, so the state_dict
+    and the checkpoints do not change. A strided conv reads only the kept
+    pixels, so the stride is a slice first. Under autocast, ``x`` and the
+    weight are cast to the autocast dtype here, since the product is an
+    autograd Function that autocast does not see."""
+    if (conv.kernel_size != (1, 1) or conv.bias is not None or conv.groups != 1
+            or conv.padding != (0, 0) or conv.dilation != (1, 1)):
+        raise ValueError(f"conv1x1_with_stats takes a bias-free 1x1 conv, got {conv}")
+    sy, sx = conv.stride
+    if (sy, sx) != (1, 1):
+        x = x[:, :, ::sy, ::sx]
+    w = conv.weight[:, :, 0, 0]
+    dev = x.device.type
+    if torch.is_autocast_enabled(dev):
+        dtype = torch.get_autocast_dtype(dev)
+    else:
+        dtype = torch.promote_types(x.dtype, w.dtype)
+    y, s1, s2 = dot_with_stats(x.to(dtype), w.to(dtype), impl)
+    return y, s1, s2, y.shape[0] * y.shape[2] * y.shape[3]
 
 
 def max_pool_3x3_s2() -> nn.MaxPool2d:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
 from torch import nn
 
 IW_NONE, IW_IN_AFFINE = 0, 4
@@ -18,6 +19,35 @@ IW_NONE, IW_IN_AFFINE = 0, 4
 
 def batch_norm(features: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+
+
+def batch_norm_from_stats(bn: nn.BatchNorm2d, y: torch.Tensor, s1: torch.Tensor,
+                          s2: torch.Tensor, n: int) -> torch.Tensor:
+    """Train-mode ``bn`` on ``y`` with the moments taken from the fp32
+    per-channel sums ``s1 = sum(y)``, ``s2 = sum(y^2)`` over ``n`` values
+    (a producer's statistics epilogue, ``ops/dot_stats.py``), as the JAX
+    package's ``BatchNorm(stats=...)`` does (mrfp_tpu/nn/norms.py:43-69):
+    mean = s1/n and the one-pass var = s2/n - mean^2. The running statistics
+    move as torch's do (momentum, unbiased var * n/(n-1),
+    ``num_batches_tracked``), in ``bn``'s own buffers; the normalisation is
+    fp32, cast to ``y``'s dtype. The gradient reaches ``y``, ``s1`` and
+    ``s2``."""
+    mean = s1 / n
+    var = s2 / n - mean * mean
+    if bn.track_running_stats:
+        with torch.no_grad():
+            bn.num_batches_tracked.add_(1)
+            m = bn.momentum if bn.momentum is not None else 1.0 / float(bn.num_batches_tracked)
+            bn.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            bn.running_var.mul_(1 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
+    inv = torch.rsqrt(var + bn.eps)
+    shift = -mean * inv
+    if bn.affine:
+        inv = inv * bn.weight
+        shift = bn.bias - mean * inv
+    yf = y.to(torch.promote_types(y.dtype, torch.float32))
+    out = yf * inv[None, :, None, None] + shift[None, :, None, None]
+    return out.to(y.dtype)
 
 
 def instance_norm_affine(features: int) -> nn.InstanceNorm2d:

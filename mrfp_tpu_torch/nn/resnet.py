@@ -14,8 +14,9 @@ from typing import List, Tuple
 import torch
 from torch import nn
 
-from mrfp_tpu_torch.nn.layers import conv2d, max_pool_3x3_s2
-from mrfp_tpu_torch.nn.norms import batch_norm, make_iw_layer
+from mrfp_tpu_torch.nn.layers import conv1x1_with_stats, conv2d, max_pool_3x3_s2
+from mrfp_tpu_torch.nn.norms import batch_norm, batch_norm_from_stats, make_iw_layer
+from mrfp_tpu_torch.ops.dot_stats import FUSION_OFF, bn_stats_fusion_impl
 
 # variant -> {stage_index (0-based): (stride, dilation)} overrides
 _VARIANT_PLAN = {
@@ -60,11 +61,30 @@ class Bottleneck(nn.Module):
         self.instance_norm_layer = make_iw_layer(iw, out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fused_impl = bn_stats_fusion_impl()
+        if self.training and fused_impl is not FUSION_OFF:
+            return self._forward_fused(x, fused_impl)
         out = self.relu(self.bn1(self.conv1(x)))
         out = self.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
         residual = x if self.downsample is None else self.downsample(x)
-        out = out + residual
+        return self._finish(out + residual)
+
+    def _forward_fused(self, x: torch.Tensor, impl) -> torch.Tensor:
+        """The train forward with ``cfg.train.fuse_bn_stats``: conv1/bn1,
+        conv3/bn3 and the downsample pair take their BN moments from the
+        1x1 product's own sums (mrfp_tpu/nn/resnet.py:130-143); the same
+        modules and parameters as ``forward``."""
+        out = self.relu(batch_norm_from_stats(self.bn1, *conv1x1_with_stats(self.conv1, x, impl)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = batch_norm_from_stats(self.bn3, *conv1x1_with_stats(self.conv3, out, impl))
+        residual = x
+        if self.downsample is not None:
+            conv, bn = self.downsample
+            residual = batch_norm_from_stats(bn, *conv1x1_with_stats(conv, x, impl))
+        return self._finish(out + residual)
+
+    def _finish(self, out: torch.Tensor) -> torch.Tensor:
         if self.instance_norm_layer is not None:
             out = self.instance_norm_layer(out)
         return self.relu(out)

@@ -1,7 +1,8 @@
 """Compute primitives: the bilinear and nearest resizes (each with its
-backward) and the confusion matrix, each a hand-written CUDA kernel on CUDA
-tensors and a plain PyTorch version on CPU tensors. ``LAUNCHES`` counts
-kernel launches per wrapper."""
+backward), the confusion matrix, the 1x1 product with BatchNorm sums, the
+row mix, the per-channel sums and the NP+ apply, each a hand-written CUDA
+kernel on CUDA tensors and a plain PyTorch version on CPU tensors.
+``LAUNCHES`` counts kernel launches per wrapper."""
 
 from mrfp_tpu_torch.ops._build import LAUNCHES, reset_launches
 from mrfp_tpu_torch.ops.hist import confusion_matrix_update, fast_hist

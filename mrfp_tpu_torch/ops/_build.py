@@ -24,7 +24,8 @@ import threading
 from pathlib import Path
 
 LAUNCHES = {"resize_bilinear": 0, "resize_bilinear_bwd": 0, "resize_nearest": 0,
-            "resize_nearest_bwd": 0, "confusion_matrix": 0}
+            "resize_nearest_bwd": 0, "confusion_matrix": 0, "dot_with_stats": 0,
+            "row_mix": 0, "channel_sums": 0, "np_plus_apply": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -47,6 +48,17 @@ _SIGNATURES = {
     "mrfp_resize_nearest_bwd": [_P] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 5 + [_P],
     # pred, label, n, num_classes, hist, stream
     "mrfp_confusion_matrix": [_P, _P, ctypes.c_int64, ctypes.c_int, _P, _P],
+    # n, hw -> the partial rows mrfp_dot_with_stats needs
+    "mrfp_dot_with_stats_parts": [ctypes.c_int, ctypes.c_int],
+    # x, w, y, part, parts, s1, s2, n, cin, cout, hw, dtype, stream
+    "mrfp_dot_with_stats": [_P, _P, _P, _P, ctypes.c_int, _P, _P] + [ctypes.c_int] * 5 + [_P],
+    # x, p, out, idx, wt, cnt, planes, h, w, out, dim, dtype, stream
+    "mrfp_row_mix": [_P] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 5 + [_P],
+    # x, part, splits, s1, s2, n, channels, hw, dtype, stream
+    "mrfp_channel_sums": [_P, _P, ctypes.c_int, _P, _P, ctypes.c_int64, ctypes.c_int,
+                          ctypes.c_int64, ctypes.c_int, _P],
+    # x, alpha, shift, out, planes, hw, dtype, stream
+    "mrfp_np_plus_apply": [_P] * 4 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, _P],
 }
 
 _lock = threading.Lock()

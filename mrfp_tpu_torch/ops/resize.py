@@ -18,6 +18,10 @@ Both resizes are ``torch.autograd.Function``s. On a CUDA tensor the forward
 and the backward are the hand-written kernels (``ops/cuda_resize.py``); on a
 CPU tensor, their plain PyTorch versions. A resize to the input's own size
 returns the input itself, with no Function and no launch.
+
+``row_mix`` and ``take_rows`` are the counterparts of the JAX package's
+layout-preserving row mix (``ops/cuda_row_mix.py``). No resize routes
+through them, as none does in the JAX package unless it is asked to.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from mrfp_tpu_torch.ops import cuda_resize
+from mrfp_tpu_torch.ops import cuda_resize, cuda_row_mix
 
 
 class BilinearTaps(NamedTuple):
@@ -138,11 +142,15 @@ def nearest_table(in_size: int, rule: str, arg, device: torch.device) -> Nearest
     return table
 
 
+def check_impl(impl: Optional[str]) -> None:
+    if impl not in (None, "plain"):
+        raise ValueError(f"impl must be None or 'plain', got {impl!r}")
+
+
 def _use_kernel(x: torch.Tensor, impl: Optional[str]) -> bool:
     """The kernel serves every tensor off the CPU; ``impl="plain"`` forces
     the plain version (kernel-vs-plain comparisons only)."""
-    if impl not in (None, "plain"):
-        raise ValueError(f"impl must be None or 'plain', got {impl!r}")
+    check_impl(impl)
     return impl is None and x.device.type != "cpu"
 
 
@@ -206,6 +214,64 @@ def resize_bilinear_align_corners(x: torch.Tensor, size: Tuple[int, int],
     kernel = _use_kernel(x, impl)
     ty, tx = bilinear_taps(h, oh, x.device), bilinear_taps(w, ow, x.device)
     return ResizeBilinear.apply(x, ty, tx, kernel)
+
+
+def row_mix(x: torch.Tensor, p: torch.Tensor, dim: int,
+            impl: Optional[str] = None) -> torch.Tensor:
+    """``out = P @ x`` along dim 2 (H) or 3 (W) of NCHW ``x``, for an fp32
+    (out, in) ``P``; fp32 sums rounded once to ``x.dtype``
+    (mrfp_tpu/ops/pallas_resize.py::row_mix_pallas). The kernel's output
+    carries no gradient, as the Pallas call's does not: ``take_rows`` is the
+    differentiable form."""
+    if _use_kernel(x, impl):
+        return cuda_row_mix.row_mix_cuda(x, p, dim)
+    with torch.autocast(x.device.type, enabled=False):
+        return cuda_row_mix.row_mix_plain(x, p, dim)
+
+
+_ONEHOT: Dict[tuple, torch.Tensor] = {}
+
+
+def onehot_rows(idx: Tuple[int, ...], in_size: int, device, transpose: bool = False
+                ) -> torch.Tensor:
+    """The fp32 (len(idx), in_size) selection matrix with ``P[o, idx[o]] = 1``
+    (or its transpose), cached on the device."""
+    key = (idx, in_size, transpose, str(device))
+    p = _ONEHOT.get(key)
+    if p is None:
+        a = np.zeros((len(idx), in_size), np.float32)
+        a[np.arange(len(idx)), list(idx)] = 1.0
+        p = torch.as_tensor(a.T.copy() if transpose else a, device=device)
+        _ONEHOT[key] = p
+    return p
+
+
+class TakeRows(torch.autograd.Function):
+    """``x.index_select(dim, idx)`` as a row mix with the one-hot P; the
+    backward mixes the cotangent with P transposed (sums in fp32, rounded
+    once), as the TPU kernel's custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, x, idx: Tuple[int, ...], dim: int, impl: Optional[str]):
+        ctx.args = (idx, dim, impl, x.shape[dim])
+        return row_mix(x, onehot_rows(idx, x.shape[dim], x.device), dim, impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, dim, impl, in_size = ctx.args
+        pt = onehot_rows(idx, in_size, g.device, transpose=True)
+        return row_mix(g.contiguous(), pt, dim, impl), None, None, None
+
+
+def take_rows(x: torch.Tensor, idx: Tuple[int, ...], dim: int,
+              impl: Optional[str] = None) -> torch.Tensor:
+    """Differentiable ``x.index_select(dim, idx)`` along H (2) or W (3) of
+    NCHW ``x`` through the row-mix kernel
+    (mrfp_tpu/ops/pallas_resize.py::take_rows). ``idx``: a tuple of ints."""
+    idx = tuple(int(i) for i in idx)
+    if not all(0 <= i < x.shape[dim] for i in idx):
+        raise ValueError(f"take_rows: an index lies outside [0, {x.shape[dim]})")
+    return TakeRows.apply(x, idx, dim, impl)
 
 
 def resize_nearest(x: torch.Tensor, size: Optional[Tuple[int, int]] = None,

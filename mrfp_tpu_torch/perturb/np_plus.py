@@ -35,18 +35,25 @@ def draw_np_plus(generator: torch.Generator, batch: int, channels: int,
     return to_device(alpha, device), to_device(beta_noise, device)
 
 
+def np_plus_coefficients(f32: torch.Tensor, noise: Union[torch.Generator, Draws],
+                         std: float = 0.75, scale_mult: float = 1.5):
+    """``(alpha, beta, feat_mean)``, each (B, C, 1, 1), for the float32 (or
+    float64) NCHW map ``f32``; ``noise`` as for ``np_plus``."""
+    feat_mean = f32.mean(dim=(2, 3), keepdim=True)
+    mean_diff = feat_mean.std(dim=0, keepdim=True)  # unbiased, as the reference
+    mean_scale = mean_diff / mean_diff.max() * scale_mult
+    if isinstance(noise, torch.Generator):
+        noise = draw_np_plus(noise, f32.shape[0], f32.shape[1], f32.device, std)
+    alpha, beta_noise = noise
+    return alpha, 1.0 + beta_noise * mean_scale, feat_mean
+
+
 def np_plus(feat: torch.Tensor, noise: Union[torch.Generator, Draws],
             std: float = 0.75, scale_mult: float = 1.5) -> torch.Tensor:
     """Apply NP+ to NCHW ``feat``. ``noise`` is a generator to draw from,
     or injected ``(alpha, beta_noise)`` of shape (B, C, 1, 1), the way the
     parity tests drive it (tests/torch_oracle.py::np_plus_injected)."""
     f32 = feat.to(torch.promote_types(feat.dtype, torch.float32))
-    feat_mean = f32.mean(dim=(2, 3), keepdim=True)
-    mean_diff = feat_mean.std(dim=0, keepdim=True)  # unbiased, as the reference
-    mean_scale = mean_diff / mean_diff.max() * scale_mult
-    if isinstance(noise, torch.Generator):
-        noise = draw_np_plus(noise, feat.shape[0], feat.shape[1], feat.device, std)
-    alpha, beta_noise = noise
-    beta = 1.0 + beta_noise * mean_scale
+    alpha, beta, feat_mean = np_plus_coefficients(f32, noise, std, scale_mult)
     out = alpha * f32 - alpha * feat_mean + beta * feat_mean
     return out.to(feat.dtype)

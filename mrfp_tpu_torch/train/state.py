@@ -40,9 +40,6 @@ def make_optimizer(model: nn.Module, cfg: TrainConfig):
         raise NotImplementedError(
             f"momentum_dtype={cfg.momentum_dtype!r} is not ported: the momentum "
             f"buffer stays fp32 (see ROADMAP item A5, deferred)")
-    if cfg.fuse_bn_stats:
-        raise NotImplementedError(
-            "fuse_bn_stats needs the dot_with_stats kernel: see ROADMAP B row 6")
     params = [p for p in model.parameters() if p.requires_grad]
     opt = torch.optim.SGD(params, lr=cfg.lr, momentum=cfg.momentum,
                           weight_decay=cfg.weight_decay)

@@ -23,6 +23,7 @@ import torch
 from mrfp_tpu_torch.core.config import Config
 from mrfp_tpu_torch.core.rng import step_generators
 from mrfp_tpu_torch.models.mrfp import PerturbArgs
+from mrfp_tpu_torch.ops.dot_stats import bn_stats_fusion
 from mrfp_tpu_torch.perturb.oc_branch import oc_maybe_resample
 from mrfp_tpu_torch.train.losses import cross_entropy
 from mrfp_tpu_torch.train.state import TrainState
@@ -77,8 +78,9 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     ``images``: NHWC uint8 or float, ``labels``: NHW integer, both on the
     model's device. ``perturb`` replaces this step's draws (tests and the
     kernel-vs-plain check force the gates and inject the NP+ draws; the OC
-    buffers are then used as they are). ``impl="plain"`` runs every resize
-    through its plain version.
+    buffers are then used as they are). ``impl="plain"`` runs every resize,
+    and with ``cfg.train.fuse_bn_stats`` every fused 1x1, through its plain
+    version.
     """
     model = state.model
     device = images.device
@@ -87,7 +89,11 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     if perturb is None:
         perturb = draw_perturb(state, cfg)
     model.train()
-    with autocast_for(cfg, device):
+    # fuse_bn_stats: the bottleneck 1x1 + BN pairs take their moments from
+    # the product's own sums (mrfp_tpu/train/step.py:225-238)
+    fusion = (bn_stats_fusion(impl) if cfg.train.fuse_bn_stats
+              else contextlib.nullcontext())
+    with autocast_for(cfg, device), fusion:
         logits = model(x, impl=impl, perturb=perturb)
     loss = cross_entropy(logits, labels, cfg.data.ignore_index)
     state.optimizer.zero_grad(set_to_none=True)
