@@ -13,8 +13,9 @@ PyTorch versions at the eval shapes, runs the full R50-D16 model at
 bfloat16 and checks that both kernels were launched there.
 
 Train: holds the nearest-resize kernels (forward and backward) against their
-plain versions at the seven OC-branch resizes of a batch-8 768x768 step,
-and the bilinear forward and backward at the train and eval shapes; takes one
+plain versions, exactly, at the seven OC-branch resizes of a batch-8
+768x768 step and at edge cases (empty ranges, widths 1, 7, 9, h = 1, a
+partial last block), and the bilinear forward and backward at the train and eval shapes; takes one
 full-width MRFP+ step (all gates on, the same draws) through the kernels
 and through the plain versions and compares loss and gradients; times the
 bf16 batch-8 step with the gates on and off; then drives
@@ -22,13 +23,14 @@ bf16 batch-8 step with the gates on and off; then drives
 every resize kernel was launched there.
 
 Fused statistics (``cfg.train.fuse_bn_stats``): holds dot_with_stats
-against its plain version at the 15 shapes of the step's 36 bottleneck 1x1s,
-and the row mix, the channel sums and the NP+ apply at the OC and NP+
+against its plain version at the 15 shapes of the step's 36 bottleneck 1x1s
+and at ragged shapes, naming for each the kernel that ran (tensor-core or
+CUDA-core), and the row mix, the channel sums and the NP+ apply at the OC and NP+
 shapes; drives the public functions of those three (no train or eval path
 runs them); takes one fp32 fused step through the kernels, through the plain
 versions and unfused, and times the bf16 fused step beside the unfused one;
 then drives one bf16 batch-8 fused step and counts its 36 dot_with_stats
-launches. Every kernel's line carries its bound on this card and the time
+launches, all on the tensor-core kernel. Every kernel's line carries its bound on this card and the time
 of the PyTorch call that computes the same function.
 
 Any failure raises and exits non-zero; the last line of stdout is the JSON
@@ -89,10 +91,30 @@ NEAREST_SHAPES = [
     ("dec3 x0.798", 64, (321, 321), {"scale": (0.798, 0.798)}),
     ("dec4 to 192", 64, (256, 256), {"size": (192, 192)}),
 ]
-# the backward's sums have at most 4 terms (fp32: the same terms in another
-# order); bf16: both sum in fp32 and round once, so about one bf16 ulp
-TOL_NEAREST_BWD = {torch.float32: dict(atol=1e-6, rtol=1e-6),
-                   torch.bfloat16: dict(atol=1e-2, rtol=8e-3)}
+# (name, N, C, in_hw, rule): nearest edge cases, forward and backward: empty
+# ranges (downsamples), widths 1, 7 and 9, h = 1, and 21 planes of 37 rows,
+# which leave the staged backward a partial last block. Here and at the OC
+# shapes every backward sum has at most two terms per axis, which fp32
+# adds exactly alike in any order, and both versions sum in fp32 and round
+# once: kernel and plain must be exactly equal.
+NEAREST_EDGES = [
+    ("7 to 3 by size", 2, 3, (7, 7), {"size": (3, 3)}),
+    ("33x29 x0.798", 2, 3, (33, 29), {"scale": (0.798, 0.798)}),
+    ("width 1 x1.5", 2, 3, (5, 1), {"scale": (1.5, 1.5)}),
+    ("width 7 x1.3", 2, 3, (6, 7), {"scale": (1.3, 1.3)}),
+    ("width 9 to 11x13", 2, 3, (9, 9), {"size": (11, 13)}),
+    ("h 1 to 2x30", 2, 3, (1, 20), {"size": (2, 30)}),
+    ("partial last block", 3, 7, (37, 45), {"scale": (1.2, 1.2)}),
+]
+# (name, N, C, in_hw, rule): ranges longer than two, which the staged
+# backward does not take: the direct kernel sums them. Sums of more than two
+# terms depend on their order (the plain version's index_add_ adds in any
+# order): each result within terms * 2^-24 of the summed magnitudes of a
+# float64 reference, plus its own rounding
+NEAREST_LONG = [
+    ("x3 upsample", 2, 3, (5, 6), {"scale": (3.0, 3.0)}),
+    ("4 to 30000 wide", 1, 2, (3, 4), {"size": (3, 30000)}),
+]
 # (name, N, C, in_hw, out_hw): the bilinear resizes of the train step, whose
 # forward and backward run there, and the eval shapes
 BILINEAR_TRAIN_SHAPES = [
@@ -130,6 +152,18 @@ DOT_STATS_SHAPES = [
     ("layer4 conv1 blocks1-2", 2048, 512, 48, 2),
 ]
 DOT_STATS_FP32 = ("layer1 conv1 block0", "layer3 conv3", "layer4 downsample")
+# (name, N, Cin, Cout, (h, w)): shapes the step never gives, in bf16 and fp32:
+# ragged tiles for the tensor-core kernel (HW not a multiple of 128, Cout not
+# a multiple of 64, Cin = 8 x odd), and bf16 shapes it does not take (HW or
+# Cin not a multiple of 8), which route to the CUDA-core kernel
+DOT_STATS_RAGGED = [
+    ("HW 2000", 2, 256, 256, (40, 50)),
+    ("Cout 200", 2, 128, 200, (48, 48)),
+    ("Cin 24", 2, 24, 128, (32, 32)),
+    ("Cin 72, Cout 72, HW 1000", 3, 72, 72, (25, 40)),
+    ("HW 63", 2, 64, 128, (7, 9)),
+    ("Cin 30", 2, 30, 64, (16, 16)),
+]
 # the card's published peaks (H100 SXM, dense): HBM bytes/s and FLOP/s; fp32
 # products run on the CUDA cores (TF32 off), bf16 ones may use the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -179,6 +213,47 @@ def median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = 20) -> float:
+    """Device time of one call: ``calls`` calls captured in a CUDA graph,
+    the replay timed with CUDA events, median of 5 replays. No host time
+    (Python, the wrapper's allocations, launch latency) is in it, which a
+    single-call timing of a call under ~0.1 ms mostly measures."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def host_us(fn, runs: int = 50) -> float:
+    """Host time of one call in microseconds: the median wall time of
+    ``runs`` calls, each made with the card's queue drained, so none waits
+    for the device."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
 def phase_report() -> str:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -204,6 +279,17 @@ def phase_build():
         print(f"ptxas: {len(regs)} kernels, {min(regs, default=0)}-{max(regs, default=0)} "
               f"registers, {stores} bytes of spill stores, {loads} of spill loads "
               f"(per kernel: {log})")
+        per_kernel = []  # "name[dtype,variant] registers", one per compiled entry
+        for entry in text.split("Compiling entry function")[1:]:
+            mangled = entry.split("'")[1]
+            name = re.search(r"\d+((?:[a-z]+_)*[a-z]*kernel)", mangled)
+            used = re.search(r"Used (\d+) registers", entry)
+            if name and used:
+                tags = [t for key, t in (("bfloat16", "bf16"), ("kernelIf", "f32"))
+                        if key in mangled]
+                per_kernel.append(f"{name.group(1)}{'[' + ','.join(tags) + ']' if tags else ''} "
+                                  f"{used.group(1)}")
+        print(f"ptxas registers per kernel: {', '.join(per_kernel)}")
 
 
 def phase_resize(gen) -> float:
@@ -338,31 +424,98 @@ def _dtype_name(dtype) -> str:
     return str(dtype)[6:]
 
 
-def phase_nearest(cuda_gen) -> dict:
-    """Kernels A and B against their plain versions at the OC shapes."""
+def _nearest_bwd_kernel(x, rule) -> str:
+    """Which nearest backward kernel the wrapper launches for ``x`` and
+    ``rule``: "staged" (every range at most two long, and a row fits its
+    shared memory) or "direct"."""
     from mrfp_tpu_torch.ops import cuda_resize
-    from mrfp_tpu_torch.ops.resize import nearest_table, resize_nearest
+    from mrfp_tpu_torch.ops.resize import nearest_table
+    (rule_name, arg), = rule.items()
+    h, w = x.shape[2:]
+    ty = nearest_table(h, rule_name, arg[0], DEV)
+    tx = nearest_table(w, rule_name, arg[1], DEV)
+    rows = cuda_resize.nearest_bwd_rows_per_block(w, tx.idx.numel(), ty.max_run, tx.max_run,
+                                                  x.element_size())
+    return "staged" if rows else "direct"
+
+
+def _nearest_pair(x, rule, cuda_gen):
+    """The nearest resize of ``x`` through the kernels and through the plain
+    versions, forward and backward; raises unless both directions are
+    exactly equal, or if the backward does not take the staged kernel.
+    Returns the kernel's output and the cotangent."""
+    from mrfp_tpu_torch.ops.resize import resize_nearest
+    if _nearest_bwd_kernel(x, rule) != "staged":
+        raise AssertionError(f"resize_nearest {tuple(x.shape)} {rule} {x.dtype}: the backward "
+                             f"would not take the staged kernel")
+    xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    yk = resize_nearest(xk, **rule)
+    yp = resize_nearest(xp, impl="plain", **rule)
+    g = torch.randn(yk.shape, device=DEV, generator=cuda_gen).to(x.dtype)
+    yk.backward(g)
+    yp.backward(g)
+    torch.cuda.synchronize()
+    if not (torch.equal(yk, yp) and torch.equal(xk.grad, xp.grad)):
+        raise AssertionError(
+            f"resize_nearest {tuple(x.shape)} {rule} {x.dtype}: kernel != plain, forward max "
+            f"{(yk.float() - yp.float()).abs().max().item()}, backward max "
+            f"{(xk.grad.float() - xp.grad.float()).abs().max().item()}")
+    return yk.detach(), g
+
+
+def _nearest_bwd_f64(g, ty, tx, h: int, w: int):
+    """The nearest backward of ``g`` in float64 (the W sums, then the H sums)."""
+    gd = g.double()
+    n, c, oh, _ = gd.shape
+    gw = gd.new_zeros((n, c, oh, w)).index_add_(3, tx.idx.long(), gd)
+    return gd.new_zeros((n, c, h, w)).index_add_(2, ty.idx.long(), gw)
+
+
+def phase_nearest(cuda_gen) -> dict:
+    """Kernels A and B against their plain versions at the OC shapes and the
+    edge cases (both directions exactly equal; the backward's staged
+    kernel), and at ranges longer than two (the backward's direct kernel)."""
+    from mrfp_tpu_torch.ops import cuda_resize
+    from mrfp_tpu_torch.ops.resize import nearest_table
     import torch.nn.functional as F
-    worst = {"resize_nearest": 0.0, "resize_nearest_bwd": 0.0}
-    times = {k: [0.0, 0.0, 0.0] for k in worst}  # bf16 sums: kernel, plain, library
-    costs = {k: Cost() for k in worst}
+    kernels = ("resize_nearest", "resize_nearest_bwd")
+    times = {k: [0.0, 0.0, 0.0] for k in kernels}  # bf16 sums: kernel, plain, library
+    costs = {k: Cost() for k in kernels}
+    dev_totals = [0.0, 0.0]  # bf16 backward device times: kernel, aten
     for dtype in (torch.bfloat16, torch.float32):
+        for name, n, c, (h, w), rule in NEAREST_EDGES:
+            x = torch.randn((n, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
+            _nearest_pair(x, rule, cuda_gen)
+        print(f"resize_nearest {_dtype_name(dtype)} edge cases "
+              f"{[e[0] for e in NEAREST_EDGES]}: forward and backward exactly equal "
+              f"(staged backward)")
+        for name, n, c, (h, w), rule in NEAREST_LONG:
+            rule_name, arg = next(iter(rule.items()))
+            ty = nearest_table(h, rule_name, arg[0], DEV)
+            tx = nearest_table(w, rule_name, arg[1], DEV)
+            x = torch.randn((n, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
+            if _nearest_bwd_kernel(x, rule) != "direct":
+                raise AssertionError(f"resize_nearest_bwd {name}: not the direct kernel")
+            if not torch.equal(cuda_resize.resize_nearest_cuda(x, ty, tx),
+                               cuda_resize.resize_nearest_plain(x, ty, tx)):
+                raise AssertionError(f"resize_nearest {name} {dtype}: forward kernel != plain")
+            g = torch.randn((n, c, ty.idx.numel(), tx.idx.numel()), device=DEV,
+                            generator=cuda_gen).to(dtype)
+            got = cuda_resize.resize_nearest_bwd_cuda(g, ty, tx, h, w).double()
+            exact, mag = (_nearest_bwd_f64(t, ty, tx, h, w) for t in (g, g.abs()))
+            rounding = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+            terms = ty.max_run * tx.max_run
+            over = ((got - exact).abs() - terms * 2.0 ** -24 * mag
+                    - rounding * exact.abs()).max().item()
+            if over > 0:
+                raise AssertionError(f"resize_nearest_bwd {name} {dtype}: exceeds the bound "
+                                     f"by {over:.3e}")
+            print(f"resize_nearest_bwd {_dtype_name(dtype)} {name} ({n},{c},{h},{w}), up to "
+                  f"{terms} terms a sum, direct kernel: max_abs_err vs float64 "
+                  f"{(got - exact).abs().max().item():.3e}, within the bound")
         for name, c, (h, w), rule in NEAREST_SHAPES:
             x = torch.randn((TRAIN_N, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
-            xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
-            yk = resize_nearest(xk, **rule)
-            yp = resize_nearest(xp, impl="plain", **rule)
-            torch.cuda.synchronize()
-            if not torch.equal(yk, yp):
-                raise AssertionError(f"resize_nearest {name} {dtype}: kernel != plain, max "
-                                     f"{(yk.float() - yp.float()).abs().max().item()}")
-            g = torch.randn(yk.shape, device=DEV, generator=cuda_gen).to(dtype)
-            yk.backward(g)
-            yp.backward(g)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(xk.grad, xp.grad, **TOL_NEAREST_BWD[dtype])
-            err = (xk.grad.float() - xp.grad.float()).abs().max().item()
-            worst["resize_nearest_bwd"] = max(worst["resize_nearest_bwd"], err)
+            yk, g = _nearest_pair(x, rule, cuda_gen)
             rule_name, arg = next(iter(rule.items()))
             ty = nearest_table(h, rule_name, arg[0], x.device)
             tx = nearest_table(w, rule_name, arg[1], x.device)
@@ -379,24 +532,37 @@ def phase_nearest(cuda_gen) -> dict:
                               runs=10),
                     median_ms(lambda: torch.ops.aten.upsample_nearest2d_backward(
                         g, out_hw, list(x.shape)), runs=10))}
+                dev = (device_ms(lambda: cuda_resize.resize_nearest_bwd_cuda(g, ty, tx, h, w),
+                                 calls=10),
+                       device_ms(lambda: torch.ops.aten.upsample_nearest2d_backward(
+                           g, out_hw, list(x.shape)), calls=10))
             gb = 2 * yk.numel() * yk.element_size() / 1e9  # one read, one write of out
+            gb_bwd = (yk.numel() + x.numel()) * yk.element_size() / 1e9  # g in, gx out
             print(f"resize_nearest {_dtype_name(dtype)} {name} ({TRAIN_N},{c},{h},{w})->"
                   f"{tuple(yk.shape[2:])}: forward exactly equal, kernel "
                   f"{ms['resize_nearest'][0]:.4f} ms ({gb / ms['resize_nearest'][0] * 1e3:.0f}"
                   f" GB/s), plain {ms['resize_nearest'][1]:.4f} ms, F.interpolate "
-                  f"{ms['resize_nearest'][2]:.4f} ms; backward max_abs_err "
-                  f"{err:.3e}, kernel {ms['resize_nearest_bwd'][0]:.4f} ms, plain "
+                  f"{ms['resize_nearest'][2]:.4f} ms; backward exactly equal, staged kernel "
+                  f"{ms['resize_nearest_bwd'][0]:.4f} ms "
+                  f"({gb_bwd / ms['resize_nearest_bwd'][0] * 1e3:.0f} GB/s), plain "
                   f"{ms['resize_nearest_bwd'][1]:.4f} ms, aten backward "
-                  f"{ms['resize_nearest_bwd'][2]:.4f} ms")
+                  f"{ms['resize_nearest_bwd'][2]:.4f} ms; device time (graph) backward kernel "
+                  f"{dev[0]:.4f} ms ({gb_bwd / dev[0] * 1e3:.0f} GB/s), aten {dev[1]:.4f} ms")
             if dtype == torch.bfloat16:
+                dev_totals = [a + b for a, b in zip(dev_totals, dev)]
                 for k in times:
                     for i in range(3):
                         times[k][i] += ms[k][i]
                     costs[k].add(nbytes(x, yk))  # forward: x in, y out; backward: g in, gx out
-            del x, xk, xp, yk, yp, g
+            del x, yk, g
         torch.cuda.empty_cache()
-    return {k: {"max_abs_err": worst[k], "ms": times[k][0], "plain_ms": times[k][1],
-                "library_ms": times[k][2], **costs[k].fields()} for k in worst}
+    bwd = times["resize_nearest_bwd"]
+    print(f"resize_nearest_bwd bf16, the seven OC resizes: kernel {bwd[0]:.3f} ms, plain "
+          f"{bwd[1]:.3f} ms, aten backward {bwd[2]:.3f} ms, bound "
+          f"{costs['resize_nearest_bwd'].bound_ms:.3f} ms; device time (graph) kernel "
+          f"{dev_totals[0]:.3f} ms, aten {dev_totals[1]:.3f} ms")
+    return {k: {"max_abs_err": 0.0, "ms": times[k][0], "plain_ms": times[k][1],
+                "library_ms": times[k][2], **costs[k].fields()} for k in times}
 
 
 def phase_bilinear_train(cuda_gen) -> dict:
@@ -474,74 +640,135 @@ def phase_bilinear_train(cuda_gen) -> dict:
     return out
 
 
+def _dot_stats_check(name, x, w) -> tuple:
+    """dot_with_stats on ``x``, ``w`` through the kernel its route names and
+    through the plain version. Bounds, with u = 2^-24: y within
+    2*K*u*(|w| @ |x|) of plain (two fp32 GEMMs of depth K), plus one bf16 ulp
+    (2^-7 |y|) in bf16; each sum within 2^-15 of the summed magnitudes of
+    the kernel's own stored y (the sum of y and of y^2 in float64). Raises
+    if a bound fails or the launch did not take its route. Returns the
+    kernel's name, its y error, the sums' distance from plain's (relative
+    to the summed magnitudes), |y| max and the kernel's stored y."""
+    from mrfp_tpu_torch.ops import LAUNCHES, cuda_dot_stats
+    n, cin = x.shape[:2]
+    tc = cuda_dot_stats.tensor_core_route(x.dtype, cin, x.shape[2] * x.shape[3])
+    before = LAUNCHES["dot_with_stats_tc"]
+    yk, s1k, s2k = cuda_dot_stats.dot_with_stats_cuda(x, w)
+    took_tc = LAUNCHES["dot_with_stats_tc"] - before
+    yp, s1p, s2p = cuda_dot_stats.dot_with_stats_plain(x, w)
+    torch.cuda.synchronize()
+    xc = x.contiguous().float().reshape(n, cin, -1)
+    mag = torch.matmul(w.float().abs(), xc.abs()).reshape(yp.shape)
+    allowed = 2 * cin * 2.0 ** -24 * mag + 1e-30
+    if x.dtype == torch.bfloat16:
+        allowed = allowed + 2.0 ** -7 * yp.float().abs()
+    diff = (yk.float() - yp.float()).abs()
+    over = (diff - allowed).max().item()
+    yd = yk.double()
+    sum_err = max(((s1k.double() - yd.sum((0, 2, 3))).abs()
+                   - 2.0 ** -15 * yd.abs().sum((0, 2, 3))).max().item(),
+                  ((s2k.double() - (yd * yd).sum((0, 2, 3))).abs()
+                   - 2.0 ** -15 * (yd * yd).sum((0, 2, 3))).max().item())
+    # kernel vs plain sums, relative to the summed magnitudes (diagnostic)
+    s_rel = max(((s1k.double() - s1p.double()).abs()
+                 / yd.abs().sum((0, 2, 3))).max().item(),
+                ((s2k.double() - s2p.double()).abs() / (yd * yd).sum((0, 2, 3))).max().item())
+    kernel = "tensor-core" if tc else "CUDA-core"
+    if over > 0 or sum_err > 0 or not torch.isfinite(yk).all() or took_tc != int(tc):
+        raise AssertionError(f"dot_with_stats {name} {x.dtype} ({kernel} route, "
+                             f"{took_tc} tensor-core launches): kernel vs plain exceeds the "
+                             f"bound by {over:.3e} (y) / {sum_err:.3e} (sums)")
+    return kernel, diff.max().item(), s_rel, yp.float().abs().max().item(), yk
+
+
 def phase_dot_stats(cuda_gen) -> dict:
-    """dot_with_stats against its plain version at the 15 shapes of the 36
-    fused sites in bf16 (the strided downsamples from a stride-2 slice), and
-    at three of them in fp32 (TF32 off). Bounds, with u = 2^-24: y within
-    2*K*u*(|w| @ |x|) of plain (two fp32 GEMMs of depth K), plus one bf16
-    ulp (2^-7 |y|) in bf16; each sum within 2^-15 of the summed magnitudes
-    of the kernel's own stored y (the sum of y and of y^2 in float64)."""
+    """dot_with_stats against its plain version (bounds: ``_dot_stats_check``)
+    at the 15 shapes of the 36 fused sites in bf16 (the strided downsamples
+    from a stride-2 slice), at three of them in fp32 (TF32 off), and at the
+    ragged shapes in both dtypes. Each line names the kernel that ran."""
     import torch.nn.functional as F
     from mrfp_tpu_torch.ops import cuda_dot_stats
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cases = [(n, ci, co, s, k, torch.bfloat16) for n, ci, co, s, k in DOT_STATS_SHAPES]
-    cases += [(n, ci, co, s, k, torch.float32) for n, ci, co, s, k in DOT_STATS_SHAPES
-              if n in DOT_STATS_FP32]
-    worst, totals, cost = 0.0, [0.0, 0.0, 0.0], Cost()
-    for name, cin, cout, side, sites, dtype in cases:
+    cases = [(n, TRAIN_N, ci, co, (s, s), k, torch.bfloat16)
+             for n, ci, co, s, k in DOT_STATS_SHAPES]
+    cases += [(n, TRAIN_N, ci, co, (s, s), k, torch.float32)
+              for n, ci, co, s, k in DOT_STATS_SHAPES if n in DOT_STATS_FP32]
+    cases += [(f"ragged: {n}", b, ci, co, hw, 0, dt) for n, b, ci, co, hw in DOT_STATS_RAGGED
+              for dt in (torch.bfloat16, torch.float32)]
+    worst, totals, cost = 0.0, [0.0] * 5, Cost()  # bf16 sums; the last two on the device
+    for name, batch, cin, cout, (h, wd), sites, dtype in cases:
         stride = 2 if "stride 2" in name else 1
-        x = torch.randn((TRAIN_N, cin, side * stride, side * stride), device=DEV,
+        x = torch.randn((batch, cin, h * stride, wd * stride), device=DEV,
                         generator=cuda_gen).to(dtype)[:, :, ::stride, ::stride]
         w = (torch.randn((cout, cin), device=DEV, generator=cuda_gen) * cin ** -0.5).to(dtype)
-        yk, s1k, s2k = cuda_dot_stats.dot_with_stats_cuda(x, w)
-        yp, s1p, s2p = cuda_dot_stats.dot_with_stats_plain(x, w)
-        torch.cuda.synchronize()
-        xc = x.contiguous().float().reshape(TRAIN_N, cin, -1)
-        mag = torch.matmul(w.float().abs(), xc.abs()).reshape(yp.shape)
-        allowed = 2 * cin * 2.0 ** -24 * mag + 1e-30
-        if dtype == torch.bfloat16:
-            allowed = allowed + 2.0 ** -7 * yp.float().abs()
-        diff = (yk.float() - yp.float()).abs()
-        over = (diff - allowed).max().item()
-        yd = yk.double()
-        sum_err = max(((s1k.double() - yd.sum((0, 2, 3))).abs()
-                       - 2.0 ** -15 * yd.abs().sum((0, 2, 3))).max().item(),
-                      ((s2k.double() - (yd * yd).sum((0, 2, 3))).abs()
-                       - 2.0 ** -15 * (yd * yd).sum((0, 2, 3))).max().item())
-        # kernel vs plain sums, relative to the summed magnitudes (diagnostic)
-        s_rel = max(((s1k.double() - s1p.double()).abs()
-                     / yd.abs().sum((0, 2, 3))).max().item(),
-                    ((s2k.double() - s2p.double()).abs() / (yd * yd).sum((0, 2, 3))).max().item())
-        if over > 0 or sum_err > 0 or not torch.isfinite(yk).all():
-            raise AssertionError(f"dot_with_stats {name} {dtype}: kernel vs plain exceeds the "
-                                 f"bound by {over:.3e} (y) / {sum_err:.3e} (sums)")
-        err = diff.max().item()
+        kernel, err, s_rel, ymax, yk = _dot_stats_check(name, x, w)
         worst = max(worst, err)
-        del mag, allowed, diff, yd, xc
         w4 = w[:, :, None, None]
         k_ms = median_ms(lambda: cuda_dot_stats.dot_with_stats_cuda(x, w), runs=10)
         p_ms = median_ms(lambda: cuda_dot_stats.dot_with_stats_plain(x, w), runs=10)
         l_ms = median_ms(lambda: torch.var_mean(F.conv2d(x, w4), dim=(0, 2, 3)), runs=10)
-        flops = 2.0 * TRAIN_N * cin * cout * side * side
-        bound = Cost().add(nbytes(x, w, yk, s1k, s2k), flops, dtype)
-        print(f"dot_with_stats {_dtype_name(dtype)} {name} ({TRAIN_N},{cin},{side},{side})"
-              f"x({cout},{cin}), {sites} site(s): y max_abs_err {err:.3e} (|y| max "
-              f"{yp.float().abs().max().item():.3e}), sums vs plain {s_rel:.3e} of the summed "
-              f"magnitudes; kernel "
-              f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, "
-              f"conv2d+var_mean {l_ms:.4f} ms, bound {bound:.4f} ms")
+        dev = (device_ms(lambda: cuda_dot_stats.dot_with_stats_cuda(x, w)),
+               device_ms(lambda: torch.var_mean(F.conv2d(x, w4), dim=(0, 2, 3))))
+        flops = 2.0 * batch * cin * cout * h * wd
+        moved = nbytes(x, w, yk) + 8 * cout
+        bound = Cost().add(moved, flops, dtype)
+        where = f"{sites} site(s)" if sites else "not a site of the step"
+        print(f"dot_with_stats {_dtype_name(dtype)} {name} ({batch},{cin},{h},{wd})"
+              f"x({cout},{cin}), {where}: {kernel} kernel; y max_abs_err {err:.3e} "
+              f"(|y| max {ymax:.3e}), sums vs plain {s_rel:.3e} of the summed magnitudes; "
+              f"kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s, "
+              f"{moved / k_ms / 1e6:.0f} GB/s), plain {p_ms:.4f} ms, "
+              f"conv2d+var_mean {l_ms:.4f} ms, bound {bound:.4f} ms; device time (graph) "
+              f"kernel {dev[0]:.4f} ms ({flops / dev[0] / 1e9:.1f} TFLOP/s, "
+              f"{moved / dev[0] / 1e6:.0f} GB/s), conv2d+var_mean {dev[1]:.4f} ms")
         if dtype == torch.bfloat16:
-            for i, t in enumerate((k_ms, p_ms, l_ms)):
+            for i, t in enumerate((k_ms, p_ms, l_ms) + dev):
                 totals[i] += sites * t
-            cost.add(nbytes(x, w, yk, s1k, s2k), flops, dtype, times=sites)
-        del x, w, yk, yp
+            cost.add(moved, flops, dtype, times=sites)
+        del x, w, yk
     torch.cuda.empty_cache()
+    _dot_stats_host_times(cuda_gen)
     print(f"dot_with_stats bf16, the 36 sites of a batch-{TRAIN_N} step: kernel "
           f"{totals[0]:.3f} ms, plain {totals[1]:.3f} ms, conv2d+var_mean {totals[2]:.3f} ms, "
-          f"bound {cost.bound_ms:.3f} ms")
+          f"bound {cost.bound_ms:.3f} ms; device time (graph) kernel {totals[3]:.3f} ms, "
+          f"conv2d+var_mean {totals[4]:.3f} ms")
     return {"max_abs_err": worst, "ms": totals[0], "plain_ms": totals[1],
             "library_ms": totals[2], **cost.fields()}
+
+
+def _dot_stats_host_times(cuda_gen) -> None:
+    """Host time of a tensor-core dot_with_stats call at a layer3 site:
+    through the wrapper, and through the library's C entry alone (its three
+    tensor-map encodings and two launches) with the outputs allocated
+    beforehand. Prints one line beside the call's device time."""
+    from mrfp_tpu_torch.ops import _build, cuda_dot_stats
+    name, cin, cout, side, _sites = next(s for s in DOT_STATS_SHAPES
+                                         if s[0] == "layer3 conv1 blocks1-5")
+    hw = side * side
+    x = torch.randn((TRAIN_N, cin, side, side), device=DEV, generator=cuda_gen).to(torch.bfloat16)
+    w = (torch.randn((cout, cin), device=DEV, generator=cuda_gen) * cin ** -0.5).to(torch.bfloat16)
+    lib = _build.load_library()
+    parts = lib.mrfp_dot_with_stats_parts(TRAIN_N, cout, hw, 1)
+    y = torch.empty((TRAIN_N, cout, side, side), dtype=torch.bfloat16, device=DEV)
+    part = torch.empty((2, parts, cout), dtype=torch.float64, device=DEV)
+    s1, s2 = (torch.empty(cout, device=DEV) for _ in range(2))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def c_entry():
+        err = lib.mrfp_dot_with_stats(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                                      part.data_ptr(), parts, s1.data_ptr(), s2.data_ptr(),
+                                      TRAIN_N, cin, cout, hw, 1, 1, stream)
+        _build.check(err, "dot_with_stats")
+
+    calls = (lambda: cuda_dot_stats.dot_with_stats_cuda(x, w), c_entry)
+    rounds = [[host_us(fn, runs=20) for fn in calls] for _ in range(5)]  # interleaved
+    us = [statistics.median(r[i] for r in rounds) for i in range(len(calls))]
+    dev = device_ms(lambda: cuda_dot_stats.dot_with_stats_cuda(x, w))
+    print(f"dot_with_stats host time a call, bf16 {name} {tuple(x.shape)}x({cout},{cin}), "
+          f"tensor-core kernel: wrapper {us[0]:.1f} us, of which the C entry (three tensor-map "
+          f"encodings, two launches) {us[1]:.1f} us; device time (graph) {dev * 1e3:.1f} us")
+    del x, w, y, part
 
 
 def _nearest_idx(size: int, rule: str, arg) -> tuple:
@@ -888,8 +1115,8 @@ def phase_fused_step(gen) -> dict:
 
     Then the main path: one bf16 batch-8 fused step through ``train_step``
     with the counts set to 0 just before and read just after; it must launch
-    dot_with_stats 36 times (once per bottleneck 1x1) and every resize
-    kernel."""
+    dot_with_stats 36 times (once per bottleneck 1x1), all 36 on the
+    tensor-core kernel, and every resize kernel."""
     from mrfp_tpu_torch.cli.train import build_state
     from mrfp_tpu_torch.models.mrfp import PerturbArgs
     from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
@@ -968,9 +1195,11 @@ def phase_fused_step(gen) -> dict:
     print(f"fused step bf16 {TRAIN_N}x{CROP}x{CROP}, gates on, through train_step: loss "
           f"{loss:.6f}; launches {launched}")
     if not math.isfinite(loss) or launched["dot_with_stats"] != 36 \
+            or launched["dot_with_stats_tc"] != 36 \
             or min(launched[k] for k in RESIZE_KERNELS) <= 0:
         raise AssertionError(f"fused step: loss {loss}, launches {launched} (want 36 "
-                             f"dot_with_stats and every resize kernel)")
+                             f"dot_with_stats, all 36 on the tensor-core kernel, and every "
+                             f"resize kernel)")
     del state
     torch.cuda.empty_cache()
     return launched
@@ -1100,7 +1329,8 @@ def main(argv=None) -> None:
              launches=eval_launches["confusion_matrix"], **hist),
         dict(name="dot_with_stats", route="cuda", source=src + "dot_stats.cu",
              replaces="mrfp_tpu/ops/pallas_dot_stats.py:112",
-             launches=fused_launches["dot_with_stats"], **dot_stats),
+             launches=fused_launches["dot_with_stats"],
+             tensor_core_launches=fused_launches["dot_with_stats_tc"], **dot_stats),
         dict(name="row_mix", route="cuda", source=src + "row_mix.cu",
              replaces="mrfp_tpu/ops/pallas_resize.py:74",
              launches=public_launches["row_mix"], **row_mix),

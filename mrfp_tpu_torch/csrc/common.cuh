@@ -1,6 +1,6 @@
-// Helpers shared by the kernels: fp32 <-> storage-type conversion and grid
-// sizing for grid-stride launches. Everything is in an anonymous namespace,
-// so each translation unit keeps its own copy.
+// Helpers shared by the kernels: fp32 <-> storage-type conversion, the SM
+// count and grid sizing for grid-stride launches. Everything is in an
+// anonymous namespace, so each translation unit keeps its own copy.
 
 #pragma once
 
@@ -19,9 +19,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);  // round to nearest even, like torch's cast
 }
 
-// Blocks for a grid-stride loop over `items` work items, `per_block` of them
-// per block: no more than it takes to give every SM `per_sm` blocks.
-inline int grid_for(int64_t items, int64_t per_block, int per_sm) {
+// The current device's SM count, read once.
+inline int sm_count() {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -29,8 +28,14 @@ inline int grid_for(int64_t items, int64_t per_block, int per_sm) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (sms <= 0) sms = 1;
   }
+  return sms;
+}
+
+// Blocks for a grid-stride loop over `items` work items, `per_block` of them
+// per block: no more than it takes to give every SM `per_sm` blocks.
+inline int grid_for(int64_t items, int64_t per_block, int per_sm) {
   const int64_t want = (items + per_block - 1) / per_block;
-  const int64_t cap = (int64_t)sms * per_sm;
+  const int64_t cap = (int64_t)sm_count() * per_sm;
   return (int)(want < cap ? want : cap);
 }
 

@@ -16,8 +16,7 @@
 // global histogram with one global atomic each. Integer atomics make the
 // result exact and independent of order.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -56,17 +55,8 @@ extern "C" int mrfp_confusion_matrix(const void* pred, const void* label, int64_
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 1;
-  }
   const int threads = 256;
-  const int64_t want = (n + threads - 1) / threads;
-  const int64_t cap = (int64_t)sms * 4;  // each block flushes C*C bins once
-  const int blocks = (int)(want < cap ? want : cap);
+  const int blocks = grid_for(n, threads, 4);  // each block flushes C*C bins once
   confusion_matrix_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const int*)pred, (const int*)label, n, num_classes, (int*)hist);
   return (int)cudaGetLastError();

@@ -9,7 +9,8 @@ or loaded when the package is imported.
 
 ``LAUNCHES`` counts kernel launches per wrapper: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
-path went through the kernels.
+path went through the kernels. ``dot_with_stats_tc`` counts the subset of
+``dot_with_stats`` launches that took the tensor-core kernel.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from pathlib import Path
 
 LAUNCHES = {"resize_bilinear": 0, "resize_bilinear_bwd": 0, "resize_nearest": 0,
             "resize_nearest_bwd": 0, "confusion_matrix": 0, "dot_with_stats": 0,
-            "row_mix": 0, "channel_sums": 0, "np_plus_apply": 0}
+            "dot_with_stats_tc": 0, "row_mix": 0, "channel_sums": 0, "np_plus_apply": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -44,14 +45,16 @@ _SIGNATURES = {
     "mrfp_resize_bilinear_bwd": [_P] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 5 + [_P],
     # x, out, iy, ix, nc, h, w, oh, ow, dtype, stream
     "mrfp_resize_nearest": [_P] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 5 + [_P],
-    # g, gx, ly, hy, lx, hx, nc, h, w, oh, ow, dtype, stream
-    "mrfp_resize_nearest_bwd": [_P] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 5 + [_P],
+    # g, gx, ly, hy, lx, hx, nc, h, w, oh, ow, rows_per_block, max_run_y, max_run_x,
+    # smem, dtype, stream
+    "mrfp_resize_nearest_bwd": [_P] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 7
+                               + [ctypes.c_int64, ctypes.c_int, _P],
     # pred, label, n, num_classes, hist, stream
     "mrfp_confusion_matrix": [_P, _P, ctypes.c_int64, ctypes.c_int, _P, _P],
-    # n, hw -> the partial rows mrfp_dot_with_stats needs
-    "mrfp_dot_with_stats_parts": [ctypes.c_int, ctypes.c_int],
-    # x, w, y, part, parts, s1, s2, n, cin, cout, hw, dtype, stream
-    "mrfp_dot_with_stats": [_P, _P, _P, _P, ctypes.c_int, _P, _P] + [ctypes.c_int] * 5 + [_P],
+    # n, cout, hw, tensor_cores -> the partial rows mrfp_dot_with_stats needs
+    "mrfp_dot_with_stats_parts": [ctypes.c_int] * 4,
+    # x, w, y, part, parts, s1, s2, n, cin, cout, hw, dtype, tensor_cores, stream
+    "mrfp_dot_with_stats": [_P, _P, _P, _P, ctypes.c_int, _P, _P] + [ctypes.c_int] * 6 + [_P],
     # x, p, out, idx, wt, cnt, planes, h, w, out, dim, dtype, stream
     "mrfp_row_mix": [_P] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 5 + [_P],
     # x, part, splits, s1, s2, n, channels, hw, dtype, stream

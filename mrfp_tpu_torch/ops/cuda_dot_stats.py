@@ -1,8 +1,10 @@
-"""1x1 convolution with BatchNorm sums: the CUDA kernel's wrapper and its
+"""1x1 convolution with BatchNorm sums: the CUDA kernels' wrapper and its
 plain PyTorch version.
 
-The kernel (``csrc/dot_stats.cu``) replaces
-mrfp_tpu/ops/pallas_dot_stats.py::dot_with_stats. Both versions take NCHW
+The kernels (``csrc/dot_stats.cu``) replace
+mrfp_tpu/ops/pallas_dot_stats.py::dot_with_stats: a tensor-core kernel for
+bf16 whose rows are 16-byte aligned (``tensor_core_route``), and a CUDA-core
+kernel for fp32 and every other bf16 shape. Both versions take NCHW
 ``x`` (N, Cin, H, W) and ``w`` (Cout, Cin) of one dtype, and return ``y =
 w @ x`` per sample in that dtype (accumulated in fp32) with the per-channel
 sums of the rounded ``y`` and of its square, taken in fp64 and rounded once
@@ -27,6 +29,20 @@ def _check_shapes(x: torch.Tensor, w: torch.Tensor) -> None:
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
 
 
+def tensor_core_route(dtype: torch.dtype, cin: int, hw: int) -> bool:
+    """Whether the tensor-core kernel takes this call: bf16, with ``Cin`` and
+    ``H*W`` multiples of 8, so that every row of ``w``, ``x`` and ``y``
+    starts 16-byte aligned as its tensor maps need. Decided before the
+    launch, by dtype and shape alone."""
+    return dtype == torch.bfloat16 and cin > 0 and cin % 8 == 0 and hw % 8 == 0
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, at a 16-byte aligned address (a copy if not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def dot_with_stats_plain(x: torch.Tensor, w: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``torch.matmul`` per sample (fp32 accumulation; fp32 stays fp32 when
@@ -43,7 +59,9 @@ def dot_with_stats_plain(x: torch.Tensor, w: torch.Tensor
 def dot_with_stats_cuda(x: torch.Tensor, w: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the kernel on CUDA tensors; raises if it cannot. A strided
-    ``x`` (a stride-2 slice) is made contiguous first."""
+    ``x`` (a stride-2 slice) is made contiguous first. The route is
+    ``tensor_core_route``'s; both count in ``LAUNCHES["dot_with_stats"]``,
+    the tensor-core one also in ``LAUNCHES["dot_with_stats_tc"]``."""
     lib = _build.load_library()
     if not (x.is_cuda and w.is_cuda):
         raise ValueError(f"dot_with_stats_cuda needs CUDA tensors, got {x.device}, {w.device}")
@@ -51,19 +69,22 @@ def dot_with_stats_cuda(x: torch.Tensor, w: torch.Tensor
         raise TypeError(f"dot_with_stats_cuda takes float32 or bfloat16 of one dtype, got "
                         f"{x.dtype} and {w.dtype}")
     _check_shapes(x, w)
-    x, w = x.contiguous(), w.contiguous()
     n, cin, h, wd = x.shape
     cout = w.shape[0]
+    tc = tensor_core_route(x.dtype, cin, h * wd)
+    x, w = (_aligned(x), _aligned(w)) if tc else (x.contiguous(), w.contiguous())
     y = torch.empty((n, cout, h, wd), dtype=x.dtype, device=x.device)
     s1 = torch.empty(cout, dtype=torch.float32, device=x.device)
     s2 = torch.empty(cout, dtype=torch.float32, device=x.device)
-    parts = lib.mrfp_dot_with_stats_parts(n, h * wd)
+    parts = lib.mrfp_dot_with_stats_parts(n, cout, h * wd, int(tc))
     part = torch.empty((2, max(parts, 1), cout), dtype=torch.float64, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.mrfp_dot_with_stats(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(), parts,
-            s1.data_ptr(), s2.data_ptr(), n, cin, cout, h * wd, _DTYPES[x.dtype],
+            s1.data_ptr(), s2.data_ptr(), n, cin, cout, h * wd, _DTYPES[x.dtype], int(tc),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "dot_with_stats")
     _build.LAUNCHES["dot_with_stats"] += 1
+    if tc:
+        _build.LAUNCHES["dot_with_stats_tc"] += 1
     return y, s1, s2

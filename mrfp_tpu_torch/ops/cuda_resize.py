@@ -141,6 +141,37 @@ def resize_nearest_cuda(x: torch.Tensor, ty, tx) -> torch.Tensor:
     return out
 
 
+# the staged nearest backward (csrc/resize_nearest.cu): input elements a
+# block aims at, and its shared-memory budget in bytes
+NEAREST_BWD_ELEMS = 4096
+NEAREST_BWD_SMEM_CAP = 96 * 1024
+
+
+def nearest_bwd_smem_bytes(w: int, rows: int, max_run: int, ow: int, itemsize: int) -> int:
+    """Shared memory the staged backward is launched with for ``rows``
+    input rows a block: the column and row tables (8 bytes an entry), the
+    block's input elements, the staged run of at most ``rows * max_run``
+    cotangent rows, and 64 bytes for the alignment of the tables' end and
+    the vector of slack each element buffer keeps (at most 56 bytes; the
+    kernel checks the sum against its ``bwd_layout``)."""
+    return 8 * w + 8 * rows + rows * w * itemsize + rows * max_run * ow * itemsize + 64
+
+
+def nearest_bwd_rows_per_block(w: int, ow: int, max_run_y: int, max_run_x: int,
+                               itemsize: int) -> int:
+    """Input rows each block of the staged backward takes: about
+    ``NEAREST_BWD_ELEMS`` elements, as many as fit the budget. 0, and the
+    shape takes the direct kernel, when a range of either table is longer
+    than two (the staged kernel's sums take at most two terms an axis) or
+    not even one row fits."""
+    if max_run_y > 2 or max_run_x > 2:
+        return 0
+    want = max(1, NEAREST_BWD_ELEMS // max(w, 1))
+    fit = (NEAREST_BWD_SMEM_CAP - nearest_bwd_smem_bytes(w, 0, max_run_y, ow, itemsize)) \
+        // (8 + (w + max_run_y * ow) * itemsize)
+    return max(0, min(want, fit))
+
+
 def resize_nearest_bwd_cuda(g: torch.Tensor, ty, tx, h: int, w: int) -> torch.Tensor:
     """Launch the nearest backward kernel on the contiguous CUDA cotangent
     ``g``; returns the (N, C, h, w) input gradient in ``g``'s dtype."""
@@ -151,11 +182,14 @@ def resize_nearest_bwd_cuda(g: torch.Tensor, ty, tx, h: int, w: int) -> torch.Te
         raise ValueError(f"cotangent {tuple(g.shape)} does not match the tables "
                          f"({ty.idx.numel()}, {tx.idx.numel()})")
     gx = torch.empty((n, c, h, w), dtype=g.dtype, device=g.device)
+    item = g.element_size()
+    rows = nearest_bwd_rows_per_block(w, ow, ty.max_run, tx.max_run, item)
+    smem = nearest_bwd_smem_bytes(w, rows, ty.max_run, ow, item) if rows else 0
     with torch.cuda.device(g.device):
         err = lib.mrfp_resize_nearest_bwd(
             g.data_ptr(), gx.data_ptr(), ty.lo.data_ptr(), ty.hi.data_ptr(),
-            tx.lo.data_ptr(), tx.hi.data_ptr(), n * c, h, w, oh, ow,
-            _DTYPES[g.dtype], _stream(g))
+            tx.lo.data_ptr(), tx.hi.data_ptr(), n * c, h, w, oh, ow, rows, ty.max_run,
+            tx.max_run, smem, _DTYPES[g.dtype], _stream(g))
     _build.check(err, "resize_nearest_bwd")
     _build.LAUNCHES["resize_nearest_bwd"] += 1
     return gx

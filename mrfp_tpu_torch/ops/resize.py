@@ -51,10 +51,13 @@ class BilinearTaps(NamedTuple):
 
 class NearestTable(NamedTuple):
     """One axis of a nearest resize, on the device: the source index per
-    output and the output range ``[lo, hi)`` per input (int32)."""
+    output and the output range ``[lo, hi)`` per input (int32); on the host,
+    ``max_run``, the longest of those ranges (it picks the backward kernel
+    and bounds the run of cotangent rows the staged one takes per block)."""
     idx: torch.Tensor
     lo: torch.Tensor
     hi: torch.Tensor
+    max_run: int
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,7 +140,8 @@ def nearest_table(in_size: int, rule: str, arg, device: torch.device) -> Nearest
         else:
             raise ValueError(f"rule must be 'scale' or 'size', got {rule!r}")
         lo, hi = inverse_ranges(idx, in_size)
-        table = NearestTable(_i32(idx, device), _i32(lo, device), _i32(hi, device))
+        table = NearestTable(_i32(idx, device), _i32(lo, device), _i32(hi, device),
+                             int((hi - lo).max(initial=0)))
         _NEAREST[key] = table
     return table
 

@@ -154,7 +154,8 @@ def test_library_name_tracks_the_sources():
         "row_mix.cu", "channel_sums.cu", "np_plus_apply.cu"}
     assert set(_build.LAUNCHES) == {"resize_bilinear", "resize_bilinear_bwd", "resize_nearest",
                                     "resize_nearest_bwd", "confusion_matrix", "dot_with_stats",
-                                    "row_mix", "channel_sums", "np_plus_apply"}
+                                    "dot_with_stats_tc", "row_mix", "channel_sums",
+                                    "np_plus_apply"}
     # every entry point the wrappers call has a ctypes signature
     calls = set()
     for src in (_build._PKG / "ops").glob("cuda_*.py"):
