@@ -7,7 +7,8 @@ Builds the CUDA kernels from ``mrfp_tpu_torch/csrc/`` and drives both paths
 of the port.
 
 Eval: holds the bilinear and confusion-matrix kernels against their plain
-PyTorch versions at the eval shapes, runs the full R50-D16 model at
+PyTorch versions at the eval shapes (the bilinear forward exactly, naming
+its route: 16-byte vector stores or scalar), runs the full R50-D16 model at
 1024x2048 through the kernels and through the plain versions, then drives
 ``mrfp_tpu_torch.cli.eval`` on synthetic 1024x2048 images in float32 and
 bfloat16 and checks that both kernels were launched there.
@@ -15,7 +16,8 @@ bfloat16 and checks that both kernels were launched there.
 Train: holds the nearest-resize kernels (forward and backward) against their
 plain versions, exactly, at the seven OC-branch resizes of a batch-8
 768x768 step and at edge cases (empty ranges, widths 1, 7, 9, h = 1, a
-partial last block), and the bilinear forward and backward at the train and eval shapes; takes one
+partial last block), and the bilinear forward (exactly) and backward at
+the train and eval shapes and an odd width (the forward's scalar route); takes one
 full-width MRFP+ step (all gates on, the same draws) through the kernels
 and through the plain versions and compares loss and gradients; times the
 bf16 batch-8 step with the gates on and off; then drives
@@ -31,7 +33,9 @@ runs them); takes one fp32 fused step through the kernels, through the plain
 versions and unfused, and times the bf16 fused step beside the unfused one;
 then drives one bf16 batch-8 fused step and counts its 36 dot_with_stats
 launches, all on the tensor-core kernel. Every kernel's line carries its bound on this card and the time
-of the PyTorch call that computes the same function.
+of the PyTorch call that computes the same function, single-call and on the
+device (a CUDA-graph replay, no host time; a profiler trace for bincount,
+which no graph can capture).
 
 Any failure raises and exits non-zero; the last line of stdout is the JSON
 verdict, printed only when every phase passed. With ``--profile DIR`` it
@@ -70,13 +74,18 @@ RESIZE_SHAPES = [
     ("mapillary decoder upsample", 1, 256, (96, 96), (384, 384)),
     ("mapillary logit upsample", 1, 19, (384, 384), (1536, 1536)),
 ]
-# in = 1, identity axis, out = 1 on either axis, odd sizes
+# in = 1, identity axis, out = 1 on either axis, odd sizes; rows too wide
+# for one block's shared memory, which the forward cuts into column tiles
+# (of whole vectors, and of single values where a vector's taps span the
+# whole 100000-wide input)
 EDGE_RESIZES = [((1, 1), (6, 10)), ((7, 9), (7, 15)), ((7, 9), (1, 5)),
-                ((7, 9), (11, 1)), ((13, 1), (27, 3))]
-# assert_close bounds: fp32 both sides lerp in fp32 (FMA contraction may
-# differ); bf16 both lerp in fp32 and round once, so about one bf16 ulp
-TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
-       torch.bfloat16: dict(atol=1e-2, rtol=8e-3)}
+                ((7, 9), (11, 1)), ((13, 1), (27, 3)), ((3, 4), (5, 30000)),
+                ((3, 100000), (2, 8))]
+# The bilinear forward's kernel rounds each product and sum as its plain
+# version does, so the two must be exactly equal. Its backward sums in
+# another order than the plain version's index_add_: assert_close bounds of
+# about one bf16 ulp (the fp32 bound is in phase_bilinear_train)
+TOL = {torch.bfloat16: dict(atol=1e-2, rtol=8e-3)}
 
 # the train recipe: batch 8 at 768x768 (the stem output is 8x64x192x192)
 TRAIN_N, CROP = 8, 768
@@ -123,7 +132,10 @@ BILINEAR_TRAIN_SHAPES = [
     ("train decoder injection", TRAIN_N, 256, (192, 192), (384, 384)),
     ("train logits from H/2", TRAIN_N, 19, (384, 384), (768, 768)),
     ("train logits from H/4", TRAIN_N, 19, (192, 192), (768, 768)),
-] + RESIZE_SHAPES[:3]
+] + RESIZE_SHAPES[:3] + [
+    # a width that is no whole number of 16-byte vectors: the scalar route
+    ("odd crop 769 logits", TRAIN_N, 19, (193, 193), (769, 769)),
+]
 # the four parameters whose gradients the kernel-vs-plain step compares
 # the fused fp32 step's fixture: every residual branch's last BN scale x DAMP
 # (tests/test_torch_train.py::ref_damped, ROADMAP C3)
@@ -239,6 +251,21 @@ def device_ms(fn, calls: int = 20) -> float:
     return statistics.median(times)
 
 
+def profiled_device_ms(fn, calls: int = 5) -> float:
+    """Device time of one call for a call a CUDA graph cannot capture (it
+    reads a value back to the host): the kernels' and copies' own device
+    time in a torch.profiler trace of ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages())
+    return us / calls / 1e3
+
+
 def host_us(fn, runs: int = 50) -> float:
     """Host time of one call in microseconds: the median wall time of
     ``runs`` calls, each made with the card's queue drained, so none waits
@@ -292,33 +319,52 @@ def phase_build():
         print(f"ptxas registers per kernel: {', '.join(per_kernel)}")
 
 
-def phase_resize(gen) -> float:
-    """The bilinear forward against its plain version at the eval shapes;
-    returns the worst error."""
+def _bilinear_route(x, size) -> str:
+    """The route the bilinear forward takes for ``x`` resized to ``size``:
+    "vector" (16-byte stores) or "scalar" (the wrapper's outputs are
+    16-byte aligned, so the width decides), and "tiled" where a row is cut
+    into column tiles."""
+    from mrfp_tpu_torch.ops import cuda_resize
+    plan = cuda_resize.bilinear_fwd_plan(*x.shape[2:], *size, x.element_size(), True)
+    route = "vector" if plan.vec > 1 else "scalar"
+    return route + (" tiled" if plan.cols < size[1] else "")
+
+
+def _bilinear_fwd_equal(got, ref, what: str) -> None:
+    if not torch.equal(got, ref):
+        raise AssertionError(f"resize_bilinear {what}: kernel != plain, max "
+                             f"{(got.float() - ref.float()).abs().max().item():.3e}")
+
+
+def phase_resize(gen) -> None:
+    """The bilinear forward against its plain version at the eval shapes and
+    the edge cases: exactly equal, each line naming the route that ran."""
     from mrfp_tpu_torch.ops.resize import resize_bilinear_align_corners as resize
-    worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for name, n, c, (h, w), size in RESIZE_SHAPES:
-            x = torch.randn((n, c, h, w), generator=gen).to("cuda", dtype)
+            x = torch.randn((n, c, h, w), generator=gen).to(DEV, dtype)
             got = resize(x, size)
             ref = resize(x, size, impl="plain")
             torch.cuda.synchronize()
-            torch.testing.assert_close(got, ref, **TOL[dtype])
-            err = (got.float() - ref.float()).abs().max().item()
-            worst = max(worst, err)
+            what = f"{_dtype_name(dtype)} {name} ({n},{c},{h},{w})->{size}"
+            _bilinear_fwd_equal(got, ref, what)
             k_ms = median_ms(lambda: resize(x, size))
             p_ms = median_ms(lambda: resize(x, size, impl="plain"))
             gb = (got.numel() + x.numel()) * got.element_size() / 1e9
-            print(f"resize_bilinear {str(dtype)[6:]} {name} ({n},{c},{h},{w})->{size}: "
-                  f"max_abs_err {err:.3e}; kernel {k_ms:.4f} ms "
-                  f"({gb / k_ms * 1e3:.0f} GB/s), plain {p_ms:.4f} ms")
+            print(f"resize_bilinear {what}: exactly equal, {_bilinear_route(x, size)} route; "
+                  f"kernel {k_ms:.4f} ms ({gb / k_ms * 1e3:.0f} GB/s), plain {p_ms:.4f} ms")
+        routes = []
         for (h, w), size in EDGE_RESIZES:
-            x = torch.randn((2, 5, h, w), generator=gen).to("cuda", dtype)
-            got, ref = resize(x, size), resize(x, size, impl="plain")
-            torch.testing.assert_close(got, ref, **TOL[dtype])
-            worst = max(worst, (got.float() - ref.float()).abs().max().item())
-        print(f"resize_bilinear {str(dtype)[6:]} edge cases {EDGE_RESIZES}: match")
-    return worst
+            # the second sample of three: a contiguous view whose data need
+            # not start on a 16-byte boundary (5 h w values in)
+            for x in (torch.randn((2, 5, h, w), generator=gen).to(DEV, dtype),
+                      torch.randn((3, 5, h, w), generator=gen).to(DEV, dtype)[1:2]):
+                _bilinear_fwd_equal(resize(x, size), resize(x, size, impl="plain"),
+                                    f"{_dtype_name(dtype)} edge case {tuple(x.shape)}->{size} "
+                                    f"at byte {x.data_ptr() % 16} of a granule")
+            routes.append(_bilinear_route(x, size))
+        print(f"resize_bilinear {_dtype_name(dtype)} edge cases {EDGE_RESIZES}, each also from "
+              f"an offset view: exactly equal, routes {routes}")
 
 
 def phase_hist(gen) -> dict:
@@ -331,15 +377,15 @@ def phase_hist(gen) -> dict:
         pred[junk > 0.99] = -1
         label = torch.randint(0, c, shape, generator=gen)
         label[torch.rand(shape, generator=gen) < 0.1] = 255  # ignore
-        pred, label = pred.cuda(), label.to(torch.uint8).cuda()
-        got = update(torch.zeros(c, c, dtype=torch.int32, device="cuda"), pred, label, c)
-        ref = update(torch.zeros(c, c, dtype=torch.int32, device="cuda"), pred, label, c,
+        pred, label = pred.to(DEV), label.to(DEV, torch.uint8)
+        got = update(torch.zeros(c, c, dtype=torch.int32, device=DEV), pred, label, c)
+        ref = update(torch.zeros(c, c, dtype=torch.int32, device=DEV), pred, label, c,
                      impl="plain")
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             raise AssertionError(f"confusion matrix C={c}: kernel != plain, "
                                  f"{(got - ref).abs().sum().item()} counts apart")
-        hist = torch.zeros(c, c, dtype=torch.int32, device="cuda")
+        hist = torch.zeros(c, c, dtype=torch.int32, device=DEV)
         k_ms = median_ms(lambda: update(hist, pred, label, c))
         p_ms = median_ms(lambda: update(hist, pred, label, c, impl="plain"))
         # the library call: one bincount of the kept pixels' flat indices
@@ -352,9 +398,15 @@ def phase_hist(gen) -> dict:
         print(f"confusion_matrix C={c} pred/label {tuple(shape)}: exactly equal "
               f"({got.sum().item()} counted); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
               f"bincount {l_ms:.4f} ms, bound {cost.bound_ms:.4f} ms")
-        if c == 19:
+        if c == 19:  # the eval shape
+            # bincount reads its input's max back to the host, so no graph
+            # can capture it: its device time comes from a profiler trace
+            dev = (device_ms(lambda: update(hist, pred, label, c)),
+                   profiled_device_ms(lambda: torch.bincount(flat, minlength=c * c)))
+            print(f"confusion_matrix C={c}: device time kernel {dev[0]:.4f} ms (graph), "
+                  f"bincount {dev[1]:.4f} ms (profiler)")
             out = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                   **cost.fields()}
+                   "device_ms": dev[0], "library_device_ms": dev[1], **cost.fields()}
     return out
 
 
@@ -479,9 +531,9 @@ def phase_nearest(cuda_gen) -> dict:
     from mrfp_tpu_torch.ops.resize import nearest_table
     import torch.nn.functional as F
     kernels = ("resize_nearest", "resize_nearest_bwd")
-    times = {k: [0.0, 0.0, 0.0] for k in kernels}  # bf16 sums: kernel, plain, library
+    # bf16 sums: kernel, plain, library single-call; kernel, library on the device
+    times = {k: [0.0] * 5 for k in kernels}
     costs = {k: Cost() for k in kernels}
-    dev_totals = [0.0, 0.0]  # bf16 backward device times: kernel, aten
     for dtype in (torch.bfloat16, torch.float32):
         for name, n, c, (h, w), rule in NEAREST_EDGES:
             x = torch.randn((n, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
@@ -532,48 +584,60 @@ def phase_nearest(cuda_gen) -> dict:
                               runs=10),
                     median_ms(lambda: torch.ops.aten.upsample_nearest2d_backward(
                         g, out_hw, list(x.shape)), runs=10))}
-                dev = (device_ms(lambda: cuda_resize.resize_nearest_bwd_cuda(g, ty, tx, h, w),
-                                 calls=10),
-                       device_ms(lambda: torch.ops.aten.upsample_nearest2d_backward(
-                           g, out_hw, list(x.shape)), calls=10))
+                dev = {"resize_nearest": (
+                    device_ms(lambda: cuda_resize.resize_nearest_cuda(x, ty, tx), calls=10),
+                    device_ms(lambda: F.interpolate(x, size=out_hw, mode="nearest"), calls=10)),
+                       "resize_nearest_bwd": (
+                    device_ms(lambda: cuda_resize.resize_nearest_bwd_cuda(g, ty, tx, h, w),
+                              calls=10),
+                    device_ms(lambda: torch.ops.aten.upsample_nearest2d_backward(
+                        g, out_hw, list(x.shape)), calls=10))}
             gb = 2 * yk.numel() * yk.element_size() / 1e9  # one read, one write of out
             gb_bwd = (yk.numel() + x.numel()) * yk.element_size() / 1e9  # g in, gx out
             print(f"resize_nearest {_dtype_name(dtype)} {name} ({TRAIN_N},{c},{h},{w})->"
                   f"{tuple(yk.shape[2:])}: forward exactly equal, kernel "
                   f"{ms['resize_nearest'][0]:.4f} ms ({gb / ms['resize_nearest'][0] * 1e3:.0f}"
                   f" GB/s), plain {ms['resize_nearest'][1]:.4f} ms, F.interpolate "
-                  f"{ms['resize_nearest'][2]:.4f} ms; backward exactly equal, staged kernel "
+                  f"{ms['resize_nearest'][2]:.4f} ms; device time (graph) forward kernel "
+                  f"{dev['resize_nearest'][0]:.4f} ms, F.interpolate "
+                  f"{dev['resize_nearest'][1]:.4f} ms; backward exactly equal, staged kernel "
                   f"{ms['resize_nearest_bwd'][0]:.4f} ms "
                   f"({gb_bwd / ms['resize_nearest_bwd'][0] * 1e3:.0f} GB/s), plain "
                   f"{ms['resize_nearest_bwd'][1]:.4f} ms, aten backward "
                   f"{ms['resize_nearest_bwd'][2]:.4f} ms; device time (graph) backward kernel "
-                  f"{dev[0]:.4f} ms ({gb_bwd / dev[0] * 1e3:.0f} GB/s), aten {dev[1]:.4f} ms")
+                  f"{dev['resize_nearest_bwd'][0]:.4f} ms "
+                  f"({gb_bwd / dev['resize_nearest_bwd'][0] * 1e3:.0f} GB/s), aten "
+                  f"{dev['resize_nearest_bwd'][1]:.4f} ms")
             if dtype == torch.bfloat16:
-                dev_totals = [a + b for a, b in zip(dev_totals, dev)]
                 for k in times:
-                    for i in range(3):
-                        times[k][i] += ms[k][i]
+                    for i, t in enumerate(ms[k] + dev[k]):
+                        times[k][i] += t
                     costs[k].add(nbytes(x, yk))  # forward: x in, y out; backward: g in, gx out
             del x, yk, g
         torch.cuda.empty_cache()
-    bwd = times["resize_nearest_bwd"]
-    print(f"resize_nearest_bwd bf16, the seven OC resizes: kernel {bwd[0]:.3f} ms, plain "
-          f"{bwd[1]:.3f} ms, aten backward {bwd[2]:.3f} ms, bound "
-          f"{costs['resize_nearest_bwd'].bound_ms:.3f} ms; device time (graph) kernel "
-          f"{dev_totals[0]:.3f} ms, aten {dev_totals[1]:.3f} ms")
+    for k, lib in (("resize_nearest", "F.interpolate"),
+                   ("resize_nearest_bwd", "aten backward")):
+        t = times[k]
+        print(f"{k} bf16, the seven OC resizes: kernel {t[0]:.3f} ms, plain {t[1]:.3f} ms, "
+              f"{lib} {t[2]:.3f} ms, bound {costs[k].bound_ms:.3f} ms; device time (graph) "
+              f"kernel {t[3]:.3f} ms, {lib} {t[4]:.3f} ms")
     return {k: {"max_abs_err": 0.0, "ms": times[k][0], "plain_ms": times[k][1],
-                "library_ms": times[k][2], **costs[k].fields()} for k in times}
+                "library_ms": times[k][2], "device_ms": times[k][3],
+                "library_device_ms": times[k][4], **costs[k].fields()} for k in times}
 
 
 def phase_bilinear_train(cuda_gen) -> dict:
-    """The bilinear forward (PR 1's kernel) and its backward (kernel C)
-    against their plain versions at the train and eval shapes. Returns the
-    two kernels' entries: worst error, and kernel and plain ms summed over
-    the five train shapes in bf16 (the step's own resizes)."""
+    """The bilinear forward and its backward (kernel C) against their plain
+    versions at the train and eval shapes and at an odd width (the forward's
+    scalar route): the forward exactly equal, each line naming its route.
+    Returns the two kernels' entries: worst error, and single-call and
+    device (CUDA-graph) ms of kernel, plain version and library call summed
+    over the five train shapes in bf16 (the step's own resizes)."""
     import torch.nn.functional as F
     from mrfp_tpu_torch.ops import cuda_resize
     from mrfp_tpu_torch.ops.resize import bilinear_taps, resize_bilinear_align_corners
-    out = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    keys = ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms")
+    out = {k: {"max_abs_err": 0.0, **dict.fromkeys(keys, 0.0)}
            for k in ("resize_bilinear", "resize_bilinear_bwd")}
     costs = {k: Cost() for k in out}
     for dtype in (torch.bfloat16, torch.float32):
@@ -583,8 +647,8 @@ def phase_bilinear_train(cuda_gen) -> dict:
             yk = resize_bilinear_align_corners(xk, size)
             yp = resize_bilinear_align_corners(xp, size, impl="plain")
             torch.cuda.synchronize()
-            torch.testing.assert_close(yk, yp, **TOL[dtype])
-            fwd_err = (yk.float() - yp.float()).abs().max().item()
+            what = f"{_dtype_name(dtype)} {name} ({n},{c},{h},{w})->{size}"
+            _bilinear_fwd_equal(yk, yp, what)
             g = torch.randn(yk.shape, device=DEV, generator=cuda_gen).to(dtype)
             yk.backward(g)
             yp.backward(g)
@@ -594,7 +658,7 @@ def phase_bilinear_train(cuda_gen) -> dict:
                 # an input of the 1x1 broadcast sums 2,304 (8,192 at eval)
                 # terms, in another order on each side (the plain version's
                 # index_add_ uses atomics): allow a few fp32 ulps of the sum
-                # of the terms' magnitudes on top of the forward's bound
+                # of the terms' magnitudes on top of 1e-5
                 mag = cuda_resize.resize_bilinear_bwd_plain(g.abs(), ty, tx, h, w)
                 allowed = 1e-5 + 1e-5 * xp.grad.abs() + 2.0 ** -21 * mag
                 over = ((xk.grad - xp.grad).abs() - allowed).max().item()
@@ -604,39 +668,45 @@ def phase_bilinear_train(cuda_gen) -> dict:
             else:
                 torch.testing.assert_close(xk.grad, xp.grad, **TOL[dtype])
             bwd_err = (xk.grad.float() - xp.grad.float()).abs().max().item()
+            calls = {"resize_bilinear": (
+                lambda: cuda_resize.resize_bilinear_cuda(x, ty, tx),
+                lambda: cuda_resize.resize_bilinear_plain(x, ty, tx),
+                lambda: F.interpolate(x, size=size, mode="bilinear", align_corners=True)),
+                     "resize_bilinear_bwd": (
+                lambda: cuda_resize.resize_bilinear_bwd_cuda(g, ty, tx, h, w),
+                lambda: cuda_resize.resize_bilinear_bwd_plain(g, ty, tx, h, w),
+                lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                    g, list(size), list(x.shape), True))}
             with torch.no_grad():
-                ms = {"resize_bilinear": (
-                    median_ms(lambda: cuda_resize.resize_bilinear_cuda(x, ty, tx), runs=10),
-                    median_ms(lambda: cuda_resize.resize_bilinear_plain(x, ty, tx), runs=10),
-                    median_ms(lambda: F.interpolate(x, size=size, mode="bilinear",
-                                                    align_corners=True), runs=10)),
-                      "resize_bilinear_bwd": (
-                    median_ms(lambda: cuda_resize.resize_bilinear_bwd_cuda(g, ty, tx, h, w),
-                              runs=10),
-                    median_ms(lambda: cuda_resize.resize_bilinear_bwd_plain(g, ty, tx, h, w),
-                              runs=10),
-                    median_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
-                        g, list(size), list(x.shape), True), runs=10))}
-            for k, err in (("resize_bilinear", fwd_err), ("resize_bilinear_bwd", bwd_err)):
+                # single call: kernel, plain, library; device: kernel, library
+                ms = {k: [median_ms(f, runs=10) for f in fns]
+                      + [device_ms(fns[0], calls=10), device_ms(fns[2], calls=10)]
+                      for k, fns in calls.items()}
+            for k, err in (("resize_bilinear", 0.0), ("resize_bilinear_bwd", bwd_err)):
                 out[k]["max_abs_err"] = max(out[k]["max_abs_err"], err)
                 if dtype == torch.bfloat16 and name.startswith("train"):
-                    out[k]["ms"] += ms[k][0]
-                    out[k]["plain_ms"] += ms[k][1]
-                    out[k]["library_ms"] += ms[k][2]
+                    for key, t in zip(keys, ms[k]):
+                        out[k][key] += t
                     costs[k].add(nbytes(x, g))  # x in / y out, or g in / gx out
             gb = (g.numel() + x.numel()) * g.element_size() / 1e9
-            print(f"resize_bilinear {_dtype_name(dtype)} {name} ({n},{c},{h},{w})->{size}: "
-                  f"forward max_abs_err {fwd_err:.3e}, kernel {ms['resize_bilinear'][0]:.4f} ms, "
-                  f"plain {ms['resize_bilinear'][1]:.4f} ms; backward max_abs_err "
-                  f"{bwd_err:.3e} (|grad| max {xp.grad.float().abs().max().item():.3e}), "
-                  f"kernel {ms['resize_bilinear_bwd'][0]:.4f} ms "
-                  f"({gb / ms['resize_bilinear_bwd'][0] * 1e3:.0f} GB/s), "
-                  f"plain {ms['resize_bilinear_bwd'][1]:.4f} ms; library forward / backward "
-                  f"{ms['resize_bilinear'][2]:.4f} / {ms['resize_bilinear_bwd'][2]:.4f} ms")
+            fwd, bwd = ms["resize_bilinear"], ms["resize_bilinear_bwd"]
+            print(f"resize_bilinear {what}: forward exactly equal, "
+                  f"{_bilinear_route(x, size)} route, kernel {fwd[0]:.4f} ms, plain "
+                  f"{fwd[1]:.4f} ms, F.interpolate {fwd[2]:.4f} ms; device time (graph) kernel "
+                  f"{fwd[3]:.4f} ms ({gb / fwd[3] * 1e3:.0f} GB/s), F.interpolate {fwd[4]:.4f} "
+                  f"ms; backward max_abs_err {bwd_err:.3e} (|grad| max "
+                  f"{xp.grad.float().abs().max().item():.3e}), kernel {bwd[0]:.4f} ms "
+                  f"({gb / bwd[0] * 1e3:.0f} GB/s), plain {bwd[1]:.4f} ms, aten backward "
+                  f"{bwd[2]:.4f} ms; device time (graph) kernel {bwd[3]:.4f} ms, aten "
+                  f"{bwd[4]:.4f} ms")
             del x, xk, xp, yk, yp, g
         torch.cuda.empty_cache()
     for k in out:
         out[k].update(costs[k].fields())
+        print(f"{k} bf16, the five train resizes: kernel {out[k]['ms']:.3f} ms, plain "
+              f"{out[k]['plain_ms']:.3f} ms, library {out[k]['library_ms']:.3f} ms, bound "
+              f"{out[k]['bound_ms']:.3f} ms; device time (graph) kernel "
+              f"{out[k]['device_ms']:.3f} ms, library {out[k]['library_device_ms']:.3f} ms")
     return out
 
 
@@ -734,7 +804,8 @@ def phase_dot_stats(cuda_gen) -> dict:
           f"bound {cost.bound_ms:.3f} ms; device time (graph) kernel {totals[3]:.3f} ms, "
           f"conv2d+var_mean {totals[4]:.3f} ms")
     return {"max_abs_err": worst, "ms": totals[0], "plain_ms": totals[1],
-            "library_ms": totals[2], **cost.fields()}
+            "library_ms": totals[2], "device_ms": totals[3], "library_device_ms": totals[4],
+            **cost.fields()}
 
 
 def _dot_stats_host_times(cuda_gen) -> None:
@@ -786,7 +857,7 @@ def phase_row_mix(cuda_gen) -> dict:
     forward plus backward; the library calls index_select / index_add_."""
     from mrfp_tpu_torch.ops import cuda_row_mix
     from mrfp_tpu_torch.ops.resize import onehot_rows
-    totals, cost = [0.0, 0.0, 0.0], Cost()
+    totals, cost = [0.0] * 5, Cost()
     for dtype in (torch.bfloat16, torch.float32):
         for i, (name, c, (h, w), rule) in enumerate(NEAREST_SHAPES):
             dim = 2 if i % 2 == 0 else 3
@@ -807,26 +878,35 @@ def phase_row_mix(cuda_gen) -> dict:
                 raise AssertionError(f"row_mix {name} dim {dim} {dtype}: kernel != plain "
                                      f"(forward {torch.equal(yk, yp)}, "
                                      f"backward {torch.equal(gk, gp)})")
-            ms = [median_ms(lambda: cuda_row_mix.row_mix_cuda(x, p, dim), runs=10)
-                  + median_ms(lambda: cuda_row_mix.row_mix_cuda(g, pt, dim), runs=10),
-                  median_ms(lambda: cuda_row_mix.row_mix_plain(x, p, dim), runs=10)
-                  + median_ms(lambda: cuda_row_mix.row_mix_plain(g, pt, dim), runs=10),
-                  median_ms(lambda: x.index_select(dim, ti), runs=10)
-                  + median_ms(lambda: torch.zeros_like(x).index_add_(dim, ti, g), runs=10)]
+            pairs = ((lambda: cuda_row_mix.row_mix_cuda(x, p, dim),
+                      lambda: cuda_row_mix.row_mix_cuda(g, pt, dim)),
+                     (lambda: cuda_row_mix.row_mix_plain(x, p, dim),
+                      lambda: cuda_row_mix.row_mix_plain(g, pt, dim)),
+                     (lambda: x.index_select(dim, ti),
+                      lambda: torch.zeros_like(x).index_add_(dim, ti, g)))
+            ms = [median_ms(fwd, runs=10) + median_ms(bwd, runs=10) for fwd, bwd in pairs]
+            ms += [device_ms(fwd, calls=10) + device_ms(bwd, calls=10)
+                   for fwd, bwd in (pairs[0], pairs[2])]
             print(f"row_mix {_dtype_name(dtype)} {name} ({TRAIN_N},{c},{h},{w}) along "
                   f"{'HW'[dim - 2]} -> {tuple(yk.shape[2:])}: forward and backward exactly "
                   f"equal; forward + backward kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, "
-                  f"index_select + index_add_ {ms[2]:.4f} ms")
+                  f"index_select + index_add_ {ms[2]:.4f} ms; device time (graph) kernel "
+                  f"{ms[3]:.4f} ms, index_select + index_add_ {ms[4]:.4f} ms")
             if dtype == torch.bfloat16:
-                for j in range(3):
+                for j in range(5):
                     totals[j] += ms[j]
                 # each direction reads one map and P, writes the other map
                 cost.add(nbytes(x, yk, p))
                 cost.add(nbytes(g, gk, pt))
             del x, yk, yp, g, gk, gp
         torch.cuda.empty_cache()
+    print(f"row_mix bf16, the seven OC shapes forward + backward: kernel {totals[0]:.3f} ms, "
+          f"plain {totals[1]:.3f} ms, index_select + index_add_ {totals[2]:.3f} ms, bound "
+          f"{cost.bound_ms:.3f} ms; device time (graph) kernel {totals[3]:.3f} ms, "
+          f"index_select + index_add_ {totals[4]:.3f} ms")
     return {"max_abs_err": 0.0, "ms": totals[0], "plain_ms": totals[1],
-            "library_ms": totals[2], **cost.fields()}
+            "library_ms": totals[2], "device_ms": totals[3], "library_device_ms": totals[4],
+            **cost.fields()}
 
 
 def phase_channel_sums(cuda_gen) -> dict:
@@ -852,30 +932,41 @@ def phase_channel_sums(cuda_gen) -> dict:
         k_ms = median_ms(lambda: cuda_channel_sums.channel_sums_cuda(x), runs=10)
         p_ms = median_ms(lambda: cuda_channel_sums.channel_sums_plain(x), runs=10)
         l_ms = median_ms(lambda: torch.var_mean(x, dim=(0, 2, 3)), runs=10)
+        dev = (device_ms(lambda: cuda_channel_sums.channel_sums_cuda(x)),
+               device_ms(lambda: torch.var_mean(x, dim=(0, 2, 3))))
         cost = Cost()
         cost.add(nbytes(x, s1k, s2k), 3.0 * x.numel(), torch.float32)
         print(f"channel_sums {_dtype_name(dtype)} {tuple(x.shape)}: max abs diff vs "
               f"plain {err:.3e} (|s2| max {s2p.abs().max().item():.3e}); kernel {k_ms:.4f} ms "
               f"({nbytes(x) / k_ms / 1e6:.0f} GB/s), plain {p_ms:.4f} ms, var_mean "
-              f"{l_ms:.4f} ms, bound {cost.bound_ms:.4f} ms")
+              f"{l_ms:.4f} ms, bound {cost.bound_ms:.4f} ms; device time (graph) kernel "
+              f"{dev[0]:.4f} ms ({nbytes(x) / dev[0] / 1e6:.0f} GB/s), var_mean {dev[1]:.4f} ms")
         if dtype == torch.bfloat16:
             out = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                   **cost.fields()}
+                   "device_ms": dev[0], "library_device_ms": dev[1], **cost.fields()}
         del x
     torch.cuda.empty_cache()
     return out
 
 
+# (C, side): the two NP+ sites of the batch-8 step (H/4 = 192), then a
+# ragged plane (191 x 191 values, no whole number of 16-byte vectors): the
+# scalar route
+NP_PLUS_SHAPES = [(64, CROP // 4), (256, CROP // 4), (64, CROP // 4 - 1)]
+
+
 def phase_np_plus(cuda_gen) -> dict:
     """np_plus_apply at the two NP+ sites of the batch-8 step, (8,64,192,192)
-    and (8,256,192,192), in bf16: kernel and plain round the same fp32 ops,
-    so they must be exactly equal. The library call is one addcmul with the
-    coefficients in x's dtype (the JAX package's form)."""
+    and (8,256,192,192), and at a ragged plane, in bf16 and fp32: kernel and
+    plain round the same fp32 ops, so they must be exactly equal. The
+    library call is one addcmul with the coefficients in x's dtype (the JAX
+    package's form). Sums over the two sites in bf16, single-call and on
+    the device (CUDA graph)."""
     from mrfp_tpu_torch.ops import cuda_np_plus
-    totals, cost = [0.0, 0.0, 0.0], Cost()
-    for c in (64, 256):
+    totals, cost = [0.0] * 5, Cost()
+    for c, side in NP_PLUS_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn((TRAIN_N, c, CROP // 4, CROP // 4), device=DEV,
+            x = torch.randn((TRAIN_N, c, side, side), device=DEV,
                             generator=cuda_gen).to(dtype)
             alpha = torch.randn((TRAIN_N, c, 1, 1), device=DEV, generator=cuda_gen)
             shift = torch.randn((TRAIN_N, c, 1, 1), device=DEV, generator=cuda_gen)
@@ -885,21 +976,31 @@ def phase_np_plus(cuda_gen) -> dict:
             if not torch.equal(got, ref):
                 raise AssertionError(f"np_plus_apply C={c} {dtype}: kernel != plain, max "
                                      f"{(got.float() - ref.float()).abs().max().item()}")
+            vec = cuda_np_plus.np_plus_vector_width(x.element_size(), side * side,
+                                                    x.data_ptr(), got.data_ptr())
             a, b = alpha.to(dtype), shift.to(dtype)
-            ms = (median_ms(lambda: cuda_np_plus.np_plus_apply_cuda(x, alpha, shift), runs=10),
-                  median_ms(lambda: cuda_np_plus.np_plus_apply_plain(x, alpha, shift), runs=10),
-                  median_ms(lambda: torch.addcmul(b, x, a), runs=10))
-            print(f"np_plus_apply {_dtype_name(dtype)} {tuple(x.shape)}: exactly equal; "
-                  f"kernel {ms[0]:.4f} ms ({2 * nbytes(x) / ms[0] / 1e6:.0f} GB/s), plain "
-                  f"{ms[1]:.4f} ms, addcmul {ms[2]:.4f} ms")
-            if dtype == torch.bfloat16:
-                for j in range(3):
+            fns = (lambda: cuda_np_plus.np_plus_apply_cuda(x, alpha, shift),
+                   lambda: cuda_np_plus.np_plus_apply_plain(x, alpha, shift),
+                   lambda: torch.addcmul(b, x, a))
+            ms = [median_ms(f, runs=10) for f in fns] + [device_ms(fns[0]), device_ms(fns[2])]
+            moved = 2 * nbytes(x)
+            print(f"np_plus_apply {_dtype_name(dtype)} {tuple(x.shape)}: exactly equal, "
+                  f"{'vector' if vec > 1 else 'scalar'} route; kernel {ms[0]:.4f} ms "
+                  f"({moved / ms[0] / 1e6:.0f} GB/s), plain {ms[1]:.4f} ms, addcmul "
+                  f"{ms[2]:.4f} ms; device time (graph) kernel {ms[3]:.4f} ms "
+                  f"({moved / ms[3] / 1e6:.0f} GB/s), addcmul {ms[4]:.4f} ms")
+            if dtype == torch.bfloat16 and side == CROP // 4:
+                for j in range(5):
                     totals[j] += ms[j]
                 cost.add(nbytes(x, got, alpha, shift))
             del x, got, ref
     torch.cuda.empty_cache()
+    print(f"np_plus_apply bf16, the two NP+ sites: kernel {totals[0]:.4f} ms, plain "
+          f"{totals[1]:.4f} ms, addcmul {totals[2]:.4f} ms, bound {cost.bound_ms:.4f} ms; "
+          f"device time (graph) kernel {totals[3]:.4f} ms, addcmul {totals[4]:.4f} ms")
     return {"max_abs_err": 0.0, "ms": totals[0], "plain_ms": totals[1],
-            "library_ms": totals[2], **cost.fields()}
+            "library_ms": totals[2], "device_ms": totals[3], "library_device_ms": totals[4],
+            **cost.fields()}
 
 
 def phase_public_paths(cuda_gen) -> dict:
@@ -1290,7 +1391,7 @@ def main(argv=None) -> None:
     kind = phase_report()
     phase_build()
     gen = torch.Generator().manual_seed(0)
-    resize_err = phase_resize(gen)
+    phase_resize(gen)
     hist = phase_hist(gen)
     phase_model(gen, args.profile)
     torch.cuda.empty_cache()
@@ -1298,8 +1399,6 @@ def main(argv=None) -> None:
     cuda_gen = torch.Generator(device=DEV).manual_seed(0)
     nearest = phase_nearest(cuda_gen)
     bilinear = phase_bilinear_train(cuda_gen)
-    bilinear["resize_bilinear"]["max_abs_err"] = max(
-        bilinear["resize_bilinear"]["max_abs_err"], resize_err)
     dot_stats = phase_dot_stats(cuda_gen)
     row_mix = phase_row_mix(cuda_gen)
     channel_sums = phase_channel_sums(cuda_gen)

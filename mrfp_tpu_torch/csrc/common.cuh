@@ -19,6 +19,19 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);  // round to nearest even, like torch's cast
 }
 
+// The word one access moves: VEC values of T, 16 bytes on a vector route,
+// or a single T on a scalar route. A thread reads its values out of the word
+// (and builds the word it stores) through a T pointer.
+template <typename T, int VEC>
+struct Words {
+  static_assert(sizeof(T) * VEC == 16, "a vector access moves 16 bytes");
+  using type = uint4;
+};
+template <typename T>
+struct Words<T, 1> {
+  using type = T;
+};
+
 // The current device's SM count, read once.
 inline int sm_count() {
   static int sms = 0;

@@ -24,10 +24,23 @@
 //
 // What bounds it on Hopper. Forward: bytes written. Every resize of the
 // model is an upsample (ASPP broadcast 1x1 -> H/16, decoder H/16 -> H/4,
-// logits H/4 or H/2 -> H), so each output element costs one store, and the
-// four reads it makes hit the same few input rows as its neighbours'. One
-// thread per output element, consecutive threads on consecutive columns so
-// the stores coalesce, a grid-stride loop with int64 offsets.
+// logits H/4 or H/2 -> H), so each output element costs one store and the
+// reads are a fraction of it. One block takes a band of output rows of one
+// plane (and a tile of its columns, where a row is too wide for shared
+// memory): the plane, the band and the tile come from blockIdx, once per
+// block. It copies the input segments the band reads into shared memory as
+// 16-byte granules (independent loads: one round trip to memory), W-mixes
+// each staged row once, in fp32, then writes each output row as the H lerp
+// of its two W-mixed rows, consecutive threads on consecutive 16-byte
+// stores (8 bf16 or 4 fp32). The host plans the band height, the staged
+// rows and columns and the shared memory (cuda_resize.bilinear_fwd_plan),
+// and picks the scalar route (one value a store) for widths that are not a
+// whole number of vectors or an unaligned output. Each product and sum is
+// rounded in fp32 as the plain version's tensor ops round them (no FMA
+// contraction, 1 - frac rounded), so the two agree bit for bit. On an H100
+// the bf16 train resizes run at about 60% of the bytes' bound: per output,
+// the instructions of the two mixes and the barriers between the phases of
+// a band, not the bytes, hold it there (PERF.md).
 //
 // Backward: bytes read. An upsample's cotangent is the large tensor, and
 // each input element sums a (2r x 2r) patch of it for an upsample by r, the
@@ -42,32 +55,177 @@
 
 namespace {
 
-template <typename T>
-__global__ void resize_bilinear_kernel(const T* __restrict__ x, T* __restrict__ out,
-                                       const int* __restrict__ iy0, const int* __restrict__ iy1,
-                                       const float* __restrict__ fy,
-                                       const int* __restrict__ ix0, const int* __restrict__ ix1,
-                                       const float* __restrict__ fx,
-                                       int64_t nc, int h, int w, int oh, int ow) {
-  const int64_t total = nc * oh * ow;
-  const int64_t in_plane = (int64_t)h * w;
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (int64_t)gridDim.x * blockDim.x) {
-    const int ox = (int)(idx % ow);
-    const int64_t rest = idx / ow;
-    const int oy = (int)(rest % oh);
-    const int64_t plane = rest / oh;
-    const T* src = x + plane * in_plane;
-    const int64_t r0 = (int64_t)__ldg(iy0 + oy) * w;
-    const int64_t r1 = (int64_t)__ldg(iy1 + oy) * w;
-    const int c0 = __ldg(ix0 + ox);
-    const int c1 = __ldg(ix1 + ox);
-    const float wx = __ldg(fx + ox);
-    const float wy = __ldg(fy + oy);
-    const float top = (1.f - wx) * to_f32(src[r0 + c0]) + wx * to_f32(src[r0 + c1]);
-    const float bot = (1.f - wx) * to_f32(src[r1 + c0]) + wx * to_f32(src[r1 + c1]);
-    out[idx] = from_f32<T>((1.f - wy) * top + wy * bot);
+constexpr int kBandThreads = 256;
+constexpr int kBandSmemCap = 48 * 1024;  // no opt-in needed; four blocks an SM
+
+// The banded forward's launch, planned on the host: output rows a band
+// takes and input rows the stage holds; output columns a tile takes, the
+// input columns it reads at most and the 16-byte granules a staged raw row
+// keeps; the bands a plane and the tiles a row are cut into.
+struct BandPlan {
+  int band;
+  int stage_rows;
+  int cols;
+  int in_cols;
+  int raw_pitch;
+  int bands;
+  int tiles;
+};
+
+__device__ __forceinline__ void unpack(const float4& f, float* v) {
+  v[0] = f.x;
+  v[1] = f.y;
+  v[2] = f.z;
+  v[3] = f.w;
+}
+
+// Where staged column c lies in its fp32 row of `cols` values. At VEC = 8
+// a row keeps the first four values of every group of 8 in its first half
+// and the last four in its second, so a thread's two 16-byte loads are
+// each 16 bytes from its neighbour's and a quarter warp's touch 8 distinct
+// bank groups (in plain order they lie 32 bytes apart: a 2-way conflict).
+template <int VEC>
+__device__ __forceinline__ int staged_pos(int c, int cols) {
+  if constexpr (VEC == 8) {
+    return (c & 4) ? cols / 2 + ((c >> 3) << 2) + (c & 3) : ((c >> 3) << 2) + (c & 3);
+  } else {
+    return c;
   }
+}
+
+// the VEC staged values of output columns g * VEC .. g * VEC + VEC - 1
+template <int VEC>
+__device__ __forceinline__ void load_staged(const float* row, int g, int cols, float (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    v[0] = row[g];
+  } else {
+    const float4* q = reinterpret_cast<const float4*>(row);
+    unpack(q[g], v);
+    if constexpr (VEC == 8) unpack(q[cols / 8 + g], v + 4);
+  }
+}
+
+// VEC fp32 values rounded into one output word: bf16 pairs converted by one
+// instruction each (both round to nearest even, as one at a time would)
+template <typename T, int VEC, typename Word>
+__device__ __forceinline__ void pack(const float (&v)[VEC], Word& word) {
+  if constexpr (sizeof(T) == 2 && VEC > 1) {
+    __nv_bfloat162* pairs = reinterpret_cast<__nv_bfloat162*>(&word);
+#pragma unroll
+    for (int k = 0; k < VEC / 2; ++k) pairs[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+  } else {
+    T* res = reinterpret_cast<T*>(&word);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) res[k] = from_f32<T>(v[k]);
+  }
+}
+
+// one output word, a streaming store on a vector route (the output is read
+// by the next layer, not by this kernel)
+template <int VEC, typename Word>
+__device__ __forceinline__ void store_word(Word* row, int g, const Word& word) {
+  if constexpr (VEC == 1) {
+    row[g] = word;
+  } else {
+    __stcs(reinterpret_cast<float4*>(row) + g, *reinterpret_cast<const float4*>(&word));
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kBandThreads)
+resize_bilinear_band_kernel(const T* __restrict__ x, T* __restrict__ out,
+                            const int* __restrict__ iy0, const int* __restrict__ iy1,
+                            const float* __restrict__ fy, const int* __restrict__ ix0,
+                            const int* __restrict__ ix1, const float* __restrict__ fx,
+                            int64_t blocks, int h, int w, int oh, int ow, BandPlan plan) {
+  using Word = typename Words<T, VEC>::type;
+  constexpr int kPerGranule = 16 / sizeof(T);
+  // stage_rows raw input rows of raw_pitch granules, then stage_rows W-mixed
+  // fp32 rows of plan.cols values
+  extern __shared__ uint4 smem_granules[];
+  uint4* raw = smem_granules;
+  float* stage = reinterpret_cast<float*>(raw + plan.stage_rows * plan.raw_pitch);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  for (int64_t blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
+    const int tile = (int)(blk % plan.tiles);
+    const int64_t rest = blk / plan.tiles;
+    const int oy0 = (int)(rest % plan.bands) * plan.band;
+    const int64_t plane = rest / plan.bands;
+    const int oy1 = min(oy0 + plan.band, oh);
+    const int ox0 = tile * plan.cols;
+    const int cols = min(plan.cols, ow - ox0);
+    const int base = __ldg(iy0 + oy0);
+    const int rows = __ldg(iy1 + oy1 - 1) - base + 1;
+    const int seg0 = __ldg(ix0 + ox0);
+    const int seg_len = __ldg(ix1 + ox0 + cols - 1) - seg0 + 1;
+    // the plan sizes the stage for every band and tile
+    if (rows > plan.stage_rows || seg_len > plan.in_cols) __trap();
+
+    // copy the input segment each staged row reads, [seg0, seg0 + seg_len),
+    // as the 16-byte granules that hold it: every load independent, so one
+    // round trip to memory. A granule that holds a byte of the segment lies
+    // in the same page as that byte.
+    const T* seg = x + (plane * h + base) * (int64_t)w + seg0;
+    for (int t = tid; t < rows * plan.raw_pitch; t += nthreads) {
+      const int r = t / plan.raw_pitch;
+      const int q = t - r * plan.raw_pitch;
+      const uintptr_t start = reinterpret_cast<uintptr_t>(seg + (int64_t)r * w);
+      const uintptr_t granule = (start & ~(uintptr_t)15) + 16 * (uintptr_t)q;
+      if (granule < start + (uintptr_t)seg_len * sizeof(T))
+        raw[t] = __ldg(reinterpret_cast<const uint4*>(granule));
+    }
+    __syncthreads();
+
+    // W-mix each staged row: xw = x0 * (1 - fx) + x1 * fx, in fp32
+    const unsigned lead0 = (unsigned)(reinterpret_cast<uintptr_t>(seg) % 16) / sizeof(T);
+    for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+      const int j0 = __ldg(ix0 + ox0 + c) - seg0;
+      const int j1 = __ldg(ix1 + ox0 + c) - seg0;
+      const float w1 = __ldg(fx + ox0 + c);
+      const float w0 = __fsub_rn(1.f, w1);
+      float* col = stage + staged_pos<VEC>(c, plan.cols);
+      for (int r = threadIdx.y; r < rows; r += blockDim.y) {
+        // row r's segment starts lead values into its first granule
+        const unsigned lead = (lead0 + (unsigned)r * (unsigned)w) % kPerGranule;
+        const T* vals = reinterpret_cast<const T*>(raw + r * plan.raw_pitch) + lead;
+        col[r * plan.cols] =
+            __fadd_rn(__fmul_rn(to_f32(vals[j0]), w0), __fmul_rn(to_f32(vals[j1]), w1));
+      }
+    }
+    __syncthreads();
+
+    // each output row: out = xw[iy0] * (1 - fy) + xw[iy1] * fy, a word a store
+    T* dst = out + plane * (int64_t)oh * ow + ox0;
+    for (int r = threadIdx.y; r < oy1 - oy0; r += blockDim.y) {
+      const int oy = oy0 + r;
+      const float w1 = __ldg(fy + oy);
+      const float w0 = __fsub_rn(1.f, w1);
+      const float* s0 = stage + (__ldg(iy0 + oy) - base) * plan.cols;
+      const float* s1 = stage + (__ldg(iy1 + oy) - base) * plan.cols;
+      Word* orow = reinterpret_cast<Word*>(dst + (int64_t)oy * ow);
+      for (int g = threadIdx.x; g < cols / VEC; g += blockDim.x) {
+        float a[VEC], b[VEC];
+        load_staged<VEC>(s0, g, plan.cols, a);
+        load_staged<VEC>(s1, g, plan.cols, b);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) a[k] = __fadd_rn(__fmul_rn(a[k], w0), __fmul_rn(b[k], w1));
+        Word word;
+        pack<T, VEC>(a, word);
+        store_word<VEC>(orow, g, word);
+      }
+    }
+    __syncthreads();  // the next band of this block restages
+  }
+}
+
+template <typename T, int VEC>
+void launch_fwd(const void* x, void* out, const int* iy0, const int* iy1, const float* fy,
+                const int* ix0, const int* ix1, const float* fx, int64_t blocks, int h, int w,
+                int oh, int ow, const BandPlan& plan, dim3 threads, int smem, cudaStream_t s) {
+  const int64_t grid = blocks < INT32_MAX ? blocks : INT32_MAX;
+  resize_bilinear_band_kernel<T, VEC><<<(unsigned)grid, threads, smem, s>>>(
+      (const T*)x, (T*)out, iy0, iy1, fy, ix0, ix1, fx, blocks, h, w, oh, ow, plan);
 }
 
 // The tables of one axis for the backward: the second tap's weight per
@@ -124,16 +282,32 @@ void launch_bwd(const void* g, void* gx, const AxisRanges& ay, const AxisRanges&
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
+// x (nc, h, w) -> out (nc, oh, ow) of `dtype` (0 = float32, 1 = bfloat16),
+// by the tap tables of each axis, on the plan of cuda_resize.bilinear_fwd_plan:
+// `vec` values a store (16 / itemsize, or 1), `band` output rows and `cols`
+// output columns a block, `stage_rows` staged input rows of at most
+// `in_cols` values in `raw_pitch` granules each, `smem` bytes in all,
+// threads_x x threads_y threads. Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a plan the kernel does not take.
 extern "C" int mrfp_resize_bilinear(const void* x, void* out, const void* iy0, const void* iy1,
                                     const void* fy, const void* ix0, const void* ix1,
                                     const void* fx, int64_t nc, int h, int w, int oh, int ow,
+                                    int vec, int band, int stage_rows, int cols, int in_cols,
+                                    int raw_pitch, int threads_x, int threads_y, int smem,
                                     int dtype, void* stream) {
-  const int64_t total = nc * oh * ow;
-  if (total == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  // 8 blocks of 256 fill an SM's 2048 threads
-  const int blocks = grid_for(total, threads, 8);
+  if (nc == 0 || oh == 0 || ow == 0) return (int)cudaSuccess;
+  const int item = dtype == 0 ? 4 : 2;
+  const bool vector_ok = vec == 16 / item && ow % vec == 0 && cols % vec == 0 &&
+                         (uintptr_t)out % 16 == 0;
+  if ((dtype != 0 && dtype != 1) || (vec != 1 && !vector_ok) || band < 1 || cols < 1 ||
+      stage_rows < 1 || in_cols < 1 || raw_pitch < (in_cols * item + 15) / 16 + 1 ||
+      threads_x < 1 || threads_y < 1 || threads_x * threads_y > kBandThreads ||
+      smem < (int64_t)stage_rows * (16 * raw_pitch + 4 * cols) || smem > kBandSmemCap)
+    return (int)cudaErrorInvalidValue;
+  const BandPlan plan{band,    stage_rows, cols, in_cols, raw_pitch, (oh + band - 1) / band,
+                      (ow + cols - 1) / cols};
+  const int64_t blocks = nc * plan.bands * plan.tiles;
+  const dim3 threads(threads_x, threads_y);
   cudaStream_t s = (cudaStream_t)stream;
   const int* y0 = (const int*)iy0;
   const int* y1 = (const int*)iy1;
@@ -142,13 +316,19 @@ extern "C" int mrfp_resize_bilinear(const void* x, void* out, const void* iy0, c
   const float* wy = (const float*)fy;
   const float* wx = (const float*)fx;
   if (dtype == 0) {
-    resize_bilinear_kernel<float><<<blocks, threads, 0, s>>>(
-        (const float*)x, (float*)out, y0, y1, wy, x0, x1, wx, nc, h, w, oh, ow);
-  } else if (dtype == 1) {
-    resize_bilinear_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        (const __nv_bfloat16*)x, (__nv_bfloat16*)out, y0, y1, wy, x0, x1, wx, nc, h, w, oh, ow);
+    if (vec == 1)
+      launch_fwd<float, 1>(x, out, y0, y1, wy, x0, x1, wx, blocks, h, w, oh, ow, plan, threads,
+                           smem, s);
+    else
+      launch_fwd<float, 4>(x, out, y0, y1, wy, x0, x1, wx, blocks, h, w, oh, ow, plan, threads,
+                           smem, s);
   } else {
-    return (int)cudaErrorInvalidValue;
+    if (vec == 1)
+      launch_fwd<__nv_bfloat16, 1>(x, out, y0, y1, wy, x0, x1, wx, blocks, h, w, oh, ow, plan,
+                                   threads, smem, s);
+    else
+      launch_fwd<__nv_bfloat16, 8>(x, out, y0, y1, wy, x0, x1, wx, blocks, h, w, oh, ow, plan,
+                                   threads, smem, s);
   }
   return (int)cudaGetLastError();
 }

@@ -36,10 +36,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # x, out, iy0, iy1, fy, ix0, ix1, fx, nc, h, w, oh, ow, dtype, stream
-    "mrfp_resize_bilinear": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
-                             ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_int, _P],
+    # x, out, iy0, iy1, fy, ix0, ix1, fx, nc, h, w, oh, ow, vec, band, stage_rows,
+    # cols, in_cols, raw_pitch, threads_x, threads_y, smem, dtype, stream
+    "mrfp_resize_bilinear": [_P] * 8 + [ctypes.c_int64] + [ctypes.c_int] * 14 + [_P],
     # g, gx, fy, ly0, hy0, ly1, hy1, fx, lx0, hx0, lx1, hx1, nc, h, w, oh, ow,
     # dtype, stream
     "mrfp_resize_bilinear_bwd": [_P] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 5 + [_P],
@@ -60,8 +59,9 @@ _SIGNATURES = {
     # x, part, splits, s1, s2, n, channels, hw, dtype, stream
     "mrfp_channel_sums": [_P, _P, ctypes.c_int, _P, _P, ctypes.c_int64, ctypes.c_int,
                           ctypes.c_int64, ctypes.c_int, _P],
-    # x, alpha, shift, out, planes, hw, dtype, stream
-    "mrfp_np_plus_apply": [_P] * 4 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, _P],
+    # x, alpha, shift, out, planes, hw, vec, dtype, stream
+    "mrfp_np_plus_apply": [_P] * 4 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                                      ctypes.c_int, _P],
 }
 
 _lock = threading.Lock()

@@ -5,7 +5,8 @@ The kernel (``csrc/np_plus_apply.cu``) replaces
 mrfp_tpu/ops/pallas_np_plus.py::np_plus_apply_pallas. Both versions take
 NCHW ``x`` and (N, C, 1, 1) coefficients, multiply and add in fp32 (each
 op rounded, no FMA), and round once to ``x.dtype``, so they agree bit for
-bit.
+bit. The kernel moves 16 bytes an access where ``np_plus_vector_width``
+allows it, one value otherwise.
 """
 
 from __future__ import annotations
@@ -30,6 +31,15 @@ def np_plus_apply_plain(x: torch.Tensor, alpha: torch.Tensor,
     return (x.float() * alpha.float() + shift.float()).to(x.dtype)
 
 
+def np_plus_vector_width(itemsize: int, hw: int, *ptrs: int) -> int:
+    """Values of x one access of the kernel moves: 16 bytes' worth (the
+    vector route) when a plane of ``hw`` values is a whole number of
+    16-byte vectors and every pointer is 16-byte aligned, else 1 (the
+    scalar route)."""
+    vec = 16 // itemsize
+    return vec if hw % vec == 0 and all(p % 16 == 0 for p in ptrs) else 1
+
+
 def np_plus_apply_cuda(x: torch.Tensor, alpha: torch.Tensor,
                        shift: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on CUDA tensors; raises if it cannot."""
@@ -44,10 +54,11 @@ def np_plus_apply_cuda(x: torch.Tensor, alpha: torch.Tensor,
     shift = shift.float().contiguous()
     out = torch.empty_like(x)
     n, c, h, w = x.shape
+    vec = np_plus_vector_width(x.element_size(), h * w, x.data_ptr(), out.data_ptr())
     with torch.cuda.device(x.device):
         err = lib.mrfp_np_plus_apply(
             x.data_ptr(), alpha.data_ptr(), shift.data_ptr(), out.data_ptr(), n * c, h * w,
-            _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+            vec, _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "np_plus_apply")
     _build.LAUNCHES["np_plus_apply"] += 1
     return out

@@ -19,6 +19,10 @@ rounds once to the tensor's dtype.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple, Tuple
+
+import numpy as np
 import torch
 
 from mrfp_tpu_torch.ops import _build
@@ -69,18 +73,106 @@ def resize_bilinear_bwd_plain(g: torch.Tensor, ty, tx, h: int, w: int) -> torch.
     return gx.to(g.dtype)
 
 
+# the banded forward (csrc/resize_bilinear.cu): output elements a block aims
+# at, its threads at most, and its shared memory at most (48 KB: no opt-in,
+# and four blocks fit an SM)
+BILINEAR_FWD_ELEMS = 16384
+BILINEAR_FWD_THREADS = 256
+BILINEAR_FWD_SMEM_CAP = 48 * 1024
+
+
+class BilinearFwdPlan(NamedTuple):
+    """The banded forward's launch: ``vec`` values a store moves (16 bytes'
+    worth, or 1 on the scalar route); ``band`` output rows and ``cols``
+    output columns a block takes (a whole row unless one does not fit);
+    ``stage_rows`` input rows and ``in_cols`` input columns a block reads at
+    most, each row kept raw in ``raw_pitch`` 16-byte granules and W-mixed in
+    ``cols`` fp32 values; ``threads`` (along a row, across rows); ``smem``
+    bytes."""
+    vec: int
+    band: int
+    stage_rows: int
+    cols: int
+    in_cols: int
+    raw_pitch: int
+    threads: Tuple[int, int]
+    smem: int
+
+
+def bilinear_band_span(i0: np.ndarray, i1: np.ndarray, band: int) -> int:
+    """The most inputs one block of ``band`` consecutive outputs reads along
+    an axis (the blocks tile the outputs from 0): ``i1`` of its last output
+    minus ``i0`` of its first, plus one. Both tables are monotone."""
+    starts = np.arange(0, i0.size, band)
+    ends = np.minimum(starts + band, i0.size) - 1
+    return int((i1[ends] - i0[starts]).max()) + 1
+
+
+def bilinear_fwd_smem_bytes(stage_rows: int, cols: int, raw_pitch: int) -> int:
+    """Shared memory of the banded forward: each staged row raw, in 16-byte
+    granules, and W-mixed, in fp32 (the kernel checks its launch against
+    the same sum)."""
+    return stage_rows * (16 * raw_pitch + 4 * cols)
+
+
+@functools.lru_cache(maxsize=None)
+def bilinear_fwd_plan(h: int, w: int, oh: int, ow: int, itemsize: int,
+                      aligned: bool) -> BilinearFwdPlan:
+    """Plan the banded forward of an (h, w) -> (oh, ow) resize: the vector
+    route for an ``aligned`` output whose rows are whole 16-byte vectors,
+    else the scalar route; about ``BILINEAR_FWD_ELEMS`` outputs a band, as
+    many rows as keep its shared memory within the budget; column tiles
+    (halved until they fit) only where a one-row band of whole rows does
+    not fit."""
+    # the tables' own rule; resize imports this module, so not at load
+    from mrfp_tpu_torch.ops.resize import bilinear_ac_weights
+    iy0, iy1, _ = bilinear_ac_weights(h, oh)
+    ix0, ix1, _ = bilinear_ac_weights(w, ow)
+
+    def layout(band, cols):
+        rows, in_cols = bilinear_band_span(iy0, iy1, band), bilinear_band_span(ix0, ix1, cols)
+        pitch = (in_cols * itemsize + 15) // 16 + 1  # a segment may start mid-granule
+        return rows, in_cols, pitch, bilinear_fwd_smem_bytes(rows, cols, pitch)
+
+    vec = 16 // itemsize
+    if ow % vec or not aligned:
+        vec = 1
+    cap = BILINEAR_FWD_SMEM_CAP
+    band = max(1, min(oh, BILINEAR_FWD_ELEMS // ow))
+    while band > 1 and layout(band, ow)[3] > cap:
+        band -= 1
+    cols = ow
+    while layout(band, cols)[3] > cap:
+        cols //= 2
+        if vec > 1:
+            cols = cols // vec * vec
+            if cols == 0:  # a tile of one vector does not fit: scalar tiles
+                vec, cols = 1, 1
+    rows, in_cols, pitch, smem = layout(band, cols)
+    groups = cols // vec
+    tx = -(-groups // -(-groups // BILINEAR_FWD_THREADS))  # the groups split evenly
+    ty = max(1, BILINEAR_FWD_THREADS // tx)
+    return BilinearFwdPlan(vec, band, rows, cols, in_cols, pitch, (tx, ty), smem)
+
+
 def resize_bilinear_cuda(x: torch.Tensor, ty, tx) -> torch.Tensor:
     """Launch the forward kernel on a CUDA tensor; raises if it cannot."""
     lib = _build.load_library()
     _check(x, "resize_bilinear_cuda")
     n, c, h, w = x.shape
+    if (h, w) != (ty.lo0.numel(), tx.lo0.numel()):
+        raise ValueError(f"input {tuple(x.shape)} does not match the tables "
+                         f"({ty.lo0.numel()}, {tx.lo0.numel()})")
     oh, ow = ty.idx0.numel(), tx.idx0.numel()
     out = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
+    plan = bilinear_fwd_plan(h, w, oh, ow, x.element_size(), out.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
         err = lib.mrfp_resize_bilinear(
             x.data_ptr(), out.data_ptr(), ty.idx0.data_ptr(), ty.idx1.data_ptr(),
             ty.frac.data_ptr(), tx.idx0.data_ptr(), tx.idx1.data_ptr(),
-            tx.frac.data_ptr(), n * c, h, w, oh, ow, _DTYPES[x.dtype], _stream(x))
+            tx.frac.data_ptr(), n * c, h, w, oh, ow, plan.vec, plan.band, plan.stage_rows,
+            plan.cols, plan.in_cols, plan.raw_pitch, *plan.threads, plan.smem,
+            _DTYPES[x.dtype], _stream(x))
     _build.check(err, "resize_bilinear")
     _build.LAUNCHES["resize_bilinear"] += 1
     return out

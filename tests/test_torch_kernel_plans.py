@@ -12,6 +12,14 @@
 - ``nearest_bwd_rows_per_block``: the block size fits the shared-memory
   budget, or is 0 (the direct kernel) where a range is longer than two or
   not even one row fits.
+- ``cuda_np_plus.np_plus_vector_width``: the NP+ apply's vector route
+  (16-byte accesses) where a plane is whole vectors and both pointers are
+  16-byte aligned, else the scalar route.
+- ``cuda_resize.bilinear_fwd_plan``: the banded bilinear forward's route,
+  bands, column tiles and shared memory, held against a brute force over
+  ``bilinear_ac_weights`` at every train, eval and edge shape of
+  ``chip_smoke.py``: every output's taps lie in its block's staged rows and
+  columns, the blocks tile the output once, the budget holds.
 - The wrappers' argument checks raise before any launch.
 """
 
@@ -20,8 +28,8 @@ import pytest
 import torch
 
 from mrfp_tpu.ops.resize import _nearest_idx_from_scale, _nearest_idx_from_size
-from mrfp_tpu_torch.ops import _build, cuda_dot_stats, cuda_resize
-from mrfp_tpu_torch.ops.resize import nearest_table
+from mrfp_tpu_torch.ops import _build, cuda_dot_stats, cuda_np_plus, cuda_resize
+from mrfp_tpu_torch.ops.resize import bilinear_ac_weights, bilinear_taps, nearest_table
 
 torch.set_num_threads(2)
 
@@ -192,6 +200,11 @@ def _meta(*shape, dtype=torch.bfloat16):
     (lambda: cuda_resize.resize_nearest_cuda(
         torch.zeros(1, 2, 5, 6), nearest_table(5, "size", 7, "cpu"),
         nearest_table(6, "size", 8, "cpu")), ValueError),
+    (lambda: cuda_resize.resize_bilinear_cuda(
+        torch.zeros(1, 2, 5, 6), bilinear_taps(5, 7, "cpu"), bilinear_taps(6, 8, "cpu")),
+     ValueError),
+    (lambda: cuda_np_plus.np_plus_apply_cuda(torch.zeros(1, 2, 5, 6), torch.zeros(1, 2, 1, 1),
+                                             torch.zeros(1, 2, 1, 1)), ValueError),
 ])
 def test_wrappers_refuse_cpu_tensors(monkeypatch, call, error):
     monkeypatch.setattr(_build, "load_library", lambda: _NoLaunch())
@@ -225,3 +238,121 @@ def test_nearest_wrapper_refuses_mismatched_cotangents(monkeypatch):
         cuda_resize.resize_nearest_bwd_cuda(_meta(2, 7, 8), ty, tx, 5, 6)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         cuda_resize.resize_nearest_bwd_cuda(_meta(1, 2, 7, 8, dtype=torch.float16), ty, tx, 5, 6)
+
+
+@pytest.mark.parametrize("itemsize,hw,ptrs,expected", [
+    (2, 192 * 192, (0, 4096), 8),          # the NP+ sites in bf16
+    (4, 192 * 192, (256, 512), 4),         # and in fp32
+    (2, 191 * 191, (0, 4096), 1),          # a ragged plane: the scalar route
+    (4, 191 * 191, (0, 4096), 1),
+    (2, 190 * 190, (0, 4096), 1),          # 36100 values: whole fp32 vectors, not bf16
+    (4, 190 * 190, (0, 4096), 4),
+    (2, 64, (8, 4096), 1),                 # x 8 bytes into a granule
+    (4, 64, (0, 4100), 1),                 # out 4 bytes into a granule
+    (2, 1, (0, 0), 1),
+])
+def test_np_plus_vector_width(itemsize, hw, ptrs, expected):
+    assert cuda_np_plus.np_plus_vector_width(itemsize, hw, *ptrs) == expected
+
+
+# (in_hw, out_hw) of every bilinear forward chip_smoke.py runs: the five
+# train resizes, the odd-crop scalar shape, the six eval resizes, the edge
+# cases (the last two need column tiles); then more shapes that need column
+# tiles or shrink the band, and the BDD100k logits
+BILINEAR_SHAPES = [
+    ((1, 1), (48, 48)), ((48, 48), (192, 192)), ((192, 192), (384, 384)),
+    ((384, 384), (768, 768)), ((192, 192), (768, 768)), ((193, 193), (769, 769)),
+    ((1, 1), (64, 128)), ((64, 128), (256, 512)), ((256, 512), (1024, 2048)),
+    ((1, 1), (96, 96)), ((96, 96), (384, 384)), ((384, 384), (1536, 1536)),
+    ((1, 1), (6, 10)), ((7, 9), (7, 15)), ((7, 9), (1, 5)), ((7, 9), (11, 1)),
+    ((13, 1), (27, 3)),
+    ((3, 4), (5, 30000)), ((3, 100000), (2, 8)),
+    ((3, 4), (3, 30000)), ((2, 30000), (3, 30008)), ((3, 100000), (3, 8)),
+    ((1000, 4), (2, 3)), ((45, 80), (720, 1280)),
+]
+
+
+@pytest.mark.parametrize("in_hw,out_hw", BILINEAR_SHAPES)
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_bilinear_band_plan_stages_every_tap(in_hw, out_hw, itemsize):
+    """Each block (a band of output rows by a tile of output columns) stages
+    rows [iy0[first], iy0[first] + stage_rows) and columns [ix0[first],
+    ix0[first] + in_cols), as the kernel does: every output's two taps lie
+    inside, the blocks tile the output exactly once, and the shared memory
+    the launch asks for is the layout's and within the budget."""
+    (h, w), (oh, ow) = in_hw, out_hw
+    plan = cuda_resize.bilinear_fwd_plan(h, w, oh, ow, itemsize, True)
+    iy0, iy1, _ = bilinear_ac_weights(h, oh)
+    ix0, ix1, _ = bilinear_ac_weights(w, ow)
+    rows_seen = np.zeros(oh, int)
+    for oy0 in range(0, oh, plan.band):
+        band = np.arange(oy0, min(oy0 + plan.band, oh))
+        rows_seen[band] += 1
+        base = iy0[oy0]
+        assert base <= iy0[band].min() and iy1[band].max() < base + plan.stage_rows
+    cols_seen = np.zeros(ow, int)
+    for ox0 in range(0, ow, plan.cols):
+        tile = np.arange(ox0, min(ox0 + plan.cols, ow))
+        cols_seen[tile] += 1
+        seg0 = ix0[ox0]
+        assert seg0 <= ix0[tile].min() and ix1[tile].max() < seg0 + plan.in_cols
+    assert (rows_seen == 1).all() and (cols_seen == 1).all()
+    # a raw row keeps its segment from any byte of its first granule on
+    assert 16 * plan.raw_pitch >= plan.in_cols * itemsize + 16 - itemsize
+    assert plan.smem == cuda_resize.bilinear_fwd_smem_bytes(plan.stage_rows, plan.cols,
+                                                            plan.raw_pitch)
+    assert plan.smem <= cuda_resize.BILINEAR_FWD_SMEM_CAP
+    assert plan.cols % plan.vec == 0 and plan.stage_rows <= h and plan.in_cols <= w
+    tx, ty = plan.threads
+    assert tx * ty <= cuda_resize.BILINEAR_FWD_THREADS and tx * plan.vec <= plan.cols
+
+
+@pytest.mark.parametrize("in_hw,out_hw", BILINEAR_SHAPES[:12])
+def test_bilinear_band_plan_is_as_tall_as_the_budget_allows(in_hw, out_hw):
+    """At the model's shapes a band is about BILINEAR_FWD_ELEMS outputs, or
+    as many rows as fit, and takes whole rows (no column tiles)."""
+    (h, w), (oh, ow) = in_hw, out_hw
+    for itemsize in (2, 4):
+        plan = cuda_resize.bilinear_fwd_plan(h, w, oh, ow, itemsize, True)
+        assert plan.cols == ow
+        want = max(1, min(oh, cuda_resize.BILINEAR_FWD_ELEMS // ow))
+        if plan.band < want:  # one row more would not fit
+            iy0, iy1, _ = bilinear_ac_weights(h, oh)
+            rows = cuda_resize.bilinear_band_span(iy0, iy1, plan.band + 1)
+            assert cuda_resize.bilinear_fwd_smem_bytes(rows, ow, plan.raw_pitch) \
+                > cuda_resize.BILINEAR_FWD_SMEM_CAP
+
+
+@pytest.mark.parametrize("itemsize,ow,aligned,vec", [
+    (2, 384, True, 8), (4, 384, True, 4), (2, 769, True, 1), (4, 769, True, 1),
+    (2, 100, True, 1), (4, 100, True, 4), (2, 384, False, 1), (4, 384, False, 1),
+    (2, 10, True, 1), (4, 1, True, 1),
+])
+def test_bilinear_vector_route(itemsize, ow, aligned, vec):
+    assert cuda_resize.bilinear_fwd_plan(16, 16, 48, ow, itemsize, aligned).vec == vec
+
+
+def test_bilinear_wrapper_refuses_dtypes_and_shapes(monkeypatch):
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(_build, "load_library", lambda: _NoLaunch())
+    ty, tx = bilinear_taps(5, 7, "meta"), bilinear_taps(6, 8, "meta")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cuda_resize.resize_bilinear_cuda(_meta(1, 2, 5, 6, dtype=torch.float16), ty, tx)
+    with pytest.raises(ValueError, match="does not match the tables"):
+        cuda_resize.resize_bilinear_cuda(_meta(1, 2, 5, 7), ty, tx)
+    with pytest.raises(ValueError, match="NCHW-contiguous"):
+        cuda_resize.resize_bilinear_cuda(_meta(2, 5, 6), ty, tx)
+
+
+def test_np_plus_wrapper_refuses_dtypes_and_shapes(monkeypatch):
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(_build, "load_library", lambda: _NoLaunch())
+    coef = _meta(2, 3, 1, 1, dtype=torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cuda_np_plus.np_plus_apply_cuda(_meta(2, 3, 4, 4, dtype=torch.float16), coef, coef)
+    with pytest.raises(ValueError, match="coefficients"):
+        cuda_np_plus.np_plus_apply_cuda(_meta(2, 3, 4, 4), _meta(2, 4, 1, 1), coef)
+    with pytest.raises(ValueError, match="coefficients"):
+        cuda_np_plus.np_plus_apply_cuda(_meta(2, 3, 4, 4), coef, _meta(1, 3, 1, 1))
+    with pytest.raises(ValueError, match="coefficients"):
+        cuda_np_plus.np_plus_apply_cuda(_meta(2, 3, 16), coef, coef)

@@ -51,7 +51,7 @@ def test_port_imports_no_jax():
 
 
 PORT_SOURCES = sorted(str(p.relative_to(REPO)) for p in (REPO / "mrfp_tpu_torch").rglob("*.py")) \
-    + ["chip_smoke.py"]
+    + ["chip_smoke.py", "chip_compare.py"]
 
 
 @pytest.mark.parametrize("source", PORT_SOURCES)
