@@ -8,7 +8,8 @@ Each ROOT is a checkout of this repository (``.`` for this one; a parent
 unpacked with ``git archive`` into a git-ignored directory). Each runs in a
 process of its own, which builds that checkout's kernels and imports its
 ``chip_smoke.py`` helpers, and prints one line: the device time
-(CUDA-graph replay) of the bilinear forward at the five bf16 train resizes
+(CUDA-graph replay) of the bilinear forward and backward at the five bf16
+train resizes, of the nearest forward at the seven bf16 OC-branch resizes
 and of the NP+ apply at the two NP+ sites, each with its sum; the bf16
 batch-8 768x768 train step, unfused and fused, gates on and off; and the
 fp32 1x3x1024x2048 eval forward (medians of 7 single-call CUDA-event
@@ -34,7 +35,7 @@ def _one(root: str) -> str:
     from mrfp_tpu_torch.models import build_mrfp
     from mrfp_tpu_torch.models.mrfp import PerturbArgs
     from mrfp_tpu_torch.ops import _build, cuda_np_plus, cuda_resize
-    from mrfp_tpu_torch.ops.resize import bilinear_taps
+    from mrfp_tpu_torch.ops.resize import bilinear_taps, nearest_table
     from mrfp_tpu_torch.perturb.np_plus import draw_np_plus
     from mrfp_tpu_torch.train.step import train_step
 
@@ -55,6 +56,26 @@ def _one(root: str) -> str:
         out.append(f"{name.removeprefix('train ')} {ms:.4f}")
         del x
     out.append(f"resize_bilinear five-shape sum {total:.4f}")
+    total = 0.0
+    for name, n, ch, (h, w), size in c.BILINEAR_TRAIN_SHAPES[:5]:
+        gy = torch.randn((n, ch, *size), device="cuda", generator=g).to(torch.bfloat16)
+        ty, tx = bilinear_taps(h, size[0], gy.device), bilinear_taps(w, size[1], gy.device)
+        total += c.device_ms(lambda: cuda_resize.resize_bilinear_bwd_cuda(gy, ty, tx, h, w),
+                             calls=10)
+        del gy
+    out.append(f"resize_bilinear_bwd five-shape sum {total:.4f}")
+    total = 0.0
+    for name, ch, (h, w), rule in c.NEAREST_SHAPES:
+        (rule_name, arg), = rule.items()
+        x = torch.randn((c.TRAIN_N, ch, h, w), device="cuda", generator=g).to(torch.bfloat16)
+        ty = nearest_table(h, rule_name, arg[0], x.device)
+        tx = nearest_table(w, rule_name, arg[1], x.device)
+        if not torch.equal(cuda_resize.resize_nearest_cuda(x, ty, tx),
+                           cuda_resize.resize_nearest_plain(x, ty, tx)):
+            out.append(f"{name} NOT EQUAL to plain")
+        total += c.device_ms(lambda: cuda_resize.resize_nearest_cuda(x, ty, tx), calls=10)
+        del x
+    out.append(f"resize_nearest seven-shape sum {total:.4f}")
     total = 0.0
     for ch in (64, 256):
         side = c.CROP // 4

@@ -17,12 +17,14 @@ Train: holds the nearest-resize kernels (forward and backward) against their
 plain versions, exactly, at the seven OC-branch resizes of a batch-8
 768x768 step and at edge cases (empty ranges, widths 1, 7, 9, h = 1, a
 partial last block), and the bilinear forward (exactly) and backward at
-the train and eval shapes and an odd width (the forward's scalar route); takes one
+the train and eval shapes and an odd width (the forward's scalar route), the
+backward also at every edge shape and from an offset view; takes one
 full-width MRFP+ step (all gates on, the same draws) through the kernels
 and through the plain versions and compares loss and gradients; times the
 bf16 batch-8 step with the gates on and off; then drives
 ``mrfp_tpu_torch.cli.train`` for 6 steps and resumes it to 8, checking that
-every resize kernel was launched there.
+every resize kernel was launched there, and evaluates that run's checkpoint
+with ``mrfp_tpu_torch.cli.eval --ckpt``.
 
 Fused statistics (``cfg.train.fuse_bn_stats``): holds dot_with_stats
 against its plain version at the 15 shapes of the step's 36 bottleneck 1x1s
@@ -491,15 +493,45 @@ def _nearest_bwd_kernel(x, rule) -> str:
     return "staged" if rows else "direct"
 
 
+def _nearest_fwd_kernel(x, rule) -> str:
+    """Which nearest forward kernel the wrapper launches for ``x`` and
+    ``rule``: "staged" (the ix table and a band's input rows fit its shared
+    memory) or "direct"."""
+    from mrfp_tpu_torch.ops import cuda_resize
+    from mrfp_tpu_torch.ops.resize import nearest_table
+    (rule_name, arg), = rule.items()
+    h, w = x.shape[2:]
+    ty = nearest_table(h, rule_name, arg[0], DEV)
+    ow = nearest_table(w, rule_name, arg[1], DEV).idx.numel()
+    plan = cuda_resize.nearest_fwd_plan(ty.spec, w, ow, x.element_size())
+    return "staged" if plan.band else "direct"
+
+
+def _nearest_fwd_bytes(x, rule) -> int:
+    """The bytes the staged nearest forward moves for ``x``: each band's run
+    of input rows (a downsample's band reads the rows it skips too, and a
+    row two bands share is read twice) and the output once."""
+    from mrfp_tpu_torch.ops import cuda_resize
+    from mrfp_tpu_torch.ops.resize import nearest_index, nearest_table
+    (rule_name, arg), = rule.items()
+    n, c, h, w = x.shape
+    ty = nearest_table(h, rule_name, arg[0], DEV)
+    ow = nearest_table(w, rule_name, arg[1], DEV).idx.numel()
+    band = cuda_resize.nearest_fwd_plan(ty.spec, w, ow, x.element_size()).band
+    iy = nearest_index(*ty.spec)
+    rows = sum(int(iy[min(o + band, iy.size) - 1] - iy[o]) + 1 for o in range(0, iy.size, band))
+    return n * c * (rows * w + iy.size * ow) * x.element_size()
+
+
 def _nearest_pair(x, rule, cuda_gen):
     """The nearest resize of ``x`` through the kernels and through the plain
     versions, forward and backward; raises unless both directions are
-    exactly equal, or if the backward does not take the staged kernel.
-    Returns the kernel's output and the cotangent."""
+    exactly equal, or if either does not take its staged kernel. Returns
+    the kernel's output and the cotangent."""
     from mrfp_tpu_torch.ops.resize import resize_nearest
-    if _nearest_bwd_kernel(x, rule) != "staged":
-        raise AssertionError(f"resize_nearest {tuple(x.shape)} {rule} {x.dtype}: the backward "
-                             f"would not take the staged kernel")
+    if _nearest_bwd_kernel(x, rule) != "staged" or _nearest_fwd_kernel(x, rule) != "staged":
+        raise AssertionError(f"resize_nearest {tuple(x.shape)} {rule} {x.dtype}: a direction "
+                             f"would not take its staged kernel")
     xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
     yk = resize_nearest(xk, **rule)
     yp = resize_nearest(xp, impl="plain", **rule)
@@ -525,8 +557,10 @@ def _nearest_bwd_f64(g, ty, tx, h: int, w: int):
 
 def phase_nearest(cuda_gen) -> dict:
     """Kernels A and B against their plain versions at the OC shapes and the
-    edge cases (both directions exactly equal; the backward's staged
-    kernel), and at ranges longer than two (the backward's direct kernel)."""
+    edge cases (both directions exactly equal; both staged kernels), and at
+    ranges longer than two and a 30,000-wide output (the backward's direct
+    kernel, and the forward's for that width). The OC lines give each
+    direction's route, single-call and device time and GB/s."""
     from mrfp_tpu_torch.ops import cuda_resize
     from mrfp_tpu_torch.ops.resize import nearest_table
     import torch.nn.functional as F
@@ -534,13 +568,14 @@ def phase_nearest(cuda_gen) -> dict:
     # bf16 sums: kernel, plain, library single-call; kernel, library on the device
     times = {k: [0.0] * 5 for k in kernels}
     costs = {k: Cost() for k in kernels}
+    fwd_own_gb = 0.0  # the bytes the staged forward itself moves, bf16
     for dtype in (torch.bfloat16, torch.float32):
         for name, n, c, (h, w), rule in NEAREST_EDGES:
             x = torch.randn((n, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
             _nearest_pair(x, rule, cuda_gen)
         print(f"resize_nearest {_dtype_name(dtype)} edge cases "
               f"{[e[0] for e in NEAREST_EDGES]}: forward and backward exactly equal "
-              f"(staged backward)")
+              f"(staged forward, staged backward)")
         for name, n, c, (h, w), rule in NEAREST_LONG:
             rule_name, arg = next(iter(rule.items()))
             ty = nearest_table(h, rule_name, arg[0], DEV)
@@ -564,7 +599,8 @@ def phase_nearest(cuda_gen) -> dict:
                                      f"by {over:.3e}")
             print(f"resize_nearest_bwd {_dtype_name(dtype)} {name} ({n},{c},{h},{w}), up to "
                   f"{terms} terms a sum, direct kernel: max_abs_err vs float64 "
-                  f"{(got - exact).abs().max().item():.3e}, within the bound")
+                  f"{(got - exact).abs().max().item():.3e}, within the bound; forward "
+                  f"exactly equal, {_nearest_fwd_kernel(x, rule)} kernel")
         for name, c, (h, w), rule in NEAREST_SHAPES:
             x = torch.randn((TRAIN_N, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
             yk, g = _nearest_pair(x, rule, cuda_gen)
@@ -593,13 +629,17 @@ def phase_nearest(cuda_gen) -> dict:
                     device_ms(lambda: torch.ops.aten.upsample_nearest2d_backward(
                         g, out_hw, list(x.shape)), calls=10))}
             gb = 2 * yk.numel() * yk.element_size() / 1e9  # one read, one write of out
+            own_gb = _nearest_fwd_bytes(x, rule) / 1e9
             gb_bwd = (yk.numel() + x.numel()) * yk.element_size() / 1e9  # g in, gx out
             print(f"resize_nearest {_dtype_name(dtype)} {name} ({TRAIN_N},{c},{h},{w})->"
-                  f"{tuple(yk.shape[2:])}: forward exactly equal, kernel "
+                  f"{tuple(yk.shape[2:])}: forward exactly equal, "
+                  f"{_nearest_fwd_kernel(x, rule)} kernel "
                   f"{ms['resize_nearest'][0]:.4f} ms ({gb / ms['resize_nearest'][0] * 1e3:.0f}"
                   f" GB/s), plain {ms['resize_nearest'][1]:.4f} ms, F.interpolate "
                   f"{ms['resize_nearest'][2]:.4f} ms; device time (graph) forward kernel "
-                  f"{dev['resize_nearest'][0]:.4f} ms, F.interpolate "
+                  f"{dev['resize_nearest'][0]:.4f} ms "
+                  f"({gb / dev['resize_nearest'][0] * 1e3:.0f} GB/s; its own "
+                  f"{own_gb:.4f} GB, bound's {nbytes(x, yk) / 1e9:.4f}), F.interpolate "
                   f"{dev['resize_nearest'][1]:.4f} ms; backward exactly equal, staged kernel "
                   f"{ms['resize_nearest_bwd'][0]:.4f} ms "
                   f"({gb_bwd / ms['resize_nearest_bwd'][0] * 1e3:.0f} GB/s), plain "
@@ -613,6 +653,7 @@ def phase_nearest(cuda_gen) -> dict:
                     for i, t in enumerate(ms[k] + dev[k]):
                         times[k][i] += t
                     costs[k].add(nbytes(x, yk))  # forward: x in, y out; backward: g in, gx out
+                fwd_own_gb += own_gb
             del x, yk, g
         torch.cuda.empty_cache()
     for k, lib in (("resize_nearest", "F.interpolate"),
@@ -621,15 +662,53 @@ def phase_nearest(cuda_gen) -> dict:
         print(f"{k} bf16, the seven OC resizes: kernel {t[0]:.3f} ms, plain {t[1]:.3f} ms, "
               f"{lib} {t[2]:.3f} ms, bound {costs[k].bound_ms:.3f} ms; device time (graph) "
               f"kernel {t[3]:.3f} ms, {lib} {t[4]:.3f} ms")
+    bound_gb = costs["resize_nearest"].bytes_ms * HBM_BYTES_PER_S / 1e12
+    print(f"resize_nearest bf16, the seven OC resizes: the staged forward moves "
+          f"{fwd_own_gb:.4f} GB, the bound counts {bound_gb:.4f} GB")
     return {k: {"max_abs_err": 0.0, "ms": times[k][0], "plain_ms": times[k][1],
                 "library_ms": times[k][2], "device_ms": times[k][3],
                 "library_device_ms": times[k][4], **costs[k].fields()} for k in times}
 
 
+def _bilinear_bwd_route(g, h: int, w: int) -> str:
+    """The route the bilinear backward takes for the cotangent ``g`` of an
+    (h, w) input: "sum" (1x1 input), "staged" (with its 16-byte or scalar
+    cotangent loads, "tiled" where a row is cut into column tiles) or
+    "direct"."""
+    from mrfp_tpu_torch.ops import cuda_resize
+    plan = cuda_resize.bilinear_bwd_plan(h, w, *g.shape[2:], g.element_size())
+    if plan.route != "staged":
+        return plan.route
+    return ("staged vector" if plan.vec > 1 else "staged scalar") + \
+        (" tiled" if plan.cols < w else "")
+
+
+def _bilinear_bwd_close(got, g, ty, tx, h: int, w: int, what: str) -> float:
+    """Holds the backward kernel's ``got`` for the cotangent ``g`` against
+    the plain version; returns the largest difference. The two sum in
+    different orders (the plain version's index_add_ uses atomics): fp32
+    within 1e-5 + 1e-5 * |ref| plus 2^-21 of the summed magnitudes of the
+    terms (an input of the 1x1 broadcast sums 2,304, at eval 8,192); bf16
+    within ``TOL``, about one ulp."""
+    from mrfp_tpu_torch.ops import cuda_resize
+    ref = cuda_resize.resize_bilinear_bwd_plain(g, ty, tx, h, w)
+    if g.dtype == torch.float32:
+        mag = cuda_resize.resize_bilinear_bwd_plain(g.abs(), ty, tx, h, w)
+        allowed = 1e-5 + 1e-5 * ref.abs() + 2.0 ** -21 * mag
+        over = ((got - ref).abs() - allowed).max().item()
+        if over > 0:
+            raise AssertionError(f"resize_bilinear_bwd {what}: kernel vs plain exceeds the "
+                                 f"bound by {over:.3e}")
+    else:
+        torch.testing.assert_close(got, ref, **TOL[g.dtype], msg=lambda m: f"{what}: {m}")
+    return (got.float() - ref.float()).abs().max().item()
+
+
 def phase_bilinear_train(cuda_gen) -> dict:
     """The bilinear forward and its backward (kernel C) against their plain
     versions at the train and eval shapes and at an odd width (the forward's
-    scalar route): the forward exactly equal, each line naming its route.
+    scalar route), the backward also at every edge shape, from an offset
+    view too: the forward exactly equal, each line naming both routes.
     Returns the two kernels' entries: worst error, and single-call and
     device (CUDA-graph) ms of kernel, plain version and library call summed
     over the five train shapes in bf16 (the step's own resizes)."""
@@ -654,20 +733,7 @@ def phase_bilinear_train(cuda_gen) -> dict:
             yp.backward(g)
             ty, tx = bilinear_taps(h, size[0], x.device), bilinear_taps(w, size[1], x.device)
             torch.cuda.synchronize()
-            if dtype == torch.float32:
-                # an input of the 1x1 broadcast sums 2,304 (8,192 at eval)
-                # terms, in another order on each side (the plain version's
-                # index_add_ uses atomics): allow a few fp32 ulps of the sum
-                # of the terms' magnitudes on top of 1e-5
-                mag = cuda_resize.resize_bilinear_bwd_plain(g.abs(), ty, tx, h, w)
-                allowed = 1e-5 + 1e-5 * xp.grad.abs() + 2.0 ** -21 * mag
-                over = ((xk.grad - xp.grad).abs() - allowed).max().item()
-                if over > 0:
-                    raise AssertionError(f"resize_bilinear_bwd {name} float32: kernel vs plain "
-                                         f"exceeds the bound by {over:.3e}")
-            else:
-                torch.testing.assert_close(xk.grad, xp.grad, **TOL[dtype])
-            bwd_err = (xk.grad.float() - xp.grad.float()).abs().max().item()
+            bwd_err = _bilinear_bwd_close(xk.grad, g, ty, tx, h, w, what)
             calls = {"resize_bilinear": (
                 lambda: cuda_resize.resize_bilinear_cuda(x, ty, tx),
                 lambda: cuda_resize.resize_bilinear_plain(x, ty, tx),
@@ -694,13 +760,31 @@ def phase_bilinear_train(cuda_gen) -> dict:
                   f"{_bilinear_route(x, size)} route, kernel {fwd[0]:.4f} ms, plain "
                   f"{fwd[1]:.4f} ms, F.interpolate {fwd[2]:.4f} ms; device time (graph) kernel "
                   f"{fwd[3]:.4f} ms ({gb / fwd[3] * 1e3:.0f} GB/s), F.interpolate {fwd[4]:.4f} "
-                  f"ms; backward max_abs_err {bwd_err:.3e} (|grad| max "
+                  f"ms; backward {_bilinear_bwd_route(g, h, w)} route, max_abs_err "
+                  f"{bwd_err:.3e} (|grad| max "
                   f"{xp.grad.float().abs().max().item():.3e}), kernel {bwd[0]:.4f} ms "
                   f"({gb / bwd[0] * 1e3:.0f} GB/s), plain {bwd[1]:.4f} ms, aten backward "
                   f"{bwd[2]:.4f} ms; device time (graph) kernel {bwd[3]:.4f} ms, aten "
                   f"{bwd[4]:.4f} ms")
             del x, xk, xp, yk, yp, g
         torch.cuda.empty_cache()
+        routes = []
+        for (h, w), size in EDGE_RESIZES:
+            ty, tx = bilinear_taps(h, size[0], DEV), bilinear_taps(w, size[1], DEV)
+            # the second cotangent of three: a contiguous view whose data
+            # need not start on a 16-byte boundary
+            for g in (torch.randn((2, 5, *size), device=DEV, generator=cuda_gen).to(dtype),
+                      torch.randn((3, 5, *size), device=DEV,
+                                  generator=cuda_gen).to(dtype)[1:2]):
+                what = (f"{_dtype_name(dtype)} edge case {tuple(g.shape)} to ({h}, {w}) at "
+                        f"byte {g.data_ptr() % 16} of a granule")
+                err = _bilinear_bwd_close(cuda_resize.resize_bilinear_bwd_cuda(g, ty, tx, h, w),
+                                          g, ty, tx, h, w, what)
+                out["resize_bilinear_bwd"]["max_abs_err"] = max(
+                    out["resize_bilinear_bwd"]["max_abs_err"], err)
+            routes.append(_bilinear_bwd_route(g, h, w))
+        print(f"resize_bilinear_bwd {_dtype_name(dtype)} edge cases {EDGE_RESIZES}, each also "
+              f"from an offset view: within the bound, routes {routes}")
     for k in out:
         out[k].update(costs[k].fields())
         print(f"{k} bf16, the five train resizes: kernel {out[k]['ms']:.3f} ms, plain "
@@ -1316,7 +1400,9 @@ def _metrics(run_dir: str):
 
 
 def phase_cli_train() -> dict:
-    """The train entry point: 6 steps, then resumed to 8."""
+    """The train entry point: 6 steps, then resumed to 8, then the eval
+    entry point on that run's checkpoint."""
+    from mrfp_tpu_torch.cli import eval as cli_eval
     from mrfp_tpu_torch.cli import train as cli_train
     from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
     with tempfile.TemporaryDirectory() as runs:
@@ -1358,6 +1444,15 @@ def phase_cli_train() -> dict:
               f"losses {resumed['losses']}")
         if rc != 0 or resumed["step"] != 8 or sorted(resumed["losses"]) != ["7", "8"]:
             raise AssertionError(f"cli.train resume: rc {rc}, result {resumed}")
+
+        scored = cli_eval.main(["--device", DEV, "--ckpt", resumed["run_dir"], "--synthetic",
+                                "--synthetic-hw", str(CROP), str(CROP), "--max-images", "2",
+                                "--domains", "cityscapes"])["cityscapes"]
+        print(f"cli.eval --ckpt {os.path.basename(resumed['run_dir'])} (its step 8): mean_iu "
+              f"{scored['mean_iu']:.5f}, {scored['images']} images, {scored['pixels']} pixels")
+        if scored["images"] != 2 or scored["pixels"] != 2 * CROP * CROP \
+                or not math.isfinite(scored["mean_iu"]):
+            raise AssertionError(f"cli.eval --ckpt: {scored}")
 
     # throughput: a checkpoint is written at each of the last 20 steps, so
     # in a 6-step run every step saves; a 26-step run saves from step 6 on

@@ -6,10 +6,14 @@
     python -m mrfp_tpu_torch.cli.eval --device cuda --synthetic \
         --synthetic-hw 1024 2048 --max-images 4
 
-Reads a reference PyTorch ``.pth`` checkpoint; without ``--ckpt`` the model
-has seeded random weights. ``--device cuda`` runs the hand-written kernels
-and exits non-zero when no CUDA device is present; it never falls back to
-the CPU.
+    python -m mrfp_tpu_torch.cli.eval --ckpt runs/<name> --data-root /data
+
+Reads a reference PyTorch ``.pth`` checkpoint, or what the port's
+``cli.train`` writes: a ``step_<N>.pt``, or a run directory (its latest
+checkpoint; ``runs/<name>/ckpt/best`` for the best by mIoU). Without
+``--ckpt`` the model has seeded random weights. ``--device cuda`` runs the
+hand-written kernels and exits non-zero when no CUDA device is present; it
+never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -17,7 +21,6 @@ from __future__ import annotations
 import argparse
 import json
 import logging
-import os
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -26,7 +29,8 @@ import torch
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="mrfp_tpu_torch multi-domain eval")
     p.add_argument("--ckpt", default=None,
-                   help="reference .pth checkpoint (default: seeded random weights)")
+                   help="reference .pth, or a step_<N>.pt or run directory of the "
+                        "port's cli.train (default: seeded random weights)")
     p.add_argument("--data-root", default="/data")
     p.add_argument("--domains", nargs="+",
                    default=["bdd100k", "cityscapes", "synthia", "mapillary", "gtav"],
@@ -94,16 +98,13 @@ def check_parity_protocol(args) -> None:
 
 def load_model(args, device: torch.device):
     from mrfp_tpu_torch.models import build_mrfp
+    from mrfp_tpu_torch.train.checkpoint import find_checkpoint
     from mrfp_tpu_torch.weights import load_torch_checkpoint
 
     gen = None if args.ckpt else torch.Generator().manual_seed(0)
     model = build_mrfp("cpu", generator=gen, trunk=args.trunk, variant=args.variant)
     if args.ckpt:
-        if os.path.isdir(args.ckpt) or not args.ckpt.endswith(".pth"):
-            raise NotImplementedError(
-                f"{args.ckpt}: only reference .pth checkpoints load; Orbax run "
-                f"directories are not ported yet (ROADMAP item A13)")
-        load_torch_checkpoint(model, args.ckpt)
+        load_torch_checkpoint(model, find_checkpoint(args.ckpt))
     return model.to(device)
 
 

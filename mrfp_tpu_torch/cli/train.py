@@ -9,7 +9,8 @@
 The paper's MRFP+ recipe by default: R50-D16, all three gates live, SGD
 with poly decay, bf16 autocast with fp32 parameters (``--no-bf16``: fp32
 with TF32 off). Without a checkpoint in its run directory the model starts
-from seeded random weights; with one it resumes from the latest.
+from seeded random weights; with one it resumes from the latest, and
+refuses one written by another recipe (``run_recipe``).
 ``--device cuda`` runs the hand-written kernels and exits non-zero when no
 CUDA device is present; it never falls back to the CPU. Exit 75 means the
 run was stopped by a signal and can resume.
@@ -113,6 +114,15 @@ def build_config(args):
                                   compute_dtype="bfloat16" if args.bf16 else "float32"))
 
 
+def run_recipe(args) -> dict:
+    """What a run's checkpoints may be resumed by, beside the run name's
+    knobs: the data (the source, or synthetic), the crop, the seed and the
+    mode. Not ``max_iter``: an extended run resumes."""
+    synthetic = args.synthetic or args.source == "synthetic"
+    return {"source": "synthetic" if synthetic else args.source,
+            "crop_size": args.crop_size, "seed": args.seed, "mode": args.mode}
+
+
 def build_dataset(args, cfg, train: bool = True):
     if args.synthetic or args.source == "synthetic":
         from mrfp_tpu_torch.data import SyntheticDataset
@@ -188,7 +198,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     exp = prep_experiment(cfg, root=args.runs_dir)
     logging.info("experiment %s on %s", exp["name"], device)
     state = build_state(cfg, device)
-    ckpt = CheckpointManager(exp["ckpt_dir"], keep=cfg.train.keep_checkpoints)
+    ckpt = CheckpointManager(exp["ckpt_dir"], keep=cfg.train.keep_checkpoints,
+                             recipe=run_recipe(args))
     if ckpt.restore(state):
         logging.info("resumed from step %d", state.step)
     # the host makes the batches; on the CPU the workers would only take

@@ -19,10 +19,25 @@
 // does not depend on scheduling (the TPU kernel is deterministic too). An
 // empty range (a downsample drops rows) gives 0.
 //
-// What bounds it on Hopper: bytes moved. The forward is a pure copy: it
-// gives each output row to one block and its columns to the threads, so the
-// stores coalesce and the row's plane and source row come from one division
-// per row. It already beats F.interpolate and stays as it is.
+// What bounds it on Hopper: bytes moved, but only if every access moves 16
+// bytes: a thread-per-element copy is bound by its 2-byte accesses, not by
+// the bytes. The forward gives a block a band of whole output rows of one
+// plane, so its output is one contiguous flat run. iy is monotone, so the
+// band reads one contiguous run of input rows, [iy[first], iy[last]]; the
+// block stages that run into shared memory with 16-byte loads (about one
+// output row in six repeats the previous one at the OC branch's upsampling
+// scales, and is read from shared memory again, not from device memory),
+// and the ix table once. Consecutive threads then gather consecutive
+// outputs from shared memory into a second buffer (no bank conflicts: a
+// thread that built a whole 16-byte vector would read the ix table at a
+// stride of 8 words, an 8-way conflict), which keeps the output's device
+// address modulo 16; the band's run leaves in aligned 16-byte stores across
+// row boundaries, its ragged head and tail element by element, so the odd
+// widths 231, 277 and 321 store in vectors too. The host plans
+// the band and the shared memory (ops/cuda_resize.py::nearest_fwd_plan;
+// the launch checks them against fwd_layout). A shape whose ix table and
+// one staged input row do not fit the budget (a 30,000-wide output) takes
+// the direct kernel: one block per output row, a thread per element.
 //
 // The backward reads each cotangent element once (ranges are at most 2 long
 // at the OC branch's scales) and writes each input element once, so 2-byte
@@ -57,6 +72,7 @@ namespace {
 
 constexpr int kThreads = 128;
 
+// The direct forward: one block per output row, one thread per element.
 template <typename T>
 __global__ void resize_nearest_kernel(const T* __restrict__ x, T* __restrict__ out,
                                       const int* __restrict__ iy, const int* __restrict__ ix,
@@ -67,6 +83,106 @@ __global__ void resize_nearest_kernel(const T* __restrict__ x, T* __restrict__ o
     const T* src = x + (plane * h + __ldg(iy + oy)) * (int64_t)w;
     T* dst = out + r * (int64_t)ow;
     for (int ox = threadIdx.x; ox < ow; ox += blockDim.x) dst[ox] = src[__ldg(ix + ox)];
+  }
+}
+
+constexpr int kFwdThreads = 256;
+
+// Byte offsets of the staged forward's buffers in its dynamic shared memory
+// (16-byte aligned where a vector touches them): the ix table (ow ints) at
+// 0, the band's row offsets into the stage (band ints) at `row`, the staged
+// run of input rows at `in`, the band's outputs at `out`, `end` the bytes a
+// band of `band` rows staging `run` input elements needs. Each element
+// buffer has room for one vector more than it holds, so that it keeps its
+// device address modulo 16. The wrapper sizes the launch
+// (ops/cuda_resize.py::nearest_fwd_smem_bytes, `end` at run = stage_rows *
+// w); the launch checks it against this.
+struct FwdLayout {
+  int64_t row, in, out, end;
+};
+
+template <typename T>
+__host__ __device__ inline FwdLayout fwd_layout(int ow, int band, int64_t run) {
+  constexpr int kVec = 16 / (int)sizeof(T);
+  const int64_t row = 4LL * ow;
+  const int64_t in = (row + 4LL * band + 15) & ~15LL;
+  const int64_t out = (in + (run + kVec - 1) * (int64_t)sizeof(T) + 15) & ~15LL;
+  return {row, in, out, out + ((int64_t)band * ow + kVec - 1) * (int64_t)sizeof(T)};
+}
+
+// The staged forward: a block per band of `band` output rows of a plane.
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads)
+resize_nearest_staged_kernel(const T* __restrict__ x, T* __restrict__ out,
+                             const int* __restrict__ iy, const int* __restrict__ ix,
+                             int64_t blocks, int band, int stage_rows, int h, int w, int oh,
+                             int ow) {
+  constexpr int kVec = 16 / (int)sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const FwdLayout lay = fwd_layout<T>(ow, band, (int64_t)stage_rows * w);
+  int* s_ix = reinterpret_cast<int*>(smem);
+  int* s_row = reinterpret_cast<int*>(smem + lay.row);  // per band row: its first in s_in
+  T* s_in = reinterpret_cast<T*>(smem + lay.in);
+  T* s_out = reinterpret_cast<T*>(smem + lay.out);
+  for (int i = threadIdx.x; i < ow; i += kFwdThreads) s_ix[i] = __ldg(ix + i);
+  const int bands = (oh + band - 1) / band;
+  for (int64_t blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
+    const int64_t plane = blk / bands;
+    const int oy0 = (int)(blk - plane * bands) * band;
+    const int nrows = min(band, oh - oy0);
+    const int in0 = __ldg(iy + oy0);
+    const int rows = __ldg(iy + oy0 + nrows - 1) - in0 + 1;
+    if (rows > stage_rows) __trap();  // the plan sizes the stage for every band
+
+    // s_in[j + shift] = src[j]: s_in keeps src's address modulo 16
+    const T* src = x + (plane * h + in0) * (int64_t)w;
+    const int span = rows * w;
+    const int shift = (int)((reinterpret_cast<uintptr_t>(src) & 15) / sizeof(T));
+    for (int i = threadIdx.x; i < nrows; i += kFwdThreads)
+      s_row[i] = shift + (__ldg(iy + oy0 + i) - in0) * w;
+    const int nvec = (shift + span + kVec - 1) / kVec;
+    for (int v = threadIdx.x; v < nvec; v += kFwdThreads) {
+      const int j0 = v * kVec - shift;
+      if (j0 >= 0 && j0 + kVec <= span) {
+        *reinterpret_cast<uint4*>(s_in + v * kVec) =
+            __ldg(reinterpret_cast<const uint4*>(src + j0));
+      } else {
+        for (int j = max(j0, 0); j < min(j0 + kVec, span); ++j) s_in[j + shift] = src[j];
+      }
+    }
+    __syncthreads();
+
+    // the band's outputs, one flat run of m values: consecutive threads take
+    // consecutive outputs (distinct banks of s_ix, s_out), into s_out, which
+    // keeps dst's address modulo 16
+    T* dst = out + (plane * oh + oy0) * (int64_t)ow;
+    const int m = nrows * ow;
+    const int dshift = (int)((reinterpret_cast<uintptr_t>(dst) & 15) / sizeof(T));
+    const int step_rows = kFwdThreads / ow, step_cols = kFwdThreads - step_rows * ow;
+    int i = threadIdx.x / ow, c = threadIdx.x - i * ow;
+    for (int e = threadIdx.x; e < m; e += kFwdThreads) {
+      s_out[e + dshift] = s_in[s_row[i] + s_ix[c]];
+      i += step_rows;
+      c += step_cols;
+      if (c >= ow) {
+        c -= ow;
+        ++i;
+      }
+    }
+    __syncthreads();
+
+    // the run leaves in aligned 16-byte stores, its ragged ends value by value
+    const int nout = (dshift + m + kVec - 1) / kVec;
+    for (int v = threadIdx.x; v < nout; v += kFwdThreads) {
+      const int e0 = v * kVec - dshift;
+      if (e0 >= 0 && e0 + kVec <= m) {
+        __stcs(reinterpret_cast<uint4*>(dst + e0),
+               *reinterpret_cast<const uint4*>(s_out + v * kVec));
+      } else {
+        for (int e = max(e0, 0); e < min(e0 + kVec, m); ++e) dst[e] = s_out[e + dshift];
+      }
+    }
+    __syncthreads();  // the next band of this block restages
   }
 }
 
@@ -211,10 +327,25 @@ resize_nearest_bwd_staged_kernel(const T* __restrict__ g, T* __restrict__ gx,
 }
 
 template <typename T>
-void launch_fwd(const void* x, void* out, const int* iy, const int* ix, int64_t rows,
-                int h, int w, int oh, int ow, cudaStream_t s) {
-  resize_nearest_kernel<T><<<grid_for(rows, 1, 64), kThreads, 0, s>>>(
-      (const T*)x, (T*)out, iy, ix, rows, h, w, oh, ow);
+cudaError_t launch_fwd(const void* x, void* out, const int* iy, const int* ix, int64_t nc,
+                       int h, int w, int oh, int ow, int band, int stage_rows, int64_t smem,
+                       cudaStream_t s) {
+  if (band <= 0) {  // the direct kernel
+    const int64_t rows = nc * oh;
+    resize_nearest_kernel<T><<<grid_for(rows, 1, 64), kThreads, 0, s>>>(
+        (const T*)x, (T*)out, iy, ix, rows, h, w, oh, ow);
+    return cudaSuccess;
+  }
+  // the staged kernel takes a plan whose stage holds its rows, in the bytes
+  // it is given, within the 48 KB a launch takes without opting in
+  if (stage_rows < 1 || smem < fwd_layout<T>(ow, band, (int64_t)stage_rows * w).end ||
+      smem > 48 * 1024)
+    return cudaErrorInvalidValue;
+  const int64_t blocks = nc * ((oh + band - 1) / band);
+  const int64_t grid = blocks < INT32_MAX ? blocks : INT32_MAX;
+  resize_nearest_staged_kernel<T><<<(unsigned)grid, kFwdThreads, (size_t)smem, s>>>(
+      (const T*)x, (T*)out, iy, ix, blocks, band, stage_rows, h, w, oh, ow);
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -248,20 +379,28 @@ cudaError_t launch_bwd(const void* g, void* gx, const int* ly, const int* hy, co
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a plan the kernel does not take.
+//
+// band: output rows a block of the staged forward takes (0: the direct
+// kernel); stage_rows: input rows its stage holds; smem: its dynamic shared
+// memory in bytes (ops/cuda_resize.py::nearest_fwd_plan).
 extern "C" int mrfp_resize_nearest(const void* x, void* out, const void* iy, const void* ix,
-                                   int64_t nc, int h, int w, int oh, int ow, int dtype,
-                                   void* stream) {
-  const int64_t rows = nc * oh;
-  if (rows == 0 || ow == 0) return (int)cudaSuccess;
+                                   int64_t nc, int h, int w, int oh, int ow, int band,
+                                   int stage_rows, int64_t smem, int dtype, void* stream) {
+  if (nc * oh == 0 || ow == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
   if (dtype == 0) {
-    launch_fwd<float>(x, out, (const int*)iy, (const int*)ix, rows, h, w, oh, ow, s);
+    err = launch_fwd<float>(x, out, (const int*)iy, (const int*)ix, nc, h, w, oh, ow, band,
+                            stage_rows, smem, s);
   } else if (dtype == 1) {
-    launch_fwd<__nv_bfloat16>(x, out, (const int*)iy, (const int*)ix, rows, h, w, oh, ow, s);
+    err = launch_fwd<__nv_bfloat16>(x, out, (const int*)iy, (const int*)ix, nc, h, w, oh, ow,
+                                    band, stage_rows, smem, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -40,10 +40,11 @@ _SIGNATURES = {
     # cols, in_cols, raw_pitch, threads_x, threads_y, smem, dtype, stream
     "mrfp_resize_bilinear": [_P] * 8 + [ctypes.c_int64] + [ctypes.c_int] * 14 + [_P],
     # g, gx, fy, ly0, hy0, ly1, hy1, fx, lx0, hx0, lx1, hx1, nc, h, w, oh, ow,
-    # dtype, stream
-    "mrfp_resize_bilinear_bwd": [_P] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 5 + [_P],
-    # x, out, iy, ix, nc, h, w, oh, ow, dtype, stream
-    "mrfp_resize_nearest": [_P] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 5 + [_P],
+    # route, vec, band, cols, in_cols, t_pitch, smem, dtype, stream
+    "mrfp_resize_bilinear_bwd": [_P] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 12 + [_P],
+    # x, out, iy, ix, nc, h, w, oh, ow, band, stage_rows, smem, dtype, stream
+    "mrfp_resize_nearest": [_P] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 6
+                           + [ctypes.c_int64, ctypes.c_int, _P],
     # g, gx, ly, hy, lx, hx, nc, h, w, oh, ow, rows_per_block, max_run_y, max_run_x,
     # smem, dtype, stream
     "mrfp_resize_nearest_bwd": [_P] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 7

@@ -178,6 +178,81 @@ def resize_bilinear_cuda(x: torch.Tensor, ty, tx) -> torch.Tensor:
     return out
 
 
+class BilinearBwdPlan(NamedTuple):
+    """The backward's launch. ``route``: "sum" (a 1x1 input: a warp sums
+    each cotangent plane), "staged" (the banded kernel) or "direct" (not
+    even one input row of one column fits: one thread per input element,
+    from device memory). On the staged route: ``vec`` cotangent values a
+    load (16 bytes' worth where ``ow`` is a whole number of them, else 1),
+    ``band`` input rows and ``cols`` input columns a block, at most
+    ``in_cols`` cotangent columns a tile reads, ``t_pitch`` fp32 values a
+    row of its H-mixed stage, ``smem`` bytes; elsewhere 0."""
+    route: str
+    vec: int
+    band: int
+    cols: int
+    in_cols: int
+    t_pitch: int
+    smem: int
+
+
+def bilinear_bwd_span(lo0: np.ndarray, hi0: np.ndarray, lo1: np.ndarray, hi1: np.ndarray,
+                      band: int) -> int:
+    """The most outputs one block of ``band`` consecutive inputs reads along
+    an axis in the backward: from the lower range start of its first input
+    to the higher range end of its last (the ranges ``[lo, hi)`` of each
+    tap are monotone)."""
+    starts = np.arange(0, lo0.size, band)
+    ends = np.minimum(starts + band, lo0.size) - 1
+    return int((np.maximum(hi0[ends], hi1[ends])
+                - np.minimum(lo0[starts], lo1[starts])).max())
+
+
+# the staged backward: (input row, cotangent granule) sums a block aims at
+# (its shared memory has the forward's cap, kBandSmemCap in the C entry)
+BILINEAR_BWD_ITEMS = 768
+
+
+def bilinear_bwd_pitch(in_cols: int, itemsize: int) -> int:
+    """The fp32 values a row of the staged backward's H-mixed stage keeps:
+    ``in_cols`` cotangent values from any lead into a 16-byte granule, in
+    whole granules' worth (a thread takes one; the kernel checks the
+    same)."""
+    per_word = 16 // itemsize
+    return (in_cols + 2 * per_word - 1) // per_word * per_word
+
+
+@functools.lru_cache(maxsize=None)
+def bilinear_bwd_plan(h: int, w: int, oh: int, ow: int, itemsize: int) -> BilinearBwdPlan:
+    """Plan the backward of an (h, w) -> (oh, ow) resize: the plane sum for
+    a 1x1 input; else the banded kernel, loading 16 bytes of cotangent at a
+    time where its rows are whole 16-byte words (one value at a time
+    elsewhere); a block takes whole rows (column tiles, halved until one
+    row's stage fits, only for rows too wide) and about
+    ``BILINEAR_BWD_ITEMS`` (row, 16 bytes of columns) sums; the direct
+    kernel where not even one column fits."""
+    if h == 1 and w == 1:
+        return BilinearBwdPlan("sum", 0, 0, 0, 0, 0, 0)
+    from mrfp_tpu_torch.ops.resize import bilinear_ac_weights, inverse_ranges
+    rx = [r for i in bilinear_ac_weights(w, ow)[:2] for r in inverse_ranges(i, w)]
+    vec = 16 // itemsize
+    if ow % vec:
+        vec = 1
+    cap = BILINEAR_FWD_SMEM_CAP
+    cols = w
+    while 4 * bilinear_bwd_pitch(bilinear_bwd_span(*rx, cols), itemsize) > cap:
+        cols //= 2
+        if cols == 0:
+            return BilinearBwdPlan("direct", 0, 0, 0, 0, 0, 0)
+    in_cols = bilinear_bwd_span(*rx, cols)
+    pitch = bilinear_bwd_pitch(in_cols, itemsize)
+    band = max(1, min(h, BILINEAR_BWD_ITEMS * 16 // (pitch * itemsize), cap // (4 * pitch)))
+    return BilinearBwdPlan("staged", vec, band, cols, in_cols, pitch, 4 * band * pitch)
+
+
+_BWD_ROUTES = {"sum": 0, "staged": 1, "direct": 2}
+
+
 def resize_bilinear_bwd_cuda(g: torch.Tensor, ty, tx, h: int, w: int) -> torch.Tensor:
     """Launch the backward kernel on the contiguous CUDA cotangent ``g``;
     returns the (N, C, h, w) input gradient in ``g``'s dtype."""
@@ -188,13 +263,15 @@ def resize_bilinear_bwd_cuda(g: torch.Tensor, ty, tx, h: int, w: int) -> torch.T
         raise ValueError(f"cotangent {tuple(g.shape)} does not match the tables "
                          f"({ty.idx0.numel()}, {tx.idx0.numel()})")
     gx = torch.empty((n, c, h, w), dtype=g.dtype, device=g.device)
+    plan = bilinear_bwd_plan(h, w, oh, ow, g.element_size())
     with torch.cuda.device(g.device):
         err = lib.mrfp_resize_bilinear_bwd(
             g.data_ptr(), gx.data_ptr(), ty.frac.data_ptr(), ty.lo0.data_ptr(),
             ty.hi0.data_ptr(), ty.lo1.data_ptr(), ty.hi1.data_ptr(),
             tx.frac.data_ptr(), tx.lo0.data_ptr(), tx.hi0.data_ptr(),
             tx.lo1.data_ptr(), tx.hi1.data_ptr(), n * c, h, w, oh, ow,
-            _DTYPES[g.dtype], _stream(g))
+            _BWD_ROUTES[plan.route], plan.vec, plan.band, plan.cols, plan.in_cols,
+            plan.t_pitch, plan.smem, _DTYPES[g.dtype], _stream(g))
     _build.check(err, "resize_bilinear_bwd")
     _build.LAUNCHES["resize_bilinear_bwd"] += 1
     return gx
@@ -217,17 +294,71 @@ def resize_nearest_bwd_plain(g: torch.Tensor, ty, tx, h: int, w: int) -> torch.T
     return gx.to(g.dtype)
 
 
+# the staged nearest forward (csrc/resize_nearest.cu): output elements a
+# block aims at, and its shared memory at most (no opt-in)
+NEAREST_FWD_ELEMS = 8192
+NEAREST_FWD_SMEM_CAP = 48 * 1024
+
+
+class NearestFwdPlan(NamedTuple):
+    """The staged forward's launch: ``band`` output rows a block (0: the
+    direct kernel), ``stage_rows`` input rows its stage holds at most,
+    ``smem`` bytes."""
+    band: int
+    stage_rows: int
+    smem: int
+
+
+def nearest_fwd_smem_bytes(ow: int, band: int, stage_rows: int, w: int,
+                           itemsize: int) -> int:
+    """Shared memory of the staged forward (its ``fwd_layout``, which the
+    kernel checks the launch against): the ix table and a band's row
+    offsets (ints), ``stage_rows`` input rows and ``band`` output rows, each
+    element buffer with one vector of slack, each from a 16-byte boundary."""
+    vec = 16 // itemsize
+    out = -(-(-(-4 * (ow + band) // 16) * 16 + (stage_rows * w + vec - 1) * itemsize)
+            // 16) * 16
+    return out + (band * ow + vec - 1) * itemsize
+
+
+@functools.lru_cache(maxsize=None)
+def nearest_fwd_plan(spec_y: tuple, w: int, ow: int, itemsize: int) -> NearestFwdPlan:
+    """Plan the staged forward for the H table built from ``spec_y`` (a
+    ``NearestTable.spec``), input width ``w`` and output width ``ow``: about
+    ``NEAREST_FWD_ELEMS`` outputs a band, as many rows as keep the tables,
+    the band's input rows and its outputs within the budget; the direct
+    kernel (band 0) where not even one row fits."""
+    from mrfp_tpu_torch.ops.resize import nearest_index
+    iy = nearest_index(*spec_y)
+    if iy.size == 0 or ow == 0:  # nothing to launch
+        return NearestFwdPlan(0, 0, 0)
+    band = max(1, min(iy.size, NEAREST_FWD_ELEMS // ow))
+    while True:
+        rows = bilinear_band_span(iy, iy, band)
+        smem = nearest_fwd_smem_bytes(ow, band, rows, w, itemsize)
+        if smem <= NEAREST_FWD_SMEM_CAP:
+            return NearestFwdPlan(band, rows, smem)
+        if band == 1:
+            return NearestFwdPlan(0, 0, 0)
+        band -= 1
+
+
 def resize_nearest_cuda(x: torch.Tensor, ty, tx) -> torch.Tensor:
     """Launch the nearest forward kernel on a CUDA tensor; raises if it cannot."""
     lib = _build.load_library()
     _check(x, "resize_nearest_cuda")
     n, c, h, w = x.shape
+    if (h, w) != (ty.lo.numel(), tx.lo.numel()):
+        raise ValueError(f"input {tuple(x.shape)} does not match the tables "
+                         f"({ty.lo.numel()}, {tx.lo.numel()})")
     oh, ow = ty.idx.numel(), tx.idx.numel()
     out = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
+    plan = nearest_fwd_plan(ty.spec, w, ow, x.element_size())
     with torch.cuda.device(x.device):
         err = lib.mrfp_resize_nearest(
             x.data_ptr(), out.data_ptr(), ty.idx.data_ptr(), tx.idx.data_ptr(),
-            n * c, h, w, oh, ow, _DTYPES[x.dtype], _stream(x))
+            n * c, h, w, oh, ow, plan.band, plan.stage_rows, plan.smem, _DTYPES[x.dtype],
+            _stream(x))
     _build.check(err, "resize_nearest")
     _build.LAUNCHES["resize_nearest"] += 1
     return out

@@ -53,11 +53,14 @@ class NearestTable(NamedTuple):
     """One axis of a nearest resize, on the device: the source index per
     output and the output range ``[lo, hi)`` per input (int32); on the host,
     ``max_run``, the longest of those ranges (it picks the backward kernel
-    and bounds the run of cotangent rows the staged one takes per block)."""
+    and bounds the run of cotangent rows the staged one takes per block),
+    and ``spec``, the ``(in_size, rule, arg)`` the table was built from (the
+    forward kernel's plan is made from it)."""
     idx: torch.Tensor
     lo: torch.Tensor
     hi: torch.Tensor
     max_run: int
+    spec: Tuple[int, str, object]
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,22 +129,26 @@ def bilinear_taps(in_size: int, out_size: int, device: torch.device) -> Bilinear
     return taps
 
 
+def nearest_index(in_size: int, rule: str, arg) -> np.ndarray:
+    """The source index per output of one nearest axis; ``rule`` is "scale"
+    (``arg`` = the scale factor) or "size" (``arg`` = the output size)."""
+    if rule == "scale":
+        return _nearest_idx_from_scale(in_size, float(arg))
+    if rule == "size":
+        return _nearest_idx_from_size(in_size, int(arg))
+    raise ValueError(f"rule must be 'scale' or 'size', got {rule!r}")
+
+
 def nearest_table(in_size: int, rule: str, arg, device: torch.device) -> NearestTable:
-    """The device tables of one nearest axis, cached per (in, arg, rule,
-    device); ``rule`` is "scale" (``arg`` = the scale factor) or "size"
-    (``arg`` = the output size)."""
+    """The device tables of one nearest axis (rules as ``nearest_index``),
+    cached per (in, arg, rule, device)."""
     key = (in_size, rule, arg, str(device))
     table = _NEAREST.get(key)
     if table is None:
-        if rule == "scale":
-            idx = _nearest_idx_from_scale(in_size, float(arg))
-        elif rule == "size":
-            idx = _nearest_idx_from_size(in_size, int(arg))
-        else:
-            raise ValueError(f"rule must be 'scale' or 'size', got {rule!r}")
+        idx = nearest_index(in_size, rule, arg)
         lo, hi = inverse_ranges(idx, in_size)
         table = NearestTable(_i32(idx, device), _i32(lo, device), _i32(hi, device),
-                             int((hi - lo).max(initial=0)))
+                             int((hi - lo).max(initial=0)), (in_size, rule, arg))
         _NEAREST[key] = table
     return table
 

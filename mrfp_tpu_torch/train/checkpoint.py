@@ -9,6 +9,13 @@ one background thread after the state has been copied to host memory, so
 training goes on while the file is written; ``wait`` joins them and raises
 what a save raised.
 
+A manager given a ``recipe`` (what the run trains on: ``cli.train`` gives
+the source, or synthetic data, the crop, the seed and the mode) writes it
+into every checkpoint and resumes only a checkpoint of the same recipe, so
+a smoke run's checkpoint never seeds a real run that shares its
+directory. ``max_iter`` is not part of it: a run extended with a larger
+``--max-iter`` resumes.
+
 The newest ``keep`` checkpoints stay. With metrics (``--eval-every``), a new
 best by ``best_metric`` is also written to ``best/`` and recorded in
 ``best/metric.json``; the new best is committed before the old one is
@@ -52,9 +59,33 @@ def _atomic_save(blob, path: str) -> None:
     os.replace(tmp, path)
 
 
+def _steps(directory: str) -> List[int]:
+    """The steps of the ``step_<N>.pt`` files in ``directory``, in order."""
+    return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(directory)) if m)
+
+
+def find_checkpoint(path: str) -> str:
+    """The checkpoint file ``path`` names: a file itself; in a directory of
+    ``step_<N>.pt`` files (a run's ``ckpt/``, or its ``ckpt/best/``), the
+    latest; in a run directory of ``cli.train``, the latest of its
+    ``ckpt/``. Raises FileNotFoundError where there is none."""
+    if os.path.isfile(path):
+        return path
+    for directory in (path, os.path.join(path, "ckpt")):
+        steps = _steps(directory) if os.path.isdir(directory) else []
+        if steps:
+            return os.path.join(directory, f"step_{steps[-1]}.pt")
+    raise FileNotFoundError(
+        f"{path}: no step_<N>.pt here or under ckpt/. The JAX trainer's Orbax run "
+        f"directories do not load into the port (reading them imports jax): export "
+        f"one with python -m mrfp_tpu.cli.convert --run and pass the .pth (ROADMAP A13)")
+
+
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, best_metric: str = "mean_iu"):
+    def __init__(self, directory: str, keep: int = 3, best_metric: str = "mean_iu",
+                 recipe: Optional[Dict[str, object]] = None):
         self.directory = os.path.abspath(directory)
+        self.recipe = recipe
         os.makedirs(self.directory, exist_ok=True)
         self.keep = max(1, keep)
         self.best_metric = best_metric
@@ -73,8 +104,7 @@ class CheckpointManager:
         return os.path.join(self.directory, "best", "metric.json")
 
     def all_steps(self) -> List[int]:
-        return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(self.directory))
-                      if m)
+        return _steps(self.directory)
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -94,7 +124,8 @@ class CheckpointManager:
         blob = _to_host({"step": state.step, "seed": state.seed,
                          "model": state.model.state_dict(),
                          "optimizer": state.optimizer.state_dict(),
-                         "scheduler": state.scheduler.state_dict()})
+                         "scheduler": state.scheduler.state_dict(),
+                         "recipe": self.recipe})
         if best:
             self._best_value = float(metrics[self.best_metric])
         self._pending.append(self._pool.submit(self._write, blob, state.step,
@@ -126,13 +157,19 @@ class CheckpointManager:
 
     def restore(self, state: TrainState, step: Optional[int] = None) -> bool:
         """Load the given (or latest) checkpoint into ``state`` in place;
-        False when there is none (a fresh start)."""
+        False when there is none (a fresh start). Raises ValueError, and
+        leaves ``state`` as it was, for a checkpoint of another recipe."""
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
             return False
         device = next(state.model.parameters()).device
         blob = torch.load(self._path(step), map_location=device, weights_only=True)
+        if self.recipe is not None and blob.get("recipe") != self.recipe:
+            raise ValueError(
+                f"{self._path(step)} was written by a run of recipe {blob.get('recipe')}, "
+                f"not this run's {self.recipe}: refusing to resume it. Give this run "
+                f"another --runs-dir, or remove {self.directory}")
         state.model.load_state_dict(blob["model"], strict=True)
         state.optimizer.load_state_dict(blob["optimizer"])
         sched = state.scheduler

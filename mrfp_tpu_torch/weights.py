@@ -13,8 +13,8 @@ The port keeps the reference's state_dict key layout, so both reduce to
   mrfp_tpu/train/import_torch.py:26-33) to the port's OC buffers under the
   reference's names (``OClayer1``, ``OC1_bn``, ...).
 - ``load_torch_checkpoint`` reads the reference's on-disk container
-  ``{'epoch', 'state_dict'}`` (keys ``module.``-prefixed by DataParallel)
-  and drops the train-only OC-branch tensors, which the eval forward never
+  ``{'epoch', 'state_dict'}`` (keys ``module.``-prefixed by DataParallel),
+  or a checkpoint of the port's trainer (its ``model`` entry), and drops the train-only OC-branch tensors, which the eval forward never
   reads. ``train_state_dict`` keeps them for a model with OC buffers.
 """
 
@@ -138,9 +138,11 @@ def train_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def load_torch_checkpoint(model: nn.Module, path: str) -> Dict[str, Any]:
     """Load a reference .pth (``{'epoch', 'state_dict'}`` or a bare
-    state_dict) into ``model`` strictly; returns a report."""
+    state_dict), or a ``step_<N>.pt`` of the port's trainer (its ``model``
+    state_dict), into ``model`` strictly; returns a report."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    sd, dropped = eval_state_dict(blob.get("state_dict", blob))
+    sd = blob["model"] if "model" in blob else blob.get("state_dict", blob)
+    sd, dropped = eval_state_dict(sd)
     model.load_state_dict(sd, strict=True)
     logging.getLogger(__name__).info(
         "loaded %d tensors from %s; dropped %d train-only OC-branch tensors",

@@ -20,12 +20,23 @@
   ``bilinear_ac_weights`` at every train, eval and edge shape of
   ``chip_smoke.py``: every output's taps lie in its block's staged rows and
   columns, the blocks tile the output once, the budget holds.
+- ``cuda_resize.bilinear_bwd_plan``: the backward's route (plane sum for a
+  1x1 input, staged, or direct where one column's stage does not fit),
+  and on the staged route the tiles, bands and stage, held against a
+  brute force over ``bilinear_ac_weights`` at the same shapes and at
+  hypothesis-drawn ones: every cotangent column a tile's inputs read lies
+  in its staged segment, the budget holds.
+- ``cuda_resize.nearest_fwd_plan``: the staged nearest forward's bands of
+  output rows and their staged input rows, at the OC shapes (odd widths,
+  downsamples), the edge cases and hypothesis-drawn scales.
 - The wrappers' argument checks raise before any launch.
 """
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from mrfp_tpu.ops.resize import _nearest_idx_from_scale, _nearest_idx_from_size
 from mrfp_tpu_torch.ops import _build, cuda_dot_stats, cuda_np_plus, cuda_resize
@@ -356,3 +367,175 @@ def test_np_plus_wrapper_refuses_dtypes_and_shapes(monkeypatch):
         cuda_np_plus.np_plus_apply_cuda(_meta(2, 3, 4, 4), coef, _meta(1, 3, 1, 1))
     with pytest.raises(ValueError, match="coefficients"):
         cuda_np_plus.np_plus_apply_cuda(_meta(2, 3, 16), coef, coef)
+
+
+# --- the staged bilinear backward and the staged nearest forward ---------------
+
+def _bwd_taps(in_size, out_size):
+    """For each input index, the outputs whose tap 0 or tap 1 reads it
+    (brute force over ``bilinear_ac_weights``)."""
+    i0, i1, _ = bilinear_ac_weights(in_size, out_size)
+    return [np.flatnonzero((i0 == i) | (i1 == i)) for i in range(in_size)]
+
+
+def _check_bilinear_bwd_plan(in_hw, out_hw, itemsize):
+    """Each block of the staged backward (a band of input rows by a tile of
+    input columns) stages the H-mixed cotangent columns [seg0, seg0 +
+    in_cols), ``seg0`` the lower range start of its first input, as the
+    kernel computes it: every cotangent column an input of the tile needs
+    lies inside, the bands and tiles cover the input once, a staged row
+    holds ``in_cols`` values from any lead into a granule, and the shared
+    memory is the stage's and within the budget. The plane sum takes 1x1
+    inputs alone; the direct kernel only shapes whose one-column tile does
+    not fit."""
+    (h, w), (oh, ow) = in_hw, out_hw
+    plan = cuda_resize.bilinear_bwd_plan(h, w, oh, ow, itemsize)
+    if (h, w) == (1, 1):
+        assert plan.route == "sum"
+        return plan
+    txs = bilinear_taps(w, ow, "cpu")
+    rx = [t.numpy() for t in (txs.lo0, txs.hi0, txs.lo1, txs.hi1)]
+    cap = cuda_resize.BILINEAR_FWD_SMEM_CAP
+    vec = 16 // itemsize if ow % (16 // itemsize) == 0 else 1
+    if plan.route == "direct":
+        assert 4 * cuda_resize.bilinear_bwd_pitch(cuda_resize.bilinear_bwd_span(*rx, 1),
+                                                  itemsize) > cap
+        return plan
+    assert plan.route == "staged" and plan.vec == vec
+    rows_seen, cols_seen = np.zeros(h, int), np.zeros(w, int)
+    for y0 in range(0, h, plan.band):
+        rows_seen[y0:y0 + plan.band] += 1
+    need = _bwd_taps(w, ow)
+    lo0, hi0, lo1, hi1 = rx
+    for x0 in range(0, w, plan.cols):
+        tile = np.arange(x0, min(x0 + plan.cols, w))
+        cols_seen[tile] += 1
+        start = min(lo0[x0], lo1[x0])
+        end = max(hi0[tile[-1]], hi1[tile[-1]])
+        assert 0 <= end - start <= plan.in_cols
+        for i in tile:
+            assert ((need[i] >= start) & (need[i] < end)).all()
+    assert (rows_seen == 1).all() and (cols_seen == 1).all()
+    # a thread takes 16 bytes' worth, from the granule holding the segment's
+    # first value (vec > 1: up to per_word - 1 values in) or from that value
+    per_word = 16 // itemsize
+    lead = per_word - 1 if vec > 1 else 0
+    assert plan.t_pitch >= -(-(lead + plan.in_cols) // per_word) * per_word
+    assert plan.t_pitch % 4 == 0
+    assert plan.smem == 4 * plan.band * plan.t_pitch <= cap
+    return plan
+
+
+@pytest.mark.parametrize("in_hw,out_hw", BILINEAR_SHAPES)
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_bilinear_bwd_plan_stages_every_tap(in_hw, out_hw, itemsize):
+    plan = _check_bilinear_bwd_plan(in_hw, out_hw, itemsize)
+    # the 30,000-wide outputs of a 4-wide input need the direct kernel; the
+    # model's shapes and the other edge cases take the staged one
+    wide = in_hw[1] == 4 and out_hw[1] == 30000
+    assert plan.route == ("sum" if in_hw == (1, 1) else "direct" if wide else "staged")
+
+
+@pytest.mark.parametrize("in_hw,out_hw", BILINEAR_SHAPES[:12])
+def test_bilinear_bwd_plan_takes_whole_rows(in_hw, out_hw):
+    """At the model's shapes a block takes whole rows (the cotangent is read
+    once, in 16-byte loads where its width allows) and about
+    BILINEAR_BWD_ITEMS (row, granule) sums."""
+    (h, w), (oh, ow) = in_hw, out_hw
+    for itemsize in (2, 4):
+        plan = cuda_resize.bilinear_bwd_plan(h, w, oh, ow, itemsize)
+        if (h, w) == (1, 1):
+            continue
+        assert plan.cols == w and plan.in_cols == ow
+        assert plan.vec == (1 if ow % (16 // itemsize) else 16 // itemsize)
+        row_items = plan.t_pitch * itemsize // 16  # a thread's 16 bytes of a row
+        want = max(1, min(h, cuda_resize.BILINEAR_BWD_ITEMS // row_items))
+        assert plan.band == want or (plan.band < want and 4 * (plan.band + 1) * plan.t_pitch
+                                     > cuda_resize.BILINEAR_FWD_SMEM_CAP)
+
+
+@settings(max_examples=40, deadline=None, derandomize=True)
+@given(h=st.integers(1, 40), w=st.integers(1, 200), oh=st.integers(1, 300),
+       ow=st.integers(1, 900), itemsize=st.sampled_from([2, 4]))
+def test_bilinear_bwd_plan_drawn_shapes(h, w, oh, ow, itemsize):
+    _check_bilinear_bwd_plan((h, w), (oh, ow), itemsize)
+
+
+# (in_hw, rule, (arg_h, arg_w)) of every nearest forward chip_smoke.py runs:
+# the seven OC resizes (odd widths 231, 277, 321; downsamples dec2-dec4),
+# the edge cases and the long ranges
+NEAREST_FWD = [(hw, rule, arg) for _p, hw, rule, arg in STAGED] + [
+    ((5, 6), "scale", (3.0, 3.0))]
+
+
+def _check_nearest_fwd_plan(h, w, rule, arg, itemsize):
+    """Each band of output rows stages input rows [iy[first], iy[first] +
+    stage_rows): every row its outputs read lies inside; the bands tile the
+    output rows once, so a plane's bands are one flat run of its output;
+    the shared memory holds the ix table and the stage within the budget.
+    The direct kernel (band 0) only where one row does not fit."""
+    ty = nearest_table(h, rule, arg[0], "cpu")
+    ow = nearest_table(w, rule, arg[1], "cpu").idx.numel()
+    iy = _jax_idx(h, rule, arg[0])
+    plan = cuda_resize.nearest_fwd_plan(ty.spec, w, ow, itemsize)
+    cap = cuda_resize.NEAREST_FWD_SMEM_CAP
+    if plan.band == 0:
+        assert cuda_resize.nearest_fwd_smem_bytes(ow, 1, 1, w, itemsize) > cap
+        return plan
+    covered = []
+    for oy0 in range(0, iy.size, plan.band):
+        rows = iy[oy0:oy0 + plan.band]
+        assert rows.min() >= iy[oy0] and rows.max() < iy[oy0] + plan.stage_rows
+        assert rows.max() - rows.min() < plan.stage_rows <= h
+        covered.append(np.arange(oy0 * ow, (oy0 + rows.size) * ow))
+    np.testing.assert_array_equal(np.concatenate(covered), np.arange(iy.size * ow))
+    assert plan.smem == cuda_resize.nearest_fwd_smem_bytes(ow, plan.band, plan.stage_rows, w,
+                                                           itemsize)
+    assert plan.smem <= cap
+    return plan
+
+
+@pytest.mark.parametrize("in_hw,rule,arg", NEAREST_FWD)
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_nearest_fwd_plan_stages_every_row(in_hw, rule, arg, itemsize):
+    plan = _check_nearest_fwd_plan(*in_hw, rule, arg, itemsize)
+    # only the 30,000-wide output's ix table outgrows the budget
+    assert (plan.band == 0) == (arg == (3, 30000))
+
+
+@pytest.mark.parametrize("in_hw,rule,arg", NEAREST_FWD[:7])
+def test_nearest_fwd_plan_bands_are_as_tall_as_the_budget_allows(in_hw, rule, arg):
+    """At the OC shapes a band is about NEAREST_FWD_ELEMS outputs, or as
+    many rows as fit (a downsample's fp32 band reads more input rows than
+    it writes)."""
+    h, w = in_hw
+    for itemsize in (2, 4):
+        ty = nearest_table(h, rule, arg[0], "cpu")
+        ow = nearest_table(w, rule, arg[1], "cpu").idx.numel()
+        plan = cuda_resize.nearest_fwd_plan(ty.spec, w, ow, itemsize)
+        want = max(1, min(ty.idx.numel(), cuda_resize.NEAREST_FWD_ELEMS // ow))
+        assert 0 < plan.band <= want
+        if plan.band < want:  # one row more would not fit
+            rows = cuda_resize.bilinear_band_span(ty.idx.numpy(), ty.idx.numpy(),
+                                                  plan.band + 1)
+            assert cuda_resize.nearest_fwd_smem_bytes(ow, plan.band + 1, rows, w, itemsize) \
+                > cuda_resize.NEAREST_FWD_SMEM_CAP
+
+
+@settings(max_examples=40, deadline=None, derandomize=True)
+@given(h=st.integers(1, 400), w=st.integers(1, 400), sy=st.floats(0.3, 3.0),
+       sx=st.floats(0.3, 3.0), itemsize=st.sampled_from([2, 4]))
+def test_nearest_fwd_plan_drawn_shapes(h, w, sy, sx, itemsize):
+    if int(np.floor(h * sy)) == 0 or int(np.floor(w * sx)) == 0:
+        return
+    _check_nearest_fwd_plan(h, w, "scale", (sy, sx), itemsize)
+
+
+def test_nearest_fwd_wrapper_refuses_mismatched_inputs(monkeypatch):
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(_build, "load_library", lambda: _NoLaunch())
+    ty, tx = nearest_table(5, "size", 7, "meta"), nearest_table(6, "size", 8, "meta")
+    with pytest.raises(ValueError, match="does not match the tables"):
+        cuda_resize.resize_nearest_cuda(_meta(1, 2, 5, 7), ty, tx)
+    with pytest.raises(ValueError, match="NCHW-contiguous"):
+        cuda_resize.resize_nearest_cuda(_meta(2, 5, 6), ty, tx)
