@@ -10,7 +10,12 @@ process of its own, which builds that checkout's kernels and imports its
 ``chip_smoke.py`` helpers, and prints one line: the device time
 (CUDA-graph replay) of the bilinear forward and backward at the five bf16
 train resizes, of the nearest forward at the seven bf16 OC-branch resizes
-and of the NP+ apply at the two NP+ sites, each with its sum; the bf16
+and of the NP+ apply at the two NP+ sites, each with its sum; of one
+``confusion_matrix_update`` at the eval shape (C=19, 2x1024x2048, int64
+pred and uint8 label, as the eval path gives them) on uniform noise and on
+this checkout's run-structured map, the same map for every root; of
+``row_mix_cuda`` (compaction and mix) on a dense random (231, 192) P at
+the bf16 enc1 shape along H and along W, beside its plain version; the bf16
 batch-8 768x768 train step, unfused and fused, gates on and off; and the
 fp32 1x3x1024x2048 eval forward (medians of 7 single-call CUDA-event
 timings). Give the roots as parent, change, change, parent to see the
@@ -19,6 +24,7 @@ spread beside the difference.
 
 from __future__ import annotations
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -85,6 +91,35 @@ def _one(root: str) -> str:
         del x
     out.append(f"np_plus_apply two-site sum {total:.4f}")
     torch.cuda.empty_cache()
+
+    # the maps come from this file's checkout, so every root counts the same pixels
+    from mrfp_tpu_torch.ops.hist import confusion_matrix_update
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_maps", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                        "chip_smoke.py"))
+    maps = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(maps)
+    gen = torch.Generator().manual_seed(0)
+    hist = torch.zeros(19, 19, dtype=torch.int32, device="cuda")
+    for name, (label, pred) in (("uniform", maps._uniform_map(gen, (2, c.H, c.W), 19)),
+                                ("run-structured", maps.run_structured_map(gen, (2, c.H, c.W),
+                                                                           19))):
+        label, pred = label.cuda(), pred.cuda()
+        ms = c.device_ms(lambda: confusion_matrix_update(hist, pred, label, 19))
+        out.append(f"confusion_matrix {name} {ms:.4f}")
+        del label, pred
+
+    # row_mix_cuda's general-P path (compaction, then the mix) on a dense
+    # random P at the enc1 shape, beside its plain version (one fp32 matmul)
+    from mrfp_tpu_torch.ops import cuda_row_mix
+    _, ch, (h, w), _ = c.NEAREST_SHAPES[0]
+    x = torch.randn((c.TRAIN_N, ch, h, w), device="cuda", generator=g).to(torch.bfloat16)
+    for dim in (2, 3):
+        p = torch.randn((231, (h, w)[dim - 2]), device="cuda", generator=g)
+        ms = [c.device_ms(lambda: fn(x, p, dim), calls=10)
+              for fn in (cuda_row_mix.row_mix_cuda, cuda_row_mix.row_mix_plain)]
+        out.append(f"row_mix dense P along {'HW'[dim - 2]} {ms[0]:.4f} (plain {ms[1]:.4f})")
+    del x
 
     gen = torch.Generator().manual_seed(0)
     torch.backends.cudnn.allow_tf32 = True

@@ -8,7 +8,9 @@ of the port.
 
 Eval: holds the bilinear and confusion-matrix kernels against their plain
 PyTorch versions at the eval shapes (the bilinear forward exactly, naming
-its route: 16-byte vector stores or scalar), runs the full R50-D16 model at
+its route: 16-byte vector stores or scalar; the confusion matrix exactly,
+on uniform noise and on a run-structured map like a real label map, for
+every dtype pair it reads natively, and one launch a call), runs the full R50-D16 model at
 1024x2048 through the kernels and through the plain versions, then drives
 ``mrfp_tpu_torch.cli.eval`` on synthetic 1024x2048 images in float32 and
 bfloat16 and checks that both kernels were launched there.
@@ -29,8 +31,9 @@ with ``mrfp_tpu_torch.cli.eval --ckpt``.
 Fused statistics (``cfg.train.fuse_bn_stats``): holds dot_with_stats
 against its plain version at the 15 shapes of the step's 36 bottleneck 1x1s
 and at ragged shapes, naming for each the kernel that ran (tensor-core or
-CUDA-core), and the row mix, the channel sums and the NP+ apply at the OC and NP+
-shapes; drives the public functions of those three (no train or eval path
+CUDA-core), and the row mix (take_rows' tables at the OC shapes and edge cases,
+exactly; a general dense P within its bound), the channel sums and the NP+
+apply at the OC and NP+ shapes; drives the public functions of those three (no train or eval path
 runs them); takes one fp32 fused step through the kernels, through the plain
 versions and unfused, and times the bf16 fused step beside the unfused one;
 then drives one bf16 batch-8 fused step and counts its 36 dot_with_stats
@@ -369,28 +372,86 @@ def phase_resize(gen) -> None:
               f"an offset view: exactly equal, routes {routes}")
 
 
+def run_structured_map(gen, shape, num_classes: int):
+    """A (label, pred) pair shaped like a segmentation map and its argmax,
+    made from ``gen`` on the CPU: each row of the last axis cut into runs of
+    64-512 pixels of one label each (the last run cut at the row's end);
+    class 0 takes about 40% of the runs, the ignore label 255 about 10%, the
+    rest uniform over 1..C-1. The pred is the label except on about 10% of
+    the runs of a second, independent cut, and on ignore pixels, where it
+    takes that run's own class, uniform over 0..C-1. uint8 label, int64
+    pred."""
+    *lead, w = shape
+    rows = math.prod(lead)
+    k = w // 64 + 1  # runs of >= 64 pixels: enough to cover a row
+    cols = torch.arange(w).expand(rows, w).contiguous()
+
+    def cut():
+        ends = torch.randint(64, 513, (rows, k), generator=gen).cumsum(1)
+        return torch.searchsorted(ends, cols, right=True)
+
+    u = torch.rand((rows, k), generator=gen)
+    cls = torch.randint(1, num_classes, (rows, k), generator=gen)
+    cls[u < 0.4] = 0
+    cls[(u >= 0.4) & (u < 0.5)] = 255
+    label = cls.gather(1, cut())
+    run = cut()
+    wrong = (torch.rand((rows, k), generator=gen) < 0.1).gather(1, run)
+    other = torch.randint(0, num_classes, (rows, k), generator=gen).gather(1, run)
+    pred = torch.where(wrong | (label == 255), other, label)
+    return label.to(torch.uint8).reshape(shape), pred.reshape(shape)
+
+
+def _uniform_map(gen, shape, c: int):
+    """Uniform noise over the C classes: 1% of preds C + 3 and 1% -1
+    (dropped), 10% of labels 255 (ignore); int64 pred, uint8 label."""
+    pred = torch.randint(0, c, shape, generator=gen)
+    junk = torch.rand(shape, generator=gen)
+    pred[junk < 0.01] = c + 3
+    pred[junk > 0.99] = -1
+    label = torch.randint(0, c, shape, generator=gen)
+    label[torch.rand(shape, generator=gen) < 0.1] = 255
+    return label.to(torch.uint8), pred
+
+
+def _hist_equal(pred, label, c: int, what: str) -> int:
+    """The kernel's counts against the plain version's."""
+    from mrfp_tpu_torch.ops import cuda_hist
+    got = cuda_hist.confusion_matrix_cuda(torch.zeros(c, c, dtype=torch.int32, device=DEV),
+                                          pred, label, c)
+    ref = cuda_hist.confusion_matrix_plain(pred, label, c)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"confusion matrix {what}: kernel != plain, "
+                             f"{(got - ref).abs().sum().item()} counts apart")
+    return int(got.sum().item())
+
+
 def phase_hist(gen) -> dict:
+    """The confusion matrix against its plain version, exactly: on uniform
+    noise at the eval shape (C=19, 2x1024x2048) and at C=128, for every
+    dtype pair the kernel reads natively (pred int64/int32, label
+    uint8/int32/int64); on a run-structured map at
+    the eval shape (``run_structured_map``, with int64 preds of 2^32 + 3,
+    which int32 would wrap into range, -1 and C sprinkled in), with uint8
+    and int32 labels and int64 and int32 preds. Times the eval path's pair
+    (int64 pred, uint8 label) on both maps, and shows from a
+    profiler trace that one call launches one kernel (no cast pass). The
+    library call is one bincount of the kept pixels' flat indices."""
+    from torch.profiler import ProfilerActivity, profile
+
     from mrfp_tpu_torch.ops.hist import confusion_matrix_update as update
     out = {}
+    preds, labels = (torch.int64, torch.int32), (torch.uint8, torch.int32, torch.int64)
     for c, shape in ((19, (2, H, W)), (128, (1 << 20,))):
-        pred = torch.randint(0, c, shape, generator=gen)
-        junk = torch.rand(shape, generator=gen)
-        pred[junk < 0.01] = c + 3       # out-of-range preds are dropped
-        pred[junk > 0.99] = -1
-        label = torch.randint(0, c, shape, generator=gen)
-        label[torch.rand(shape, generator=gen) < 0.1] = 255  # ignore
-        pred, label = pred.to(DEV), label.to(DEV, torch.uint8)
-        got = update(torch.zeros(c, c, dtype=torch.int32, device=DEV), pred, label, c)
-        ref = update(torch.zeros(c, c, dtype=torch.int32, device=DEV), pred, label, c,
-                     impl="plain")
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            raise AssertionError(f"confusion matrix C={c}: kernel != plain, "
-                                 f"{(got - ref).abs().sum().item()} counts apart")
+        label, pred = (t.to(DEV) for t in _uniform_map(gen, shape, c))
+        counted = _hist_equal(pred, label, c, f"C={c} uniform")
+        for pd in preds:
+            for ld in labels:
+                _hist_equal(pred.to(pd), label.to(ld), c, f"C={c} uniform pred {pd} label {ld}")
         hist = torch.zeros(c, c, dtype=torch.int32, device=DEV)
         k_ms = median_ms(lambda: update(hist, pred, label, c))
         p_ms = median_ms(lambda: update(hist, pred, label, c, impl="plain"))
-        # the library call: one bincount of the kept pixels' flat indices
         lab = label.long()
         keep = (lab < c) & (pred >= 0) & (pred < c)
         flat = (lab * c + pred)[keep]
@@ -398,17 +459,61 @@ def phase_hist(gen) -> dict:
         cost = Cost()
         cost.add(nbytes(pred, label, hist))
         print(f"confusion_matrix C={c} pred/label {tuple(shape)}: exactly equal "
-              f"({got.sum().item()} counted); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"bincount {l_ms:.4f} ms, bound {cost.bound_ms:.4f} ms")
+              f"({counted} counted; every native dtype pair); kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bincount {l_ms:.4f} ms, bound "
+              f"{cost.bound_ms:.4f} ms")
         if c == 19:  # the eval shape
             # bincount reads its input's max back to the host, so no graph
             # can capture it: its device time comes from a profiler trace
             dev = (device_ms(lambda: update(hist, pred, label, c)),
                    profiled_device_ms(lambda: torch.bincount(flat, minlength=c * c)))
-            print(f"confusion_matrix C={c}: device time kernel {dev[0]:.4f} ms (graph), "
+            print(f"confusion_matrix C={c} uniform: device time kernel {dev[0]:.4f} ms (graph), "
                   f"bincount {dev[1]:.4f} ms (profiler)")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                update(hist, pred, label, c)
+                torch.cuda.synchronize()
+            on_card = [(e.key, e.count) for e in prof.key_averages()
+                       if e.self_device_time_total > 0]
+            print(f"confusion_matrix int64 pred, uint8 label: one call's device work {on_card}")
+            if len(on_card) != 1 or "confusion_matrix_kernel" not in on_card[0][0] \
+                    or on_card[0][1] != 1:
+                raise AssertionError(f"confusion matrix: one call ran {on_card}, not the "
+                                     f"kernel alone")
             out = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                    "device_ms": dev[0], "library_device_ms": dev[1], **cost.fields()}
+        del label, pred, lab, keep, flat
+
+    # the run-structured map at the eval shape
+    c = 19
+    label, pred = run_structured_map(gen, (2, H, W), c)
+    spots = torch.randint(0, pred.numel(), (3, 1000), generator=gen)
+    for s, v in zip(spots, (2 ** 32 + 3, -1, c)):  # out of range in int64
+        pred.view(-1)[s] = v
+    label, pred = label.to(DEV), pred.to(DEV)
+    counted = 0
+    for pd in preds:
+        for ld in labels[:2]:
+            counted = _hist_equal(pred.to(pd), label.to(ld), c,
+                                  f"C={c} run-structured pred {pd} label {ld}")
+    lab = label.long()
+    keep = (lab < c) & (pred >= 0) & (pred < c)
+    flat = (lab * c + pred)[keep]
+    share = [(lab == 0).float().mean().item(), (lab == 255).float().mean().item(),
+             (pred == lab)[lab != 255].float().mean().item()]
+    hist = torch.zeros(c, c, dtype=torch.int32, device=DEV)
+    k_ms = median_ms(lambda: update(hist, pred, label, c))
+    p_ms = median_ms(lambda: update(hist, pred, label, c, impl="plain"))
+    l_ms = median_ms(lambda: torch.bincount(flat, minlength=c * c))
+    dev = (device_ms(lambda: update(hist, pred, label, c)),
+           profiled_device_ms(lambda: torch.bincount(flat, minlength=c * c)))
+    print(f"confusion_matrix C={c} run-structured {tuple(label.shape)} (class 0 {share[0]:.3f}, "
+          f"ignore {share[1]:.3f}, pred == label {share[2]:.3f} of the rest): exactly equal "
+          f"({counted} counted; pred int64/int32, label uint8/int32); kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, bincount {l_ms:.4f} ms; device time kernel {dev[0]:.4f} ms "
+          f"(graph), bincount {dev[1]:.4f} ms (profiler); "
+          f"uniform {out['device_ms']:.4f} ms")
+    out.update(run_ms=k_ms, run_device_ms=dev[0], run_library_ms=l_ms,
+               run_library_device_ms=dev[1])
     return out
 
 
@@ -933,14 +1038,117 @@ def _nearest_idx(size: int, rule: str, arg) -> tuple:
     return tuple(int(i) for i in idx)
 
 
-def phase_row_mix(cuda_gen) -> dict:
-    """take_rows (row_mix with the one-hot P, and with P^T for the gradient)
-    against the plain versions at the seven OC shapes, along H for the even
-    ones and W for the odd: a copy and sums of at most two terms, so both
-    directions must be exactly equal. Times in bf16, summed over the seven,
-    forward plus backward; the library calls index_select / index_add_."""
+# (name, N, C, in_hw, (rule, arg), dim): row-mix edge cases of take_rows,
+# both directions exactly equal: widths 1, 7 and 9, h = 1, odd widths on
+# both axes, downsamples (their transposes have empty rows), and rows too
+# wide for a stage (the direct W kernel, the scalar H route)
+ROW_MIX_EDGES = [
+    ("width 1 x1.5 along W", 2, 3, (5, 1), ("scale", 1.5), 3),
+    ("width 7 x1.3 along W", 2, 3, (6, 7), ("scale", 1.3), 3),
+    ("width 9 to 13 along W", 2, 3, (9, 9), ("size", 13), 3),
+    ("width 7, x1.3 along H", 2, 3, (6, 7), ("scale", 1.3), 2),
+    ("width 9, x0.798 along H", 2, 3, (9, 9), ("scale", 0.798), 2),
+    ("h 1 to 2 along H", 2, 3, (1, 20), ("size", 2), 2),
+    ("h 1, 20 to 30 along W", 2, 3, (1, 20), ("size", 30), 3),
+    ("7 to 3 along W", 2, 3, (7, 7), ("size", 3), 3),
+    ("11000 to 11002 wide along W", 1, 2, (2, 11000), ("size", 11002), 3),
+    ("width 11001, x1.5 along H", 1, 2, (3, 11001), ("scale", 1.5), 2),
+]
+
+
+def _row_mix_route(x, table, dim) -> str:
+    """The route ``row_mix_table_cuda`` takes for ``x`` and ``table``."""
     from mrfp_tpu_torch.ops import cuda_row_mix
-    from mrfp_tpu_torch.ops.resize import onehot_rows
+    n, c, h, w = x.shape
+    return cuda_row_mix._table_plan(table, dim, w, x.element_size(), x.data_ptr() % 16 == 0,
+                                    n * c * h).route
+
+
+def _row_mix_route_comparison(cuda_gen) -> None:
+    """The H mix's 16-byte route against the staged route on the same rows:
+    in bf16 at the three OC shapes whose rows are whole 16-byte vectors
+    (enc1, dec2, dec4; forward + backward with take_rows' tables, device
+    time), and for a dense P at the enc1 shape, where a table compacted on
+    the card leaves the scalar route as the other choice. The other route
+    is forced by planning as if the pointers were not 16-byte aligned;
+    both must equal plain as the kernel's own checks require."""
+    from unittest import mock
+
+    from mrfp_tpu_torch.ops import cuda_row_mix as rm
+    from mrfp_tpu_torch.ops.resize import onehot_rows, onehot_table
+    plan = rm._table_plan
+
+    def unaligned(table, dim, width, itemsize, aligned, rows):
+        return plan(table, dim, width, itemsize, False, rows)
+
+    def timed(fn, check):
+        """(route, device ms) of fn() as planned, then with the other route."""
+        out = []
+        for patch in (mock.patch.object(rm, "_table_plan", plan),
+                      mock.patch.object(rm, "_table_plan", unaligned)):
+            with patch:
+                check(fn())
+                out.append(device_ms(fn, calls=10))
+        return out
+
+    for i in (0, 4, 6):
+        name, c, (h, w), rule = NEAREST_SHAPES[i]
+        (rule_name, arg), = rule.items()
+        idx = _nearest_idx(h, rule_name, arg[0])
+        tab, tabt = onehot_table(idx, h, DEV), onehot_table(idx, h, DEV, transpose=True)
+        x = torch.randn((TRAIN_N, c, h, w), device=DEV, generator=cuda_gen).to(torch.bfloat16)
+        g = torch.randn((TRAIN_N, c, len(idx), w), device=DEV,
+                        generator=cuda_gen).to(torch.bfloat16)
+        yp = rm.row_mix_plain(x, onehot_rows(idx, h, DEV), 2)
+        gp = rm.row_mix_plain(g, onehot_rows(idx, h, DEV, transpose=True), 2)
+
+        def equal(ref):
+            def check(got):
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"row_mix route comparison {name}: kernel != plain")
+            return check
+        fwd = timed(lambda: rm.row_mix_table_cuda(x, tab, 2), equal(yp))
+        bwd = timed(lambda: rm.row_mix_table_cuda(g, tabt, 2), equal(gp))
+        routes = (_row_mix_route(x, tab, 2), unaligned(tab, 2, w, 2, True, 0).route)
+        print(f"row_mix route comparison bf16 {name} ({TRAIN_N},{c},{h},{w}) along H, forward "
+              f"+ backward, exactly equal both ways: device time (graph) {routes[0]} route "
+              f"{fwd[0] + bwd[0]:.4f} ms (forward {fwd[0]:.4f}), {routes[1]} route "
+              f"{fwd[1] + bwd[1]:.4f} ms (forward {fwd[1]:.4f})")
+        del x, g, yp, gp
+
+    name, c, (h, w), _ = NEAREST_SHAPES[0]
+    x = torch.randn((TRAIN_N, c, h, w), device=DEV, generator=cuda_gen).to(torch.bfloat16)
+    p = torch.randn((231, h), device=DEV, generator=cuda_gen)
+    table = rm.row_mix_compact_cuda(p)
+    ref = rm.row_mix_table_cuda(x, table, 2)
+
+    def same(got):
+        if not torch.equal(got, ref):  # one column order, one fmaf chain: bit-equal
+            raise AssertionError("row_mix route comparison, dense P: the routes disagree")
+    ms = timed(lambda: rm.row_mix_table_cuda(x, table, 2), same)
+    print(f"row_mix route comparison bf16 dense P (231,{h}) on {name} ({TRAIN_N},{c},{h},{w}) "
+          f"along H, bit-equal both ways: device time (graph) "
+          f"{_row_mix_route(x, table, 2)} route {ms[0]:.4f} ms, "
+          f"{unaligned(table, 2, w, 2, True, 0).route} route {ms[1]:.4f} ms")
+    del x, ref
+    torch.cuda.empty_cache()
+
+
+def phase_row_mix(cuda_gen) -> dict:
+    """take_rows' kernel (the mix with the one-hot P's cached table, and with
+    P^T's for the gradient) against the plain versions at the seven OC
+    shapes, along H for the even ones and W for the odd, and at the edge
+    cases: a copy and sums of at most two terms, so both directions must be
+    exactly equal, and the forward equal to index_select. Times in bf16,
+    summed over the seven, forward plus backward; the library calls
+    index_select / index_add_. Then a general dense random P at the enc1
+    shape along both axes, fp32 and bf16 x, through ``row_mix_cuda``
+    (compaction, then the mix): within in * 2^-23 of the summed magnitudes
+    |P| @ |x| of plain's fp32 product (two fp32 sums of ``in`` terms in
+    different orders), plus one bf16 ulp (2^-7 of the result) in bf16; the
+    compaction's own time on a line of its own."""
+    from mrfp_tpu_torch.ops import LAUNCHES, cuda_row_mix
+    from mrfp_tpu_torch.ops.resize import onehot_rows, onehot_table
     totals, cost = [0.0] * 5, Cost()
     for dtype in (torch.bfloat16, torch.float32):
         for i, (name, c, (h, w), rule) in enumerate(NEAREST_SHAPES):
@@ -948,12 +1156,13 @@ def phase_row_mix(cuda_gen) -> dict:
             rule_name, arg = next(iter(rule.items()))
             size = (h, w)[dim - 2]
             idx = _nearest_idx(size, rule_name, arg[dim - 2])
-            p = onehot_rows(idx, size, DEV)
-            pt = onehot_rows(idx, size, DEV, transpose=True)
+            p, pt = onehot_rows(idx, size, DEV), onehot_rows(idx, size, DEV, transpose=True)
+            tab, tabt = onehot_table(idx, size, DEV), onehot_table(idx, size, DEV, transpose=True)
             x = torch.randn((TRAIN_N, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
-            yk, yp = cuda_row_mix.row_mix_cuda(x, p, dim), cuda_row_mix.row_mix_plain(x, p, dim)
+            yk = cuda_row_mix.row_mix_table_cuda(x, tab, dim)
+            yp = cuda_row_mix.row_mix_plain(x, p, dim)
             g = torch.randn(yk.shape, device=DEV, generator=cuda_gen).to(dtype)
-            gk = cuda_row_mix.row_mix_cuda(g, pt, dim)
+            gk = cuda_row_mix.row_mix_table_cuda(g, tabt, dim)
             gp = cuda_row_mix.row_mix_plain(g, pt, dim)
             torch.cuda.synchronize()
             ti = torch.as_tensor(idx, device=DEV)
@@ -962,20 +1171,26 @@ def phase_row_mix(cuda_gen) -> dict:
                 raise AssertionError(f"row_mix {name} dim {dim} {dtype}: kernel != plain "
                                      f"(forward {torch.equal(yk, yp)}, "
                                      f"backward {torch.equal(gk, gp)})")
-            pairs = ((lambda: cuda_row_mix.row_mix_cuda(x, p, dim),
-                      lambda: cuda_row_mix.row_mix_cuda(g, pt, dim)),
+            pairs = ((lambda: cuda_row_mix.row_mix_table_cuda(x, tab, dim),
+                      lambda: cuda_row_mix.row_mix_table_cuda(g, tabt, dim)),
                      (lambda: cuda_row_mix.row_mix_plain(x, p, dim),
                       lambda: cuda_row_mix.row_mix_plain(g, pt, dim)),
                      (lambda: x.index_select(dim, ti),
                       lambda: torch.zeros_like(x).index_add_(dim, ti, g)))
             ms = [median_ms(fwd, runs=10) + median_ms(bwd, runs=10) for fwd, bwd in pairs]
-            ms += [device_ms(fwd, calls=10) + device_ms(bwd, calls=10)
-                   for fwd, bwd in (pairs[0], pairs[2])]
+            fwd_dev = device_ms(pairs[0][0], calls=10)
+            bwd_dev = device_ms(pairs[0][1], calls=10)
+            ms += [fwd_dev + bwd_dev, device_ms(pairs[2][0], calls=10)
+                   + device_ms(pairs[2][1], calls=10)]
+            gb = nbytes(x, yk, g, gk) / 1e9
             print(f"row_mix {_dtype_name(dtype)} {name} ({TRAIN_N},{c},{h},{w}) along "
                   f"{'HW'[dim - 2]} -> {tuple(yk.shape[2:])}: forward and backward exactly "
-                  f"equal; forward + backward kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, "
-                  f"index_select + index_add_ {ms[2]:.4f} ms; device time (graph) kernel "
-                  f"{ms[3]:.4f} ms, index_select + index_add_ {ms[4]:.4f} ms")
+                  f"equal, forward {_row_mix_route(x, tab, dim)} route, backward "
+                  f"{_row_mix_route(g, tabt, dim)} route; forward + backward kernel "
+                  f"{ms[0]:.4f} ms, plain {ms[1]:.4f} ms, index_select + index_add_ "
+                  f"{ms[2]:.4f} ms; device time (graph) kernel {ms[3]:.4f} ms (forward "
+                  f"{fwd_dev:.4f}, backward {bwd_dev:.4f}; {gb / ms[3] * 1e3:.0f} GB/s), "
+                  f"index_select + index_add_ {ms[4]:.4f} ms")
             if dtype == torch.bfloat16:
                 for j in range(5):
                     totals[j] += ms[j]
@@ -988,6 +1203,90 @@ def phase_row_mix(cuda_gen) -> dict:
           f"plain {totals[1]:.3f} ms, index_select + index_add_ {totals[2]:.3f} ms, bound "
           f"{cost.bound_ms:.3f} ms; device time (graph) kernel {totals[3]:.3f} ms, "
           f"index_select + index_add_ {totals[4]:.3f} ms")
+    _row_mix_route_comparison(cuda_gen)
+
+    routes = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, n, c, (h, w), (rule_name, arg), dim in ROW_MIX_EDGES:
+            size = (h, w)[dim - 2]
+            idx = _nearest_idx(size, rule_name, arg)
+            tab, tabt = onehot_table(idx, size, DEV), onehot_table(idx, size, DEV, transpose=True)
+            # the second of three samples: a view that need not start 16-byte aligned
+            for x in (torch.randn((n, c, h, w), device=DEV, generator=cuda_gen).to(dtype),
+                      torch.randn((3, c, h, w), device=DEV, generator=cuda_gen).to(dtype)[1:2]):
+                y = cuda_row_mix.row_mix_table_cuda(x, tab, dim)
+                g = torch.randn(y.shape, device=DEV, generator=cuda_gen).to(dtype)
+                gx = cuda_row_mix.row_mix_table_cuda(g, tabt, dim)
+                ok = (torch.equal(y, cuda_row_mix.row_mix_plain(x, onehot_rows(idx, size, DEV),
+                                                                dim))
+                      and torch.equal(y, x.index_select(dim, torch.as_tensor(idx, device=DEV)))
+                      and torch.equal(gx, cuda_row_mix.row_mix_plain(
+                          g, onehot_rows(idx, size, DEV, transpose=True), dim)))
+                if not ok:
+                    raise AssertionError(f"row_mix edge case {name} {dtype} "
+                                         f"{tuple(x.shape)}: kernel != plain")
+            routes.append(f"{_row_mix_route(x, tab, dim)}/{_row_mix_route(g, tabt, dim)}")
+    print(f"row_mix edge cases {[e[0] for e in ROW_MIX_EDGES]}, bf16 and fp32, each also "
+          f"from an offset view: both directions exactly equal, routes (forward/backward) "
+          f"{routes}")
+
+    # an x3 upsample: its transposed rows have three terms, which the staged
+    # routes sum in a loop; held to the general P's bound below
+    idx = _nearest_idx(9, "scale", 3.0)
+    pt = onehot_rows(idx, 9, DEV, transpose=True)
+    tabt = onehot_table(idx, 9, DEV, transpose=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        for dim in (2, 3):
+            shape = [2, 3, 9, 9]
+            shape[dim] = len(idx)
+            g = torch.randn(shape, device=DEV, generator=cuda_gen).to(dtype)
+            got = cuda_row_mix.row_mix_table_cuda(g, tabt, dim)
+            ref = cuda_row_mix.row_mix_plain(g, pt, dim)
+            bound = 3 * 2.0 ** -23 * cuda_row_mix.row_mix_plain(g.float().abs(), pt, dim)
+            if dtype == torch.bfloat16:
+                bound = bound + 2.0 ** -7 * ref.float().abs()
+            over = ((got.float() - ref.float()).abs() - bound).max().item()
+            print(f"row_mix {_dtype_name(dtype)} x3 upsample's transpose along "
+                  f"{'HW'[dim - 2]} (three terms a row, {_row_mix_route(g, tabt, dim)} route): "
+                  f"max_abs_err {(got.float() - ref.float()).abs().max().item():.3e}, within "
+                  f"the bound (largest excess {over:.3e})")
+            if over > 0:
+                raise AssertionError(f"row_mix x3 transpose {dtype} dim {dim}: excess {over:.3e}")
+
+    # a general dense P: the compaction, then the mix
+    name, c, (h, w), _ = NEAREST_SHAPES[0]
+    on = 231
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((TRAIN_N, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
+        for dim in (2, 3):
+            size = (h, w)[dim - 2]
+            p = torch.randn((on, size), device=DEV, generator=cuda_gen)
+            before = LAUNCHES["row_mix_compact"]
+            got = cuda_row_mix.row_mix_cuda(x, p, dim)
+            compacted = LAUNCHES["row_mix_compact"] - before
+            ref = cuda_row_mix.row_mix_plain(x, p, dim)
+            mag = cuda_row_mix.row_mix_plain(x.float().abs(), p.abs(), dim)
+            bound = size * 2.0 ** -23 * mag
+            if dtype == torch.bfloat16:
+                bound = bound + 2.0 ** -7 * ref.float().abs()
+            err = (got.float() - ref.float()).abs()
+            over = (err - bound).max().item()
+            table = cuda_row_mix.row_mix_compact_cuda(p)
+            k_ms = median_ms(lambda: cuda_row_mix.row_mix_cuda(x, p, dim), runs=3, warmup=1)
+            c_ms = median_ms(lambda: cuda_row_mix.row_mix_compact_cuda(p), runs=10)
+            p_ms = median_ms(lambda: cuda_row_mix.row_mix_plain(x, p, dim), runs=3, warmup=1)
+            print(f"row_mix general P {_dtype_name(dtype)} {name} ({TRAIN_N},{c},{h},{w}) "
+                  f"along {'HW'[dim - 2]}, P ({on},{size}) dense: max_abs_err {err.max().item():.3e}, "
+                  f"within the bound (largest excess {over:.3e}), {compacted} compaction, "
+                  f"{_row_mix_route(x, table, dim)} route; kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms")
+            print(f"row_mix compaction of P ({on},{size}): {c_ms:.4f} ms a call")
+            if over > 0 or compacted != 1 or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"row_mix general P {dtype} dim {dim}: excess {over:.3e}, "
+                                     f"{compacted} compactions")
+            del got, ref, mag, bound, err
+        del x
+    torch.cuda.empty_cache()
     return {"max_abs_err": 0.0, "ms": totals[0], "plain_ms": totals[1],
             "library_ms": totals[2], "device_ms": totals[3], "library_device_ms": totals[4],
             **cost.fields()}
@@ -1122,6 +1421,7 @@ def phase_public_paths(cuda_gen) -> dict:
     nps = [normalization_perturbation_plus_fused(nz, f) for nz, f in zip(noise, (x, big))]
     torch.cuda.synchronize()
     launched = {k: LAUNCHES[k] for k in ("row_mix", "channel_sums", "np_plus_apply")}
+    compactions = LAUNCHES["row_mix_compact"]
     ref = resize_nearest(xb, scale=(1.205, 1.205))
     ref.backward(g)
     mean_p, var_p = channel_stats(big, impl="plain")
@@ -1144,9 +1444,12 @@ def phase_public_paths(cuda_gen) -> dict:
           f"mean/var max diff vs plain {(mean - mean_p).abs().max().item():.3e} / "
           f"{(var - var_p).abs().max().item():.3e}; fused NP+ within one bf16 ulp of the "
           f"train path's NP+")
-    if not ok or min(launched.values()) <= 0:
-        raise AssertionError(f"public paths: checks {ok}, launches {launched}")
-    return launched
+    print(f"public paths: take_rows launched {compactions} row_mix compactions (its one-hot "
+          f"tables are built on the host)")
+    if not ok or min(launched.values()) <= 0 or compactions != 0:
+        raise AssertionError(f"public paths: checks {ok}, launches {launched}, "
+                             f"{compactions} compactions")
+    return {**launched, "row_mix_compact": compactions}
 
 
 def _train_cfg(batch: int, dtype: str):
@@ -1527,7 +1830,8 @@ def main(argv=None) -> None:
              tensor_core_launches=fused_launches["dot_with_stats_tc"], **dot_stats),
         dict(name="row_mix", route="cuda", source=src + "row_mix.cu",
              replaces="mrfp_tpu/ops/pallas_resize.py:74",
-             launches=public_launches["row_mix"], **row_mix),
+             launches=public_launches["row_mix"],
+             compact_launches=public_launches["row_mix_compact"], **row_mix),
         dict(name="channel_sums", route="cuda", source=src + "channel_sums.cu",
              replaces="mrfp_tpu/ops/pallas_stats.py:88",
              launches=public_launches["channel_sums"], **channel_sums),

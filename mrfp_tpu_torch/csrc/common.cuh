@@ -32,6 +32,11 @@ struct Words<T, 1> {
   using type = T;
 };
 
+// Word i (0-3) of a 16-byte vector; with a constant i, a register.
+__device__ __forceinline__ unsigned word_of(const uint4& q, int i) {
+  return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
+}
+
 // The current device's SM count, read once.
 inline int sm_count() {
   static int sms = 0;

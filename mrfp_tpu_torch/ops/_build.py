@@ -10,7 +10,9 @@ or loaded when the package is imported.
 ``LAUNCHES`` counts kernel launches per wrapper: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels. ``dot_with_stats_tc`` counts the subset of
-``dot_with_stats`` launches that took the tensor-core kernel.
+``dot_with_stats`` launches that took the tensor-core kernel;
+``row_mix_compact`` counts the compactions of a caller's general P, which
+``take_rows`` never launches.
 """
 
 from __future__ import annotations
@@ -26,12 +28,13 @@ from pathlib import Path
 
 LAUNCHES = {"resize_bilinear": 0, "resize_bilinear_bwd": 0, "resize_nearest": 0,
             "resize_nearest_bwd": 0, "confusion_matrix": 0, "dot_with_stats": 0,
-            "dot_with_stats_tc": 0, "row_mix": 0, "channel_sums": 0, "np_plus_apply": 0}
+            "dot_with_stats_tc": 0, "row_mix": 0, "row_mix_compact": 0, "channel_sums": 0,
+            "np_plus_apply": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-DNDEBUG",
               "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P = ctypes.c_void_p
@@ -49,14 +52,18 @@ _SIGNATURES = {
     # smem, dtype, stream
     "mrfp_resize_nearest_bwd": [_P] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 7
                                + [ctypes.c_int64, ctypes.c_int, _P],
-    # pred, label, n, num_classes, hist, stream
-    "mrfp_confusion_matrix": [_P, _P, ctypes.c_int64, ctypes.c_int, _P, _P],
+    # pred, label, n, num_classes, pred_dtype, label_dtype, vec, hist, stream
+    "mrfp_confusion_matrix": [_P, _P, ctypes.c_int64] + [ctypes.c_int] * 4 + [_P] * 2,
     # n, cout, hw, tensor_cores -> the partial rows mrfp_dot_with_stats needs
     "mrfp_dot_with_stats_parts": [ctypes.c_int] * 4,
     # x, w, y, part, parts, s1, s2, n, cin, cout, hw, dtype, tensor_cores, stream
     "mrfp_dot_with_stats": [_P, _P, _P, _P, ctypes.c_int, _P, _P] + [ctypes.c_int] * 6 + [_P],
-    # x, p, out, idx, wt, cnt, planes, h, w, out, dim, dtype, stream
-    "mrfp_row_mix": [_P] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 5 + [_P],
+    # p, table, rows, cols, stream
+    "mrfp_row_mix_compact": [_P, _P, ctypes.c_int, ctypes.c_int, _P],
+    # x, table, out, planes, h, w, on, terms, dim, route, band, stage_rows,
+    # table_words, smem, dtype, stream
+    "mrfp_row_mix": [_P] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 9
+                    + [ctypes.c_int64, ctypes.c_int, _P],
     # x, part, splits, s1, s2, n, channels, hw, dtype, stream
     "mrfp_channel_sums": [_P, _P, ctypes.c_int, _P, _P, ctypes.c_int64, ctypes.c_int,
                           ctypes.c_int64, ctypes.c_int, _P],

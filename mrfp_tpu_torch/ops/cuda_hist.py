@@ -5,10 +5,14 @@ mrfp_tpu/ops/pallas_hist.py::confusion_matrix_pallas. Semantics are that
 kernel's: rows = label, cols = pred, and a pixel is dropped when its label
 OR its pred lies outside [0, C). (The JAX scatter form,
 mrfp_tpu/ops/hist.py:29-30, would alias an out-of-range pred into the next
-row; argmax preds never are, so the two agree on the eval path.)
+row; argmax preds never are, so the two agree on the eval path.) The kernel
+reads the eval path's own dtypes (an int64 argmax, a uint8 label), with no
+cast pass, and compares each value's range in its own width.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -34,10 +38,34 @@ def confusion_matrix_plain(pred: torch.Tensor, label: torch.Tensor,
     return flat.reshape(num_classes, num_classes).to(torch.int32)
 
 
-def confusion_matrix_cuda(hist: torch.Tensor, pred: torch.Tensor,
-                          label: torch.Tensor, num_classes: int) -> torch.Tensor:
+# the dtypes the kernel reads as they are (any other is cast to int32 first)
+PRED_DTYPES = {torch.int32: 0, torch.int64: 1}
+LABEL_DTYPES = {torch.uint8: 0, torch.int32: 1, torch.int64: 2}
+
+
+class HistPlan(NamedTuple):
+    """The dtypes the kernel reads pred and label in (a cast to int32 where
+    the given one is not native) and whether it loads 16-byte vectors (both
+    arrays 16-byte aligned; a cast array is a fresh, aligned allocation)."""
+    pred_dtype: torch.dtype
+    label_dtype: torch.dtype
+    vec: bool
+
+
+def hist_plan(pred_dtype: torch.dtype, label_dtype: torch.dtype, pred_ptr: int,
+              label_ptr: int) -> HistPlan:
+    pd = pred_dtype if pred_dtype in PRED_DTYPES else torch.int32
+    ld = label_dtype if label_dtype in LABEL_DTYPES else torch.int32
+    vec = (pd != pred_dtype or pred_ptr % 16 == 0) and (ld != label_dtype or label_ptr % 16 == 0)
+    return HistPlan(pd, ld, vec)
+
+
+def confusion_matrix_cuda(hist: torch.Tensor, pred: torch.Tensor, label: torch.Tensor,
+                          num_classes: int) -> torch.Tensor:
     """Add the counts of (pred, label) into the int32 (C, C) CUDA ``hist``
-    in place; returns ``hist``. Raises if the kernel cannot launch."""
+    in place; returns ``hist``. pred int32/int64 and label uint8/int32/int64
+    are read as they are; another integer dtype is cast to int32 here, an
+    explicit conversion. Raises if the kernel cannot launch."""
     lib = _build.load_library()
     _check_classes(num_classes)
     if not (hist.is_cuda and pred.is_cuda and label.is_cuda):
@@ -48,11 +76,13 @@ def confusion_matrix_cuda(hist: torch.Tensor, pred: torch.Tensor,
                          f"{num_classes}) tensor")
     if pred.numel() != label.numel():
         raise ValueError(f"pred and label differ in size: {pred.numel()} vs {label.numel()}")
-    pred = pred.reshape(-1).to(torch.int32).contiguous()
-    label = label.reshape(-1).to(torch.int32).contiguous()
+    pred, label = pred.reshape(-1).contiguous(), label.reshape(-1).contiguous()
+    plan = hist_plan(pred.dtype, label.dtype, pred.data_ptr(), label.data_ptr())
+    pred, label = pred.to(plan.pred_dtype), label.to(plan.label_dtype)
     with torch.cuda.device(hist.device):
         err = lib.mrfp_confusion_matrix(
             pred.data_ptr(), label.data_ptr(), pred.numel(), num_classes,
+            PRED_DTYPES[plan.pred_dtype], LABEL_DTYPES[plan.label_dtype], int(plan.vec),
             hist.data_ptr(), torch.cuda.current_stream(hist.device).cuda_stream)
     _build.check(err, "confusion_matrix")
     _build.LAUNCHES["confusion_matrix"] += 1

@@ -20,8 +20,10 @@ CPU tensor, their plain PyTorch versions. A resize to the input's own size
 returns the input itself, with no Function and no launch.
 
 ``row_mix`` and ``take_rows`` are the counterparts of the JAX package's
-layout-preserving row mix (``ops/cuda_row_mix.py``). No resize routes
-through them, as none does in the JAX package unless it is asked to.
+layout-preserving row mix (``ops/cuda_row_mix.py``). ``take_rows`` reads
+its one-hot P as a table built on the host and cached like the index
+tables. No resize routes through them, as none does in the JAX package
+unless it is asked to.
 """
 
 from __future__ import annotations
@@ -231,9 +233,10 @@ def row_mix(x: torch.Tensor, p: torch.Tensor, dim: int,
             impl: Optional[str] = None) -> torch.Tensor:
     """``out = P @ x`` along dim 2 (H) or 3 (W) of NCHW ``x``, for an fp32
     (out, in) ``P``; fp32 sums rounded once to ``x.dtype``
-    (mrfp_tpu/ops/pallas_resize.py::row_mix_pallas). The kernel's output
-    carries no gradient, as the Pallas call's does not: ``take_rows`` is the
-    differentiable form."""
+    (mrfp_tpu/ops/pallas_resize.py::row_mix_pallas). On the card P is
+    compacted into the kernel's table first, a launch of its own. The
+    kernel's output carries no gradient, as the Pallas call's does not:
+    ``take_rows`` is the differentiable form."""
     if _use_kernel(x, impl):
         return cuda_row_mix.row_mix_cuda(x, p, dim)
     with torch.autocast(x.device.type, enabled=False):
@@ -241,6 +244,13 @@ def row_mix(x: torch.Tensor, p: torch.Tensor, dim: int,
 
 
 _ONEHOT: Dict[tuple, torch.Tensor] = {}
+_ONEHOT_TABLES: Dict[tuple, cuda_row_mix.RowTable] = {}
+
+
+def _onehot_np(idx: Tuple[int, ...], in_size: int, transpose: bool) -> np.ndarray:
+    a = np.zeros((len(idx), in_size), np.float32)
+    a[np.arange(len(idx)), list(idx)] = 1.0
+    return a.T.copy() if transpose else a
 
 
 def onehot_rows(idx: Tuple[int, ...], in_size: int, device, transpose: bool = False
@@ -250,11 +260,34 @@ def onehot_rows(idx: Tuple[int, ...], in_size: int, device, transpose: bool = Fa
     key = (idx, in_size, transpose, str(device))
     p = _ONEHOT.get(key)
     if p is None:
-        a = np.zeros((len(idx), in_size), np.float32)
-        a[np.arange(len(idx)), list(idx)] = 1.0
-        p = torch.as_tensor(a.T.copy() if transpose else a, device=device)
+        p = torch.as_tensor(_onehot_np(idx, in_size, transpose), device=device)
         _ONEHOT[key] = p
     return p
+
+
+def onehot_table(idx: Tuple[int, ...], in_size: int, device, transpose: bool = False
+                 ) -> cuda_row_mix.RowTable:
+    """The kernel's table of ``onehot_rows(idx, in_size, device, transpose)``,
+    built on the host and cached on the device under the same key, so no
+    call of ``take_rows`` compacts P on the card."""
+    key = (idx, in_size, transpose, str(device))
+    table = _ONEHOT_TABLES.get(key)
+    if table is None:
+        table = cuda_row_mix.row_table(_onehot_np(idx, in_size, transpose), device)
+        _ONEHOT_TABLES[key] = table
+    return table
+
+
+def _take(x: torch.Tensor, idx: Tuple[int, ...], in_size: int, dim: int,
+          impl: Optional[str], transpose: bool) -> torch.Tensor:
+    """``x`` mixed with the one-hot P of ``idx`` (or its transpose): the
+    kernel with the cached table, or the plain version with the matrix."""
+    if _use_kernel(x, impl):
+        return cuda_row_mix.row_mix_table_cuda(
+            x, onehot_table(idx, in_size, x.device, transpose), dim)
+    with torch.autocast(x.device.type, enabled=False):
+        return cuda_row_mix.row_mix_plain(x, onehot_rows(idx, in_size, x.device, transpose),
+                                          dim)
 
 
 class TakeRows(torch.autograd.Function):
@@ -265,13 +298,12 @@ class TakeRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, idx: Tuple[int, ...], dim: int, impl: Optional[str]):
         ctx.args = (idx, dim, impl, x.shape[dim])
-        return row_mix(x, onehot_rows(idx, x.shape[dim], x.device), dim, impl)
+        return _take(x, idx, x.shape[dim], dim, impl, transpose=False)
 
     @staticmethod
     def backward(ctx, g):
         idx, dim, impl, in_size = ctx.args
-        pt = onehot_rows(idx, in_size, g.device, transpose=True)
-        return row_mix(g.contiguous(), pt, dim, impl), None, None, None
+        return _take(g.contiguous(), idx, in_size, dim, impl, transpose=True), None, None, None
 
 
 def take_rows(x: torch.Tensor, idx: Tuple[int, ...], dim: int,

@@ -539,3 +539,334 @@ def test_nearest_fwd_wrapper_refuses_mismatched_inputs(monkeypatch):
         cuda_resize.resize_nearest_cuda(_meta(1, 2, 5, 7), ty, tx)
     with pytest.raises(ValueError, match="NCHW-contiguous"):
         cuda_resize.resize_nearest_cuda(_meta(2, 5, 6), ty, tx)
+
+
+# --- the row mix's tables and launch plan, the confusion matrix's plan ---------
+
+def _decode_table(table: np.ndarray):
+    """Per output row, its (column, weight) terms as the kernel reads them."""
+    terms = (table.shape[0] - 1) // 2
+    wt = table[1 + terms:].view(np.float32)
+    return [[(int(table[1 + t, o]), float(wt[t, o])) for t in range(table[0, o])]
+            for o in range(table.shape[1])]
+
+
+def _nonzeros(p: np.ndarray):
+    return [[(int(c), float(p[o, c])) for c in np.flatnonzero(p[o])] for o in range(p.shape[0])]
+
+
+# the seven OC index tables (AXES[:7]), a non-monotone idx, downsamples (their
+# transposes have empty rows) and an upsample by three (three terms a row)
+ROW_TABLE_IDX = [tuple(int(i) for i in _jax_idx(*a)) for a in AXES[:7]] + [
+    (3, 0, 2, 2, 1, 0), tuple(int(i) for i in _jax_idx(7, "size", 3)),
+    tuple(int(i) for i in _jax_idx(33, "scale", 0.798)),
+    tuple(int(i) for i in _jax_idx(5, "scale", 3.0))]
+
+
+@pytest.mark.parametrize("idx", ROW_TABLE_IDX, ids=range(len(ROW_TABLE_IDX)))
+def test_row_table_holds_the_onehot_nonzeros_in_column_order(idx):
+    """The host-built table of P = onehot_rows(idx, in) and of P^T: each
+    row's non-zeros, in column order, and nothing else; one term a row for
+    P, as many as idx repeats an input for P^T."""
+    from mrfp_tpu_torch.ops import cuda_row_mix
+    from mrfp_tpu_torch.ops.resize import onehot_rows
+    size = max(idx) + 1 + (len(idx) % 3)  # some inputs are never read
+    for transpose in (False, True):
+        p = onehot_rows(idx, size, "cpu", transpose).numpy()
+        table = cuda_row_mix.row_table_np(p)
+        assert table.dtype == np.int32 and table.shape[1] == p.shape[0]
+        assert _decode_table(table) == _nonzeros(p)
+        counts = np.bincount(idx, minlength=size) if transpose else np.ones(len(idx), int)
+        assert (table.shape[0] - 1) // 2 == counts.max()
+        np.testing.assert_array_equal(table[0], counts)
+
+
+def test_row_table_of_a_general_matrix():
+    """A dense matrix with zeros, a NaN (kept, as in the product) and an
+    all-zero row."""
+    from mrfp_tpu_torch.ops import cuda_row_mix
+    p = np.random.default_rng(0).standard_normal((5, 9)).astype(np.float32)
+    p[p < 0.3] = 0
+    p[1, 4] = np.nan
+    p[3] = 0
+    decoded = _decode_table(cuda_row_mix.row_table_np(p))
+    want = [[(int(c), float(p[o, c])) for c in np.flatnonzero(p[o] != 0)] for o in range(5)]
+    assert [len(r) for r in decoded] == [len(r) for r in want] and decoded[3] == []
+    for got, ref in zip(decoded, want):
+        np.testing.assert_array_equal(np.array(got), np.array(ref))
+
+
+def _mix_from_table(x: torch.Tensor, table, dim: int) -> torch.Tensor:
+    """The kernel's arithmetic from its table: per output, fmaf over its
+    terms in order from 0 (in fp32; a one-hot term is exact), rounded once."""
+    data = table.data.numpy()
+    terms = table.terms
+    wt = data[1 + terms:].view(np.float32)
+    xf = x.float()
+    outs = []
+    for o in range(data.shape[1]):
+        acc = torch.zeros_like(xf.select(dim, 0))
+        for t in range(data[0, o]):
+            acc = acc + float(wt[t, o]) * xf.select(dim, int(data[1 + t, o]))
+        outs.append(acc)
+    return torch.stack(outs, dim).to(x.dtype)
+
+
+@pytest.mark.parametrize("idx", ROW_TABLE_IDX[5:], ids=range(len(ROW_TABLE_IDX[5:])))
+@pytest.mark.parametrize("dim", [2, 3])
+def test_table_mix_equals_the_plain_product(idx, dim):
+    """The cached tables, read as the kernel reads them, give row_mix_plain
+    with the one-hot P and with P^T (sums of at most two terms here, and of
+    three for the x3 upsample, whose ones add exactly in any order on these
+    integer-valued inputs)."""
+    from mrfp_tpu_torch.ops import cuda_row_mix
+    from mrfp_tpu_torch.ops.resize import onehot_rows, onehot_table
+    size = max(idx) + 1
+    rng = np.random.default_rng(len(idx))
+    shape = [2, 3, 4, 5]
+    shape[dim] = size
+    x = torch.from_numpy(rng.integers(-50, 50, shape).astype(np.float32)).to(torch.bfloat16)
+    y = _mix_from_table(x, onehot_table(idx, size, "cpu"), dim)
+    assert torch.equal(y, cuda_row_mix.row_mix_plain(x, onehot_rows(idx, size, "cpu"), dim))
+    assert torch.equal(y, x.index_select(dim, torch.tensor(idx)))
+    g = torch.from_numpy(rng.integers(-50, 50, y.shape).astype(np.float32)).to(torch.bfloat16)
+    gx = _mix_from_table(g, onehot_table(idx, size, "cpu", transpose=True), dim)
+    assert torch.equal(gx, cuda_row_mix.row_mix_plain(
+        g, onehot_rows(idx, size, "cpu", transpose=True), dim))
+
+
+def test_onehot_table_is_built_once_per_key(monkeypatch):
+    """take_rows' table is cached beside onehot_rows under the same key: the
+    second call builds nothing."""
+    from mrfp_tpu_torch.ops import cuda_row_mix, resize
+    built = []
+    real = cuda_row_mix.row_table
+    monkeypatch.setattr(cuda_row_mix, "row_table",
+                        lambda p, device: built.append(p.shape) or real(p, device))
+    idx = (0, 0, 2, 3, 3, 1, 4)
+    a = resize.onehot_table(idx, 6, "cpu")
+    assert resize.onehot_table(idx, 6, "cpu") is a
+    t = resize.onehot_table(idx, 6, "cpu", transpose=True)
+    assert resize.onehot_table(idx, 6, "cpu", transpose=True) is t
+    assert built == [(7, 6), (6, 7)] and t is not a
+    np.testing.assert_array_equal(a.data.numpy(), cuda_row_mix.row_table_np(
+        resize.onehot_rows(idx, 6, "cpu").numpy()))
+    assert (a.terms, a.size_in, t.terms, t.size_in) == (1, 6, 2, 7)
+
+
+ROW_MIX_WIDTHS = [1, 7, 9, 192, 231, 277, 321, 332, 384]
+
+
+@pytest.mark.parametrize("width", ROW_MIX_WIDTHS)
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_row_mix_h_plan_without_host_rows(width, itemsize):
+    """dim 2 for a table compacted on the card (no host columns): the
+    vector route exactly where a row is whole 16-byte vectors and the
+    pointers are aligned, else the scalar route; a band of about
+    ROW_MIX_H_UNITS units; the table staged where it fits the budget."""
+    from mrfp_tpu_torch.ops import cuda_row_mix as rm
+    vec = 16 // itemsize
+    for aligned in (True, False):
+        for size_in, size_out, terms in ((192, 231, 1), (231, 192, 2), (384, 321, 1)):
+            plan = rm.row_mix_plan(2, size_in, size_out, width, terms, itemsize, aligned)
+            vector = aligned and width % vec == 0
+            assert plan.route == ("h vector" if vector else "h scalar")
+            assert plan.vec == (vec if vector else 1)
+            units = width // plan.vec
+            assert plan.band == max(1, min(size_out, rm.ROW_MIX_H_UNITS // units))
+            assert plan.table_words == (1 + 2 * terms) * size_out
+            assert plan.smem == 4 * plan.table_words <= rm.ROW_MIX_SMEM_CAP
+    # a dense P's table does not fit: it stays in device memory
+    plan = rm.row_mix_plan(2, 332, 384, width, 332, itemsize, True)
+    assert plan.table_words == 0 and plan.smem == 0
+
+
+def _check_h_staged_plan(table, width, itemsize):
+    """The staged H plan of a host-built table: every band's terms read
+    input rows inside [lo, lo + stage_rows) for the band's smallest column
+    lo (brute force over the table), the bands tile the output rows, the
+    shared memory is the kernel's layout within the budget, and the band is
+    as tall as the budget allows up to ROW_MIX_H_ELEMS outputs."""
+    from mrfp_tpu_torch.ops import cuda_row_mix as rm
+    on = table.data.shape[1]
+    plan = rm.row_mix_plan(2, table.size_in, on, width, table.terms, itemsize, False,
+                           first=table.first, last=table.last)
+    cap = rm.ROW_MIX_SMEM_CAP
+    if plan.route == "h scalar":  # not one band row fits
+        assert rm.row_mix_staged_smem_bytes(0, max(1, rm.row_band_span(
+            table.first, table.last, 1)) * width, width, itemsize) > cap
+        return plan
+    assert plan.route == "h staged" and plan.vec == 16 // itemsize
+    rows = _decode_table(table.data.numpy())
+    for o0 in range(0, on, plan.band):
+        cols = [c for terms in rows[o0:o0 + plan.band] for c, _ in terms]
+        if cols:
+            assert max(cols) - min(cols) < plan.stage_rows
+    assert plan.smem == rm.row_mix_staged_smem_bytes(plan.table_words, plan.stage_rows * width,
+                                                     plan.band * width, itemsize) <= cap
+    assert plan.table_words in (0, (1 + 2 * table.terms) * on)
+    want = max(1, min(on, rm.ROW_MIX_H_ELEMS // width))
+    assert 1 <= plan.band <= want
+    if plan.band < want:
+        stage = max(1, rm.row_band_span(table.first, table.last, plan.band + 1))
+        assert rm.row_mix_staged_smem_bytes(plan.table_words, stage * width,
+                                            (plan.band + 1) * width, itemsize) > cap
+    return plan
+
+
+@pytest.mark.parametrize("width", ROW_MIX_WIDTHS + [30_000])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_row_mix_h_plan_stages_a_bands_rows(width, itemsize):
+    """dim 2 for take_rows' host-built tables, at the OC index tables of
+    the H mixes, a non-monotone idx, a downsample and an x3 upsample: rows
+    that are not whole 16-byte vectors (or unaligned pointers) take the
+    staged route, whose stage holds every band's input rows."""
+    from mrfp_tpu_torch.ops import cuda_row_mix as rm
+    from mrfp_tpu_torch.ops.resize import onehot_table
+    for idx in [ROW_TABLE_IDX[i] for i in (0, 2, 4, 6, 7, 8, 10)]:
+        size = max(idx) + 1
+        for transpose in (False, True):
+            table = onehot_table(idx, size, "cpu", transpose)
+            plan = _check_h_staged_plan(table, width, itemsize)
+            assert (plan.route == "h scalar") == (width == 30_000)
+            # aligned whole vectors keep the vector route
+            if width % (16 // itemsize) == 0:
+                assert rm.row_mix_plan(2, table.size_in, table.data.shape[1], width,
+                                       table.terms, itemsize, True, first=table.first,
+                                       last=table.last).route == "h vector"
+
+
+def test_row_band_span():
+    from mrfp_tpu_torch.ops import cuda_row_mix as rm
+    first = np.array([3, -1, 5, 0, -1, -1])
+    last = np.array([4, -1, 9, 2, -1, -1])
+    assert rm.row_band_span(first, last, 1) == 5   # row 2 reads 5..9
+    assert rm.row_band_span(first, last, 2) == 10  # rows 2-3 read 0..9
+    assert rm.row_band_span(first, last, 3) == 7   # rows 0-2 read 3..9
+    assert rm.row_band_span(first, last, 6) == 10
+    assert rm.row_band_span(np.array([-1, -1]), np.array([-1, -1]), 1) == 0
+
+
+@pytest.mark.parametrize("width", ROW_MIX_WIDTHS + [100_000])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("scale", [1.2, 0.798])
+def test_row_mix_w_plan(width, itemsize, scale):
+    """dim 3: the staged route with the table in shared memory and as many
+    rows a band as the budget allows, up to about ROW_MIX_W_ELEMS
+    values; the shared memory is the kernel's layout; the direct route only
+    where not one row fits."""
+    from mrfp_tpu_torch.ops import cuda_row_mix as rm
+    size_out = max(1, int(np.floor(width * scale)))
+    cap = rm.ROW_MIX_SMEM_CAP
+    for terms in (1, 2):
+        plan = rm.row_mix_plan(3, width, size_out, 1, terms, itemsize, True, rows=4096)
+        words = (1 + 2 * terms) * size_out
+        if plan.route == "w direct":
+            assert rm.row_mix_staged_smem_bytes(0, width, size_out, itemsize) > cap
+            assert (plan.band, plan.smem) == (0, 0)
+            continue
+        assert plan.route == "w staged" and plan.vec == 16 // itemsize
+        assert plan.stage_rows == plan.band
+        assert plan.smem == rm.row_mix_staged_smem_bytes(
+            plan.table_words, plan.band * width, plan.band * size_out, itemsize) <= cap
+        assert plan.table_words in (words, 0)
+        if plan.table_words == 0:  # the table alone would not leave room for a row
+            assert rm.row_mix_staged_smem_bytes(words, width, size_out, itemsize) > cap
+        want = max(1, min(4096, rm.ROW_MIX_W_ELEMS // max(width, size_out)))
+        assert 1 <= plan.band <= want
+        if plan.band < want:
+            assert rm.row_mix_staged_smem_bytes(plan.table_words, (plan.band + 1) * width,
+                                                (plan.band + 1) * size_out, itemsize) > cap
+    assert (rm.row_mix_plan(3, width, size_out, 1, 1, itemsize, True).route == "w direct") \
+        == (width == 100_000)
+
+
+def test_row_mix_w_plan_band_stops_at_the_rows():
+    from mrfp_tpu_torch.ops import cuda_row_mix as rm
+    assert rm.row_mix_plan(3, 9, 13, 9, 1, 2, True, rows=3).band == 3
+
+
+@pytest.mark.parametrize("pred_dtype,label_dtype,ptrs,expected", [
+    (torch.int64, torch.uint8, (0, 4096), (torch.int64, torch.uint8, True)),   # the eval path
+    (torch.int32, torch.int32, (16, 32), (torch.int32, torch.int32, True)),
+    (torch.int64, torch.int64, (0, 0), (torch.int64, torch.int64, True)),
+    (torch.int64, torch.uint8, (0, 4097), (torch.int64, torch.uint8, False)),  # a sliced label
+    (torch.int64, torch.uint8, (8, 0), (torch.int64, torch.uint8, False)),
+    (torch.uint8, torch.uint8, (3, 0), (torch.int32, torch.uint8, True)),      # cast: aligned
+    (torch.int16, torch.int8, (2, 1), (torch.int32, torch.int32, True)),
+    (torch.int64, torch.int16, (8, 2), (torch.int64, torch.int32, False)),
+    (torch.float32, torch.bool, (0, 0), (torch.int32, torch.int32, True)),
+])
+def test_hist_plan(pred_dtype, label_dtype, ptrs, expected):
+    """The native dtypes are read as they are, any other is cast to int32
+    (a fresh, aligned array); 16-byte loads where both arrays are
+    aligned."""
+    from mrfp_tpu_torch.ops import cuda_hist
+    assert tuple(cuda_hist.hist_plan(pred_dtype, label_dtype, *ptrs)) == expected
+
+
+def test_row_mix_wrappers_refuse_dtypes_and_shapes(monkeypatch):
+    from mrfp_tpu_torch.ops import cuda_row_mix as rm
+    from mrfp_tpu_torch.ops.resize import onehot_table
+    monkeypatch.setattr(_build, "load_library", lambda: _NoLaunch())
+    table = onehot_table((0, 1, 1, 4), 5, "meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        rm.row_mix_table_cuda(torch.zeros(1, 2, 5, 6), table, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        rm.row_mix_compact_cuda(torch.zeros(4, 5))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        rm.row_mix_table_cuda(_meta(1, 2, 5, 6, dtype=torch.float16), table, 2)
+    with pytest.raises(ValueError, match="x.shape\\[dim\\]"):
+        rm.row_mix_table_cuda(_meta(1, 2, 5, 6), table, 3)
+    with pytest.raises(ValueError, match="dim must be"):
+        rm.row_mix_table_cuda(_meta(1, 2, 5, 6), table, 1)
+    with pytest.raises(ValueError, match="a table of"):
+        rm.row_mix_table_cuda(_meta(1, 2, 5, 6),
+                              rm.RowTable(table.data.to(torch.int64), 1, 5), 2)
+    with pytest.raises(ValueError, match="a table of"):
+        rm.row_mix_table_cuda(_meta(1, 2, 5, 6), rm.RowTable(table.data, 2, 5), 2)
+    with pytest.raises(TypeError, match="2-D float32"):
+        rm.row_mix_compact_cuda(_meta(4, 5, dtype=torch.float16))
+    with pytest.raises(TypeError, match="float32 P"):
+        rm.row_mix_cuda(_meta(1, 2, 5, 6), _meta(4, 5), 2)
+    with pytest.raises(ValueError, match="x.shape\\[dim\\]"):
+        rm.row_mix_cuda(_meta(1, 2, 5, 6), _meta(4, 6, dtype=torch.float32), 2)
+
+
+def test_row_mix_refuses_a_stage_shorter_than_a_band(monkeypatch):
+    """The staged H mix does not check its stage on the card in a release
+    build: the wrapper refuses a plan whose stage misses a band's rows."""
+    from mrfp_tpu_torch.ops import cuda_row_mix as rm
+    from mrfp_tpu_torch.ops.resize import onehot_table
+    monkeypatch.setattr(_build, "load_library", lambda: _NoLaunch())
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    table = onehot_table((0, 4, 2, 1), 5, "meta", transpose=True)
+    planned = rm._plan_cached.__wrapped__(2, 4, 5, 6, table.terms, 2, True, 0, (
+        table.first.astype(np.int64).tobytes(), table.last.astype(np.int64).tobytes()))
+    assert planned.route == "h staged" and planned.stage_rows == 4
+    short = planned._replace(stage_rows=planned.stage_rows - 1)
+    monkeypatch.setattr(rm, "row_mix_plan", lambda *args: short)
+    rm._plan_cached.cache_clear()
+    try:
+        with pytest.raises(ValueError, match="the stage holds 3"):
+            rm.row_mix_table_cuda(_meta(1, 2, 4, 6), table, 2)
+    finally:
+        rm._plan_cached.cache_clear()
+
+
+def test_hist_wrapper_refuses_arguments(monkeypatch):
+    from mrfp_tpu_torch.ops import cuda_hist
+    monkeypatch.setattr(_build, "load_library", lambda: _NoLaunch())
+    hist = torch.zeros(19, 19, dtype=torch.int32)
+    pred = torch.zeros(8, dtype=torch.long)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_hist.confusion_matrix_cuda(hist, pred, pred, 19)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    meta_hist = torch.zeros(19, 19, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="differ in size"):
+        cuda_hist.confusion_matrix_cuda(meta_hist, _meta(8), _meta(9), 19)
+    with pytest.raises(ValueError, match="contiguous int32"):
+        cuda_hist.confusion_matrix_cuda(meta_hist.long(), _meta(8), _meta(8), 19)
+    with pytest.raises(ValueError, match="num_classes"):
+        cuda_hist.confusion_matrix_cuda(meta_hist, _meta(8), _meta(8), 129)

@@ -20,7 +20,7 @@ from mrfp_tpu_torch.ops import (cuda_channel_sums, cuda_dot_stats, cuda_np_plus,
                                 cuda_row_mix)
 from mrfp_tpu_torch.ops.dot_stats import dot_with_stats
 from mrfp_tpu_torch.ops.np_plus import np_plus_apply
-from mrfp_tpu_torch.ops.resize import (bilinear_taps, nearest_table,
+from mrfp_tpu_torch.ops.resize import (bilinear_taps, nearest_table, onehot_table,
                                        resize_bilinear_align_corners, resize_nearest, take_rows)
 from mrfp_tpu_torch.ops.stats import channel_sums
 
@@ -120,6 +120,9 @@ def _wrapper_calls(wrapper):
         "dot_with_stats_cuda": [lambda: cuda_dot_stats.dot_with_stats_cuda(x, _meta(3, 4)),
                                 lambda: dot_with_stats(x, _meta(3, 4))],
         "row_mix_cuda": [lambda: cuda_row_mix.row_mix_cuda(x, _meta(7, 5), 2),
+                         lambda: cuda_row_mix.row_mix_compact_cuda(_meta(7, 5)),
+                         lambda: cuda_row_mix.row_mix_table_cuda(
+                             x, onehot_table((0, 1, 1, 4), 6, meta), 3),
                          lambda: take_rows(x, (0, 1, 1, 4), 3)],
         "channel_sums_cuda": [lambda: cuda_channel_sums.channel_sums_cuda(x),
                               lambda: channel_sums(x)],
@@ -154,8 +157,8 @@ def test_library_name_tracks_the_sources():
         "row_mix.cu", "channel_sums.cu", "np_plus_apply.cu"}
     assert set(_build.LAUNCHES) == {"resize_bilinear", "resize_bilinear_bwd", "resize_nearest",
                                     "resize_nearest_bwd", "confusion_matrix", "dot_with_stats",
-                                    "dot_with_stats_tc", "row_mix", "channel_sums",
-                                    "np_plus_apply"}
+                                    "dot_with_stats_tc", "row_mix", "row_mix_compact",
+                                    "channel_sums", "np_plus_apply"}
     # every entry point the wrappers call has a ctypes signature
     calls = set()
     for src in (_build._PKG / "ops").glob("cuda_*.py"):
