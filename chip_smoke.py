@@ -42,6 +42,23 @@ of the PyTorch call that computes the same function, single-call and on the
 device (a CUDA-graph replay, no host time; a profiler trace for bincount,
 which no graph can capture).
 
+Training extras and accumulation: holds the nearest kernel at the DSN
+label shape, (8,1,768,768) fp32 -> 48x48, against its plain version and
+``F.interpolate`` (exactly), and the resize kernels at the microbatch shapes
+of ``--accum-steps 2`` (the DSN map, the five train bilinear resizes and
+the seven OC nearest ones at batch 4); takes the step with every extra (the
+DSN head, the border-relaxed CE with its window full and halved, batch
+class weights, HPF) through the kernels and through the plain versions
+from one state, in fp32 at batch 2 (loss and gradients) and in bf16 at
+batch 8 (loss, and gradients beside a second plain step's), then times the
+bf16 step with either window beside the default step; drives ``cli.train
+--accum-steps 2 --use-dsn`` with the bf16 momentum, resumes it and prints
+its peak device memory beside the unaccumulated run's; and runs the
+``SlidingEvaluator`` on a 1024x2048 image, which must launch the
+confusion-matrix kernel and predict what its plain path predicts. Every
+resize call of those three paths must be at a shape that a phase held
+against the plain version (the eval phase holds the tile shapes).
+
 Any failure raises and exits non-zero; the last line of stdout is the JSON
 verdict, printed only when every phase passed. With ``--profile DIR`` it
 also writes torch.profiler kernel tables of one fp32 eval forward and of
@@ -51,6 +68,7 @@ one bf16 train step, unfused and fused, to DIR.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -104,6 +122,18 @@ NEAREST_SHAPES = [
     ("dec2 x0.838", 64, (384, 384), {"scale": (0.838, 0.838)}),
     ("dec3 x0.798", 64, (321, 321), {"scale": (0.798, 0.798)}),
     ("dec4 to 192", 64, (256, 256), {"size": (192, 192)}),
+]
+# the DSN label map of that step: the labels as a 1-channel fp32 map,
+# nearest-resized by size to layer3's 48x48 (mrfp_tpu/train/step.py:93-101)
+DSN_LABELS = (TRAIN_N, 1, CROP, CROP)
+DSN_HW = (CROP // 16, CROP // 16)
+# the sliding evaluator's tiles on an H x W image: three of 1024x1024
+SLIDING_CROP = 1024
+# (name, N, C, in_hw, out_hw): the bilinear resizes of its tile forward
+SLIDING_RESIZES = [
+    ("sliding aspp broadcast", 3, 256, (1, 1), (SLIDING_CROP // 16,) * 2),
+    ("sliding decoder upsample", 3, 256, (SLIDING_CROP // 16,) * 2, (SLIDING_CROP // 4,) * 2),
+    ("sliding logit upsample", 3, 19, (SLIDING_CROP // 4,) * 2, (SLIDING_CROP,) * 2),
 ]
 # (name, N, C, in_hw, rule): nearest edge cases, forward and backward: empty
 # ranges (downsamples), widths 1, 7 and 9, h = 1, and 21 planes of 37 rows,
@@ -211,6 +241,52 @@ class Cost:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# (kernel, dtype, input shape, output shape) of every resize-kernel call
+# that a phase held against its plain version (``_held``); the calls of the
+# extras step, the accumulated cli.train run and the sliding evaluator,
+# recorded by ``_recording``, must all be among them
+CHECKED = set()
+
+
+def _key(kernel: str, inp, out) -> tuple:
+    return (kernel, inp.dtype, tuple(inp.shape), tuple(out.shape))
+
+
+def _held(kernel: str, inp, out) -> None:
+    CHECKED.add(_key(kernel, inp, out))
+
+
+@contextlib.contextmanager
+def _recording():
+    """Yields a list that collects the ``_key`` of every resize-kernel call
+    made inside the block."""
+    from mrfp_tpu_torch.ops import cuda_resize
+    calls = []
+    saved = {k: getattr(cuda_resize, k + "_cuda") for k in RESIZE_KERNELS}
+
+    def spy(kernel, fn):
+        def call(t, *args):
+            out = fn(t, *args)
+            calls.append(_key(kernel, t, out))
+            return out
+        return call
+
+    for k, fn in saved.items():
+        setattr(cuda_resize, k + "_cuda", spy(k, fn))
+    try:
+        yield calls
+    finally:
+        for k, fn in saved.items():
+            setattr(cuda_resize, k + "_cuda", fn)
+
+
+def _all_held(calls, what: str) -> None:
+    missing = sorted(set(calls) - CHECKED, key=str)
+    if missing:
+        raise AssertionError(f"{what}: resize kernels ran at shapes that no phase held "
+                             f"against their plain versions: {missing}")
 
 
 def median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
@@ -343,16 +419,18 @@ def _bilinear_fwd_equal(got, ref, what: str) -> None:
 
 def phase_resize(gen) -> None:
     """The bilinear forward against its plain version at the eval shapes and
-    the edge cases: exactly equal, each line naming the route that ran."""
+    the sliding evaluator's tile shapes and the edge cases: exactly equal,
+    each line naming the route that ran."""
     from mrfp_tpu_torch.ops.resize import resize_bilinear_align_corners as resize
     for dtype in (torch.float32, torch.bfloat16):
-        for name, n, c, (h, w), size in RESIZE_SHAPES:
+        for name, n, c, (h, w), size in RESIZE_SHAPES + SLIDING_RESIZES:
             x = torch.randn((n, c, h, w), generator=gen).to(DEV, dtype)
             got = resize(x, size)
             ref = resize(x, size, impl="plain")
             torch.cuda.synchronize()
             what = f"{_dtype_name(dtype)} {name} ({n},{c},{h},{w})->{size}"
             _bilinear_fwd_equal(got, ref, what)
+            _held("resize_bilinear", x, got)
             k_ms = median_ms(lambda: resize(x, size))
             p_ms = median_ms(lambda: resize(x, size, impl="plain"))
             gb = (got.numel() + x.numel()) * got.element_size() / 1e9
@@ -649,6 +727,8 @@ def _nearest_pair(x, rule, cuda_gen):
             f"resize_nearest {tuple(x.shape)} {rule} {x.dtype}: kernel != plain, forward max "
             f"{(yk.float() - yp.float()).abs().max().item()}, backward max "
             f"{(xk.grad.float() - xp.grad.float()).abs().max().item()}")
+    _held("resize_nearest", x, yk)
+    _held("resize_nearest_bwd", g, xk.grad)
     return yk.detach(), g
 
 
@@ -809,6 +889,30 @@ def _bilinear_bwd_close(got, g, ty, tx, h: int, w: int, what: str) -> float:
     return (got.float() - ref.float()).abs().max().item()
 
 
+def _bilinear_pair(x, size, cuda_gen, what: str) -> tuple:
+    """The bilinear resize of ``x`` to ``size`` through the kernels and
+    through the plain versions, forward and backward: raises unless the
+    forward is exactly equal and the backward within its bound
+    (``_bilinear_bwd_close``). Returns the cotangent, the two tap tables,
+    the backward's max_abs_err and the plain gradient's largest value."""
+    from mrfp_tpu_torch.ops.resize import bilinear_taps, resize_bilinear_align_corners
+    h, w = x.shape[2:]
+    xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    yk = resize_bilinear_align_corners(xk, size)
+    yp = resize_bilinear_align_corners(xp, size, impl="plain")
+    torch.cuda.synchronize()
+    _bilinear_fwd_equal(yk, yp, what)
+    g = torch.randn(yk.shape, device=DEV, generator=cuda_gen).to(x.dtype)
+    yk.backward(g)
+    yp.backward(g)
+    ty, tx = bilinear_taps(h, size[0], x.device), bilinear_taps(w, size[1], x.device)
+    torch.cuda.synchronize()
+    err = _bilinear_bwd_close(xk.grad, g, ty, tx, h, w, what)
+    _held("resize_bilinear", x, yk)
+    _held("resize_bilinear_bwd", g, xk.grad)
+    return g, ty, tx, err, xp.grad.float().abs().max().item()
+
+
 def phase_bilinear_train(cuda_gen) -> dict:
     """The bilinear forward and its backward (kernel C) against their plain
     versions at the train and eval shapes and at an odd width (the forward's
@@ -819,7 +923,7 @@ def phase_bilinear_train(cuda_gen) -> dict:
     over the five train shapes in bf16 (the step's own resizes)."""
     import torch.nn.functional as F
     from mrfp_tpu_torch.ops import cuda_resize
-    from mrfp_tpu_torch.ops.resize import bilinear_taps, resize_bilinear_align_corners
+    from mrfp_tpu_torch.ops.resize import bilinear_taps
     keys = ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms")
     out = {k: {"max_abs_err": 0.0, **dict.fromkeys(keys, 0.0)}
            for k in ("resize_bilinear", "resize_bilinear_bwd")}
@@ -827,18 +931,8 @@ def phase_bilinear_train(cuda_gen) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         for name, n, c, (h, w), size in BILINEAR_TRAIN_SHAPES:
             x = torch.randn((n, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
-            xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
-            yk = resize_bilinear_align_corners(xk, size)
-            yp = resize_bilinear_align_corners(xp, size, impl="plain")
-            torch.cuda.synchronize()
             what = f"{_dtype_name(dtype)} {name} ({n},{c},{h},{w})->{size}"
-            _bilinear_fwd_equal(yk, yp, what)
-            g = torch.randn(yk.shape, device=DEV, generator=cuda_gen).to(dtype)
-            yk.backward(g)
-            yp.backward(g)
-            ty, tx = bilinear_taps(h, size[0], x.device), bilinear_taps(w, size[1], x.device)
-            torch.cuda.synchronize()
-            bwd_err = _bilinear_bwd_close(xk.grad, g, ty, tx, h, w, what)
+            g, ty, tx, bwd_err, grad_max = _bilinear_pair(x, size, cuda_gen, what)
             calls = {"resize_bilinear": (
                 lambda: cuda_resize.resize_bilinear_cuda(x, ty, tx),
                 lambda: cuda_resize.resize_bilinear_plain(x, ty, tx),
@@ -866,12 +960,11 @@ def phase_bilinear_train(cuda_gen) -> dict:
                   f"{fwd[1]:.4f} ms, F.interpolate {fwd[2]:.4f} ms; device time (graph) kernel "
                   f"{fwd[3]:.4f} ms ({gb / fwd[3] * 1e3:.0f} GB/s), F.interpolate {fwd[4]:.4f} "
                   f"ms; backward {_bilinear_bwd_route(g, h, w)} route, max_abs_err "
-                  f"{bwd_err:.3e} (|grad| max "
-                  f"{xp.grad.float().abs().max().item():.3e}), kernel {bwd[0]:.4f} ms "
+                  f"{bwd_err:.3e} (|grad| max {grad_max:.3e}), kernel {bwd[0]:.4f} ms "
                   f"({gb / bwd[0] * 1e3:.0f} GB/s), plain {bwd[1]:.4f} ms, aten backward "
                   f"{bwd[2]:.4f} ms; device time (graph) kernel {bwd[3]:.4f} ms, aten "
                   f"{bwd[4]:.4f} ms")
-            del x, xk, xp, yk, yp, g
+            del x, g
         torch.cuda.empty_cache()
         routes = []
         for (h, w), size in EDGE_RESIZES:
@@ -1776,6 +1869,348 @@ def phase_cli_train() -> dict:
     return launched
 
 
+def phase_dsn_nearest(gen) -> dict:
+    """The nearest forward at the DSN label shape, (8,1,768,768) fp32 ->
+    48x48, a 16x downsample of one channel: exactly equal to its plain
+    version and to ``F.interpolate`` (768/48 is exact, so both index rules
+    agree), its route, single-call and device time beside its bound (the
+    input values the output reads, read once, and the output written once)
+    and ``F.interpolate``'s. The microbatch shape of ``--accum-steps 2``,
+    (4,1,768,768), is held exactly too."""
+    import torch.nn.functional as F
+    from mrfp_tpu_torch.ops import cuda_resize
+    from mrfp_tpu_torch.ops.resize import nearest_table
+    rule = {"size": DSN_HW}
+    ty = nearest_table(CROP, "size", DSN_HW[0], DEV)
+    tx = nearest_table(CROP, "size", DSN_HW[1], DEV)
+    for n in (TRAIN_N // 2, TRAIN_N):
+        lbl = torch.randint(0, 19, (n, *DSN_LABELS[1:]), generator=gen).float()
+        lbl[torch.rand(lbl.shape, generator=gen) < 0.1] = 255.0
+        x = lbl.to(DEV)
+        got = cuda_resize.resize_nearest_cuda(x, ty, tx)
+        plain = cuda_resize.resize_nearest_plain(x, ty, tx)
+        lib = F.interpolate(x, size=DSN_HW, mode="nearest")
+        torch.cuda.synchronize()
+        if not (torch.equal(got, plain) and torch.equal(got, lib)):
+            raise AssertionError(f"resize_nearest DSN labels {tuple(x.shape)}: kernel != plain "
+                                 f"or F.interpolate (max {(got - plain).abs().max().item()}, "
+                                 f"{(got - lib).abs().max().item()})")
+        _held("resize_nearest", x, got)
+    plan = cuda_resize.nearest_fwd_plan(ty.spec, CROP, DSN_HW[1], x.element_size())
+    cost = Cost()
+    # what the gather must move: the inputs the outputs read (one each; a
+    # 16x downsample reads 1/256 of the map) and the output
+    cost.add(2 * nbytes(got))
+    times = {"ms": median_ms(lambda: cuda_resize.resize_nearest_cuda(x, ty, tx)),
+             "plain_ms": median_ms(lambda: cuda_resize.resize_nearest_plain(x, ty, tx)),
+             "library_ms": median_ms(lambda: F.interpolate(x, size=DSN_HW, mode="nearest")),
+             "device_ms": device_ms(lambda: cuda_resize.resize_nearest_cuda(x, ty, tx)),
+             "library_device_ms": device_ms(
+                 lambda: F.interpolate(x, size=DSN_HW, mode="nearest"))}
+    print(f"resize_nearest float32 DSN labels {DSN_LABELS}->{DSN_HW}: exactly equal to plain "
+          f"and to F.interpolate, {_nearest_fwd_kernel(x, rule)} kernel (band {plan.band} "
+          f"output rows, {plan.stage_rows} staged input rows, {plan.smem} bytes of shared "
+          f"memory); kernel {times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, "
+          f"F.interpolate {times['library_ms']:.4f} ms; device time (graph) kernel "
+          f"{times['device_ms']:.4f} ms, F.interpolate {times['library_device_ms']:.4f} ms; "
+          f"bound {cost.bound_ms:.5f} ms ({2 * nbytes(got) / 1e6:.4f} MB; the whole input "
+          f"and the output, {nbytes(x, got) / 1e6:.3f} MB, would take "
+          f"{nbytes(x, got) / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    return {"max_abs_err": 0.0, **times, **cost.fields()}
+
+
+def phase_microbatch(cuda_gen) -> None:
+    """The resize kernels at the microbatch shapes of ``--accum-steps 2``
+    (batch ``TRAIN_N // 2``), bf16 and fp32, against their plain versions:
+    the five train bilinear resizes (forward exactly equal, backward within
+    its bound) and the seven OC nearest resizes (both directions exactly
+    equal). Checks only; the times are those of the full batch."""
+    n = TRAIN_N // 2
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, _, c, (h, w), size in BILINEAR_TRAIN_SHAPES:
+            if name.startswith("train"):
+                x = torch.randn((n, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
+                what = f"{_dtype_name(dtype)} microbatch {name} ({n},{c},{h},{w})->{size}"
+                errs.append(_bilinear_pair(x, size, cuda_gen, what)[3])
+        for name, c, (h, w), rule in NEAREST_SHAPES:
+            x = torch.randn((n, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
+            _nearest_pair(x, rule, cuda_gen)
+        torch.cuda.empty_cache()
+    print(f"microbatch shapes, batch {n}, bf16 and fp32: the five train bilinear resizes' "
+          f"forward exactly equal, backward within the bound (max_abs_err {max(errs):.3e}); "
+          f"the seven OC nearest resizes exactly equal both ways")
+
+
+def _extras_cfg(batch: int, dtype: str, reduce_border_iter: int = 0):
+    """The MRFP+ recipe with every training extra: the DSN head, the
+    border-relaxed CE (border 1; halved past ``reduce_border_iter``, -1
+    never), batch class weights and the HPF transform."""
+    cfg = _train_cfg(batch, dtype)
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, use_dsn_aux=True),
+        data=dataclasses.replace(cfg.data, jointwtborder=True, border_window=1,
+                                 reduce_border_iter=reduce_border_iter, batch_weighting=True,
+                                 freq_transform="hpf"))
+
+
+def _damped_state(cfg):
+    """A fresh train state of ``cfg`` on the damped fixture (ROADMAP C3)."""
+    from mrfp_tpu_torch.cli.train import build_state
+    state = build_state(cfg, torch.device(DEV))
+    with torch.no_grad():
+        for k, prm in state.model.named_parameters():
+            if k.endswith("bn3.weight"):
+                prm.mul_(DAMP)
+    return state
+
+
+def _extras_compare(base, img, lbl, cfg, start: int, record: bool) -> tuple:
+    """One step of ``cfg`` from ``base`` at step ``start`` through the kernels,
+    through the plain versions and through them again, each from a copy of
+    the same state (so the same gates and dropout masks). Returns the three
+    losses, the relative gradient differences of ``GRAD_KEYS`` and the DSN
+    classifier (kernel vs plain, plain again vs plain) and, with
+    ``record``, the kernel step's resize calls."""
+    from mrfp_tpu_torch.train.state import create_train_state
+    from mrfp_tpu_torch.train.step import train_step
+    keys = GRAD_KEYS + ("dsn.4.weight",)
+    losses, grads, calls = {}, {}, []
+    for name in ("kernel", "plain", "plain again"):
+        st = create_train_state(copy.deepcopy(base.model), cfg.train)
+        st.step = start
+        with _recording() if record and name == "kernel" else contextlib.nullcontext([]) as seen:
+            losses[name] = train_step(st, img, lbl, cfg, impl=None if name == "kernel"
+                                      else "plain")["loss"].item()
+        calls += seen
+        params = dict(st.model.named_parameters())
+        grads[name] = {k: params[k].grad.clone() for k in keys}
+        del st, params
+    errs = {k: _rel(grads["kernel"][k], grads["plain"][k]) for k in keys}
+    floor = {k: _rel(grads["plain again"][k], grads["plain"][k]) for k in keys}
+    return losses, errs, floor, calls
+
+
+def phase_extras_step(gen) -> dict:
+    """The training extras (``_extras_cfg``), kernel path against plain path
+    from one state on the damped fixture (ROADMAP C3), each from step 0 (the
+    full border window) and from step 1 (past ``reduce_border_iter``:
+    halved, boundaries x2), gates as drawn. First in fp32 at batch 2 (TF32
+    off, cuDNN deterministic, as the backward check of ``phase_train_step``):
+    loss within 1e-4 and the gradients of ``GRAD_KEYS`` and the DSN
+    classifier within 1e-3 relative. Then in bf16 at batch 8, 768x768: the
+    loss within 1e-4; the gradients, whose bf16 backward differs between
+    two plain runs by about 1.5% (cuDNN's backward is not bit-reproducible),
+    within 3x the largest plain-again difference of that step. The bf16
+    kernel path's two steps are counted: they must launch every forward
+    resize kernel, the nearest one at the DSN label shape once a step, and
+    only at shapes held against the plain versions. Then the extras step's
+    time with the full window (``reduce_border_iter`` -1, as
+    ``--jointwtborder`` runs by default) and with the halved one, beside
+    the default MRFP+ step's, all from the same steps, so all draw the same
+    gates."""
+    from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
+    from mrfp_tpu_torch.train.step import train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = _extras_cfg(2, "float32")
+        base = _damped_state(cfg)
+        img, lbl = _batch(gen, 2)
+        for start in (0, 1):
+            losses, errs, floor, _ = _extras_compare(base, img, lbl, cfg, start, record=False)
+            err = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+            print(f"extras step fp32 2x{CROP}x{CROP} (TF32 off, cuDNN deterministic) from step "
+                  f"{start} ({'halved' if start else 'full'} window), bn3 scales x{DAMP}: loss "
+                  f"kernel {losses['kernel']:.6f} plain {losses['plain']:.6f} (rel {err:.3e}); "
+                  f"gradient rel err kernel vs plain {errs}; plain again vs plain {floor}")
+            if not all(math.isfinite(v) for v in losses.values()) or err > 1e-4:
+                raise AssertionError(f"extras step fp32: kernel vs plain path losses {losses}")
+            bad = {k: v for k, v in errs.items() if not v <= 1e-3}
+            if bad:
+                raise AssertionError(f"extras step fp32: gradient rel err above 1e-3: {bad}")
+        del base
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = _extras_cfg(TRAIN_N, "bfloat16")
+    base = _damped_state(cfg)
+    img, lbl = _batch(gen, TRAIN_N)
+    torch.cuda.synchronize()
+    reset_launches()  # the plain steps launch nothing: this counts the kernel path's
+    calls = []
+    for start in (0, 1):
+        losses, errs, floor, seen = _extras_compare(base, img, lbl, cfg, start, record=True)
+        calls += seen
+        err = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+        limit = 3 * max(floor.values())
+        print(f"extras step bf16 {TRAIN_N}x{CROP}x{CROP} from step {start} (DSN, relaxed "
+              f"CE border 1, {'halved' if start else 'full'} window; batch weights, HPF), "
+              f"gates as drawn, bn3 scales x{DAMP}: loss kernel {losses['kernel']:.6f} "
+              f"plain {losses['plain']:.6f} (rel {err:.3e}); gradient rel err kernel vs "
+              f"plain {({k: round(v, 6) for k, v in errs.items()})}, plain again vs plain "
+              f"{({k: round(v, 6) for k, v in floor.items()})}, limit {limit:.6f}")
+        if not all(math.isfinite(v) for v in losses.values()) or err > 1e-4:
+            raise AssertionError(f"extras step bf16: kernel vs plain path losses {losses}")
+        bad = {k: v for k, v in errs.items() if not v <= limit}
+        if bad:
+            raise AssertionError(f"extras step bf16: gradient rel err above {limit:.6f}: {bad}")
+    torch.cuda.synchronize()
+    launched = dict(LAUNCHES)
+    dsn_key = ("resize_nearest", torch.float32, DSN_LABELS, (TRAIN_N, 1, *DSN_HW))
+    dsn = calls.count(dsn_key)
+    print(f"extras step: the kernel path's two steps launched {launched}, the nearest at the "
+          f"DSN shape {dsn} times; {len(set(calls))} distinct resize calls, each held "
+          f"against its plain version")
+    if dsn != 2 or min(launched[k] for k in RESIZE_KERNELS if k != "resize_nearest_bwd") <= 0:
+        raise AssertionError(f"extras step: launches {launched}, DSN-shape nearest {dsn} "
+                             f"(want 2, one a step)")
+    _all_held(calls, "extras step")
+    torch.cuda.empty_cache()
+
+    default = _damped_state(_train_cfg(TRAIN_N, "bfloat16"))
+    runs = {"full window": (base, _extras_cfg(TRAIN_N, "bfloat16", reduce_border_iter=-1)),
+            "halved window": (base, cfg),
+            "default MRFP+ step": (default, _train_cfg(TRAIN_N, "bfloat16"))}
+    times = {}
+    for name, (st, c) in runs.items():
+        st.step = 1  # steps 1-6 of one seed: the same gates for all three
+        times[name] = median_ms(lambda: train_step(st, img, lbl, c), runs=5, warmup=1)
+    print(f"extras step bf16 {TRAIN_N}x{CROP}x{CROP}, gates as drawn (steps 1-6 of one "
+          f"seed), medians of 5: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+    del base, default
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_cli_train_accum() -> dict:
+    """``cli.train --accum-steps 2`` at batch 8 with ``--use-dsn`` and the
+    bf16 momentum (``cfg.train.momentum_dtype``, which has no flag, set
+    through the config): 3 steps, counted, then resumed to 4; the peak
+    device memory beside a 2-step run of the same flags without
+    accumulation. The nearest kernel must run at the DSN shape of a
+    microbatch, (4,1,768,768), twice a step, and every resize kernel of the
+    counted run only at shapes held against the plain versions."""
+    from mrfp_tpu_torch.cli import train as cli_train
+    from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
+    build_config = cli_train.build_config
+    calls = []
+
+    def bf16_momentum(args):
+        cfg = build_config(args)
+        return cfg.replace(train=dataclasses.replace(cfg.train, momentum_dtype="bfloat16"))
+
+    common = ["--device", DEV, "--synthetic", "--batch-size", str(TRAIN_N), "--crop-size",
+              str(CROP), "--log-every", "1", "--seed", "0", "--use-dsn"]
+    peaks, results = {}, {}
+    cli_train.build_config = bf16_momentum
+    try:
+        with tempfile.TemporaryDirectory() as runs:
+            for accum, max_iters in ((1, (2,)), (2, (3, 4))):
+                for max_iter in max_iters:
+                    out = os.path.join(runs, f"accum{accum}_{max_iter}.json")
+                    argv = common + ["--accum-steps", str(accum), "--max-iter", str(max_iter),
+                                     "--runs-dir", os.path.join(runs, str(accum)),
+                                     "--json-out", out]
+                    counted = (accum, max_iter) == (2, 3)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    if counted:
+                        reset_launches()
+                    with _recording() if counted else contextlib.nullcontext([]) as seen:
+                        rc = cli_train.main(argv)
+                    calls += seen
+                    torch.cuda.synchronize()
+                    if counted:
+                        launched = dict(LAUNCHES)
+                    peaks.setdefault(accum, torch.cuda.max_memory_allocated() / 2**30)
+                    with open(out) as f:
+                        results[(accum, max_iter)] = (rc, json.load(f))
+            ckpt = os.path.join(results[(2, 4)][1]["run_dir"], "ckpt", "step_4.pt")
+            blob = torch.load(ckpt, map_location="cpu", weights_only=True)
+            buffers = {str(s["momentum_buffer"].dtype) for s in blob["optimizer"]["state"].values()}
+            dsn_keys = sum(k.startswith("dsn.") for k in blob["model"])
+    finally:
+        cli_train.build_config = build_config
+    micro = (TRAIN_N // 2, 1, CROP, CROP)
+    dsn = calls.count(("resize_nearest", torch.float32, micro, (micro[0], 1, *DSN_HW)))
+    first, resumed = results[(2, 3)][1], results[(2, 4)][1]
+    print(f"cli.train --accum-steps 2 --use-dsn, bf16 momentum, batch {TRAIN_N}: 3 steps, "
+          f"losses {first['losses']}; launches {launched}, nearest at the DSN microbatch "
+          f"shape {micro} {dsn}, {len(set(calls))} distinct resize calls, each held against "
+          f"its plain version; resumed to 4: steps "
+          f"{sorted(resumed['losses'])}, losses {resumed['losses']}; checkpoint momentum "
+          f"{sorted(buffers)}, {dsn_keys} DSN tensors; peak device memory accum 2 "
+          f"{peaks[2]:.2f} GiB, accum 1 (same flags, 2 steps) {peaks[1]:.2f} GiB")
+    rcs = [rc for rc, _ in results.values()]
+    losses = [v for _, r in results.values() for v in r["losses"].values()]
+    if any(rcs) or first["step"] != 3 or resumed["step"] != 4 \
+            or sorted(resumed["losses"]) != ["4"] or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"cli.train --accum-steps 2: rcs {rcs}, results {results}")
+    if buffers != {"torch.bfloat16"} or not dsn_keys:
+        raise AssertionError(f"cli.train --accum-steps 2: momentum {buffers}, DSN keys {dsn_keys}")
+    if dsn != 6 or min(launched[k] for k in ("resize_bilinear", "resize_bilinear_bwd")) <= 0:
+        raise AssertionError(f"cli.train --accum-steps 2: launches {launched}, DSN-shape "
+                             f"nearest {dsn} (want 6: 2 a step)")
+    _all_held(calls, "cli.train --accum-steps 2")
+    return launched
+
+
+def phase_sliding() -> dict:
+    """``SlidingEvaluator`` on one synthetic H x W (1024x2048) image at crop
+    ``SLIDING_CROP`` (1024): three tiles in one batch of 3, fp32. The
+    histogram must hold every pixel, the confusion-matrix kernel must run,
+    every bilinear call must be at a shape held against its plain version
+    (``SLIDING_RESIZES``), and the prediction must agree with the same
+    evaluator's through the plain versions on 99.99% of the pixels, as the
+    eval forward's does (``phase_model``). Seconds per image from the
+    second of two runs (the first pays cuDNN's set-up)."""
+    import functools
+    from mrfp_tpu_torch.data import SyntheticDataset
+    from mrfp_tpu_torch.models import build_mrfp
+    from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
+    from mrfp_tpu_torch.train.evaluator import SlidingEvaluator
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_mrfp(DEV, generator=torch.Generator().manual_seed(0))
+    ev = SlidingEvaluator(model, crop_size=SLIDING_CROP, tile_batch=3, device=DEV)
+    spans = ev.spans(H, W)
+    ds = SyntheticDataset(length=1, hw=(H, W))
+    quiet = lambda *a, **k: None  # noqa: E731
+    ev.run(ds, log=quiet)
+    torch.cuda.synchronize()
+    reset_launches()
+    with _recording() as calls:
+        res = ev.run(ds, log=quiet)
+    launched = dict(LAUNCHES)
+    img = ds[0]["image"]
+    plain = SlidingEvaluator(functools.partial(model, impl="plain"), crop_size=SLIDING_CROP,
+                             tile_batch=3, device=DEV)
+    with torch.inference_mode():
+        agree = (ev.predict(img) == plain.predict(img)).float().mean().item()
+    print(f"SlidingEvaluator 1x{H}x{W}, crop {SLIDING_CROP}, tiles {spans} in one batch of "
+          f"3, fp32: {res['seconds']:.3f} s an image; launches {launched}, bilinear at "
+          f"{sorted(c[2:] for c in set(calls))}, each held against its plain version; "
+          f"histogram sum {int(res['hist'].sum())}, mean_iu {res['mean_iu']:.5f}; prediction "
+          f"agreement with the plain path {agree}")
+    if len(spans) != 3 or int(res["hist"].sum()) != H * W or res["scored"] != 1 \
+            or launched["confusion_matrix"] <= 0 or launched["resize_bilinear"] <= 0:
+        raise AssertionError(f"SlidingEvaluator: spans {spans}, result {res}, "
+                             f"launches {launched}")
+    _all_held(calls, "SlidingEvaluator")
+    if agree < 0.9999:
+        raise AssertionError(f"SlidingEvaluator: prediction agreement with the plain path "
+                             f"{agree} < 0.9999")
+    del model
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main(argv=None) -> None:
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--profile", default=None, metavar="DIR")
@@ -1796,7 +2231,9 @@ def main(argv=None) -> None:
     eval_launches = phase_entry_point()
     cuda_gen = torch.Generator(device=DEV).manual_seed(0)
     nearest = phase_nearest(cuda_gen)
+    phase_dsn_nearest(gen)
     bilinear = phase_bilinear_train(cuda_gen)
+    phase_microbatch(cuda_gen)
     dot_stats = phase_dot_stats(cuda_gen)
     row_mix = phase_row_mix(cuda_gen)
     channel_sums = phase_channel_sums(cuda_gen)
@@ -1805,25 +2242,37 @@ def main(argv=None) -> None:
     phase_train_step(gen, args.profile)
     fused_launches = phase_fused_step(gen)
     train_launches = phase_cli_train()
+    extras_launches = phase_extras_step(gen)
+    accum_launches = phase_cli_train_accum()
+    sliding_launches = phase_sliding()
+
+    def launches(name, *counted):
+        """The kernel's count over the counted drives of its paths."""
+        return sum(c[name] for c in counted)
+
+    slice_8 = (extras_launches, accum_launches, sliding_launches)
     src = "mrfp_tpu_torch/csrc/"
     kernels = [
         dict(name="resize_bilinear", route="cuda", source=src + "resize_bilinear.cu",
              replaces="mrfp_tpu/ops/pallas_resize.py:264",
-             launches=eval_launches["resize_bilinear"] + train_launches["resize_bilinear"],
+             launches=launches("resize_bilinear", eval_launches, train_launches, *slice_8),
              **bilinear["resize_bilinear"]),
         dict(name="resize_bilinear_bwd", route="cuda", source=src + "resize_bilinear.cu",
              replaces="mrfp_tpu/ops/pallas_resize.py:280",
-             launches=train_launches["resize_bilinear_bwd"],
+             launches=launches("resize_bilinear_bwd", train_launches, *slice_8),
              **bilinear["resize_bilinear_bwd"]),
         dict(name="resize_nearest", route="cuda", source=src + "resize_nearest.cu",
              replaces="mrfp_tpu/ops/pallas_resize.py:235",
-             launches=train_launches["resize_nearest"], **nearest["resize_nearest"]),
+             launches=launches("resize_nearest", train_launches, *slice_8),
+             **nearest["resize_nearest"]),
         dict(name="resize_nearest_bwd", route="cuda", source=src + "resize_nearest.cu",
              replaces="mrfp_tpu/ops/pallas_resize.py:250",
-             launches=train_launches["resize_nearest_bwd"], **nearest["resize_nearest_bwd"]),
+             launches=launches("resize_nearest_bwd", train_launches, *slice_8),
+             **nearest["resize_nearest_bwd"]),
         dict(name="confusion_matrix", route="cuda", source=src + "confusion_matrix.cu",
              replaces="mrfp_tpu/ops/pallas_hist.py:50",
-             launches=eval_launches["confusion_matrix"], **hist),
+             launches=launches("confusion_matrix", eval_launches, sliding_launches),
+             **hist),
         dict(name="dot_with_stats", route="cuda", source=src + "dot_stats.cu",
              replaces="mrfp_tpu/ops/pallas_dot_stats.py:112",
              launches=fused_launches["dot_with_stats"],

@@ -8,7 +8,11 @@
 
 The paper's MRFP+ recipe by default: R50-D16, all three gates live, SGD
 with poly decay, bf16 autocast with fp32 parameters (``--no-bf16``: fp32
-with TF32 off). Without a checkpoint in its run directory the model starts
+with TF32 off). Every single-device flag of the JAX trainer is taken:
+``--accum-steps``, the training extras (``--use-dsn``,
+``--freq-transform``, ``--batch-weighting``, ``--jointwtborder`` with its
+border knobs), the data flags, and ``--oc-conditional`` as a no-op. The
+bf16 momentum, as in JAX, has no flag: ``cfg.train.momentum_dtype``. Without a checkpoint in its run directory the model starts
 from seeded random weights; with one it resumes from the latest, and
 refuses one written by another recipe (``run_recipe``).
 ``--device cuda`` runs the hand-written kernels and exits non-zero when no
@@ -64,34 +68,65 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="also write {step, preempted, losses, run_dir} here "
                         "(losses: this run's logged steps, every --log-every)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--accum-steps", type=int, default=1,
+                   help="split each step's batch into N sequential microbatches "
+                        "(activations stay microbatch-sized; effective batches "
+                        "beyond one card's memory)")
+    p.add_argument("--oc-conditional", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="accepted for the JAX trainer's command lines; a no-op "
+                        "here: both forms compute the same values, and the "
+                        "host-drawn gates already skip the OC halves a step "
+                        "does not use")
+    p.add_argument("--use-dsn", action="store_true",
+                   help="auxiliary DSN head on layer3 (0.4-weighted CE)")
+    p.add_argument("--freq-transform", default=None, choices=[None, "hpf", "lpf", "phot"],
+                   help="FFT batch transform on the device (dataloaders.py:24-79)")
+    p.add_argument("--random-flip", action=argparse.BooleanOptionalAction, default=True)
+    p.add_argument("--color-jitter", action=argparse.BooleanOptionalAction, default=True,
+                   help="--no-color-jitter disables the b/c/s/h jitter "
+                        "(main.py:413), e.g. for tasks where absolute color "
+                        "carries the label")
+    p.add_argument("--gaussian-blur", action=argparse.BooleanOptionalAction, default=True)
+    p.add_argument("--scale-range", type=float, nargs=2, default=(0.5, 2.0),
+                   metavar=("MIN", "MAX"))
+    p.add_argument("--class-uniform-pct", type=float, default=0.0,
+                   help="fraction of train crops biased toward rare-class "
+                        "centroids (reference CLASS_UNIFORM_PCT, config.py:53)")
+    p.add_argument("--batch-weighting", action="store_true",
+                   help="per-batch rare-class CE upweighting (reference "
+                        "BATCH_WEIGHTING, config.py:56)")
+    p.add_argument("--jointwtborder", action="store_true",
+                   help="border-relaxed CE (reference config.py:121): any class "
+                        "within a (2*border+1)^2 window is acceptable near label "
+                        "borders; target built on the device "
+                        "(train/losses.relaxed_cross_entropy)")
+    p.add_argument("--border-window", type=int, default=1,
+                   help="relaxation half-window (reference BORDER_WINDOW)")
+    p.add_argument("--reduce-border-iter", type=int, default=-1,
+                   help="after this iteration the window halves and boundary "
+                        "pixels weight 2 (reference REDUCE_BORDER_ITER); -1 = never")
+    p.add_argument("--strict-border-class", type=int, nargs="*", default=None,
+                   help="class ids that keep exact one-hot targets (reference "
+                        "STRICT_BORDER_CLASS)")
     # flags of the JAX trainer whose code paths are not ported yet
-    for flag, item in (("--accum-steps", "A10"), ("--num-processes", "A9"),
-                       ("--process-id", "A9"), ("--data-parallel", "A9"),
-                       ("--model-parallel", "A14"), ("--spatial-parallel", "A14"),
-                       ("--snapshot-every", "A13")):
+    for flag, item in (("--num-processes", "A9"), ("--process-id", "A9"),
+                       ("--data-parallel", "A9"), ("--model-parallel", "A14"),
+                       ("--spatial-parallel", "A14"), ("--snapshot-every", "A13")):
         p.add_argument(flag, type=int, default=None, help=f"not ported: ROADMAP {item}")
     p.add_argument("--coordinator-address", default=None, help="not ported: ROADMAP A9")
-    for flag in ("--use-dsn", "--batch-weighting", "--jointwtborder"):
-        p.add_argument(flag, action="store_true", help="not ported: ROADMAP A11")
-    p.add_argument("--freq-transform", default=None, choices=[None, "hpf", "lpf", "phot"],
-                   help="not ported: ROADMAP A11")
     return p.parse_args(argv)
 
 
 def check_args(args) -> None:
     """Raise on a flag whose code path the port does not have."""
-    unported = {"--accum-steps": ("A10", args.accum_steps not in (None, 1)),
-                "--num-processes": ("A9", args.num_processes not in (None, 1)),
+    unported = {"--num-processes": ("A9", args.num_processes not in (None, 1)),
                 "--process-id": ("A9", args.process_id not in (None, 0)),
                 "--coordinator-address": ("A9", args.coordinator_address is not None),
                 "--data-parallel": ("A9", args.data_parallel not in (None, -1, 1)),
                 "--model-parallel": ("A14", args.model_parallel not in (None, 1)),
                 "--spatial-parallel": ("A14", args.spatial_parallel not in (None, 1)),
-                "--snapshot-every": ("A13", bool(args.snapshot_every)),
-                "--use-dsn": ("A11", args.use_dsn),
-                "--batch-weighting": ("A11", args.batch_weighting),
-                "--jointwtborder": ("A11", args.jointwtborder),
-                "--freq-transform": ("A11", args.freq_transform is not None)}
+                "--snapshot-every": ("A13", bool(args.snapshot_every))}
     bad = [f"{flag} (ROADMAP {item})" for flag, (item, on) in unported.items() if on]
     if bad:
         raise NotImplementedError("not ported yet: " + ", ".join(bad))
@@ -105,22 +140,38 @@ def build_config(args):
     cfg = {"mrfp+": mrfp_plus_config, "mrfp": mrfp_config,
            "baseline": baseline_config}[args.mode]()
     return cfg.replace(
-        model=dataclasses.replace(cfg.model, trunk=args.trunk, variant=args.variant),
-        data=dataclasses.replace(cfg.data, source=args.source, batch_size=args.batch_size,
-                                 crop_size=args.crop_size, base_size=args.crop_size),
+        model=dataclasses.replace(cfg.model, trunk=args.trunk, variant=args.variant,
+                                  use_dsn_aux=args.use_dsn),
+        data=dataclasses.replace(
+            cfg.data, source=args.source, batch_size=args.batch_size,
+            crop_size=args.crop_size, base_size=args.crop_size,
+            freq_transform=args.freq_transform, random_flip=args.random_flip,
+            color_jitter=cfg.data.color_jitter if args.color_jitter else None,
+            gaussian_blur=args.gaussian_blur, scale_range=tuple(args.scale_range),
+            class_uniform_pct=args.class_uniform_pct,
+            batch_weighting=args.batch_weighting, jointwtborder=args.jointwtborder,
+            border_window=args.border_window, reduce_border_iter=args.reduce_border_iter,
+            strict_border_class=(tuple(args.strict_border_class)
+                                 if args.strict_border_class else None)),
         train=dataclasses.replace(cfg.train, max_iter=args.max_iter, lr=args.lr,
-                                  seed=args.seed, checkpoint_every=args.ckpt_every,
+                                  seed=args.seed, accum_steps=args.accum_steps,
+                                  checkpoint_every=args.ckpt_every,
                                   log_every=args.log_every,
                                   compute_dtype="bfloat16" if args.bf16 else "float32"))
 
 
 def run_recipe(args) -> dict:
     """What a run's checkpoints may be resumed by, beside the run name's
-    knobs: the data (the source, or synthetic), the crop, the seed and the
-    mode. Not ``max_iter``: an extended run resumes."""
+    knobs: the data (the source, or synthetic), the crop, the seed, the
+    mode and, for ``--use-dsn``, the DSN head (it changes the state_dict;
+    a run without it keeps the recipe it had before the head was ported).
+    Not ``max_iter``: an extended run resumes."""
     synthetic = args.synthetic or args.source == "synthetic"
-    return {"source": "synthetic" if synthetic else args.source,
-            "crop_size": args.crop_size, "seed": args.seed, "mode": args.mode}
+    recipe = {"source": "synthetic" if synthetic else args.source,
+              "crop_size": args.crop_size, "seed": args.seed, "mode": args.mode}
+    if args.use_dsn:
+        recipe["use_dsn"] = True
+    return recipe
 
 
 def build_dataset(args, cfg, train: bool = True):
@@ -162,7 +213,8 @@ def build_state(cfg, device: torch.device):
                        hrfp_plus=m.hrfp_plus, np_std=cfg.perturb.np_std,
                        np_scale=cfg.perturb.np_scale,
                        oc_scales_enc=cfg.perturb.oc_scales_enc,
-                       oc_scales_dec=cfg.perturb.oc_scales_dec)
+                       oc_scales_dec=cfg.perturb.oc_scales_dec,
+                       use_dsn=m.use_dsn_aux)
     if cfg.perturb.enabled:
         model.load_state_dict(oc_init(torch.Generator().manual_seed(cfg.train.seed + 1),
                                       cfg.perturb.oc_bn_std), strict=False)
@@ -188,8 +240,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     watchdog = watchdog_from_arg(args.step_timeout, args.first_beat_timeout,
                                  accelerator=device.type == "cuda")
     cfg = build_config(args)
-    from mrfp_tpu_torch.train.step import check_supported, train_step
-    check_supported(cfg)
+    from mrfp_tpu_torch.train.step import train_step
 
     from mrfp_tpu_torch.data.loader import TrainLoader
     from mrfp_tpu_torch.train.checkpoint import CheckpointManager

@@ -3,8 +3,10 @@
 It is a copy because ``mrfp_tpu.core``'s ``__init__`` imports jax. The
 knobs and their defaults are the JAX package's, so one recipe names the
 same run in both packages. ``MeshConfig`` is not copied: the mesh waits for
-ROADMAP items A9 and A14. Knobs the port does not run yet raise where they
-are read (``train/state.py``, ``train/step.py``) and name their ROADMAP item.
+ROADMAP items A9 and A14. The zoo's knobs (``trunk`` other than resnet-50,
+``wt_layer`` codes other than 0 and 4) raise where they are read
+(``nn/resnet.py``, ``nn/norms.py``) and name ROADMAP item A12; ``remat``, a
+TPU memory measure, and the zoo's ``use_wtloss`` are not read.
 """
 
 from __future__ import annotations
@@ -83,8 +85,9 @@ class DataConfig:
     class_uniform_pct: float = 0.0
     class_uniform_classes: Tuple[int, ...] = (16, 15, 14)  # train/bus/truck
     # Per-batch class-weighted CE (reference config.py:56, dead knob there;
-    # semantics follow the RobustNet harness it was inherited from:
-    # ENet-style 1/ln(1.02+freq) weights from the batch label histogram).
+    # semantics follow the RobustNet harness it was inherited from): over
+    # the batch's normalised label histogram, w = (hist > 0) * (1 - hist) + 1
+    # (train/losses.batch_class_weights).
     batch_weighting: bool = False
     # Border-relaxation knobs (reference config.py:58-64; dead there — its
     # loss consumer was never vendored). Live here: ``jointwtborder``

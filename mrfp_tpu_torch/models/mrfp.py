@@ -18,10 +18,16 @@ The gates are Python bools drawn on the host, so a plain ``if`` skips the
 OC halves a step does not use, as ``lax.cond`` does in the JAX package,
 without a device sync.
 
+With ``use_dsn`` the auxiliary DSN head reads layer3's output; the
+train-mode forward then returns its fp32 logits beside the main logits
+(mrfp_tpu/models/mrfp.py:175,218-219), and the eval forward, which never
+needs them, returns the main logits alone.
+
 Module names follow the reference's state_dict (``layer0.0``,
 ``layer1.0.conv1``, ``aspp.features.0.0``, ``aspp.img_conv.0``,
-``bot_fine.0``, ``final1.0``, ``final2.0``; with ``oc_branch=True`` also the
-OC buffers ``OClayer1``..``OC4_decbn``), so the paper's ``.pth`` loads with
+``bot_fine.0``, ``final1.0``, ``final2.0``; with ``use_dsn`` also ``dsn.0``,
+``dsn.1``, ``dsn.4``; with ``oc_branch=True`` also the OC buffers
+``OClayer1``..``OC4_decbn``), so the paper's ``.pth`` loads with
 ``load_state_dict(strict=True)`` (``mrfp_tpu_torch.weights``).
 """
 
@@ -33,7 +39,7 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
-from mrfp_tpu_torch.nn.deeplab import ASPP, DeepLabDecoder
+from mrfp_tpu_torch.nn.deeplab import ASPP, DSNHead, DeepLabDecoder
 from mrfp_tpu_torch.nn.layers import conv2d, init_random_
 from mrfp_tpu_torch.nn.resnet import build_trunk, variant_output_stride
 from mrfp_tpu_torch.ops.resize import resize_bilinear_align_corners
@@ -60,10 +66,11 @@ class MRFP(DeepLabDecoder):
     """DeepLabV3+ with multi-resolution feature perturbation.
 
     ``forward`` takes NCHW float images and returns NCHW logits: float32 in
-    eval mode (also under a bf16 autocast), the compute dtype in train mode.
-    ``oc_branch`` adds the OC buffers (needed for a perturbed forward);
-    ``hrfp_plus`` allows the decoder injection. The model is built in eval
-    mode.
+    eval mode (also under a bf16 autocast), the compute dtype in train mode;
+    in train mode with ``use_dsn``, the pair (logits, fp32 DSN logits at
+    layer3's resolution). ``oc_branch`` adds the OC buffers (needed for a
+    perturbed forward); ``hrfp_plus`` allows the decoder injection. The
+    model is built in eval mode.
     """
 
     def __init__(self, num_classes: int = 19, trunk: str = "resnet-50",
@@ -72,7 +79,8 @@ class MRFP(DeepLabDecoder):
                  oc_branch: bool = False, hrfp_plus: bool = True,
                  np_std: float = 0.75, np_scale: float = 1.5,
                  oc_scales_enc: Tuple[float, ...] = (1.205, 1.2, 1.2),
-                 oc_scales_dec: Tuple[float, ...] = (0.838, 0.798)):
+                 oc_scales_dec: Tuple[float, ...] = (0.838, 0.798),
+                 use_dsn: bool = False):
         super().__init__()
         self.variant = variant
         self.hrfp_plus = hrfp_plus
@@ -88,6 +96,11 @@ class MRFP(DeepLabDecoder):
         self.oc_branch = oc_branch
         if oc_branch:
             add_oc_buffers(self)
+        self.use_dsn = use_dsn
+        if use_dsn:
+            # registered last, so the seeded init of every other module
+            # draws what it draws without the head
+            self.dsn = DSNHead(1024, num_classes)
         self.eval()
 
     def _np_plus(self, feat: torch.Tensor, noise) -> torch.Tensor:
@@ -95,12 +108,15 @@ class MRFP(DeepLabDecoder):
 
     def forward(self, x: torch.Tensor, valid_hw: Optional[Tuple[int, int]] = None,
                 impl: Optional[str] = None,
-                perturb: Optional[PerturbArgs] = None) -> torch.Tensor:
+                perturb: Optional[PerturbArgs] = None,
+                dropout: Union[torch.Generator, torch.Tensor, None] = None):
         """``valid_hw`` = (vh, vw) in input pixels: the valid extent when
         ``x`` was bottom/right zero-padded to a shape bucket; restricts
         ASPP's image pooling to real pixels. ``impl="plain"`` routes every
         resize through its plain version (kernel-vs-plain checks only).
-        ``perturb`` is read in train mode only."""
+        ``perturb`` is read in train mode only, and ``dropout`` (the DSN
+        head's keep mask or its generator, ``nn.deeplab.dropout``) in train
+        mode with ``use_dsn`` only."""
         h, w = x.shape[2], x.shape[3]
         perturbing = self.training and perturb is not None
         if perturbing and not self.oc_branch:
@@ -127,7 +143,8 @@ class MRFP(DeepLabDecoder):
         if perturbing and perturb.gate_np:
             feat = self._np_plus(feat, perturb.np1)
         low_level = feat
-        feat = self.layer4(self.layer3(self.layer2(feat)))
+        aux_in = self.layer3(self.layer2(feat))
+        feat = self.layer4(aux_in)
         if valid_hw is not None:
             os_ = variant_output_stride(self.variant)
             valid_hw = tuple((int(v) + os_ - 1) // os_ for v in valid_hw)
@@ -138,7 +155,11 @@ class MRFP(DeepLabDecoder):
             dec1 = resize_bilinear_align_corners(dec1, (int(h / 2), int(w / 2)), impl)
             dec1 = oc_dec + dec1
         logits = resize_bilinear_align_corners(self.final2(dec1), (h, w), impl)
-        return logits if self.training else logits.float()
+        if not self.training:
+            return logits.float()
+        if self.use_dsn:
+            return logits, self.dsn(aux_in, dropout).float()
+        return logits
 
 
 def build_mrfp(device, generator: Optional[torch.Generator] = None,

@@ -5,12 +5,12 @@ Concat order is load-bearing for checkpoint parity: ASPP output channels are
 (deepv3.py:114-126), and the decoder concat is [bot_fine(48), upsampled
 bot_aspp(256)] -> 304 (deepv3.py:350-353). Module names follow the
 reference's state_dict (``aspp.features.0.0``, ``aspp.img_conv.1``,
-``bot_fine.0``, ``final1.3``, ...).
+``bot_fine.0``, ``final1.3``, ``dsn.4``, ...).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -95,3 +95,40 @@ class DeepLabDecoder(nn.Module):
         dec0_fine = self.bot_fine(low_level)
         dec0_up = resize_bilinear_align_corners(dec0_up, low_level.shape[2:], impl)
         return self.final1(torch.cat([dec0_fine, dec0_up], dim=1))
+
+
+def dropout(x: torch.Tensor, rate: float,
+            noise: Union[torch.Generator, torch.Tensor, None] = None) -> torch.Tensor:
+    """flax ``nn.Dropout`` in train mode: a value is kept with probability
+    ``1 - rate`` and divided by it, else zeroed. ``noise`` is the keep
+    mask itself (bool, ``x``'s shape; the parity tests inject JAX's), or a
+    generator on ``x``'s device to draw it from (None: torch's default
+    generator)."""
+    keep_prob = 1.0 - rate
+    if isinstance(noise, torch.Tensor):
+        keep = noise
+    else:
+        keep = torch.rand(x.shape, generator=noise, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
+
+
+class DSNHead(nn.Sequential):
+    """The auxiliary DSN head on layer3 (network/deepv3.py:417-424;
+    mrfp_tpu/nn/deeplab.py:115-128): a 3x3 conv with bias to 512 channels,
+    BatchNorm, ReLU, Dropout(0.1), a 1x1 classifier with bias. Children
+    ``0`` conv, ``1`` BN, ``4`` classifier: the reference's keys, the ones
+    mrfp_tpu/train/import_torch.py:252-274 reads. ``forward``'s ``dropout``
+    is the keep mask or its generator (``dropout`` above), read in train
+    mode only."""
+
+    def __init__(self, cin: int = 1024, num_classes: int = 19, rate: float = 0.1):
+        super().__init__(conv2d(cin, 512, 3, 1, 1, 1, bias=True), batch_norm(512),
+                         nn.ReLU(inplace=True), nn.Dropout(rate),
+                         conv2d(512, num_classes, 1, bias=True))
+
+    def forward(self, x: torch.Tensor,
+                noise: Union[torch.Generator, torch.Tensor, None] = None) -> torch.Tensor:
+        x = self[2](self[1](self[0](x)))
+        if self.training:
+            x = dropout(x, self[3].p, noise)
+        return self[4](x)

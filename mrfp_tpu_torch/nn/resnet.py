@@ -9,7 +9,7 @@ paper's checkpoints load with ``strict=True``.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -40,7 +40,13 @@ def stage_plan(variant: str) -> List[Tuple[int, int]]:
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3(stride, dilation) -> 1x1 x4 (Resnet.py:148-227), with an
-    optional iw layer after the residual add."""
+    optional iw layer after the residual add.
+
+    ``inject``, the matchstick perturbation (Resnet.py:229-334;
+    mrfp_tpu/nn/resnet.py:102-115), is an optional ``(site, value)`` added
+    inside the block: site 1 adds ``value`` to conv1's input while the
+    residual and the downsample read the unperturbed x; site 2 adds it to
+    conv2's input."""
 
     expansion = 4
 
@@ -60,22 +66,32 @@ class Bottleneck(nn.Module):
                            if downsample else None)
         self.instance_norm_layer = make_iw_layer(iw, out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, inject: Optional[Tuple[int, torch.Tensor]] = None
+                ) -> torch.Tensor:
         fused_impl = bn_stats_fusion_impl()
         if self.training and fused_impl is not FUSION_OFF:
-            return self._forward_fused(x, fused_impl)
-        out = self.relu(self.bn1(self.conv1(x)))
+            return self._forward_fused(x, fused_impl, inject)
+        site, value = inject if inject is not None else (0, None)
+        out = self.relu(self.bn1(self.conv1(x + value if site == 1 else x)))
+        if site == 2:
+            out = out + value
         out = self.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
         residual = x if self.downsample is None else self.downsample(x)
         return self._finish(out + residual)
 
-    def _forward_fused(self, x: torch.Tensor, impl) -> torch.Tensor:
+    def _forward_fused(self, x: torch.Tensor, impl,
+                       inject: Optional[Tuple[int, torch.Tensor]] = None) -> torch.Tensor:
         """The train forward with ``cfg.train.fuse_bn_stats``: conv1/bn1,
         conv3/bn3 and the downsample pair take their BN moments from the
         1x1 product's own sums (mrfp_tpu/nn/resnet.py:130-143); the same
-        modules and parameters as ``forward``."""
-        out = self.relu(batch_norm_from_stats(self.bn1, *conv1x1_with_stats(self.conv1, x, impl)))
+        modules and parameters, and the same ``inject``, as ``forward``."""
+        site, value = inject if inject is not None else (0, None)
+        conv1_in = x + value if site == 1 else x
+        out = self.relu(batch_norm_from_stats(self.bn1,
+                                              *conv1x1_with_stats(self.conv1, conv1_in, impl)))
+        if site == 2:
+            out = out + value
         out = self.relu(self.bn2(self.conv2(out)))
         out = batch_norm_from_stats(self.bn3, *conv1x1_with_stats(self.conv3, out, impl))
         residual = x
@@ -90,8 +106,20 @@ class Bottleneck(nn.Module):
         return self.relu(out)
 
 
+class Stage(nn.Sequential):
+    """One residual stage, its blocks children ``0``, ``1``, ...; ``inject``
+    is an optional ``(block, site, value)`` that routes a matchstick
+    perturbation into one block (mrfp_tpu/nn/resnet.py:163-175,278-283)."""
+
+    def forward(self, x: torch.Tensor,
+                inject: Optional[Tuple[int, int, torch.Tensor]] = None) -> torch.Tensor:
+        for i, block in enumerate(self):
+            x = block(x, inject[1:] if inject is not None and inject[0] == i else None)
+        return x
+
+
 def _stage(in_ch: int, planes: int, blocks: int, stride: int, dilation: int,
-           iw: int) -> nn.Sequential:
+           iw: int) -> Stage:
     """One residual stage; the iw code lands on the LAST block only
     (Resnet.py:579-584)."""
     out_ch = planes * Bottleneck.expansion
@@ -102,7 +130,7 @@ def _stage(in_ch: int, planes: int, blocks: int, stride: int, dilation: int,
             stride=stride if i == 0 else 1, dilation=dilation,
             downsample=(i == 0 and (stride != 1 or in_ch != out_ch)),
             iw=iw if i == blocks - 1 else 0))
-    return nn.Sequential(*layers)
+    return Stage(*layers)
 
 
 class ResNet(nn.Module):

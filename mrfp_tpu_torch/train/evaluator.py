@@ -18,6 +18,10 @@ Images cross host->device as they come off the dataset (uint8 for real
 data, 4x fewer bytes than float32), from pinned memory with
 ``non_blocking=True`` and two batches in flight; the device casts them to
 float NCHW.
+
+``SlidingEvaluator`` (mrfp_tpu/train/evaluator.py:300-385) cuts every
+image into crop-size tiles and runs them at one shape, averaging the
+tiles' logits per pixel on the device.
 """
 
 from __future__ import annotations
@@ -89,10 +93,9 @@ class SegEvaluator:
         wedged device."""
         hist = torch.zeros((self.num_classes, self.num_classes), dtype=torch.int32,
                            device=self.device)
-        dropped = 0
+        tally = {"dropped": 0}
         scored = 0
         synced_at = 0
-        n = len(dataset) if max_images is None else min(len(dataset), max_images)
         # bucket mode takes one valid_hw per forward, so it runs batch 1
         eb = self.eval_batch if self.bucket is None else 1
         pad_total = 0  # dummy slots spent padding partial groups
@@ -107,30 +110,10 @@ class SegEvaluator:
                 heartbeat()
                 synced_at = scored
 
-        def _host_samples() -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-            nonlocal dropped
-            for i in range(n):
-                sample = dataset[i]
-                # uint8 wire format: integer samples ship as they are
-                img = np.asarray(sample["image"])
-                if img.dtype != np.uint8:
-                    img = img.astype(np.float32)
-                lbl = np.asarray(sample["label"])
-                if lbl.dtype != np.uint8:
-                    lbl = lbl.astype(np.int32)
-                if img.shape[:2] != lbl.shape:
-                    if self.strict_pairs:
-                        dropped += 1  # reference: count+skip (main.py:910-911)
-                        continue
-                    h = min(img.shape[0], lbl.shape[0])
-                    w = min(img.shape[1], lbl.shape[1])
-                    img, lbl = img[:h, :w], lbl[:h, :w]
-                yield img, lbl
-
         def _groups():
             """Host batches: (images NHWC, labels NHW, real count, valid_hw)."""
             pending: Dict[tuple, list] = {}
-            for img, lbl in _host_samples():
+            for img, lbl in self._host_samples(dataset, max_images, tally):
                 if self.bucket is not None:
                     vh, vw = lbl.shape
                     img, lbl = pad_to_bucket(img, lbl, self.bucket)
@@ -177,12 +160,126 @@ class SegEvaluator:
                 "%d padded dummy forwards for %d real images — consider "
                 "eval_batch=1 or bucket mode for this domain", eb, n_shapes,
                 pad_total, scored)
+        return self._result(hist, dataset, log, t0, tally["dropped"], scored)
+
+    def _host_samples(self, dataset, max_images: Optional[int],
+                      tally: Dict[str, int]) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """The dataset's (image HWC, label HW) pairs in their wire dtypes
+        (uint8 ships as it is; other images float32, other labels int32).
+        A pair whose sizes differ is counted in ``tally["dropped"]`` and
+        skipped (main.py:910-911), or with ``strict_pairs=False`` cropped
+        to the common extent."""
+        n = len(dataset) if max_images is None else min(len(dataset), max_images)
+        for i in range(n):
+            sample = dataset[i]
+            img = np.asarray(sample["image"])
+            if img.dtype != np.uint8:
+                img = img.astype(np.float32)
+            lbl = np.asarray(sample["label"])
+            if lbl.dtype != np.uint8:
+                lbl = lbl.astype(np.int32)
+            if img.shape[:2] != lbl.shape:
+                if self.strict_pairs:
+                    tally["dropped"] += 1
+                    continue
+                h = min(img.shape[0], lbl.shape[0])
+                w = min(img.shape[1], lbl.shape[1])
+                img, lbl = img[:h, :w], lbl[:h, :w]
+            yield img, lbl
+
+    @staticmethod
+    def _result(hist: torch.Tensor, dataset, log, t0: float, dropped: int,
+                scored: int) -> Dict[str, object]:
         hist_np = hist.cpu().numpy().astype(np.int64)  # syncs the device
         seconds = time.perf_counter() - t0
         result = evaluate_hist(hist_np, dataset_name=getattr(dataset, "name", "?"),
                                id2cat=getattr(dataset, "id2cat", None), log=log)
         result.update(dropped=dropped, scored=scored, seconds=seconds)
         return result
+
+
+class SlidingEvaluator(SegEvaluator):
+    """Tile inference: every image is cut into ``crop_size`` windows with
+    ``SlidingCrop``'s geometry (stride ``ceil(crop_size * stride_rate)``,
+    the last window of each axis clamped to the edge), the windows run
+    through the model ``tile_batch`` at a time at one (tile_batch, 3, cs, cs)
+    shape (the last chunk zero-padded; eval mode, so padding tiles never
+    touch real ones; an image smaller than the crop is zero-padded too), and
+    each pixel's logits are summed in tile order in fp32 and divided by its
+    tile count before the argmax. Tiles cross to the device in the
+    sample's wire dtype (uint8 for real data); the sums, the argmax and the
+    histogram (``confusion_matrix_update``) stay on the device. Samples are
+    read as ``SegEvaluator`` reads them, ``strict_pairs`` included (the
+    JAX package's sliding evaluator drops a mismatched pair either way)."""
+
+    def __init__(self, model, num_classes: int = 19, crop_size: int = 1024,
+                 stride_rate: float = 2 / 3, strict_pairs: bool = True,
+                 tile_batch: int = 8, device="cuda",
+                 autocast_dtype: Optional[torch.dtype] = None):
+        super().__init__(model, num_classes=num_classes, strict_pairs=strict_pairs,
+                         device=device, autocast_dtype=autocast_dtype)
+        self.crop_size = crop_size
+        self.stride_rate = stride_rate
+        self.tile_batch = max(1, int(tile_batch))
+
+    def spans(self, h: int, w: int):
+        """The windows ``(y0, x0, y1, x1)`` of an h x w image, in tile order."""
+        cs = self.crop_size
+        stride = int(math.ceil(cs * self.stride_rate))
+        ys = list(range(0, max(h - cs, 0) + 1, stride)) or [0]
+        xs = list(range(0, max(w - cs, 0) + 1, stride)) or [0]
+        if ys[-1] + cs < h:
+            ys.append(h - cs)
+        if xs[-1] + cs < w:
+            xs.append(w - cs)
+        out = []
+        for sy in ys:
+            for sx in xs:
+                y0, x0 = max(0, min(sy, h - cs)), max(0, min(sx, w - cs))
+                out.append((y0, x0, min(y0 + cs, h), min(x0 + cs, w)))
+        return out
+
+    def predict(self, img: np.ndarray) -> torch.Tensor:
+        """The (h, w) int64 prediction for one HWC image, on the device."""
+        cs, tb = self.crop_size, self.tile_batch
+        h, w = img.shape[:2]
+        spans = self.spans(h, w)
+        acc = torch.zeros((self.num_classes, h, w), dtype=torch.float32, device=self.device)
+        cnt = torch.zeros((h, w), dtype=torch.float32, device=self.device)
+        amp = (contextlib.nullcontext() if self.autocast_dtype is None else
+               torch.autocast(self.device.type, dtype=self.autocast_dtype))
+        for lo in range(0, len(spans), tb):
+            chunk = spans[lo:lo + tb]
+            batch = np.zeros((tb, cs, cs, img.shape[-1]), img.dtype)
+            for k, (y0, x0, y1, x1) in enumerate(chunk):
+                batch[k, :y1 - y0, :x1 - x0] = img[y0:y1, x0:x1]
+            x = to_device(batch, self.device).permute(0, 3, 1, 2).float().contiguous()
+            with amp:
+                logits = self.model(x).float()
+            for k, (y0, x0, y1, x1) in enumerate(chunk):
+                acc[:, y0:y1, x0:x1] += logits[k, :, :y1 - y0, :x1 - x0]
+                cnt[y0:y1, x0:x1] += 1
+        return (acc / cnt.clamp_min(1)).argmax(dim=0)
+
+    @torch.inference_mode()
+    def run(self, dataset, max_images: Optional[int] = None, log=print,
+            heartbeat=None) -> Dict[str, object]:
+        """Evaluate ``dataset`` image by image; ``heartbeat`` is called after
+        each image's device sync."""
+        hist = torch.zeros((self.num_classes, self.num_classes), dtype=torch.int32,
+                           device=self.device)
+        tally = {"dropped": 0}
+        scored = 0
+        t0 = time.perf_counter()
+        for img, lbl in self._host_samples(dataset, max_images, tally):
+            hist = confusion_matrix_update(hist, self.predict(img),
+                                           to_device(lbl, self.device), self.num_classes)
+            scored += 1
+            if heartbeat is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                heartbeat()
+        return self._result(hist, dataset, log, t0, tally["dropped"], scored)
 
 
 def evaluate_hist(hist: np.ndarray, dataset_name: str = "?",

@@ -1,14 +1,20 @@
-"""Cross-entropy with ignore_index, as mrfp_tpu/train/losses.py::cross_entropy.
+"""Losses of the train step (mrfp_tpu/train/losses.py), NCHW logits.
 
-torch nn.CrossEntropyLoss(ignore_index=255) with the mean over valid pixels
-(main.py:822), in fp32. One difference from ``F.cross_entropy``'s mean: a
-batch with no valid pixel gives 0, not NaN, because the sum is divided by
-``max(count, 1)`` as in the JAX package (losses.py:39).
+- ``cross_entropy``: torch nn.CrossEntropyLoss(ignore_index=255) with the
+  mean over valid pixels (main.py:822), in fp32. One difference from
+  ``F.cross_entropy``'s mean: a batch with no valid pixel gives 0, not NaN,
+  because the sum is divided by ``max(count, 1)`` as in the JAX package
+  (losses.py:39).
+- ``batch_class_weights``: the per-batch class weights of
+  ``--batch-weighting`` (losses.py:47-64).
+- ``relaxed_multihot`` and ``relaxed_cross_entropy``: the border-relaxed CE
+  of ``--jointwtborder`` (losses.py:100-181), with the multi-hot target
+  built on the device from the int labels.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,3 +34,84 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int 
         return total / valid.sum().clamp_min(1)
     w = class_weights.float()[torch.where(valid, labels, 0)] * valid
     return total / w.sum().clamp_min(1e-8)
+
+
+def batch_class_weights(labels: torch.Tensor, num_classes: int,
+                        ignore_index: int = 255) -> torch.Tensor:
+    """(C,) fp32 weights from the batch's label histogram: with ``hist`` the
+    class counts over valid pixels normalised to sum 1,
+    ``w = (hist > 0) * (1 - hist) + 1`` (the JAX package's upper bound of
+    1), so rare present classes approach 2 and absent ones get 1. Labels
+    outside [0, C) are not counted. The counts are a scatter-add, so the
+    device is never waited on."""
+    labels = labels.long().reshape(-1)
+    counted = (labels != ignore_index) & (labels >= 0) & (labels < num_classes)
+    bins = torch.where(counted, labels, num_classes)
+    counts = torch.zeros(num_classes + 1, dtype=torch.long, device=labels.device)
+    counts.scatter_add_(0, bins, torch.ones_like(bins))
+    hist = counts[:num_classes].float()
+    hist = hist / hist.sum().clamp_min(1.0)
+    return (hist > 0).float() * (1.0 - hist) + 1.0
+
+
+def relaxed_multihot(labels: torch.Tensor, num_classes: int, ignore_index: int,
+                     border: int, reduce_now: bool,
+                     strict_classes: Optional[Sequence[int]] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The border-relaxed multi-hot target of (N, H, W) int ``labels``: a
+    pixel allows every class present within the (2b+1)^2 window around it,
+    where b is ``border``, or ``border // 2`` once ``reduce_now``; pixels of
+    ``strict_classes`` keep their exact one-hot; once ``reduce_now``, pixels
+    on a 4-neighbour label boundary weigh 2. Ignore pixels count as class C
+    and the window pads with it.
+
+    Returns ``(allowed, weight)``: (N, C+1, H, W) bool (channel C is
+    ignore) and (N, H, W) fp32 in {1, 2}. ``reduce_now`` is a host bool,
+    so only the chosen window is built (the JAX package builds both and
+    selects, one compiled program for the whole schedule)."""
+    c = num_classes
+    a = torch.where(labels == ignore_index, c, labels.long())
+    b = border // 2 if reduce_now else border
+    h, w = a.shape[-2], a.shape[-1]
+    ap = F.pad(a, (b, b, b, b), value=c)
+    allowed = torch.zeros((a.shape[0], c + 1, h, w), dtype=torch.bool, device=a.device)
+    for i in range(2 * b + 1):
+        for j in range(2 * b + 1):
+            allowed.scatter_(1, ap[:, None, i:i + h, j:j + w], True)
+    if strict_classes:
+        strict = torch.zeros(a.shape, dtype=torch.bool, device=a.device)
+        for k in strict_classes:  # compared on the device: no host copy, no sync
+            strict |= a == k
+        exact = torch.zeros_like(allowed).scatter_(1, a[:, None], True)
+        allowed = torch.where(strict[:, None], exact, allowed)
+    weight = torch.ones(a.shape, dtype=torch.float32, device=a.device)
+    if reduce_now:
+        boundary = torch.zeros(a.shape, dtype=torch.bool, device=a.device)
+        dh = a[:, 1:, :] != a[:, :-1, :]
+        boundary[:, 1:, :] |= dh
+        boundary[:, :-1, :] |= dh
+        dw = a[:, :, 1:] != a[:, :, :-1]
+        boundary[:, :, 1:] |= dw
+        boundary[:, :, :-1] |= dw
+        weight = torch.where(boundary, 2.0, weight)
+    return allowed, weight
+
+
+def relaxed_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, num_classes: int,
+                          ignore_index: int, border: int, reduce_now: bool,
+                          strict_classes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Border-relaxed CE: per valid pixel ``-log P(any allowed class)``, as a
+    masked-logsumexp difference in fp32, each pixel scaled by its weight and
+    the sum divided by ``max(sum of weights, 1)``. ``logits`` (N, C, H, W).
+    Equals ``cross_entropy`` at ``border=0``."""
+    labels = labels.long()
+    valid = labels != ignore_index
+    allowed, weight = relaxed_multihot(labels, num_classes, ignore_index, border,
+                                       reduce_now, strict_classes)
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=1)
+    lse_allowed = torch.logsumexp(lf.masked_fill(~allowed[:, :num_classes], float("-inf")),
+                                  dim=1)
+    w = torch.where(valid, weight, 0.0)
+    nll = torch.where(valid, lse - lse_allowed, 0.0)
+    return (nll * w).sum() / w.sum().clamp_min(1.0)

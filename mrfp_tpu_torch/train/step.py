@@ -1,52 +1,61 @@
-"""The train step (mrfp_tpu/train/step.py:28-162, ``accum_steps == 1``).
+"""The train step (mrfp_tpu/train/step.py:28-162).
 
 One SGD step: the batch is cast on the device (uint8 or float NHWC images
 to float NCHW, labels to int64); the gates are drawn on the host from the
 step's ``gates`` stream; when the stem gate fires the OC buffers are
-re-drawn from the ``oc_resample`` stream; then forward, cross-entropy,
-backward and the optimizer step. Every draw comes from a stream seeded by
-``(seed, step, role)`` (``core/rng.py``), so a resumed run takes the steps
-an unbroken one would. The step returns its metrics as device tensors and
-never waits for the device.
+re-drawn from the ``oc_resample`` stream; then forward, loss, backward and
+the optimizer step. Every draw comes from a stream seeded by ``(seed, step,
+role)`` (``core/rng.py``), so a resumed run takes the steps an unbroken one
+would. The step returns its metrics as device tensors and never waits for
+the device.
 
-Knobs of the JAX step that the port does not run yet raise here and name
-their ROADMAP item.
+The training extras, each off by default, in the order they act:
+
+- ``cfg.data.freq_transform``: HPF / LPF / PHOT of the NHWC fp32 batch
+  (``perturb/fft_style.py``);
+- ``cfg.data.batch_weighting``: class weights of the CE from the label
+  histogram of the whole batch, also under accumulation;
+- ``cfg.data.jointwtborder``: the border-relaxed CE replaces the CE; the
+  window halves and boundary pixels weigh 2 once the step passes
+  ``reduce_border_iter`` (-1: never);
+- ``cfg.model.use_dsn_aux``: plus 0.4 x the CE of the DSN head's logits
+  against the labels nearest-resized to their size (the nearest kernel on
+  the card).
+
+``cfg.train.accum_steps = N`` splits the batch mb-major (image i goes to
+microbatch i % N) and runs the N microbatches forward and backward in turn,
+so the BN running statistics move once per microbatch, in order. The loss
+is the mean of the microbatch losses and the gradient the mean of their
+gradients; one optimizer step follows. The gates and the OC re-draw stay
+once per step; the NP+ and dropout streams fold in the microbatch index.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, List, Optional, Union
 
 import torch
 
 from mrfp_tpu_torch.core.config import Config
-from mrfp_tpu_torch.core.rng import step_generators
+from mrfp_tpu_torch.core.rng import device_generator, role_seed, step_generators
 from mrfp_tpu_torch.models.mrfp import PerturbArgs
 from mrfp_tpu_torch.ops.dot_stats import bn_stats_fusion
+from mrfp_tpu_torch.ops.resize import resize_nearest
+from mrfp_tpu_torch.perturb.fft_style import apply_freq_transform
 from mrfp_tpu_torch.perturb.oc_branch import oc_maybe_resample
-from mrfp_tpu_torch.train.losses import cross_entropy
+from mrfp_tpu_torch.train.losses import (batch_class_weights, cross_entropy,
+                                         relaxed_cross_entropy)
 from mrfp_tpu_torch.train.state import TrainState
 
-
-def check_supported(cfg: Config) -> None:
-    """Raise on a knob whose code path is not ported."""
-    if cfg.train.accum_steps > 1:
-        raise NotImplementedError("accum_steps > 1: gradient accumulation is "
-                                  "ROADMAP item A10")
-    extras = {"freq_transform": cfg.data.freq_transform,
-              "jointwtborder": cfg.data.jointwtborder,
-              "batch_weighting": cfg.data.batch_weighting,
-              "use_dsn_aux": cfg.model.use_dsn_aux}
-    on = [k for k, v in extras.items() if v]
-    if on:
-        raise NotImplementedError(f"{', '.join(on)}: the training extras are "
-                                  f"ROADMAP item A11")
+DSN_WEIGHT = 0.4  # network/deepv3.py:570-577
 
 
 def draw_perturb(state: TrainState, cfg: Config) -> Optional[PerturbArgs]:
     """This step's gates and NP+ streams; re-draws the OC buffers when the
-    stem gate fires. None for a config without perturbation."""
+    stem gate fires. None for a config without perturbation. Under
+    accumulation ``np0``/``np1`` are lists, one generator per microbatch."""
     pc = cfg.perturb
     if not pc.enabled:
         return None
@@ -54,8 +63,14 @@ def draw_perturb(state: TrainState, cfg: Config) -> Optional[PerturbArgs]:
     u = torch.rand(3, generator=gens["gates"]).tolist()
     gate_oc, gate_np, gate_dec = u[0] < pc.p_oc, u[1] < pc.p_np, u[2] < pc.p_dec
     oc_maybe_resample(state.model, gate_oc, gens["oc_resample"], pc.oc_bn_std)
+    accum = max(1, cfg.train.accum_steps)
+    if accum == 1:
+        np0, np1 = gens["np_l0"], gens["np_l1"]
+    else:
+        np0, np1 = ([torch.Generator().manual_seed(role_seed(state.seed, state.step, role, i))
+                     for i in range(accum)] for role in ("np_l0", "np_l1"))
     return PerturbArgs(gate_oc=gate_oc, gate_np=gate_np, gate_dec=gate_dec,
-                       np0=gens["np_l0"], np1=gens["np_l1"])
+                       np0=np0, np1=np1)
 
 
 def autocast_for(cfg: Config, device: torch.device):
@@ -69,38 +84,92 @@ def autocast_for(cfg: Config, device: torch.device):
     return contextlib.nullcontext()
 
 
+def _pick(value, i: int):
+    """Microbatch ``i``'s entry of a per-microbatch list; anything else is
+    shared by every microbatch."""
+    return value[i] if isinstance(value, list) else value
+
+
+def _loss(out, labels: torch.Tensor, cfg: Config, class_weights: Optional[torch.Tensor],
+          reduce_now: bool, impl: Optional[str]) -> torch.Tensor:
+    """The step's objective on one (micro)batch's forward output."""
+    d = cfg.data
+    logits, aux = out if isinstance(out, tuple) else (out, None)
+    if d.jointwtborder:
+        loss = relaxed_cross_entropy(logits, labels, cfg.model.num_classes, d.ignore_index,
+                                     d.border_window, reduce_now, d.strict_border_class)
+    else:
+        loss = cross_entropy(logits, labels, d.ignore_index, class_weights)
+    if aux is not None:
+        small = resize_nearest(labels[:, None].float(), size=aux.shape[2:], impl=impl)
+        loss = loss + DSN_WEIGHT * cross_entropy(aux, small[:, 0].long(), d.ignore_index)
+    return loss
+
+
 def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                cfg: Config, perturb: Optional[PerturbArgs] = None,
-               impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
+               impl: Optional[str] = None,
+               dropout: Union[torch.Tensor, List[torch.Tensor], None] = None
+               ) -> Dict[str, torch.Tensor]:
     """One SGD step on ``state`` in place; returns ``{"loss", "gate_oc",
     "gate_np", "gate_dec"}`` (the loss a device tensor, the gates bools).
 
     ``images``: NHWC uint8 or float, ``labels``: NHW integer, both on the
     model's device. ``perturb`` replaces this step's draws (tests and the
     kernel-vs-plain check force the gates and inject the NP+ draws; the OC
-    buffers are then used as they are). ``impl="plain"`` runs every resize,
-    and with ``cfg.train.fuse_bn_stats`` every fused 1x1, through its plain
-    version.
+    buffers are then used as they are); ``dropout`` injects the DSN head's
+    keep masks. Under accumulation either may carry a list with one entry
+    per microbatch in its ``np0``/``np1`` or in itself. ``impl="plain"``
+    runs every resize, and with ``cfg.train.fuse_bn_stats`` every fused
+    1x1, through its plain version.
     """
     model = state.model
     device = images.device
-    x = images.permute(0, 3, 1, 2).float().contiguous()  # exact for uint8
+    accum = max(1, cfg.train.accum_steps)
+    if images.shape[0] % accum:
+        raise ValueError(f"batch {images.shape[0]} not divisible by accum_steps {accum}")
+    if cfg.data.freq_transform:
+        x = apply_freq_transform(images.float(), cfg.data.freq_transform)
+        x = x.permute(0, 3, 1, 2).contiguous()
+    else:
+        x = images.permute(0, 3, 1, 2).float().contiguous()  # exact for uint8
     labels = labels.long()
     if perturb is None:
         perturb = draw_perturb(state, cfg)
+    class_weights = (batch_class_weights(labels, cfg.model.num_classes, cfg.data.ignore_index)
+                     if cfg.data.batch_weighting else None)
+    reduce_now = cfg.data.reduce_border_iter != -1 and state.step > cfg.data.reduce_border_iter
+    if dropout is None and cfg.model.use_dsn_aux:
+        dropout = [device_generator(state.seed, state.step, "dropout", device,
+                                    None if accum == 1 else i) for i in range(accum)]
     model.train()
-    # fuse_bn_stats: the bottleneck 1x1 + BN pairs take their moments from
-    # the product's own sums (mrfp_tpu/train/step.py:225-238)
-    fusion = (bn_stats_fusion(impl) if cfg.train.fuse_bn_stats
-              else contextlib.nullcontext())
-    with autocast_for(cfg, device), fusion:
-        logits = model(x, impl=impl, perturb=perturb)
-    loss = cross_entropy(logits, labels, cfg.data.ignore_index)
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    total = None
+    for i in range(accum):
+        mb = slice(i, None, accum)  # with accum 1 a view of the whole batch: no copy
+        mb_perturb = None if perturb is None else dataclasses.replace(
+            perturb, np0=_pick(perturb.np0, i), np1=_pick(perturb.np1, i))
+        xi, li = x[mb].contiguous(), labels[mb].contiguous()
+        # fuse_bn_stats: the bottleneck 1x1 + BN pairs take their moments
+        # from the product's own sums (mrfp_tpu/train/step.py:225-238)
+        fusion = (bn_stats_fusion(impl) if cfg.train.fuse_bn_stats
+                  else contextlib.nullcontext())
+        with autocast_for(cfg, device), fusion:
+            out = model(xi, impl=impl, perturb=mb_perturb, dropout=_pick(dropout, i))
+        loss = _loss(out, li, cfg, class_weights, reduce_now, impl)
+        if i == 0:
+            # after the first forward is queued, so the host's pass over
+            # every parameter overlaps the device's work
+            state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        total = loss.detach() if total is None else total + loss.detach()
+    if accum > 1:
+        # the mean of the microbatch means, as the JAX package's scan takes it
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.div_(accum)
+        total = total / accum
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
     gates = (perturb.gate_oc, perturb.gate_np, perturb.gate_dec) if perturb else (False,) * 3
-    return {"loss": loss.detach(), "gate_oc": gates[0], "gate_np": gates[1],
-            "gate_dec": gates[2]}
+    return {"loss": total, "gate_oc": gates[0], "gate_np": gates[1], "gate_dec": gates[2]}

@@ -4,7 +4,8 @@ The port keeps the reference's state_dict key layout, so both reduce to
 ``load_state_dict(strict=True)``:
 
 - ``state_dict_from_jax`` maps the JAX ``MRFP`` tree (nested dicts of numpy
-  arrays; no JAX import) to the port's keys, as
+  arrays; no JAX import; with ``use_dsn`` its ``dsn`` head too) to the
+  port's keys, as
   mrfp_tpu/train/export_torch.py::export_state_dict does for the reference:
   conv kernels HWIO -> OIHW, BN scale/bias/mean/var ->
   weight/bias/running_mean/running_var, ``num_batches_tracked`` = 0.
@@ -14,8 +15,11 @@ The port keeps the reference's state_dict key layout, so both reduce to
   reference's names (``OClayer1``, ``OC1_bn``, ...).
 - ``load_torch_checkpoint`` reads the reference's on-disk container
   ``{'epoch', 'state_dict'}`` (keys ``module.``-prefixed by DataParallel),
-  or a checkpoint of the port's trainer (its ``model`` entry), and drops the train-only OC-branch tensors, which the eval forward never
-  reads. ``train_state_dict`` keeps them for a model with OC buffers.
+  or a checkpoint of the port's trainer (its ``model`` entry), and drops the
+  train-only OC-branch tensors, which the eval forward never reads, and the
+  DSN head's for a model built without it (a ``--use-dsn`` run evaluated by
+  ``cli.eval``). ``train_state_dict`` keeps the OC tensors for a model with
+  OC buffers.
 """
 
 from __future__ import annotations
@@ -95,6 +99,10 @@ def state_dict_from_jax(params: Dict[str, Any],
         _conv(sd, f"final1.{j}", dp[name]["conv"])
         _norm(sd, f"final1.{j + 1}", dp[name]["bn"], dst.get(name, {}).get("bn"))
     _conv(sd, "final2.0", params["final2"])
+    if "dsn" in params:  # the DSN head's Sequential: 0 conv, 1 BN, 4 classifier
+        dsn, dst = params["dsn"], stats.get("dsn", {})
+        _conv_bn(sd, "dsn", dsn["conv"], dst.get("conv", {}))
+        _conv(sd, "dsn.4", dsn["classifier"])
     return sd
 
 
@@ -139,12 +147,17 @@ def train_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 def load_torch_checkpoint(model: nn.Module, path: str) -> Dict[str, Any]:
     """Load a reference .pth (``{'epoch', 'state_dict'}`` or a bare
     state_dict), or a ``step_<N>.pt`` of the port's trainer (its ``model``
-    state_dict), into ``model`` strictly; returns a report."""
+    state_dict), into ``model`` strictly; returns a report. The DSN head's
+    tensors are dropped, and reported, when ``model`` has no head."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
     sd = blob["model"] if "model" in blob else blob.get("state_dict", blob)
     sd, dropped = eval_state_dict(sd)
+    if not getattr(model, "use_dsn", False):
+        dsn = sorted(k for k in sd if k.startswith("dsn."))
+        sd = {k: v for k, v in sd.items() if not k.startswith("dsn.")}
+        dropped = dropped + dsn
     model.load_state_dict(sd, strict=True)
     logging.getLogger(__name__).info(
-        "loaded %d tensors from %s; dropped %d train-only OC-branch tensors",
+        "loaded %d tensors from %s; dropped %d train-only OC-branch and DSN tensors",
         len(sd), path, len(dropped))
     return {"loaded": len(sd), "dropped": dropped}

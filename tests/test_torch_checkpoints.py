@@ -5,7 +5,7 @@
   checkpoint's model (without the train-only OC buffers) and scores the
   same histogram and mIoU as the in-process evaluator on that model.
 - A checkpoint carries its run's recipe (source or synthetic data, crop,
-  seed, mode): a run of another recipe in the same runs directory refuses
+  seed, mode, the DSN head): a run of another recipe in the same runs directory refuses
   to resume it, and leaves it as it was; a run of the same recipe with a
   larger ``--max-iter`` resumes.
 """
@@ -102,7 +102,7 @@ def test_find_checkpoint_names_the_orbax_route(tmp_path):
 
 
 @pytest.mark.parametrize("other", [["--crop-size", "48"], ["--seed", "1"],
-                                   ["--source", "cityscapes"]])
+                                   ["--source", "cityscapes"], ["--use-dsn"]])
 def test_another_recipe_does_not_resume(run_dir, other):
     """A run of another recipe whose name (and so whose ckpt/) is the smoke
     run's refuses to resume it and writes nothing there; the real-data run

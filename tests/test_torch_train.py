@@ -358,7 +358,59 @@ def test_cli_train_cpu_runs_and_resumes(tmp_path):
 
 
 def test_unported_flags_raise():
-    for extra, item in ((["--accum-steps", "2"], "A10"), (["--use-dsn"], "A11"),
+    """Flags of the JAX trainer whose code paths stay unported raise and
+    name their ROADMAP item (the accumulation and the training extras,
+    which this test named before, run since they were ported)."""
+    for extra, item in ((["--num-processes", "2"], "A9"), (["--snapshot-every", "5"], "A13"),
                         (["--spatial-parallel", "2"], "A14")):
         with pytest.raises(NotImplementedError, match=item):
             cli_train.main(["--device", "cpu", "--synthetic", *extra])
+
+
+EVERY_NEW_FLAG = ["--accum-steps", "2", "--use-dsn", "--jointwtborder", "--border-window", "2",
+                  "--reduce-border-iter", "1", "--strict-border-class", "0",
+                  "--batch-weighting", "--freq-transform", "hpf", "--no-random-flip",
+                  "--no-color-jitter", "--no-gaussian-blur", "--scale-range", "0.75", "1.25",
+                  "--class-uniform-pct", "0.5", "--no-oc-conditional"]
+
+
+def test_cli_train_with_every_new_flag_runs_resumes_and_evaluates(tmp_path):
+    """``cli.train --device cpu`` with every flag ported since the first
+    train slice at once: 2 steps (the border window at full size), a
+    resume to 3 (past ``--reduce-border-iter``, so halved), then ``cli.eval
+    --ckpt`` on the run, which drops the DSN head and the OC buffers."""
+    from mrfp_tpu_torch.cli import eval as cli_eval
+    from mrfp_tpu_torch.models import build_mrfp
+    from mrfp_tpu_torch.weights import eval_state_dict
+
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    args = [sys.executable, "-m", "mrfp_tpu_torch.cli.train", "--device", "cpu",
+            "--synthetic", "--crop-size", "64", "--batch-size", "4", "--log-every", "1",
+            "--runs-dir", str(tmp_path), *EVERY_NEW_FLAG]
+    for max_iter, steps in ((2, [1, 2]), (3, [3])):
+        out = subprocess.run(args + ["--max-iter", str(max_iter)], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        result = json.loads(out.stdout.strip().splitlines()[-1])
+        assert result["step"] == max_iter and sorted(int(s) for s in result["losses"]) == steps
+        assert all(np.isfinite(v) for v in result["losses"].values())
+    ckpt = os.path.join(result["run_dir"], "ckpt", "step_3.pt")
+    blob = torch.load(ckpt, map_location="cpu", weights_only=True)
+    assert blob["recipe"]["use_dsn"] is True
+    assert any(k.startswith("dsn.") for k in blob["model"])
+    assert all(s["momentum_buffer"].dtype == torch.float32
+               for s in blob["optimizer"]["state"].values())
+
+    argv = ["--device", "cpu", "--synthetic", "--synthetic-hw", "64", "64", "--max-images",
+            "2", "--domains", "cityscapes", "--step-timeout", "0", "--ckpt", result["run_dir"]]
+    model = cli_eval.load_model(cli_eval.parse_args(argv), torch.device("cpu"))
+    want, _ = eval_state_dict({k: v for k, v in blob["model"].items()
+                               if not k.startswith("dsn.")})
+    assert sorted(model.state_dict()) == sorted(build_mrfp("cpu").state_dict()) == sorted(want)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, want[k]), k
+    res = cli_eval.main(argv)["cityscapes"]
+    assert res["images"] == 2 and res["pixels"] == 2 * 64 * 64
+    assert np.isfinite(res["mean_iu"])
