@@ -59,6 +59,15 @@ confusion-matrix kernel and predict what its plain path predicts. Every
 resize call of those three paths must be at a shape that a phase held
 against the plain version (the eval phase holds the tile shapes).
 
+Data parallelism (``phase_data_parallel``): two ranks, each a process of
+its own, share the card through gloo and take an fp32 step (TF32 off, the
+damped fixture) and the bf16 recipe's step on their halves of a global
+batch, against one process on the whole batch and a control that moves
+the input by a rounding step; the ranks must end bit-identical, and every
+resize call of theirs must be at a held shape. Then ``cli.train
+--num-processes 1 --coordinator-address`` trains two steps through an NCCL
+process group (NCCL refuses two ranks on one card).
+
 Any failure raises and exits non-zero; the last line of stdout is the JSON
 verdict, printed only when every phase passed. With ``--profile DIR`` it
 also writes torch.profiler kernel tables of one fp32 eval forward and of
@@ -1919,26 +1928,34 @@ def phase_dsn_nearest(gen) -> dict:
     return {"max_abs_err": 0.0, **times, **cost.fields()}
 
 
-def phase_microbatch(cuda_gen) -> None:
-    """The resize kernels at the microbatch shapes of ``--accum-steps 2``
-    (batch ``TRAIN_N // 2``), bf16 and fp32, against their plain versions:
-    the five train bilinear resizes (forward exactly equal, backward within
-    its bound) and the seven OC nearest resizes (both directions exactly
-    equal). Checks only; the times are those of the full batch."""
-    n = TRAIN_N // 2
+def _hold_train_shapes(n: int, dtypes, cuda_gen) -> float:
+    """The five train bilinear resizes (forward exactly equal, backward
+    within its bound) and the seven OC nearest resizes (both directions
+    exactly equal) at batch ``n`` in ``dtypes``, against their plain
+    versions; returns the largest bilinear backward error."""
     errs = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         for name, _, c, (h, w), size in BILINEAR_TRAIN_SHAPES:
             if name.startswith("train"):
                 x = torch.randn((n, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
-                what = f"{_dtype_name(dtype)} microbatch {name} ({n},{c},{h},{w})->{size}"
+                what = f"{_dtype_name(dtype)} batch {n} {name} ({n},{c},{h},{w})->{size}"
                 errs.append(_bilinear_pair(x, size, cuda_gen, what)[3])
         for name, c, (h, w), rule in NEAREST_SHAPES:
             x = torch.randn((n, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
             _nearest_pair(x, rule, cuda_gen)
         torch.cuda.empty_cache()
+    return max(errs)
+
+
+def phase_microbatch(cuda_gen) -> None:
+    """The resize kernels at the microbatch shapes of ``--accum-steps 2``
+    (batch ``TRAIN_N // 2``), bf16 and fp32, against their plain versions
+    (``_hold_train_shapes``). Checks only; the times are those of the full
+    batch."""
+    n = TRAIN_N // 2
+    err = _hold_train_shapes(n, (torch.bfloat16, torch.float32), cuda_gen)
     print(f"microbatch shapes, batch {n}, bf16 and fp32: the five train bilinear resizes' "
-          f"forward exactly equal, backward within the bound (max_abs_err {max(errs):.3e}); "
+          f"forward exactly equal, backward within the bound (max_abs_err {err:.3e}); "
           f"the seven OC nearest resizes exactly equal both ways")
 
 
@@ -2211,6 +2228,295 @@ def phase_sliding() -> dict:
     return launched
 
 
+DP_WORLD = 2  # ranks of the data-parallel phase, all on the one card
+DP_FP32_N = 4  # the fp32 comparison's global batch (2 a rank)
+
+
+def _dp_setup(batch: int, dtype: str, damped: bool):
+    """A state, draws and batch of ``phase_data_parallel``, the same in
+    every process: the MRFP+ recipe from seeded weights (``damped``: the
+    damped fixture, ROADMAP C3), the OC re-draw and the NP+ streams of step
+    0 with every gate on, and a seeded synthetic batch."""
+    from mrfp_tpu_torch.cli.train import build_state
+    from mrfp_tpu_torch.core.rng import step_generators
+    from mrfp_tpu_torch.models.mrfp import PerturbArgs
+    from mrfp_tpu_torch.perturb.oc_branch import oc_maybe_resample
+    cfg = _train_cfg(batch, dtype)
+    state = _damped_state(cfg) if damped else build_state(cfg, torch.device(DEV))
+    gens = step_generators(cfg.train.seed, 0)
+    oc_maybe_resample(state.model, True, gens["oc_resample"])
+    perturb = PerturbArgs(True, True, True, gens["np_l0"], gens["np_l1"])
+    img, lbl = _batch(torch.Generator().manual_seed(5), batch)
+    return cfg, state, perturb, img, lbl
+
+
+@contextlib.contextmanager
+def _strict_fp32():
+    """fp32 without TF32, cuDNN deterministic; torch's defaults after."""
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+
+
+def _dp_step(batch: int, dtype: str, rows: slice, noise: float = 0.0, damped=None):
+    """One step of ``_dp_setup(batch, dtype, damped)`` (by default damped
+    in fp32) on ``rows`` of its batch, the images x (1 + ``noise`` x
+    N(0, 1)) (exact at 0), with every resize call recorded: ``(state
+    before, loss, state after, gradients, calls)``, the tensors on the
+    host."""
+    from mrfp_tpu_torch.train.step import train_step
+    damped = dtype == "float32" if damped is None else damped
+    cfg, state, perturb, img, lbl = _dp_setup(batch, dtype, damped)
+    eps = torch.randn(img.shape, generator=torch.Generator().manual_seed(2)).to(img.device)
+    img = (img.float() * (1 + noise * eps))[rows].contiguous()
+    host = lambda d: {k: v.detach().to("cpu", copy=True) for k, v in d.items()}  # noqa: E731
+    before = host(state.model.state_dict())
+    with _recording() as calls:
+        loss = train_step(state, img, lbl[rows].contiguous(), cfg, perturb=perturb)["loss"]
+    grads = host({k: p.grad for k, p in state.model.named_parameters()})
+    return before, loss.item(), host(state.model.state_dict()), grads, calls
+
+
+def dp_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
+    """One rank of ``phase_data_parallel`` (its own process): joins the gloo
+    group, takes the fp32 step and the counted, recorded bf16 step on its
+    rows of their batches, then three timed bf16 steps, and writes what it
+    saw to ``out/rank<rank>.pt``."""
+    from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
+    from mrfp_tpu_torch.parallel import dist
+    from mrfp_tpu_torch.train.step import train_step
+    dist.initialize_distributed(rendezvous, world, rank, DEV, backend="gloo", timeout_s=600)
+    try:
+        with _strict_fp32():
+            n = DP_FP32_N // world
+            _, fp32_loss, _, fp32_grads, fp32_calls = _dp_step(
+                DP_FP32_N, "float32", slice(rank * n, (rank + 1) * n))
+        torch.cuda.empty_cache()
+        n = TRAIN_N // world
+        rows = slice(rank * n, (rank + 1) * n)
+        torch.cuda.synchronize()
+        reset_launches()
+        sizes, all_reduce = [], torch.distributed.all_reduce
+
+        def counted(t, *args, **kw):  # the bytes of every collective of the step
+            sizes.append(t.numel() * t.element_size())
+            return all_reduce(t, *args, **kw)
+
+        torch.distributed.all_reduce = counted
+        try:
+            _, loss, after, _, calls = _dp_step(TRAIN_N, "bfloat16", rows)
+        finally:
+            torch.distributed.all_reduce = all_reduce
+        launched = dict(LAUNCHES)
+        cfg, state, perturb, img, lbl = _dp_setup(TRAIN_N, "bfloat16", False)
+        img, lbl = img[rows].contiguous(), lbl[rows].contiguous()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(state, img, lbl, cfg, perturb=perturb)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.save({"fp32_loss": fp32_loss, "fp32_grads": fp32_grads, "loss": loss,
+                    "collectives": sizes,
+                    "launched": launched, "state": after, "ms": times[1:],
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "calls": [(k, _dtype_name(d), i, o) for k, d, i, o in calls + fp32_calls]},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_data_parallel(cuda_gen) -> dict:
+    """Data parallelism, one process per card, on the one card there is.
+
+    ``DP_WORLD`` ranks share the card through gloo (NCCL refuses two ranks
+    on one device), each in a process of its own, and take two MRFP+ steps
+    (all gates on, the draws of one seed) on their rows of a global batch;
+    this process takes the same steps on the whole batch, and again on the
+    input moved slightly: the control, how far rounding alone moves them.
+
+    - fp32 (TF32 off, cuDNN deterministic) at 768x768, global batch
+      ``DP_FP32_N``, on the damped fixture (ROADMAP C3): the loss within
+      1e-5 relative; every gradient within 3x the 1e-7-input control's
+      distance plus 1e-4 of its norm, the rule of tests/test_torch_dist.py.
+    - The bf16 recipe at 768x768, global batch ``TRAIN_N``: the ranks end
+      with the same parameters and buffers bit for bit and the one-process
+      step counters; the loss within half a bf16 ulp (2^-9 relative) of the
+      one-process loss, or 3x the control's distance where that is larger
+      (every BN output rounds to bf16, and the ranks round some of them
+      the other way: a perturbation at every layer, which one at the input
+      can understate); each BN statistic's move in the step within 3x the
+      half-ulp-input control's relative distance plus 1e-2, each
+      parameter's within 3x plus 2e-2. (On these random weights one bf16
+      step's parameter moves are rounding noise: the control moves them
+      ~100%, so the fp32 step is the gradient's check.)
+
+    Every resize call of each rank must be at a shape held against its
+    plain version (the microbatch shapes, and the fp32 ranks' batch, held
+    here first). Then
+    ``cli.train --num-processes 1 --coordinator-address`` on NCCL for two
+    steps: the launch path with its process group, whose one rank reduces
+    nothing. Returns the ranks' summed kernel launches in the bf16 step."""
+    n = DP_FP32_N // DP_WORLD
+    err = _hold_train_shapes(n, (torch.float32,), cuda_gen)
+    print(f"the fp32 ranks' shapes, batch {n}: the five train bilinear resizes' forward "
+          f"exactly equal, backward within the bound (max_abs_err {err:.3e}); the seven OC "
+          f"nearest resizes exactly equal both ways")
+    with tempfile.TemporaryDirectory() as tmp:
+        rendezvous = f"file://{tmp}/rendezvous"
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.dp_rank({r}, {DP_WORLD}, "
+                                   f"{rendezvous!r}, {tmp!r})"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DP_WORLD)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=900)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        seconds = time.perf_counter() - t0
+        bad = [(r, p.returncode, out[-3000:]) for r, (p, out) in enumerate(zip(procs, outs))
+               if p.returncode != 0]
+        if bad:
+            raise AssertionError(f"data parallel: a rank failed: {bad}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_WORLD)]
+
+    every = slice(None)
+    with _strict_fp32():
+        _, one32_loss, _, one32, calls = _dp_step(DP_FP32_N, "float32", every)
+        _all_held(calls, "data parallel: the one-process fp32 step")
+        _, ctrl32_loss, _, ctrl32, _ = _dp_step(DP_FP32_N, "float32", every, 1e-7)
+    torch.cuda.empty_cache()
+    fp32_loss_err = abs(ranks[0]["fp32_loss"] - one32_loss) / abs(one32_loss)
+    fp32_ratio = {}
+    for k, g in one32.items():
+        err = float((ranks[0]["fp32_grads"][k] - g).norm())
+        fp32_ratio[k] = err / (3 * float((ctrl32[k] - g).norm()) + 1e-4 * float(g.norm())
+                               + 1e-12)
+    fp32_worst = sorted(fp32_ratio.items(), key=lambda kv: -kv[1])[:3]
+    fp32_keys = {k: (_rel(ranks[0]["fp32_grads"][k], one32[k]), _rel(ctrl32[k], one32[k]))
+                 for k in GRAD_KEYS}
+
+    before, one_loss, one, _, calls = _dp_step(TRAIN_N, "bfloat16", every)
+    _all_held(calls, "data parallel: the one-process step")
+    before_ctrl, ctrl_loss, ctrl, _, _ = _dp_step(TRAIN_N, "bfloat16", every, 2.0 ** -9)
+    with _strict_fp32():  # which bf16 loss lies nearer the fp32 one (no check)
+        ref32_loss = _dp_step(TRAIN_N, "float32", every, damped=False)[1]
+    torch.cuda.empty_cache()
+    if any(not torch.equal(v, before_ctrl[k]) for k, v in before.items()):
+        raise AssertionError("data parallel: the control started from another state")
+    same = [k for k, v in ranks[0]["state"].items() if not torch.equal(v, ranks[1]["state"][k])]
+    loss = ranks[0]["loss"]
+    loss_err = abs(loss - one_loss) / abs(one_loss)
+    loss_ctrl = abs(ctrl_loss - one_loss) / abs(one_loss)
+
+    def moved(a: dict, k: str) -> torch.Tensor:
+        return a[k].double() - before[k].double()
+
+    err, control = {}, {}
+    for k, v in one.items():
+        if v.is_floating_point() and moved(one, k).norm() > 0:
+            err[k] = _rel(moved(ranks[0]["state"], k), moved(one, k))
+            control[k] = _rel(moved(ctrl, k), moved(one, k))
+    stats = [k for k in err if "running" in k]
+    over = {k: (v, control[k]) for k, v in err.items()
+            if v > 3 * control[k] + (1e-2 if k in stats else 2e-2)}
+    counters = [k for k, v in one.items() if not v.is_floating_point()
+                and not torch.equal(ranks[0]["state"][k], v)]
+    launched = {k: sum(r["launched"][k] for r in ranks) for k in ranks[0]["launched"]}
+    ms = [statistics.median(r["ms"]) for r in ranks]
+    sizes = ranks[0]["collectives"]
+
+    def summary(keys) -> str:
+        e, c = [err[k] for k in keys], [control[k] for k in keys]
+        return (f"median {statistics.median(e):.3e} (control {statistics.median(c):.3e}), "
+                f"max {max(e):.3e} (control {max(c):.3e})")
+
+    print(f"data parallel fp32 (TF32 off, deterministic), damped fixture: {DP_WORLD} ranks x "
+          f"{DP_FP32_N // DP_WORLD} against one process x {DP_FP32_N}, {CROP}x{CROP}, all "
+          f"gates on: loss {ranks[0]['fp32_loss']:.7f} vs {one32_loss:.7f} (rel "
+          f"{fp32_loss_err:.3e}; 1e-7-input control "
+          f"{abs(ctrl32_loss - one32_loss) / abs(one32_loss):.3e}); gradients of {len(one32)} "
+          f"tensors, worst error / bound {[(k, round(v, 3)) for k, v in fp32_worst]}, median "
+          f"{statistics.median(fp32_ratio.values()):.3f}; the four named (rel, control) "
+          f"{ {k: (float(f'{a:.3e}'), float(f'{b:.3e}')) for k, (a, b) in fp32_keys.items()} }")
+    print(f"data parallel bf16: {DP_WORLD} ranks x {TRAIN_N // DP_WORLD} images on one card "
+          f"over gloo, {CROP}x{CROP}, all gates on, the same draws, against one process x "
+          f"{TRAIN_N}: loss {loss:.6f} vs {one_loss:.6f}, rel {loss_err:.3e} (bound "
+          f"{max(2.0 ** -9, 3 * loss_ctrl):.3e}: 2^-9 or 3x the control; "
+          f"control, the input moved half a bf16 ulp: {loss_ctrl:.3e}; from the fp32 "
+          f"step's {ref32_loss:.6f}: ranks {abs(loss - ref32_loss) / ref32_loss:.3e}, one "
+          f"process {abs(one_loss - ref32_loss) / ref32_loss:.3e}); moves off the "
+          f"one-process moves, {len(stats)} BN statistics: {summary(stats)}; "
+          f"{len(err) - len(stats)} parameters: {summary([k for k in err if k not in stats])};"
+          f" ranks identical: {not same}; launches (both ranks) {launched}; all_reduce calls "
+          f"a rank: {len(sizes)}, the largest {max(sizes) / 1e6:.1f} MB, the others "
+          f"{(sum(sizes) - max(sizes)) / 1e6:.3f} MB; step on the ranks "
+          f"(gloo through the host: a correctness run, not a speed) median "
+          f"{[round(m, 3) for m in ms]} ms, peak {max(r['peak_gib'] for r in ranks):.2f} GiB "
+          f"a rank; {seconds:.1f} s for the ranks end to end")
+    if not math.isfinite(fp32_loss_err) or fp32_loss_err > 1e-5 or fp32_worst[0][1] > 1:
+        raise AssertionError(f"data parallel fp32: loss rel {fp32_loss_err}, gradients over "
+                             f"their bounds {[kv for kv in fp32_worst if kv[1] > 1]}")
+    if same or counters:
+        raise AssertionError(f"data parallel: ranks differ at {same}; counters differ from "
+                             f"one process at {counters}")
+    if not math.isfinite(loss) or loss_err > max(2.0 ** -9, 3 * loss_ctrl):
+        raise AssertionError(f"data parallel: loss {loss} against one process's {one_loss}")
+    if over:
+        raise AssertionError(f"data parallel: moves off the one-process step's beyond 3x "
+                             f"the control's + 1e-2 (statistics) / 2e-2: {over}")
+    if min(launched[k] for k in RESIZE_KERNELS) <= 0:
+        raise AssertionError(f"data parallel: a resize kernel was not launched: {launched}")
+    for r in ranks:
+        _all_held([(k, getattr(torch, d), i, o) for k, d, i, o in r["calls"]],
+                  "data parallel: a rank's steps")
+
+    with tempfile.TemporaryDirectory() as runs:
+        out = os.path.join(runs, "result.json")
+        cmd = [sys.executable, "-m", "mrfp_tpu_torch.cli.train", "--device", DEV,
+               "--synthetic", "--batch-size", str(TRAIN_N), "--crop-size", str(CROP),
+               "--max-iter", "2", "--log-every", "1", "--runs-dir", runs, "--json-out", out,
+               "--num-processes", "1", "--process-id", "0", "--coordinator-address",
+               f"127.0.0.1:{_free_port()}", "--data-parallel", "-1"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        result = json.load(open(out)) if proc.returncode == 0 else {}
+        ckpt = os.path.join(result.get("run_dir", runs), "ckpt", "step_2.pt")
+        nccl = "(nccl, tcp://127.0.0.1:" in proc.stderr
+        print(f"cli.train --num-processes 1 --process-id 0 --coordinator-address "
+              f"127.0.0.1 (nccl: {nccl}): rc {proc.returncode}, {seconds:.1f} s end to end, "
+              f"losses {result.get('losses')}, checkpoint {os.path.exists(ckpt)}")
+        if proc.returncode != 0 or not nccl or result.get("step") != 2 \
+                or not os.path.exists(ckpt) \
+                or not all(math.isfinite(v) for v in result["losses"].values()):
+            raise AssertionError(f"cli.train on NCCL: rc {proc.returncode}, result {result}, "
+                                 f"stderr {proc.stderr[-3000:]}")
+    return launched
+
+
 def main(argv=None) -> None:
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--profile", default=None, metavar="DIR")
@@ -2245,29 +2551,30 @@ def main(argv=None) -> None:
     extras_launches = phase_extras_step(gen)
     accum_launches = phase_cli_train_accum()
     sliding_launches = phase_sliding()
+    dp_launches = phase_data_parallel(cuda_gen)
 
     def launches(name, *counted):
         """The kernel's count over the counted drives of its paths."""
         return sum(c[name] for c in counted)
 
-    slice_8 = (extras_launches, accum_launches, sliding_launches)
+    later_paths = (extras_launches, accum_launches, sliding_launches, dp_launches)
     src = "mrfp_tpu_torch/csrc/"
     kernels = [
         dict(name="resize_bilinear", route="cuda", source=src + "resize_bilinear.cu",
              replaces="mrfp_tpu/ops/pallas_resize.py:264",
-             launches=launches("resize_bilinear", eval_launches, train_launches, *slice_8),
+             launches=launches("resize_bilinear", eval_launches, train_launches, *later_paths),
              **bilinear["resize_bilinear"]),
         dict(name="resize_bilinear_bwd", route="cuda", source=src + "resize_bilinear.cu",
              replaces="mrfp_tpu/ops/pallas_resize.py:280",
-             launches=launches("resize_bilinear_bwd", train_launches, *slice_8),
+             launches=launches("resize_bilinear_bwd", train_launches, *later_paths),
              **bilinear["resize_bilinear_bwd"]),
         dict(name="resize_nearest", route="cuda", source=src + "resize_nearest.cu",
              replaces="mrfp_tpu/ops/pallas_resize.py:235",
-             launches=launches("resize_nearest", train_launches, *slice_8),
+             launches=launches("resize_nearest", train_launches, *later_paths),
              **nearest["resize_nearest"]),
         dict(name="resize_nearest_bwd", route="cuda", source=src + "resize_nearest.cu",
              replaces="mrfp_tpu/ops/pallas_resize.py:250",
-             launches=launches("resize_nearest_bwd", train_launches, *slice_8),
+             launches=launches("resize_nearest_bwd", train_launches, *later_paths),
              **nearest["resize_nearest_bwd"]),
         dict(name="confusion_matrix", route="cuda", source=src + "confusion_matrix.cu",
              replaces="mrfp_tpu/ops/pallas_hist.py:50",

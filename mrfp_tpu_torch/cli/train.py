@@ -18,6 +18,21 @@ refuses one written by another recipe (``run_recipe``).
 ``--device cuda`` runs the hand-written kernels and exits non-zero when no
 CUDA device is present; it never falls back to the CPU. Exit 75 means the
 run was stopped by a signal and can resume.
+
+Data parallelism, one process per card (``parallel/dist.py``):
+
+    torchrun --nproc-per-node 8 -m mrfp_tpu_torch.cli.train --batch-size 16 ...
+
+    python -m mrfp_tpu_torch.cli.train --num-processes 2 --process-id 0 \
+        --coordinator-address 10.0.0.1:29500 ...   # and --process-id 1
+
+``--batch-size`` is the global batch, as in the JAX trainer: it must divide
+by the number of processes, each of which loads and steps on its share.
+The step is the global batch's (global BatchNorm, NP+ and loss, summed
+gradients), so N processes train what one does on the same batch.
+``--device cpu`` runs the processes on gloo. Only rank 0 writes the
+checkpoints, the best record and the logs; every rank resumes. Validation
+splits the images across the processes and merges their histograms.
 """
 
 from __future__ import annotations
@@ -26,6 +41,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import sys
 from typing import Optional, Sequence
 
@@ -109,21 +125,37 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--strict-border-class", type=int, nargs="*", default=None,
                    help="class ids that keep exact one-hot targets (reference "
                         "STRICT_BORDER_CLASS)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="processes of a data-parallel run, one per card (default: "
+                        "torchrun's WORLD_SIZE, else 1)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (default: torchrun's RANK)")
+    p.add_argument("--coordinator-address", default=None,
+                   help="host:port of rank 0's rendezvous, or a file:// path "
+                        "(default: torchrun's MASTER_ADDR and MASTER_PORT)")
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="the data axis: -1 or the number of processes (other "
+                        "meshes are ROADMAP A14)")
     # flags of the JAX trainer whose code paths are not ported yet
-    for flag, item in (("--num-processes", "A9"), ("--process-id", "A9"),
-                       ("--data-parallel", "A9"), ("--model-parallel", "A14"),
-                       ("--spatial-parallel", "A14"), ("--snapshot-every", "A13")):
+    for flag, item in (("--model-parallel", "A14"), ("--spatial-parallel", "A14"),
+                       ("--snapshot-every", "A13")):
         p.add_argument(flag, type=int, default=None, help=f"not ported: ROADMAP {item}")
-    p.add_argument("--coordinator-address", default=None, help="not ported: ROADMAP A9")
     return p.parse_args(argv)
 
 
 def check_args(args) -> None:
-    """Raise on a flag whose code path the port does not have."""
-    unported = {"--num-processes": ("A9", args.num_processes not in (None, 1)),
-                "--process-id": ("A9", args.process_id not in (None, 0)),
-                "--coordinator-address": ("A9", args.coordinator_address is not None),
-                "--data-parallel": ("A9", args.data_parallel not in (None, -1, 1)),
+    """Raise on a flag whose code path the port does not have, and on a
+    global batch the processes cannot share."""
+    # the processes the run will have: the flag, else torchrun's, else 1
+    nproc = args.num_processes if args.num_processes is not None else \
+        int(os.environ.get("WORLD_SIZE", 1))
+    if nproc < 1:
+        raise ValueError(f"--num-processes {nproc}: need at least 1")
+    if args.batch_size % nproc:
+        raise ValueError(f"--batch-size {args.batch_size} (the global batch) not divisible "
+                         f"by {nproc} processes")
+    unported = {"--data-parallel": ("A14: a mesh other than one data axis over the "
+                                    "processes", args.data_parallel not in (None, -1, nproc)),
                 "--model-parallel": ("A14", args.model_parallel not in (None, 1)),
                 "--spatial-parallel": ("A14", args.spatial_parallel not in (None, 1)),
                 "--snapshot-every": ("A13", bool(args.snapshot_every))}
@@ -228,17 +260,28 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: torch.cuda.is_available() is False "
                          "(use --device cpu to run the plain versions on the CPU)")
-    device = torch.device(args.device)
+    # armed before the first device contact: the rendezvous, model upload
+    # and the kernel build count toward the first-beat window
+    from mrfp_tpu_torch.utils.watchdog import watchdog_from_arg
+    watchdog = watchdog_from_arg(args.step_timeout, args.first_beat_timeout,
+                                 accelerator=args.device == "cuda")
+    from mrfp_tpu_torch.parallel import dist
+    # before any other device contact: it picks this process's card
+    dist.initialize_distributed(args.coordinator_address, args.num_processes,
+                                args.process_id, args.device)
+    try:
+        return _train(args, dist.local_device(args.device), watchdog)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device: torch.device, watchdog) -> int:
+    from mrfp_tpu_torch.parallel import dist
     if not args.bf16 and device.type == "cuda":
         # fp32 means full fp32: cuDNN convs default to TF32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-
-    # armed before the first device contact: model upload and the kernel
-    # build count toward the first-beat window
-    from mrfp_tpu_torch.utils.watchdog import watchdog_from_arg
-    watchdog = watchdog_from_arg(args.step_timeout, args.first_beat_timeout,
-                                 accelerator=device.type == "cuda")
     cfg = build_config(args)
     from mrfp_tpu_torch.train.step import train_step
 
@@ -246,8 +289,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from mrfp_tpu_torch.train.checkpoint import CheckpointManager
     from mrfp_tpu_torch.utils.experiment import prep_experiment
 
-    exp = prep_experiment(cfg, root=args.runs_dir)
-    logging.info("experiment %s on %s", exp["name"], device)
+    rank, nproc = dist.rank(), dist.world()
+    exp = prep_experiment(cfg, root=args.runs_dir, coordinator=dist.is_coordinator())
+    logging.info("experiment %s on %s (process %d of %d)", exp["name"], device, rank, nproc)
     state = build_state(cfg, device)
     ckpt = CheckpointManager(exp["ckpt_dir"], keep=cfg.train.keep_checkpoints,
                              recipe=run_recipe(args))
@@ -256,8 +300,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     # the host makes the batches; on the CPU the workers would only take
     # cores from the step itself
     workers = cfg.data.num_workers if device.type == "cuda" else 0
-    loader = TrainLoader(build_dataset(args, cfg), cfg.data.batch_size, seed=args.seed,
-                         num_workers=workers, pin_memory=device.type == "cuda")
+    loader = TrainLoader(build_dataset(args, cfg), cfg.data.batch_size // nproc,
+                         seed=args.seed, num_workers=workers,
+                         pin_memory=device.type == "cuda", shard_rank=rank, shard_count=nproc)
     writer = exp["writer"]
 
     def step_fn(st, images, labels):
@@ -273,9 +318,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
         def run_validation(st, step):
             st.model.eval()
+            # every process scores its stride of the images; the merged
+            # histogram gives every rank the same mIoU
             res = evaluator.run(val_dataset, max_images=args.eval_max_images,
                                 log=lambda *a, **k: None,
-                                heartbeat=watchdog.beat if watchdog else None)
+                                heartbeat=watchdog.beat if watchdog else None,
+                                shard_rank=rank, shard_count=nproc)
             logging.info("iter %d val mean_iu %.5f acc %.5f", step, res["mean_iu"],
                          res["acc"])
             writer.add_scalar("val/mean_iu", res["mean_iu"], step)
@@ -295,7 +343,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     result = {"step": step, "preempted": preempted, "run_dir": exp["exp_dir"],
               "losses": losses}
     print(json.dumps(result))
-    if args.json_out:
+    if args.json_out and dist.is_coordinator():
         with open(args.json_out, "w") as f:
             json.dump(result, f)
     if preempted and step < cfg.train.max_iter:

@@ -2,8 +2,9 @@
 
 It is a copy because ``mrfp_tpu.core``'s ``__init__`` imports jax. The
 knobs and their defaults are the JAX package's, so one recipe names the
-same run in both packages. ``MeshConfig`` is not copied: the mesh waits for
-ROADMAP items A9 and A14. The zoo's knobs (``trunk`` other than resnet-50,
+same run in both packages. ``MeshConfig`` is not copied: data parallelism
+runs one process per card (``parallel/dist.py``), whose count the launch
+gives, and the other mesh axes wait for ROADMAP item A14. The zoo's knobs (``trunk`` other than resnet-50,
 ``wt_layer`` codes other than 0 and 4) raise where they are read
 (``nn/resnet.py``, ``nn/norms.py``) and name ROADMAP item A12; ``remat``, a
 TPU memory measure, and the zoo's ``use_wtloss`` are not read.

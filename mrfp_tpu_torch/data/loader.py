@@ -9,6 +9,14 @@ indices, with ``drop_last``; ``set_epoch`` pins the epoch, so a resumed run
 replays the order a fresh run would use, and forwards it to the dataset for
 its per-sample augmentation RNG. ``prefetch_to_device`` keeps two batches
 in flight to the device from pinned memory, with the evaluator's copy.
+
+Under data parallelism (``shard_count`` processes, as
+mrfp_tpu/data/loader.py:57-108) ``batch_size`` counts this process's
+images: every process draws the same shuffle of the whole dataset and takes
+its ``shard_rank`` slice of each global batch of ``batch_size *
+shard_count``. The datasets key their augmentation draws by ``(seed, epoch,
+index)`` (``data/datasets.py::_sample_rngs``), so an image comes out the
+same whichever process loads it.
 """
 
 from __future__ import annotations
@@ -35,29 +43,40 @@ def collate(samples) -> Dict[str, torch.Tensor]:
 
 
 class EpochSampler(Sampler):
-    """Shuffled indices, a fresh order per epoch from ``seed + epoch``."""
+    """Shuffled indices, a fresh order per epoch from ``seed + epoch``: the
+    whole global batches of ``batch_size * shard_count`` in that order,
+    and of each this shard's ``batch_size``."""
 
-    def __init__(self, n: int, seed: int = 0, shuffle: bool = True):
+    def __init__(self, n: int, batch_size: int, seed: int = 0, shuffle: bool = True,
+                 shard_rank: int = 0, shard_count: int = 1):
+        if not 0 <= shard_rank < shard_count:
+            raise ValueError(f"shard {shard_rank} outside {shard_count} shards")
         self.n, self.seed, self.shuffle = n, seed, shuffle
+        self.batch_size, self.shard_rank, self.shard_count = batch_size, shard_rank, shard_count
         self.epoch = 0
 
     def __len__(self) -> int:
-        return self.n
+        return self.n // (self.batch_size * self.shard_count) * self.batch_size
 
     def __iter__(self) -> Iterator[int]:
         idx = np.arange(self.n)
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
-        return iter(idx.tolist())
+        gbs = self.batch_size * self.shard_count
+        batches = idx[:self.n // gbs * gbs].reshape(-1, self.shard_count, self.batch_size)
+        return iter(batches[:, self.shard_rank].reshape(-1).tolist())
 
 
 class TrainLoader:
-    """Batches of a dataset in a seeded per-epoch order, ``drop_last``."""
+    """Batches of a dataset in a seeded per-epoch order, ``drop_last``;
+    ``batch_size`` images a process, the ``shard_rank`` slice of each
+    global batch."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0, num_workers: int = 0,
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, shard_rank: int = 0, shard_count: int = 1):
         self.dataset = dataset
-        self.sampler = EpochSampler(len(dataset), seed)
+        self.sampler = EpochSampler(len(dataset), batch_size, seed, shard_rank=shard_rank,
+                                    shard_count=shard_count)
         self._loader = DataLoader(
             dataset, batch_size=batch_size, sampler=self.sampler, drop_last=True,
             collate_fn=collate, num_workers=num_workers, pin_memory=pin_memory,

@@ -18,6 +18,7 @@ from torch import nn
 from mrfp_tpu_torch.nn.layers import avg_pool_global, conv2d
 from mrfp_tpu_torch.nn.norms import batch_norm
 from mrfp_tpu_torch.ops.resize import resize_bilinear_align_corners
+from mrfp_tpu_torch.parallel.dist import rank, world
 
 
 def aspp_rates(output_stride: int, rates: Tuple[int, ...] = (6, 12, 18)) -> Tuple[int, ...]:
@@ -103,12 +104,16 @@ def dropout(x: torch.Tensor, rate: float,
     ``1 - rate`` and divided by it, else zeroed. ``noise`` is the keep
     mask itself (bool, ``x``'s shape; the parity tests inject JAX's), or a
     generator on ``x``'s device to draw it from (None: torch's default
-    generator)."""
+    generator). The generator draws the mask of the global batch (``x``'s
+    batch times the processes, ``parallel/dist.py``) and this rank keeps its
+    own rows, so N ranks drop what one process drops on the same batch."""
     keep_prob = 1.0 - rate
     if isinstance(noise, torch.Tensor):
         keep = noise
     else:
-        keep = torch.rand(x.shape, generator=noise, device=x.device) < keep_prob
+        b = x.shape[0]
+        u = torch.rand((b * world(),) + tuple(x.shape[1:]), generator=noise, device=x.device)
+        keep = u[rank() * b:(rank() + 1) * b] < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
 
 

@@ -5,6 +5,14 @@ torch's own layers have the semantics the JAX package copies
 unbiased running variance; InstanceNorm2d with per-sample statistics and no
 running buffers. The port covers iw codes 0 (none) and 4 (affine
 InstanceNorm), the codes of the paper's model.
+
+Train-mode BatchNorm takes its moments over the global batch, as the JAX
+package's does under a sharded batch: with more than one process
+(``parallel/dist.py``) ``GlobalBatchNorm2d`` and ``batch_norm_train`` run
+``_GlobalBatchNorm``, whose forward combines the ranks' exact moments and
+whose backward sums ``(sum dy, sum dy * x_hat)`` over the ranks. In a single
+process both are torch's own BatchNorm, call for call. InstanceNorm is per
+sample and stays local.
 """
 
 from __future__ import annotations
@@ -12,13 +20,126 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from mrfp_tpu_torch.parallel.dist import all_reduce_sum, all_reduce_sum_grad, rank, world
 
 IW_NONE, IW_IN_AFFINE = 0, 4
 
 
+def _channels(t: torch.Tensor) -> torch.Tensor:
+    return t[None, :, None, None]
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of NCHW ``x`` over the batches of every process.
+
+    Forward: each rank takes its local ``(n, mean, M2)`` per channel in two
+    passes, in fp32 (fp64 for fp64 input), writes them into its row of a zero
+    ``(world, 3, C)`` buffer, and one ``all_reduce`` gives every rank every
+    row; Chan's combination then gives the global mean and
+    ``M2 = sum M2_k + sum n_k (mean_k - mean)^2``. No ``E[x^2] - E[x]^2`` is
+    taken, so a channel whose spread is small beside its mean keeps its
+    variance (ROADMAP C1); the output is ``(x - mean) * scale + bias``,
+    centred before it is scaled, for the same reason. It is in ``x``'s
+    dtype.
+
+    Backward: ``dx = w * invstd / n * (n dy - sum dy - x_hat sum(dy x_hat))``
+    with both sums all-reduced; the weight's and bias's gradients are the
+    local sums, which the step's gradient all-reduce adds up.
+
+    Also returns the global mean and unbiased variance (no gradient) for
+    the running statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float):
+        f = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(f)
+        c = x.shape[1]
+        n_l = x.numel() // c
+        # the corrected two-pass moments: the first mean's rounding comes
+        # back as the mean of the deviations
+        mean_l = xf.mean(dim=(0, 2, 3))
+        d = xf - _channels(mean_l)
+        s_d = d.sum(dim=(0, 2, 3))
+        mean_l = mean_l + s_d / n_l
+        m2_l = d.square().sum(dim=(0, 2, 3)) - s_d.square() / n_l
+        buf = xf.new_zeros((world(), 3, c))
+        buf[rank(), 0] = n_l
+        buf[rank(), 1] = mean_l
+        buf[rank(), 2] = m2_l
+        n_k, mean_k, m2_k = all_reduce_sum(buf).unbind(1)
+        n = n_k.sum(0)
+        # the ranks' means as offsets from rank 0's: small terms, no
+        # rounding at the mean's own magnitude
+        mean = mean_k[0] + (n_k * (mean_k - mean_k[0])).sum(0) / n
+        m2 = m2_k.sum(0) + (n_k * (mean_k - mean).square()).sum(0)
+        invstd = torch.rsqrt(m2 / n + eps)
+        scale = invstd if weight is None else invstd * weight.to(f)
+        out = (xf - _channels(mean)) * _channels(scale)  # centred first, as torch's
+        out = (out if bias is None else out + _channels(bias.to(f))).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        unbiased = m2 / (n - 1).clamp_min(1)
+        ctx.mark_non_differentiable(mean, unbiased)
+        return out, mean, unbiased
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        f = invstd.dtype
+        xhat = (x.to(f) - _channels(mean)) * _channels(invstd)
+        dyf = dy.to(f)
+        local = torch.stack([dyf.sum(dim=(0, 2, 3)), (dyf * xhat).sum(dim=(0, 2, 3))])
+        sum_dy, sum_dy_xhat = all_reduce_sum(local.clone())
+        scale = invstd if weight is None else invstd * weight.to(f)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = _channels(scale / n) * (_channels(n) * dyf - _channels(sum_dy)
+                                         - xhat * _channels(sum_dy_xhat))
+            dx = dx.to(x.dtype)
+        dw = local[1].to(weight.dtype) if ctx.needs_input_grad[1] else None
+        db = local[0].to(weight.dtype) if ctx.needs_input_grad[2] else None
+        return dx, dw, db, None
+
+
+def batch_norm_train(x: torch.Tensor, weight: Optional[torch.Tensor],
+                     bias: Optional[torch.Tensor], running_mean: Optional[torch.Tensor] = None,
+                     running_var: Optional[torch.Tensor] = None, momentum: float = 0.1,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """Train-mode BatchNorm of NCHW ``x`` with the global batch's moments;
+    the running buffers, when given, move by ``momentum`` toward the global
+    mean and unbiased variance, as torch's do. In a single process this is
+    ``F.batch_norm(..., training=True)``."""
+    if world() == 1:
+        return F.batch_norm(x, running_mean, running_var, weight, bias, training=True,
+                            momentum=momentum, eps=eps)
+    out, mean, var = _GlobalBatchNorm.apply(x, weight, bias, eps)
+    if running_mean is not None:
+        with torch.no_grad():
+            running_mean.mul_(1 - momentum).add_(mean.to(running_mean.dtype), alpha=momentum)
+            running_var.mul_(1 - momentum).add_(var.to(running_var.dtype), alpha=momentum)
+    return out
+
+
+class GlobalBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode moments are the global batch's
+    (``batch_norm_train``); in a single process, or in eval mode, it is
+    ``nn.BatchNorm2d`` itself. Its state_dict is ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or world() == 1:
+            return super().forward(x)
+        if self.num_batches_tracked is not None:
+            self.num_batches_tracked.add_(1)
+        m = self.momentum if self.momentum is not None else \
+            1.0 / float(self.num_batches_tracked)
+        return batch_norm_train(x, self.weight, self.bias, self.running_mean,
+                                self.running_var, m, self.eps)
+
+
 def batch_norm(features: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+    return GlobalBatchNorm2d(features, eps=1e-5, momentum=0.1)
 
 
 def batch_norm_from_stats(bn: nn.BatchNorm2d, y: torch.Tensor, s1: torch.Tensor,
@@ -27,11 +148,18 @@ def batch_norm_from_stats(bn: nn.BatchNorm2d, y: torch.Tensor, s1: torch.Tensor,
     per-channel sums ``s1 = sum(y)``, ``s2 = sum(y^2)`` over ``n`` values
     (a producer's statistics epilogue, ``ops/dot_stats.py``), as the JAX
     package's ``BatchNorm(stats=...)`` does (mrfp_tpu/nn/norms.py:43-69):
-    mean = s1/n and the one-pass var = s2/n - mean^2. The running statistics
-    move as torch's do (momentum, unbiased var * n/(n-1),
-    ``num_batches_tracked``), in ``bn``'s own buffers; the normalisation is
-    fp32, cast to ``y``'s dtype. The gradient reaches ``y``, ``s1`` and
-    ``s2``."""
+    mean = s1/n and the one-pass var = s2/n - mean^2. With more than one
+    process the sums and ``n`` are first summed over the ranks (one
+    differentiable ``all_reduce``), so the moments are the global batch's.
+    The running statistics move as torch's do (momentum, unbiased var *
+    n/(n-1), ``num_batches_tracked``), in ``bn``'s own buffers; the
+    normalisation is fp32, cast to ``y``'s dtype. The gradient reaches
+    ``y``, ``s1`` and ``s2``."""
+    if world() > 1:
+        s1, s2, n = all_reduce_sum_grad(torch.stack([s1, s2, torch.full_like(s1, n)]))
+        unbias = n / (n - 1).clamp_min(1)
+    else:
+        unbias = n / max(n - 1, 1)
     mean = s1 / n
     var = s2 / n - mean * mean
     if bn.track_running_stats:
@@ -39,7 +167,7 @@ def batch_norm_from_stats(bn: nn.BatchNorm2d, y: torch.Tensor, s1: torch.Tensor,
             bn.num_batches_tracked.add_(1)
             m = bn.momentum if bn.momentum is not None else 1.0 / float(bn.num_batches_tracked)
             bn.running_mean.mul_(1 - m).add_(mean, alpha=m)
-            bn.running_var.mul_(1 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
+            bn.running_var.mul_(1 - m).add_(var * unbias, alpha=m)
     inv = torch.rsqrt(var + bn.eps)
     shift = -mean * inv
     if bn.affine:

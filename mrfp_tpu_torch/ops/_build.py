@@ -18,6 +18,7 @@ path went through the kernels. ``dot_with_stats_tc`` counts the subset of
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -121,11 +122,22 @@ def _run_all(cmds) -> str:
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists.
     ptxas's report (registers, spills per kernel) goes beside the library,
-    in ``<library>.log``."""
+    in ``<library>.log``. Processes that build at once (the ranks of a
+    data-parallel run) take turns on a file lock, so one builds and the
+    others find its library; the lock dies with the process that holds
+    it."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            _compile(so)
+    return so
+
+
+def _compile(so: Path) -> None:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, p.stem + ".o") for p in sorted(CSRC.glob("*.cu"))]
@@ -135,7 +147,6 @@ def build() -> Path:
         lib = os.path.join(tmp, so.name)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
         os.replace(lib, so)  # atomic: a concurrent loader sees all or nothing
-    return so
 
 
 def load_library() -> ctypes.CDLL:

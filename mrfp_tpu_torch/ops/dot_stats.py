@@ -14,6 +14,10 @@ package's ``_bwd``: the sums' cotangents fold into ``dY = dy + ds1 + 2 y ds2``
 (fp32), then ``dx = dY @ w`` and ``dw = dY @ x^T`` are plain products on
 either device, in the operands' dtype with fp32 accumulation.
 
+Under data parallelism the sums are this process's: the BN sums them over
+the processes (``nn.norms.batch_norm_from_stats``) before it uses them; the
+kernel is the same.
+
 ``bn_stats_fusion(impl)`` is the switch the train step enters, with its own
 ``impl``, when ``cfg.train.fuse_bn_stats`` is set, so ``impl="plain"``
 reaches the fused 1x1s as it reaches the resizes.

@@ -12,6 +12,13 @@ spread follows how far the channel means differ across the batch:
   out        = alpha * feat - alpha * feat_mean + beta * feat_mean
 
 in fp32, cast back to the input's dtype.
+
+With more than one process (``parallel/dist.py``) the batch is the global
+one, as under the JAX package's sharded batch: ``mean_diff`` is the std of
+every rank's per-sample means, gathered by one differentiable
+``all_reduce``, and the per-sample draws are drawn for the global batch
+from the shared stream, each rank taking its own rows, so a run of N ranks
+draws what one process draws on the same global batch.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Tuple, Union
 
 import torch
 
+from mrfp_tpu_torch.parallel.dist import all_gather_rows, rank, world
 from mrfp_tpu_torch.utils.transfer import to_device
 
 Draws = Tuple[torch.Tensor, torch.Tensor]
@@ -27,20 +35,25 @@ Draws = Tuple[torch.Tensor, torch.Tensor]
 
 def draw_np_plus(generator: torch.Generator, batch: int, channels: int,
                  device, std: float = 0.75) -> Draws:
-    """(alpha, beta_noise), each (B, C, 1, 1) fp32: drawn on the CPU from
-    ``generator`` and copied to ``device`` without a sync."""
-    shape = (batch, channels, 1, 1)
+    """(alpha, beta_noise), each (B, C, 1, 1) fp32, for this rank's ``batch``
+    samples: drawn on the CPU from ``generator`` for the global batch of
+    ``batch * world()`` samples, this rank's rows copied to ``device``
+    without a sync."""
+    shape = (batch * world(), channels, 1, 1)
     alpha = 1.0 + std * torch.randn(shape, generator=generator)
     beta_noise = std * torch.randn(shape, generator=generator)
-    return to_device(alpha, device), to_device(beta_noise, device)
+    rows = slice(rank() * batch, (rank() + 1) * batch)
+    return to_device(alpha[rows], device), to_device(beta_noise[rows], device)
 
 
 def np_plus_coefficients(f32: torch.Tensor, noise: Union[torch.Generator, Draws],
                          std: float = 0.75, scale_mult: float = 1.5):
     """``(alpha, beta, feat_mean)``, each (B, C, 1, 1), for the float32 (or
-    float64) NCHW map ``f32``; ``noise`` as for ``np_plus``."""
+    float64) NCHW map ``f32``; ``noise`` as for ``np_plus`` (injected draws
+    are this rank's rows)."""
     feat_mean = f32.mean(dim=(2, 3), keepdim=True)
-    mean_diff = feat_mean.std(dim=0, keepdim=True)  # unbiased, as the reference
+    # unbiased, as the reference, over the global batch's means
+    mean_diff = all_gather_rows(feat_mean).std(dim=0, keepdim=True)
     mean_scale = mean_diff / mean_diff.max() * scale_mult
     if isinstance(noise, torch.Generator):
         noise = draw_np_plus(noise, f32.shape[0], f32.shape[1], f32.device, std)

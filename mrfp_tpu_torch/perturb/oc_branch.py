@@ -13,7 +13,8 @@ Per stage the order is conv -> nearest resize -> BN -> ReLU, as the
 reference writes it: the BN moments are taken on the resized map (nearest
 duplication reweights them, so the order matters). The BNs run in train
 mode with no running buffers: batch statistics, biased variance, eps 1e-5,
-in fp32, cast back to the compute dtype.
+in fp32, cast back to the compute dtype. With more than one process the
+statistics are the global batch's (``nn.norms.batch_norm_train``).
 
 The tensors are buffers of the model under the reference's names
 (``OClayer1..4``, ``OCdeclayer1..4`` with ``weight``/``bias``;
@@ -31,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mrfp_tpu_torch.nn.norms import batch_norm_train
 from mrfp_tpu_torch.ops.resize import resize_nearest
 
 # (name, in_ch, out_ch, dilation); padding == dilation keeps the spatial size
@@ -122,7 +124,7 @@ def _stage(p, x: torch.Tensor, dilation: int, scale=None, size=None,
     y = F.conv2d(x, weight, bias, padding=dilation, dilation=dilation)
     y = resize_nearest(y, size=size, scale=scale, impl=impl)
     yf = y.to(torch.promote_types(y.dtype, torch.float32))  # bf16 -> fp32 math
-    yf = F.batch_norm(yf, None, None, bn_weight, bn_bias, training=True, eps=1e-5)
+    yf = batch_norm_train(yf, bn_weight, bn_bias, eps=1e-5)  # global-batch moments
     return F.relu(yf).to(y.dtype)
 
 

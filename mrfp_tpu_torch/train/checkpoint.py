@@ -21,6 +21,12 @@ best by ``best_metric`` is also written to ``best/`` and recorded in
 ``best/metric.json``; the new best is committed before the old one is
 deleted, so a restart never loses the best (the RobustNet rotation,
 utils/misc.py:162-231).
+
+Under data parallelism (``parallel/dist.py``) every rank holds the same
+state, so only the coordinator (rank 0) snapshots and writes, the best
+record included; every rank restores. ``wait`` ends in a barrier, after the
+coordinator's writes have finished, so no rank reads a step that is still
+being written (``restore`` waits first).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from mrfp_tpu_torch.parallel.dist import barrier, is_coordinator
 from mrfp_tpu_torch.train.state import TrainState
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
@@ -116,11 +123,14 @@ class CheckpointManager:
     def save(self, state: TrainState, metrics: Optional[Dict[str, float]] = None) -> None:
         """Snapshot ``state`` to host memory now and write it in the
         background; with ``metrics``, rotate ``best/`` on a new best. A step
-        already saved by this manager is not written again."""
+        already saved by this manager is not written again. Only the
+        coordinator writes."""
         best = bool(metrics) and metrics.get(self.best_metric, -np.inf) > self._best_value
         if state.step == self._last_saved and not best:
             return
         self._last_saved = state.step
+        if not is_coordinator():
+            return
         blob = _to_host({"step": state.step, "seed": state.seed,
                          "model": state.model.state_dict(),
                          "optimizer": state.optimizer.state_dict(),
@@ -150,10 +160,13 @@ class CheckpointManager:
                 os.unlink(os.path.join(best_dir, name))
 
     def wait(self) -> None:
-        """Block until every save has been written; raise the first error."""
+        """Block until every save has been written; raise the first error.
+        With more than one process, every rank then waits for the others:
+        past this point every checkpoint file is whole."""
         pending, self._pending = self._pending, []
         for fut in pending:
             fut.result()
+        barrier()
 
     def restore(self, state: TrainState, step: Optional[int] = None) -> bool:
         """Load the given (or latest) checkpoint into ``state`` in place;

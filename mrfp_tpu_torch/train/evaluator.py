@@ -22,6 +22,13 @@ float NCHW.
 ``SlidingEvaluator`` (mrfp_tpu/train/evaluator.py:300-385) cuts every
 image into crop-size tiles and runs them at one shape, averaging the
 tiles' logits per pixel on the device.
+
+Both split a sweep across processes as the JAX package does
+(mrfp_tpu/train/evaluator.py:65-78,206,293): with ``shard_count`` > 1 a
+process scores only the images ``i % shard_count == shard_rank``, and
+``merge_shard_hists`` sums the partial histograms (and the image counts)
+with one int64 ``all_reduce``, so every rank returns the same mIoU, equal
+to a one-process sweep's.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from mrfp_tpu_torch.ops.hist import confusion_matrix_update
+from mrfp_tpu_torch.parallel.dist import all_reduce_sum
 from mrfp_tpu_torch.utils.transfer import to_device
 
 
@@ -52,6 +60,13 @@ def pad_to_bucket(img: np.ndarray, lbl: np.ndarray, bucket: int = 128,
     plbl = np.full((bh, bw), ignore_index, lbl.dtype)
     plbl[:h, :w] = lbl
     return pimg, plbl
+
+
+def merge_shard_hists(hist: torch.Tensor, shard_count: int) -> torch.Tensor:
+    """The sum over the processes of the int64 tensor ``hist`` (a partial
+    confusion matrix, or anything counted beside it); ``hist`` itself for
+    an unsplit sweep or a single process. Every rank gets the sum, exact."""
+    return all_reduce_sum(hist) if shard_count > 1 else hist
 
 
 class SegEvaluator:
@@ -87,10 +102,12 @@ class SegEvaluator:
 
     @torch.inference_mode()
     def run(self, dataset, max_images: Optional[int] = None, log=print,
-            heartbeat=None) -> Dict[str, object]:
+            heartbeat=None, shard_rank: int = 0, shard_count: int = 1) -> Dict[str, object]:
         """Evaluate ``dataset``. ``heartbeat`` is called every few images,
         after a device sync, so a step watchdog can tell a slow sweep from a
-        wedged device."""
+        wedged device. With ``shard_count`` > 1 this process scores every
+        ``shard_count``-th image from ``shard_rank``, and the result is the
+        whole sweep's, merged over the processes."""
         hist = torch.zeros((self.num_classes, self.num_classes), dtype=torch.int32,
                            device=self.device)
         tally = {"dropped": 0}
@@ -113,7 +130,8 @@ class SegEvaluator:
         def _groups():
             """Host batches: (images NHWC, labels NHW, real count, valid_hw)."""
             pending: Dict[tuple, list] = {}
-            for img, lbl in self._host_samples(dataset, max_images, tally):
+            for img, lbl in self._host_samples(dataset, max_images, tally, shard_rank,
+                                               shard_count):
                 if self.bucket is not None:
                     vh, vw = lbl.shape
                     img, lbl = pad_to_bucket(img, lbl, self.bucket)
@@ -160,17 +178,19 @@ class SegEvaluator:
                 "%d padded dummy forwards for %d real images — consider "
                 "eval_batch=1 or bucket mode for this domain", eb, n_shapes,
                 pad_total, scored)
-        return self._result(hist, dataset, log, t0, tally["dropped"], scored)
+        return self._result(hist, dataset, log, t0, tally["dropped"], scored, shard_count)
 
-    def _host_samples(self, dataset, max_images: Optional[int],
-                      tally: Dict[str, int]) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    def _host_samples(self, dataset, max_images: Optional[int], tally: Dict[str, int],
+                      shard_rank: int = 0, shard_count: int = 1
+                      ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """The dataset's (image HWC, label HW) pairs in their wire dtypes
-        (uint8 ships as it is; other images float32, other labels int32).
-        A pair whose sizes differ is counted in ``tally["dropped"]`` and
-        skipped (main.py:910-911), or with ``strict_pairs=False`` cropped
-        to the common extent."""
+        (uint8 ships as it is; other images float32, other labels int32),
+        every ``shard_count``-th from ``shard_rank``. A pair whose sizes
+        differ is counted in ``tally["dropped"]`` and skipped
+        (main.py:910-911), or with ``strict_pairs=False`` cropped to the
+        common extent."""
         n = len(dataset) if max_images is None else min(len(dataset), max_images)
-        for i in range(n):
+        for i in range(shard_rank, n, max(1, shard_count)):
             sample = dataset[i]
             img = np.asarray(sample["image"])
             if img.dtype != np.uint8:
@@ -189,8 +209,12 @@ class SegEvaluator:
 
     @staticmethod
     def _result(hist: torch.Tensor, dataset, log, t0: float, dropped: int,
-                scored: int) -> Dict[str, object]:
-        hist_np = hist.cpu().numpy().astype(np.int64)  # syncs the device
+                scored: int, shard_count: int = 1) -> Dict[str, object]:
+        counts = torch.cat([hist.reshape(-1).long(),
+                            torch.tensor([dropped, scored], device=hist.device)])
+        counts = merge_shard_hists(counts, shard_count).cpu()  # syncs the device
+        hist_np = counts[:-2].numpy().reshape(hist.shape)
+        dropped, scored = (int(v) for v in counts[-2:])
         seconds = time.perf_counter() - t0
         result = evaluate_hist(hist_np, dataset_name=getattr(dataset, "name", "?"),
                                id2cat=getattr(dataset, "id2cat", None), log=log)
@@ -263,15 +287,16 @@ class SlidingEvaluator(SegEvaluator):
 
     @torch.inference_mode()
     def run(self, dataset, max_images: Optional[int] = None, log=print,
-            heartbeat=None) -> Dict[str, object]:
+            heartbeat=None, shard_rank: int = 0, shard_count: int = 1) -> Dict[str, object]:
         """Evaluate ``dataset`` image by image; ``heartbeat`` is called after
-        each image's device sync."""
+        each image's device sync; the shards as ``SegEvaluator.run``'s."""
         hist = torch.zeros((self.num_classes, self.num_classes), dtype=torch.int32,
                            device=self.device)
         tally = {"dropped": 0}
         scored = 0
         t0 = time.perf_counter()
-        for img, lbl in self._host_samples(dataset, max_images, tally):
+        for img, lbl in self._host_samples(dataset, max_images, tally, shard_rank,
+                                           shard_count):
             hist = confusion_matrix_update(hist, self.predict(img),
                                            to_device(lbl, self.device), self.num_classes)
             scored += 1
@@ -279,7 +304,7 @@ class SlidingEvaluator(SegEvaluator):
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 heartbeat()
-        return self._result(hist, dataset, log, t0, tally["dropped"], scored)
+        return self._result(hist, dataset, log, t0, tally["dropped"], scored, shard_count)
 
 
 def evaluate_hist(hist: np.ndarray, dataset_name: str = "?",

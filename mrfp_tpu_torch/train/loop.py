@@ -14,7 +14,15 @@
 - a checkpoint every ``checkpoint_every`` steps and at each of the last 20
   (main.py:867-869), and a final one;
 - SIGTERM/SIGINT finish the step in flight, save, and return ``preempted``,
-  so a relaunch resumes from there.
+  so a relaunch resumes from there. With more than one process
+  (``parallel/dist.py``) the ranks agree on it at the logged steps, which
+  sync anyway, and stop together at the first one after any rank was
+  signalled.
+
+Under data parallelism every rank runs the loop on its shard; the loss it
+logs is the global batch's and ``batch_size`` (the images/s) the global
+batch, and the coordinator alone writes (``utils/experiment.py``,
+``train/checkpoint.py``).
 
 TensorBoard events and ``snapshot_every`` are not ported (ROADMAP A13).
 """
@@ -24,6 +32,20 @@ from __future__ import annotations
 import logging
 import signal
 import time
+
+import torch
+
+from mrfp_tpu_torch.parallel.dist import all_reduce_sum, world
+
+
+def _stop_now(preempted: bool, step: int, log_every: int, device) -> bool:
+    """Whether the run stops after ``step``: one process stops when it is
+    signalled; several stop together, at a logged step, once any one was."""
+    if world() == 1:
+        return preempted
+    if step % log_every:
+        return False
+    return bool(all_reduce_sum(torch.tensor([int(preempted)], device=device)))
 
 
 def run_training_loop(state, loader, step_fn, cfg, ckpt, writer, device,
@@ -51,8 +73,9 @@ def run_training_loop(state, loader, step_fn, cfg, ckpt, writer, device,
                      for s in (signal.SIGTERM, signal.SIGINT)]
     steps_this_run, next_early_sync = 0, 1
     t_last, steps_since_log = time.perf_counter(), 0
+    stopped = False
     try:
-        while step < max_iter and not preempted:
+        while step < max_iter and not stopped:
             loader.set_epoch(step // steps_per_epoch)
             for batch in prefetch_to_device(iter(loader), device):
                 metrics = step_fn(state, batch["image"], batch["label"])
@@ -86,11 +109,13 @@ def run_training_loop(state, loader, step_fn, cfg, ckpt, writer, device,
                 if step % cfg.train.checkpoint_every == 0 or step >= max_iter - 20:
                     ckpt.save(state, metrics=metrics_for_ckpt)
                     metrics_for_ckpt = None  # only fresh val scores rotate best
-                if step >= max_iter or preempted:
+                stopped = _stop_now(preempted, step, log_every, device)
+                if step >= max_iter or stopped:
                     break
     finally:
         for s, h in prev_handlers:
             signal.signal(s, h)
+    preempted = stopped
     if eval_every and not preempted:
         metrics_for_ckpt = run_validation(state, step)
     ckpt.save(state, metrics=metrics_for_ckpt)

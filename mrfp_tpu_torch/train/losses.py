@@ -10,6 +10,13 @@
 - ``relaxed_multihot`` and ``relaxed_cross_entropy``: the border-relaxed CE
   of ``--jointwtborder`` (losses.py:100-181), with the multi-hot target
   built on the device from the int labels.
+
+Every denominator over the batch (the valid-pixel count, the class
+weights' sum, the relaxed CE's weight sum, the class histogram) is summed
+over the processes first (``parallel/dist.py``), detached, as the JAX
+package takes it over the global batch: each rank's loss is then its local
+sum over the global denominator, and the ranks' losses add up to the
+global batch's. With one process nothing changes.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from mrfp_tpu_torch.parallel.dist import all_reduce_sum
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 255,
@@ -31,9 +40,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int 
     total = F.cross_entropy(logits.float(), labels, weight=class_weights,
                             ignore_index=ignore_index, reduction="sum")
     if class_weights is None:
-        return total / valid.sum().clamp_min(1)
+        return total / all_reduce_sum(valid.sum()).clamp_min(1)
     w = class_weights.float()[torch.where(valid, labels, 0)] * valid
-    return total / w.sum().clamp_min(1e-8)
+    return total / all_reduce_sum(w.sum().detach()).clamp_min(1e-8)
 
 
 def batch_class_weights(labels: torch.Tensor, num_classes: int,
@@ -49,7 +58,7 @@ def batch_class_weights(labels: torch.Tensor, num_classes: int,
     bins = torch.where(counted, labels, num_classes)
     counts = torch.zeros(num_classes + 1, dtype=torch.long, device=labels.device)
     counts.scatter_add_(0, bins, torch.ones_like(bins))
-    hist = counts[:num_classes].float()
+    hist = all_reduce_sum(counts)[:num_classes].float()
     hist = hist / hist.sum().clamp_min(1.0)
     return (hist > 0).float() * (1.0 - hist) + 1.0
 
@@ -114,4 +123,4 @@ def relaxed_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, num_classe
                                   dim=1)
     w = torch.where(valid, weight, 0.0)
     nll = torch.where(valid, lse - lse_allowed, 0.0)
-    return (nll * w).sum() / w.sum().clamp_min(1.0)
+    return (nll * w).sum() / all_reduce_sum(w.sum().detach()).clamp_min(1.0)

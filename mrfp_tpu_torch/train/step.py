@@ -28,6 +28,21 @@ so the BN running statistics move once per microbatch, in order. The loss
 is the mean of the microbatch losses and the gradient the mean of their
 gradients; one optimizer step follows. The gates and the OC re-draw stay
 once per step; the NP+ and dropout streams fold in the microbatch index.
+
+With more than one process (``parallel/dist.py``, one per card) each rank
+steps on its shard of the global batch and the step is the global batch's,
+as the JAX package's is under a sharded batch: BatchNorm, NP+ and the loss
+denominators reduce over every rank (``nn/norms.py``,
+``perturb/np_plus.py``, ``train/losses.py``), the per-sample draws are the
+global batch's rows for this rank, and after the backward (the last
+microbatch's, under accumulation) one flat ``all_reduce`` per dtype sums
+the gradients. Summed, not averaged: each rank's loss is its local sum
+over the global denominator, so the sum is the global loss's gradient.
+The gates and the OC re-draw come from streams every rank shares, so the
+ranks skip the same branches and keep identical parameters. The
+microbatch split ``i % accum`` of the local shard is JAX's split of the
+global batch when the local batch divides by ``accum``, which the step
+requires.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ from mrfp_tpu_torch.core.rng import device_generator, role_seed, step_generators
 from mrfp_tpu_torch.models.mrfp import PerturbArgs
 from mrfp_tpu_torch.ops.dot_stats import bn_stats_fusion
 from mrfp_tpu_torch.ops.resize import resize_nearest
+from mrfp_tpu_torch.parallel.dist import all_reduce_grads, all_reduce_sum
 from mrfp_tpu_torch.perturb.fft_style import apply_freq_transform
 from mrfp_tpu_torch.perturb.oc_branch import oc_maybe_resample
 from mrfp_tpu_torch.train.losses import (batch_class_weights, cross_entropy,
@@ -127,7 +143,8 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     device = images.device
     accum = max(1, cfg.train.accum_steps)
     if images.shape[0] % accum:
-        raise ValueError(f"batch {images.shape[0]} not divisible by accum_steps {accum}")
+        raise ValueError(f"batch {images.shape[0]} (this process's) not divisible by "
+                         f"accum_steps {accum}")
     if cfg.data.freq_transform:
         x = apply_freq_transform(images.float(), cfg.data.freq_transform)
         x = x.permute(0, 3, 1, 2).contiguous()
@@ -162,12 +179,14 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
             state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         total = loss.detach() if total is None else total + loss.detach()
+    all_reduce_grads(model.parameters())
     if accum > 1:
         # the mean of the microbatch means, as the JAX package's scan takes it
         for p in model.parameters():
             if p.grad is not None:
                 p.grad.div_(accum)
         total = total / accum
+    total = all_reduce_sum(total)  # the global batch's loss on every rank
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1

@@ -3,7 +3,9 @@
 A copy of the JAX package's harness without its jax imports, and without
 TensorBoard events (ROADMAP A13). One difference: the run's name leaves out
 ``max_iter``, so a run extended with a larger ``--max-iter`` finds its own
-checkpoints and resumes.
+checkpoints and resumes. Under data parallelism only the coordinator writes
+the log file and the metric stream; the other ranks log to their own
+stderr and write nothing into the run directory but its ``ckpt/``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,16 @@ def make_exp_name(cfg) -> str:
     return "_".join(bits)
 
 
+class NullWriter:
+    """A ``MetricWriter`` that writes nothing (the non-coordinator ranks')."""
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class MetricWriter:
     """Scalars as JSON lines: ``{"tag", "value", "step"}``, line-buffered."""
 
@@ -41,13 +53,18 @@ class MetricWriter:
         self._f.close()
 
 
-def prep_experiment(cfg, root: str = "./runs") -> Dict[str, Any]:
+def prep_experiment(cfg, root: str = "./runs", coordinator: bool = True) -> Dict[str, Any]:
     """Create ``root/<name>/ckpt``, a log file beside it, and the metric
-    writer; returns ``{"name", "exp_dir", "ckpt_dir", "writer"}``."""
+    writer; returns ``{"name", "exp_dir", "ckpt_dir", "writer",
+    "log_handler"}``. Without ``coordinator``: the directories only, a
+    ``NullWriter`` and a handler that writes nothing."""
     name = make_exp_name(cfg)
     exp_dir = os.path.join(root, name)
     ckpt_dir = os.path.join(exp_dir, "ckpt")
     os.makedirs(ckpt_dir, exist_ok=True)
+    if not coordinator:
+        return {"name": name, "exp_dir": exp_dir, "ckpt_dir": ckpt_dir,
+                "writer": NullWriter(), "log_handler": logging.NullHandler()}
     stamp = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
     handler = logging.FileHandler(os.path.join(exp_dir, f"log_{stamp}.log"), mode="w")
     handler.setFormatter(logging.Formatter("%(asctime)s.%(msecs)03d %(message)s",

@@ -359,9 +359,10 @@ def test_cli_train_cpu_runs_and_resumes(tmp_path):
 
 def test_unported_flags_raise():
     """Flags of the JAX trainer whose code paths stay unported raise and
-    name their ROADMAP item (the accumulation and the training extras,
-    which this test named before, run since they were ported)."""
-    for extra, item in ((["--num-processes", "2"], "A9"), (["--snapshot-every", "5"], "A13"),
+    name their ROADMAP item (the accumulation, the training extras and
+    the data-parallel flags, which this test named before, run since they
+    were ported; a mesh other than the one data axis is A14's)."""
+    for extra, item in ((["--data-parallel", "2"], "A14"), (["--snapshot-every", "5"], "A13"),
                         (["--spatial-parallel", "2"], "A14")):
         with pytest.raises(NotImplementedError, match=item):
             cli_train.main(["--device", "cpu", "--synthetic", *extra])
