@@ -59,6 +59,21 @@ confusion-matrix kernel and predict what its plain path predicts. Every
 resize call of those three paths must be at a shape that a phase held
 against the plain version (the eval phase holds the tile shapes).
 
+Serving and the run tools (``phase_serving``, after the model phase):
+``cli.export`` freezes the eval forward at 1x1024x2048 with a uint8 wire,
+in fp32 (TF32 off) and bf16 autocast, each with its bit-exact ``--check``
+(cuDNN deterministic), and prints the export's seconds and the artifact's
+MB; the live and the loaded fp32 forward are timed in turns in one
+process; a fresh process loads the fp32 artifact through
+``mrfp_tpu_torch.serving`` alone (no module of models, nn, perturb or train
+imported), times 20 forwards beside the live forward, launches the bilinear
+kernel 3 times a forward through ``mrfp::resize_bilinear`` and holds its
+logits to the live model's within 1e-4; ``cli.visualize`` writes 2
+triplets; ``cli.train --snapshot-every 2`` runs 24 bf16 batch-8 steps,
+prints each snapshot's host-copy seconds and bytes, reads ``tb/`` back
+with the port's reader and resumes; ``cli.bench_input`` prints the
+loader's images/s beside the rate that run's step consumed.
+
 Data parallelism (``phase_data_parallel``): two ranks, each a process of
 its own, share the card through gloo and take an fp32 step (TF32 off, the
 damped fixture) and the bf16 recipe's step on their halves of a global
@@ -604,7 +619,8 @@ def phase_hist(gen) -> dict:
     return out
 
 
-def phase_model(gen, profile_dir) -> None:
+def phase_model(gen, profile_dir) -> float:
+    """Returns the kernel path's fp32 forward ms."""
     from mrfp_tpu_torch.models import build_mrfp
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -639,6 +655,178 @@ def phase_model(gen, profile_dir) -> None:
             Path(profile_dir).mkdir(parents=True, exist_ok=True)
             (Path(profile_dir) / "profile_fp32_forward.txt").write_text(table)
             print(f"profile: {Path(profile_dir) / 'profile_fp32_forward.txt'}")
+    return k_ms
+
+
+SERVING_FORWARDS = 20  # the fresh process's timed forwards of the artifact
+
+
+def serving_child(artifact: str, inputs: str, out: str) -> None:
+    """The fresh process of ``phase_serving``: load the artifact through
+    ``mrfp_tpu_torch.serving`` alone, run it, and write what it saw to
+    ``out`` (JSON)."""
+    t0 = time.perf_counter()
+    from mrfp_tpu_torch.serving import load_exported
+    fn, manifest = load_exported(artifact)
+    load_s = time.perf_counter() - t0
+    model_code = sorted(m for m in sys.modules if m.split(".")[:2] in (
+        ["mrfp_tpu_torch", "models"], ["mrfp_tpu_torch", "nn"], ["mrfp_tpu_torch", "perturb"],
+        ["mrfp_tpu_torch", "train"]))
+    from mrfp_tpu_torch.ops import LAUNCHES
+    saved = torch.load(inputs, map_location="cuda")
+    x, live = saved["images"], saved["logits"]
+    got = fn(x)  # warm-up: cuDNN's first calls
+    torch.cuda.synchronize()
+    forwards = 1 + SERVING_FORWARDS
+    ms = median_ms(lambda: fn(x), runs=SERVING_FORWARDS, warmup=0)
+    got = fn(x)
+    torch.cuda.synchronize()
+    forwards += 1
+    with open(out, "w") as f:
+        json.dump({"model_code": model_code, "load_s": load_s, "ms": ms, "forwards": forwards,
+                   "launches": dict(LAUNCHES), "shape": list(got.shape),
+                   "finite": bool(torch.isfinite(got).all()),
+                   "max_abs_err": (got - live).abs().max().item(),
+                   "close": bool(torch.allclose(got, live, atol=1e-4, rtol=1e-4)),
+                   "manifest": manifest}, f)
+
+
+def _tb_scalars(run_dir: str) -> dict:
+    """{tag: {step: value}} of every event file under ``run_dir/tb``, read
+    with the port's own reader."""
+    from mrfp_tpu_torch.utils.tbevents import read_tfevents
+    by_tag = {}
+    tb = os.path.join(run_dir, "tb")
+    for name in sorted(os.listdir(tb)):
+        for tag, value, step, _ in read_tfevents(os.path.join(tb, name)):
+            by_tag.setdefault(tag, {})[step] = value
+    return by_tag
+
+
+def phase_serving(live_fp32_ms: float) -> dict:
+    """The serving path and the run tools: ``cli.export`` at 1x1024x2048
+    with a uint8 wire in fp32 and bf16, each with its bit-exact ``--check``;
+    the live and the loaded fp32 forward timed in turns in this process;
+    the fp32 artifact in a fresh process that imports no model code (its
+    forward time, its bilinear launches, its logits against the live
+    model's); ``cli.visualize``; ``cli.train --snapshot-every`` (snapshot
+    copy times, ``tb/`` read back, the checkpoint resumed); and
+    ``cli.bench_input`` beside the rate the bf16 step consumes. Returns the
+    launches of these paths, the fresh process's included."""
+    from mrfp_tpu_torch.cli import bench_input as cli_bench_input
+    from mrfp_tpu_torch.cli import export as cli_export
+    from mrfp_tpu_torch.cli import train as cli_train
+    from mrfp_tpu_torch.cli import visualize as cli_visualize
+    from mrfp_tpu_torch.models import build_mrfp
+    from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
+    from mrfp_tpu_torch.serving import load_exported
+    reset_launches()  # the comparisons above launched too; count only these paths
+    with tempfile.TemporaryDirectory() as tmp:
+        arts = {}
+        for dtype in ("float32", "bfloat16"):
+            arts[dtype] = os.path.join(tmp, f"r50_d16_{dtype}.pt2x")
+            res = cli_export.main(["--device", "cuda", "--height", str(H), "--width", str(W),
+                                   "--batch", "1", "--wire", "uint8", "--dtype", dtype,
+                                   "--check", "--out", arts[dtype]])
+            print(f"serving export {dtype} 1x{H}x{W}x3 uint8: {res['export_s']:.3f} s to "
+                  f"export, {res['mb']:.1f} MB, ops {res['manifest']['ops']}; "
+                  f"check: {res['check']} (TF32 off: "
+                  f"{not torch.backends.cudnn.allow_tf32})")
+            if dtype == "bfloat16":
+                os.unlink(arts[dtype])
+
+        # the live model's logits for the fresh process to hold its own to,
+        # and the live and the loaded forward timed in turns in this process
+        model = build_mrfp("cuda", generator=torch.Generator().manual_seed(0))
+        live_fwd = cli_export.ServingForward(model, autocast=False)
+        x = cli_export.random_batch((1, H, W, 3), "uint8", "cuda")
+        with torch.no_grad():
+            live = live_fwd(x)
+            loaded, _ = load_exported(arts["float32"])
+            turns = [median_ms(lambda f=f: f(x), runs=SERVING_FORWARDS)
+                     for f in (live_fwd, loaded, loaded, live_fwd)]
+        print(f"serving fp32 forward in one process, live / artifact / artifact / live: "
+              f"{' / '.join(f'{t:.3f}' for t in turns)} ms (medians of {SERVING_FORWARDS})")
+        del model, live_fwd, loaded
+        inputs, out = os.path.join(tmp, "inputs.pt"), os.path.join(tmp, "child.json")
+        torch.save({"images": x.cpu(), "logits": live.cpu()}, inputs)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c",
+                               f"import chip_smoke; chip_smoke.serving_child("
+                               f"{arts['float32']!r}, {inputs!r}, {out!r})"],
+                              cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"serving child: rc {proc.returncode}\n{proc.stderr[-4000:]}")
+        with open(out) as f:
+            child = json.load(f)
+        per_forward = child["launches"]["resize_bilinear"] / child["forwards"]
+        print(f"serving artifact fp32 in a fresh process ({time.perf_counter() - t0:.1f} s "
+              f"with start-up; load {child['load_s']:.3f} s): forward median "
+              f"{child['ms']:.3f} ms over {SERVING_FORWARDS} (live fp32 forward "
+              f"{live_fp32_ms:.3f} ms, phase_model); resize_bilinear launches "
+              f"{child['launches']['resize_bilinear']} in {child['forwards']} forwards "
+              f"({per_forward:g} a forward); max_abs_err vs the live logits "
+              f"{child['max_abs_err']:.3e} (bound 1e-4); model code imported: "
+              f"{child['model_code']}")
+        if child["model_code"] or per_forward != 3 or not child["close"] \
+                or not child["finite"] or child["shape"] != [1, 19, H, W] \
+                or any(v for k, v in child["launches"].items() if k != "resize_bilinear"):
+            raise AssertionError(f"serving artifact in a fresh process: {child}")
+
+        viz = os.path.join(tmp, "viz")
+        n = cli_visualize.main(["--device", "cuda", "--synthetic", "--synthetic-hw", str(H),
+                                str(W), "--n", "2", "--out", viz])
+        pngs = sorted(os.listdir(viz))
+        print(f"cli.visualize: {n} triplets, {pngs}")
+        if n != 2 or len(pngs) != 6:
+            raise AssertionError(f"cli.visualize wrote {pngs}")
+
+        runs = os.path.join(tmp, "runs")
+        common = ["--device", DEV, "--synthetic", "--batch-size", str(TRAIN_N), "--crop-size",
+                  str(CROP), "--log-every", "1", "--snapshot-every", "2", "--step-timeout",
+                  "900", "--runs-dir", runs, "--json-out", os.path.join(runs, "result.json")]
+        # a checkpoint is written at each of a run's last 20 steps, and a
+        # snapshot is skipped where one was (as in JAX): 24 steps leave steps
+        # 1-3 without one, so snapshots fall at steps 2 and 4
+        t0 = time.perf_counter()
+        rc = cli_train.main(common + ["--max-iter", "24"])
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(runs, "result.json")) as f:
+            result = json.load(f)
+        m, tb = _metrics(result["run_dir"]), _tb_scalars(result["run_dir"])
+        snaps = {s: (m["train/snapshot_seconds"][s], int(m["train/snapshot_bytes"][s]))
+                 for s in sorted(m.get("train/snapshot_seconds", {}))}
+        consumed = m["train/images_per_sec"][3]  # no snapshot in step 3's window
+        print(f"cli.train --snapshot-every 2, 24 steps: rc {rc}, {seconds:.1f} s end to end; "
+              f"snapshots (step: host-copy s, bytes) {snaps}; tb/ steps of train/loss "
+              f"{sorted(tb.get('train/loss', {}))}, of train/lr {sorted(tb.get('train/lr', {}))}; "
+              f"images/s at step 3 {consumed:.3f}")
+        steps = list(range(1, 25))
+        if rc != 0 or result["step"] != 24 or sorted(snaps) != [2, 4] \
+                or sorted(tb.get("train/loss", {})) != steps \
+                or sorted(tb.get("train/lr", {})) != steps \
+                or any(abs(tb["train/loss"][s] - m["train/loss"][s]) > 1e-6 * abs(m["train/loss"][s])
+                       for s in steps):
+            raise AssertionError(f"cli.train --snapshot-every: rc {rc}, result {result}, "
+                                 f"snapshots {snaps}, tb {tb}")
+        rc = cli_train.main(common + ["--max-iter", "25"])
+        with open(os.path.join(runs, "result.json")) as f:
+            resumed = json.load(f)
+        print(f"cli.train resumed from the snapshot run's checkpoint: rc {rc}, steps "
+              f"{sorted(resumed['losses'])}")
+        if rc != 0 or resumed["step"] != 25 or sorted(resumed["losses"]) != ["25"]:
+            raise AssertionError(f"cli.train resume after --snapshot-every: rc {rc}, {resumed}")
+        launched = dict(LAUNCHES)
+
+    bench = cli_bench_input.main(["--images", "16", "--batch-size", "4", "--num-workers", "4"])
+    print(f"cli.bench_input 1914x1052 -> 768x768: {bench['main']:.2f} images/s in the main "
+          f"process, {bench['process']:.2f} with 4 worker processes (start-up included), "
+          f"beside {consumed:.2f} images/s that the bf16 batch-{TRAIN_N} step consumed "
+          f"(cli.train step 3)")
+    launched["resize_bilinear"] += child["launches"]["resize_bilinear"]
+    return launched
 
 
 def phase_entry_point() -> dict:
@@ -2532,7 +2720,9 @@ def main(argv=None) -> None:
     gen = torch.Generator().manual_seed(0)
     phase_resize(gen)
     hist = phase_hist(gen)
-    phase_model(gen, args.profile)
+    live_fp32_ms = phase_model(gen, args.profile)
+    torch.cuda.empty_cache()
+    serving_launches = phase_serving(live_fp32_ms)
     torch.cuda.empty_cache()
     eval_launches = phase_entry_point()
     cuda_gen = torch.Generator(device=DEV).manual_seed(0)
@@ -2557,7 +2747,8 @@ def main(argv=None) -> None:
         """The kernel's count over the counted drives of its paths."""
         return sum(c[name] for c in counted)
 
-    later_paths = (extras_launches, accum_launches, sliding_launches, dp_launches)
+    later_paths = (serving_launches, extras_launches, accum_launches, sliding_launches,
+                   dp_launches)
     src = "mrfp_tpu_torch/csrc/"
     kernels = [
         dict(name="resize_bilinear", route="cuda", source=src + "resize_bilinear.cu",

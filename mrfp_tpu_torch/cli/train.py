@@ -12,9 +12,13 @@ with TF32 off). Every single-device flag of the JAX trainer is taken:
 ``--accum-steps``, the training extras (``--use-dsn``,
 ``--freq-transform``, ``--batch-weighting``, ``--jointwtborder`` with its
 border knobs), the data flags, and ``--oc-conditional`` as a no-op. The
-bf16 momentum, as in JAX, has no flag: ``cfg.train.momentum_dtype``. Without a checkpoint in its run directory the model starts
-from seeded random weights; with one it resumes from the latest, and
-refuses one written by another recipe (``run_recipe``).
+bf16 momentum, as in JAX, has no flag: ``cfg.train.momentum_dtype``.
+``--snapshot-every N`` keeps a host copy of the state every N steps for the
+watchdog to persist when a step wedges. Scalars go to the run's
+``metrics.jsonl`` and to TensorBoard events under its ``tb/``. Without a
+checkpoint in its run directory the model starts from seeded random
+weights; with one it resumes from the latest, and refuses one written by
+another recipe (``run_recipe``).
 ``--device cuda`` runs the hand-written kernels and exits non-zero when no
 CUDA device is present; it never falls back to the CPU. Exit 75 means the
 run was stopped by a signal and can resume.
@@ -136,10 +140,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--data-parallel", type=int, default=None,
                    help="the data axis: -1 or the number of processes (other "
                         "meshes are ROADMAP A14)")
+    p.add_argument("--snapshot-every", type=int, default=0,
+                   help="every N steps, at a sync point, copy the state to host memory "
+                        "for the watchdog to persist if the device wedges (a relaunch "
+                        "then loses at most N steps); needs the watchdog "
+                        "(--step-timeout) and one process, else ignored with a warning")
     # flags of the JAX trainer whose code paths are not ported yet
-    for flag, item in (("--model-parallel", "A14"), ("--spatial-parallel", "A14"),
-                       ("--snapshot-every", "A13")):
-        p.add_argument(flag, type=int, default=None, help=f"not ported: ROADMAP {item}")
+    for flag in ("--model-parallel", "--spatial-parallel"):
+        p.add_argument(flag, type=int, default=None, help="not ported: ROADMAP A14")
     return p.parse_args(argv)
 
 
@@ -157,8 +165,7 @@ def check_args(args) -> None:
     unported = {"--data-parallel": ("A14: a mesh other than one data axis over the "
                                     "processes", args.data_parallel not in (None, -1, nproc)),
                 "--model-parallel": ("A14", args.model_parallel not in (None, 1)),
-                "--spatial-parallel": ("A14", args.spatial_parallel not in (None, 1)),
-                "--snapshot-every": ("A13", bool(args.snapshot_every))}
+                "--spatial-parallel": ("A14", args.spatial_parallel not in (None, 1))}
     bad = [f"{flag} (ROADMAP {item})" for flag, (item, on) in unported.items() if on]
     if bad:
         raise NotImplementedError("not ported yet: " + ", ".join(bad))
@@ -334,7 +341,8 @@ def _train(args, device: torch.device, watchdog) -> int:
     try:
         step, preempted, losses = run_training_loop(
             state, loader, step_fn, cfg, ckpt, writer, device,
-            eval_every=args.eval_every, run_validation=run_validation, watchdog=watchdog)
+            eval_every=args.eval_every, run_validation=run_validation, watchdog=watchdog,
+            snapshot_every=args.snapshot_every)
     finally:
         ckpt.close()
         writer.close()

@@ -1,5 +1,6 @@
-"""Label-ID remapping tables for every dataset the reference supports (a
-copy of mrfp_tpu/data/label_maps.py without its palette helpers).
+"""Label-ID remapping tables for every dataset the reference supports, and
+the Cityscapes palette with ``decode_segmap`` (a copy of
+mrfp_tpu/data/label_maps.py without its label metadata table).
 
 Three distinct remap mechanisms exist in the reference and each is
 reproduced exactly:
@@ -62,6 +63,15 @@ CLASS_NAMES = ['road', 'sidewalk', 'building', 'wall', 'fence', 'pole',
                'sky', 'person', 'rider', 'car', 'truck', 'bus', 'train',
                'motorcycle', 'bicycle']
 
+# trainId -> RGB (utils_main.py:28-63)
+CITYSCAPES_PALETTE = np.array([
+    [128, 64, 128], [244, 35, 232], [70, 70, 70], [102, 102, 156],
+    [190, 153, 153], [153, 153, 153], [250, 170, 30], [220, 220, 0],
+    [107, 142, 35], [152, 251, 152], [0, 130, 180], [220, 20, 60],
+    [255, 0, 0], [0, 0, 142], [0, 0, 70], [0, 60, 100], [0, 80, 100],
+    [0, 0, 230], [119, 11, 32]], dtype=np.uint8)
+
+
 def sequential_lut(void: Sequence[int], valid: Sequence[int],
                    ignore: int = IGNORE) -> np.ndarray:
     """Simulate the reference's sequential in-place encode_segmap on the
@@ -112,3 +122,9 @@ def encode_bdd(mask: np.ndarray) -> np.ndarray:
     return mask
 
 
+def decode_segmap(label: np.ndarray) -> np.ndarray:
+    """trainId (H,W) -> RGB uint8 (H,W,3); ignore -> black (utils_main.py:28-63)."""
+    out = np.zeros((*label.shape, 3), dtype=np.uint8)
+    valid = label < 19
+    out[valid] = CITYSCAPES_PALETTE[label[valid]]
+    return out

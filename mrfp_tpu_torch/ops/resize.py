@@ -17,7 +17,14 @@ is what the backward kernels walk.
 Both resizes are ``torch.autograd.Function``s. On a CUDA tensor the forward
 and the backward are the hand-written kernels (``ops/cuda_resize.py``); on a
 CPU tensor, their plain PyTorch versions. A resize to the input's own size
-returns the input itself, with no Function and no launch.
+returns the input itself, with no Function and no launch. The bilinear
+forward goes through the registered op ``mrfp::resize_bilinear``
+(``ops/library.py``) on every device, so a live forward and an exported
+one take the same route; the op builds its tables itself.
+
+No table is built under a fake mode (``torch.export``'s tracing): a fake
+table cached here would be handed to every later live call at its shape.
+Building one there raises.
 
 ``row_mix`` and ``take_rows`` are the counterparts of the JAX package's
 layout-preserving row mix (``ops/cuda_row_mix.py``). ``take_rows`` reads
@@ -111,6 +118,14 @@ def _i32(a: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
 
 
+def _refuse_fake_mode(what: str) -> None:
+    """Raise when a table would be built under a fake mode (a trace): it
+    would be a fake tensor, cached for the live calls that follow."""
+    if torch._guards.detect_fake_mode() is not None:
+        raise RuntimeError(f"{what}: a device table cannot be built while tracing; a traced "
+                           f"resize must go through a registered op (ops/library.py)")
+
+
 _TAPS: Dict[tuple, BilinearTaps] = {}
 _NEAREST: Dict[tuple, NearestTable] = {}
 
@@ -120,6 +135,7 @@ def bilinear_taps(in_size: int, out_size: int, device: torch.device) -> Bilinear
     key = (in_size, out_size, str(device))
     taps = _TAPS.get(key)
     if taps is None:
+        _refuse_fake_mode("bilinear_taps")
         i0, i1, f = bilinear_ac_weights(in_size, out_size)
         lo0, hi0 = inverse_ranges(i0, in_size)
         lo1, hi1 = inverse_ranges(i1, in_size)
@@ -147,6 +163,7 @@ def nearest_table(in_size: int, rule: str, arg, device: torch.device) -> Nearest
     key = (in_size, rule, arg, str(device))
     table = _NEAREST.get(key)
     if table is None:
+        _refuse_fake_mode("nearest_table")
         idx = nearest_index(in_size, rule, arg)
         lo, hi = inverse_ranges(idx, in_size)
         table = NearestTable(_i32(idx, device), _i32(lo, device), _i32(hi, device),
@@ -168,19 +185,24 @@ def _use_kernel(x: torch.Tensor, impl: Optional[str]) -> bool:
 
 
 class ResizeBilinear(torch.autograd.Function):
-    """Bilinear resize with a kernel forward and a kernel backward; the
-    gradient comes back in the input's dtype."""
+    """Bilinear resize: the forward is the registered op (the kernel on the
+    card, the plain version on the CPU) or, for ``impl="plain"``, the plain
+    version; the backward is the kernel or the plain version by the same
+    rule. The gradient comes back in the input's dtype."""
 
     @staticmethod
-    def forward(ctx, x, ty: BilinearTaps, tx: BilinearTaps, kernel: bool):
-        ctx.tables = (ty, tx, kernel, x.shape[2], x.shape[3])
-        if kernel:
-            return cuda_resize.resize_bilinear_cuda(x, ty, tx)
-        return cuda_resize.resize_bilinear_plain(x, ty, tx)
+    def forward(ctx, x, out_h: int, out_w: int, impl: Optional[str]):
+        ctx.args = (_use_kernel(x, impl), x.shape[2], x.shape[3], out_h, out_w)
+        if impl == "plain":
+            return cuda_resize.resize_bilinear_plain(
+                x, bilinear_taps(x.shape[2], out_h, x.device),
+                bilinear_taps(x.shape[3], out_w, x.device))
+        return torch.ops.mrfp.resize_bilinear(x, out_h, out_w)
 
     @staticmethod
     def backward(ctx, g):
-        ty, tx, kernel, h, w = ctx.tables
+        kernel, h, w, oh, ow = ctx.args
+        ty, tx = bilinear_taps(h, oh, g.device), bilinear_taps(w, ow, g.device)
         g = g.contiguous()  # the ASPP broadcast's gradient arrives through torch.cat
         if kernel:
             gx = cuda_resize.resize_bilinear_bwd_cuda(g, ty, tx, h, w)
@@ -224,9 +246,7 @@ def resize_bilinear_align_corners(x: torch.Tensor, size: Tuple[int, int],
     oh, ow = int(size[0]), int(size[1])
     if (h, w) == (oh, ow):
         return x
-    kernel = _use_kernel(x, impl)
-    ty, tx = bilinear_taps(h, oh, x.device), bilinear_taps(w, ow, x.device)
-    return ResizeBilinear.apply(x, ty, tx, kernel)
+    return ResizeBilinear.apply(x, oh, ow, impl)
 
 
 def row_mix(x: torch.Tensor, p: torch.Tensor, dim: int,
@@ -260,6 +280,7 @@ def onehot_rows(idx: Tuple[int, ...], in_size: int, device, transpose: bool = Fa
     key = (idx, in_size, transpose, str(device))
     p = _ONEHOT.get(key)
     if p is None:
+        _refuse_fake_mode("onehot_rows")
         p = torch.as_tensor(_onehot_np(idx, in_size, transpose), device=device)
         _ONEHOT[key] = p
     return p
@@ -273,6 +294,7 @@ def onehot_table(idx: Tuple[int, ...], in_size: int, device, transpose: bool = F
     key = (idx, in_size, transpose, str(device))
     table = _ONEHOT_TABLES.get(key)
     if table is None:
+        _refuse_fake_mode("onehot_table")
         table = cuda_row_mix.row_table(_onehot_np(idx, in_size, transpose), device)
         _ONEHOT_TABLES[key] = table
     return table

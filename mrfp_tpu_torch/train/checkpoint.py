@@ -57,6 +57,17 @@ def _to_host(obj):
     return obj
 
 
+def blob_nbytes(obj) -> int:
+    """The bytes of every tensor in a state_dict tree."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(blob_nbytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(blob_nbytes(v) for v in obj)
+    return 0
+
+
 def _atomic_save(blob, path: str) -> None:
     tmp = f"{path}.tmp"
     with open(tmp, "wb") as f:
@@ -131,15 +142,26 @@ class CheckpointManager:
         self._last_saved = state.step
         if not is_coordinator():
             return
-        blob = _to_host({"step": state.step, "seed": state.seed,
-                         "model": state.model.state_dict(),
-                         "optimizer": state.optimizer.state_dict(),
-                         "scheduler": state.scheduler.state_dict(),
-                         "recipe": self.recipe})
+        blob = self.host_blob(state)
         if best:
             self._best_value = float(metrics[self.best_metric])
         self._pending.append(self._pool.submit(self._write, blob, state.step,
                                                self._best_value if best else None))
+
+    def host_blob(self, state: TrainState) -> dict:
+        """What a checkpoint of ``state`` holds, copied to host memory now."""
+        return _to_host({"step": state.step, "seed": state.seed,
+                         "model": state.model.state_dict(),
+                         "optimizer": state.optimizer.state_dict(),
+                         "scheduler": state.scheduler.state_dict(),
+                         "recipe": self.recipe})
+
+    def write_blob(self, blob: dict) -> None:
+        """Write a ``host_blob`` as its step's checkpoint, after the saves
+        already in flight, and wait for it. It touches no device, so the
+        watchdog's thread can persist a snapshot while the main thread is
+        stuck in a device call."""
+        self._pool.submit(self._write, blob, blob["step"], None).result()
 
     def _write(self, blob, step: int, best_value: Optional[float]) -> None:
         if not os.path.exists(self._path(step)):

@@ -11,8 +11,10 @@ import pytest
 from PIL import Image
 
 from mrfp_tpu.data import datasets as jax_ds
+from mrfp_tpu.data import label_maps as jax_label_maps
 from mrfp_tpu.data import weather as jax_weather
 from mrfp_tpu_torch.data import datasets as port_ds
+from mrfp_tpu_torch.data import label_maps as port_label_maps
 from mrfp_tpu_torch.data import weather as port_weather
 
 
@@ -88,6 +90,11 @@ def test_catalog_tables_match():
         assert ours.__name__ == ref.__name__
         assert (ours.num_classes, ours.ignore_index, ours.id2cat) == \
             (ref.num_classes, ref.ignore_index, ref.id2cat)
+    np.testing.assert_array_equal(port_label_maps.CITYSCAPES_PALETTE,
+                                  jax_label_maps.CITYSCAPES_PALETTE)
+    ids = np.arange(256, dtype=np.uint8).reshape(16, 16)
+    np.testing.assert_array_equal(port_label_maps.decode_segmap(ids),
+                                  jax_label_maps.decode_segmap(ids))
 
 
 @pytest.mark.parametrize("domain", DOMAINS)
