@@ -74,6 +74,17 @@ prints each snapshot's host-copy seconds and bytes, reads ``tb/`` back
 with the port's reader and resumes; ``cli.bench_input`` prints the
 loader's images/s beside the rate that run's step consumed.
 
+The ResNet family and the zoo (``phase_trunks``, ``phase_cli_train_zoo``):
+each of the nine ResNet trunks in MRFP runs the fp32 eval forward at
+1x1024x2048 and one bf16 step at 2x768x768 (the baseline step for
+resnet-101, whose deep stem the OC branch cannot read), kernel path against
+plain path, after the resize kernels are held at that batch; then
+``cli.train_zoo`` trains the zoo recipe at the JAX CLI's defaults (r18-D32,
+``wt_layer`` 0022200, the ISW loss and its statistics phase, bf16, batch 16,
+768x768) for 12 counted steps, and ``cli.eval`` and ``cli.export --check``
+take its checkpoint at 1024x2048; the zoo step's time, images/s and peak
+memory are timed in process.
+
 Data parallelism (``phase_data_parallel``): two ranks, each a process of
 its own, share the card through gloo and take an fp32 step (TF32 off, the
 damped fixture) and the bf16 recipe's step on their halves of a global
@@ -2160,26 +2171,31 @@ def _extras_cfg(batch: int, dtype: str, reduce_border_iter: int = 0):
 
 
 def _damped_state(cfg):
-    """A fresh train state of ``cfg`` on the damped fixture (ROADMAP C3)."""
+    """A fresh train state of ``cfg`` on the damped fixture (ROADMAP C3):
+    each residual branch's last BN scale (a Bottleneck's ``bn3``, a
+    BasicBlock's ``bn2``) times ``DAMP``."""
     from mrfp_tpu_torch.cli.train import build_state
+    from mrfp_tpu_torch.nn.resnet import BasicBlock, Bottleneck
     state = build_state(cfg, torch.device(DEV))
     with torch.no_grad():
-        for k, prm in state.model.named_parameters():
-            if k.endswith("bn3.weight"):
-                prm.mul_(DAMP)
+        for m in state.model.modules():
+            if isinstance(m, Bottleneck):
+                m.bn3.weight.mul_(DAMP)
+            elif isinstance(m, BasicBlock):
+                m.bn2.weight.mul_(DAMP)
     return state
 
 
-def _extras_compare(base, img, lbl, cfg, start: int, record: bool) -> tuple:
+def _extras_compare(base, img, lbl, cfg, start: int, record: bool,
+                    keys=GRAD_KEYS + ("dsn.4.weight",)) -> tuple:
     """One step of ``cfg`` from ``base`` at step ``start`` through the kernels,
     through the plain versions and through them again, each from a copy of
     the same state (so the same gates and dropout masks). Returns the three
-    losses, the relative gradient differences of ``GRAD_KEYS`` and the DSN
-    classifier (kernel vs plain, plain again vs plain) and, with
-    ``record``, the kernel step's resize calls."""
+    losses, the relative gradient differences of ``keys`` (kernel vs plain,
+    plain again vs plain) and, with ``record``, the kernel step's resize
+    calls."""
     from mrfp_tpu_torch.train.state import create_train_state
     from mrfp_tpu_torch.train.step import train_step
-    keys = GRAD_KEYS + ("dsn.4.weight",)
     losses, grads, calls = {}, {}, []
     for name in ("kernel", "plain", "plain again"):
         st = create_train_state(copy.deepcopy(base.model), cfg.train)
@@ -2414,6 +2430,254 @@ def phase_sliding() -> dict:
     del model
     torch.cuda.empty_cache()
     return launched
+
+
+# the nine trunks' phase: the eval forward at H x W and a bf16 MRFP+ step
+# at this batch of 768x768 crops
+TRUNK_STEP_N = 2
+# the zoo recipe of cli.train_zoo's defaults (r18-D32, wt_layer 0022200,
+# ISW loss; bf16, batch 16, 768x768) and the resizes it runs on the card:
+# (name, N, C, in_hw, out_hw), forward and backward in the step
+ZOO_N, ZOO_WT = 16, ("0", "0", "2", "2", "2", "0", "0")
+ZOO_TRAIN_RESIZES = [
+    ("zoo aspp broadcast", ZOO_N, 256, (1, 1), (CROP // 32,) * 2),
+    ("zoo decoder upsample", ZOO_N, 256, (CROP // 32,) * 2, (CROP // 4,) * 2),
+    ("zoo logit upsample", ZOO_N, 19, (CROP // 4,) * 2, (CROP,) * 2),
+]
+# ... and those of its eval forward at H x W (cli.eval, cli.export)
+ZOO_EVAL_RESIZES = [
+    ("zoo eval aspp broadcast", 1, 256, (1, 1), (H // 32, W // 32)),
+    ("zoo eval decoder upsample", 1, 256, (H // 32, W // 32), (H // 4, W // 4)),
+    ("zoo eval logit upsample", 1, 19, (H // 4, W // 4), (H, W)),
+]
+ZOO_DSN_LABELS, ZOO_DSN_HW = (ZOO_N, 1, CROP, CROP), (CROP // 16, CROP // 16)
+
+
+def phase_trunks(gen, cuda_gen) -> dict:
+    """Each of the nine ResNet trunks in MRFP at D16 (``wt_layer``
+    (0,0,4,4,4,0,0), seeded random weights): the fp32 eval forward at
+    1x3xHxW (TF32 off) through the kernels and through the plain versions,
+    logits within 1e-4 and argmax 99.99%, its kernel path's median ms of 5;
+    then one bf16 MRFP+ step at ``TRUNK_STEP_N`` x 768x768 on the damped
+    fixture, kernel path against plain path from one state (the same drawn
+    gates), with ``phase_extras_step``'s bound: loss within 1e-4, the
+    gradients of ``GRAD_KEYS`` within 3x a second plain step's difference.
+    resnet-101 takes the baseline step: its deep stem gives 128 channels
+    and the OC branch reads 64, so the JAX package cannot trace its
+    perturbed step and the port refuses the OC buffers (ROADMAP C8), which
+    is checked here too. Every resize call of these paths is at a shape
+    held against the plain versions. Returns the eval ms by trunk."""
+    from mrfp_tpu_torch.models import MRFP, build_mrfp
+    from mrfp_tpu_torch.nn.resnet import RESNET_TRUNKS
+    err = _hold_train_shapes(TRUNK_STEP_N, (torch.bfloat16, torch.float32), cuda_gen)
+    print(f"trunk step shapes, batch {TRUNK_STEP_N}, bf16 and fp32: the five train bilinear "
+          f"resizes' forward exactly equal, backward within the bound (max_abs_err "
+          f"{err:.3e}); the seven OC nearest resizes exactly equal both ways")
+    x = (torch.rand((1, 3, H, W), generator=gen) * 255).to(DEV)
+    img, lbl = _batch(gen, TRUNK_STEP_N)
+    eval_ms = {}
+    for trunk in RESNET_TRUNKS:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model = build_mrfp(DEV, generator=torch.Generator().manual_seed(0), trunk=trunk)
+        with torch.inference_mode():
+            with _recording() as calls:
+                got = model(x)
+            ref = model(x, impl="plain")
+            torch.cuda.synchronize()
+            if got.shape != (1, 19, H, W) or not torch.isfinite(got).all():
+                raise AssertionError(f"{trunk} eval logits: shape {tuple(got.shape)}")
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+            agree = (got.argmax(1) == ref.argmax(1)).float().mean().item()
+            if agree < 0.9999:
+                raise AssertionError(f"{trunk} eval: argmax agreement {agree} < 0.9999")
+            _all_held(calls, f"{trunk} eval forward")
+            eval_ms[trunk] = median_ms(lambda: model(x), runs=5, warmup=1)
+        n_params = sum(p.numel() for p in model.parameters())
+        del model, got, ref
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.allow_tf32 = True
+        cfg = _train_cfg(TRUNK_STEP_N, "bfloat16")
+        if trunk == "resnet-101":
+            try:
+                MRFP(trunk=trunk, oc_branch=True)
+            except ValueError as e:
+                if "ROADMAP C8" not in str(e):
+                    raise
+            else:
+                raise AssertionError("resnet-101 took the OC buffers (ROADMAP C8)")
+            cfg = cfg.replace(perturb=dataclasses.replace(cfg.perturb, enabled=False),
+                              model=dataclasses.replace(cfg.model, hrfp_plus=False))
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, trunk=trunk))
+        base = _damped_state(cfg)
+        losses, errs, floor, calls = _extras_compare(base, img, lbl, cfg, 0, record=True,
+                                                     keys=GRAD_KEYS)
+        loss_err = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+        limit = 3 * max(floor.values())
+        print(f"trunk {trunk} ({n_params / 1e6:.1f} M parameters): eval fp32 1x3x{H}x{W} "
+              f"kernel vs plain argmax agreement {agree}, kernel path {eval_ms[trunk]:.3f} "
+              f"ms (median of 5); bf16 {'MRFP+' if cfg.perturb.enabled else 'baseline'} "
+              f"step {TRUNK_STEP_N}x{CROP}x{CROP}, gates as drawn at step 0, bn scales "
+              f"x{DAMP}: loss kernel {losses['kernel']:.6f} plain {losses['plain']:.6f} "
+              f"(rel {loss_err:.3e}); gradient rel err kernel vs plain "
+              f"{({k: round(v, 6) for k, v in errs.items()})}, plain again vs plain "
+              f"{({k: round(v, 6) for k, v in floor.items()})}, limit {limit:.6f}")
+        if not all(math.isfinite(v) for v in losses.values()) or loss_err > 1e-4:
+            raise AssertionError(f"{trunk} step: kernel vs plain path losses {losses}")
+        bad = {k: v for k, v in errs.items() if not v <= limit}
+        if bad:
+            raise AssertionError(f"{trunk} step: gradient rel err above {limit:.6f}: {bad}")
+        _all_held(calls, f"{trunk} step")
+        del base
+        torch.cuda.empty_cache()
+    return eval_ms
+
+
+def _zoo_step_time() -> dict:
+    """The zoo step of ``cli.train_zoo``'s recipe in process: masks from a
+    statistics pass over 4 view pairs, then the bf16 step at batch
+    ``ZOO_N`` timed with CUDA events (median of 5 after 2 warm-up steps),
+    images/s from it, and the peak device memory of those steps."""
+    from mrfp_tpu_torch.cli import train_zoo
+    from mrfp_tpu_torch.models.deepv3_zoo import build_cov_layers
+    from mrfp_tpu_torch.train.zoo_step import covstat_pass, zoo_train_step
+    args = train_zoo.parse_args(["--trunk", "resnet-18", "--variant", "D32", "--wt-layer",
+                                 *ZOO_WT, "--use-wtloss", "--batch-size", str(ZOO_N),
+                                 "--crop-size", str(CROP)])
+    cfg = train_zoo.build_config(args)
+    state = train_zoo.build_state(cfg, torch.device(DEV))
+    gen = torch.Generator().manual_seed(5)
+    pairs = [tuple((torch.rand((ZOO_N, CROP, CROP, 3), generator=gen) * 255).numpy()
+                   for _ in range(2)) for _ in range(4)]
+    layers = build_cov_layers("resnet-18", tuple(map(int, ZOO_WT)))
+    masks, nrc = covstat_pass(state.model, layers, pairs, cfg, torch.device(DEV))
+    img, lbl = _batch(gen, ZOO_N)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_ms(lambda: zoo_train_step(state, img, lbl, cfg, masks, nrc), runs=5, warmup=2)
+    gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "images_per_s": ZOO_N / ms * 1e3, "peak_gib": gib}
+
+
+def phase_cli_train_zoo(cuda_gen) -> dict:
+    """The zoo recipe at full width, the JAX CLI's defaults: ``cli.train_zoo
+    --synthetic --trunk resnet-18 --variant D32 --wt-layer 0 0 2 2 2 0 0
+    --use-wtloss --batch-size 16 --crop-size 768 --max-iter 12`` (bf16, the
+    ISW statistics phase over 4 view pairs of 32 images, the DSN head),
+    counted; then ``cli.eval`` of its checkpoint at 1xHxW (the bilinear and
+    confusion-matrix kernels launched) and ``cli.export --check`` of it at
+    1xHxW (bit for bit). First the resizes these paths run are held against
+    the plain versions (the bilinear pairs at the step's shapes in bf16 and
+    fp32, the eval shapes forward, the DSN label map's nearest exactly), and
+    every recorded call must be at a held shape. The step's time, images/s
+    and peak memory come from ``_zoo_step_time``."""
+    from mrfp_tpu_torch.cli import eval as cli_eval
+    from mrfp_tpu_torch.cli import export as cli_export
+    from mrfp_tpu_torch.cli import train_zoo
+    from mrfp_tpu_torch.ops import LAUNCHES, cuda_resize, reset_launches
+    from mrfp_tpu_torch.ops.resize import nearest_table, resize_bilinear_align_corners
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, n, c, (h, w), size in ZOO_TRAIN_RESIZES:
+            x = torch.randn((n, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
+            what = f"{_dtype_name(dtype)} {name} ({n},{c},{h},{w})->{size}"
+            errs.append(_bilinear_pair(x, size, cuda_gen, what)[3])
+        for name, n, c, (h, w), size in ZOO_EVAL_RESIZES:
+            x = torch.randn((n, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
+            got = resize_bilinear_align_corners(x, size)
+            _bilinear_fwd_equal(got, resize_bilinear_align_corners(x, size, impl="plain"),
+                                f"{_dtype_name(dtype)} {name}")
+            _held("resize_bilinear", x, got)
+        torch.cuda.empty_cache()
+    ty = nearest_table(CROP, "size", ZOO_DSN_HW[0], DEV)
+    tx = nearest_table(CROP, "size", ZOO_DSN_HW[1], DEV)
+    lbl = torch.randint(0, 19, ZOO_DSN_LABELS, device=DEV, generator=cuda_gen).float()
+    got = cuda_resize.resize_nearest_cuda(lbl, ty, tx)
+    if not torch.equal(got, cuda_resize.resize_nearest_plain(lbl, ty, tx)):
+        raise AssertionError(f"resize_nearest zoo DSN labels {ZOO_DSN_LABELS}: kernel != plain")
+    _held("resize_nearest", lbl, got)
+    del lbl, got
+    print(f"zoo shapes: the step's three bilinear resizes at batch {ZOO_N}, bf16 and fp32, "
+          f"forward exactly equal, backward within the bound (max_abs_err {max(errs):.3e}); "
+          f"the eval forward's three at 1x{H}x{W} exactly equal; the DSN label map "
+          f"{ZOO_DSN_LABELS} -> {ZOO_DSN_HW} exactly equal")
+    torch.cuda.empty_cache()
+
+    counted = {}
+    with tempfile.TemporaryDirectory() as runs:
+        out = os.path.join(runs, "result.json")
+        argv = ["--device", DEV, "--synthetic", "--trunk", "resnet-18", "--variant", "D32",
+                "--wt-layer", *ZOO_WT, "--use-wtloss", "--batch-size", str(ZOO_N),
+                "--crop-size", str(CROP), "--max-iter", "12", "--log-every", "1",
+                "--runs-dir", runs, "--json-out", out]
+        reset_launches()  # count this run alone
+        t0 = time.perf_counter()
+        with _recording() as calls:
+            rc = train_zoo.main(argv)
+        seconds = time.perf_counter() - t0
+        launched = dict(LAUNCHES)
+        with open(out) as f:
+            result = json.load(f)
+        m = _metrics(result["run_dir"])
+        ips = [m["train/images_per_sec"][s] for s in sorted(m["train/images_per_sec"])][2:]
+        cov = result["covstat"]
+        print(f"cli.train_zoo r18-D32 wt 0022200 ISW, bf16 {ZOO_N}x{CROP}x{CROP}, 12 steps: "
+              f"rc {rc}, {seconds:.1f} s end to end; covstat phase {cov['seconds']:.3f} s over "
+              f"{cov['pairs']} view pairs of {2 * ZOO_N} images, masks (dim, nrc) "
+              f"{[(k['dim'], k['nrc']) for k in cov['masks']]}; launches {launched}; losses "
+              f"{ {k: round(v, 4) for k, v in result['losses'].items()} }; loss_wt "
+              f"{ {k: round(v, 5) for k, v in m.get('train/loss_wt', {}).items()} }; images/s "
+              f"steps 3-12 end to end (a checkpoint each) median {statistics.median(ips):.3f}")
+        losses = list(result["losses"].values())
+        if rc != 0 or result["step"] != 12 or len(losses) != 12 \
+                or not all(math.isfinite(v) for v in losses) \
+                or [k["dim"] for k in cov["masks"]] != [64, 64, 128] \
+                or not all(k["nrc"] > 0 for k in cov["masks"]):
+            raise AssertionError(f"cli.train_zoo: rc {rc}, result {result}")
+        if min(launched[k] for k in ("resize_bilinear", "resize_bilinear_bwd",
+                                     "resize_nearest")) <= 0:
+            raise AssertionError(f"cli.train_zoo: a resize kernel was not launched: {launched}")
+        _all_held(calls, "cli.train_zoo")
+        counted["train"] = launched
+
+        flags = ["--trunk", "resnet-18", "--variant", "D32", "--wt-layer", *ZOO_WT,
+                 "--ckpt", result["run_dir"]]
+        reset_launches()
+        with _recording() as calls:
+            scored = cli_eval.main(["--device", DEV, "--synthetic", "--synthetic-hw", str(H),
+                                    str(W), "--max-images", "2", "--domains", "cityscapes",
+                                    *flags])["cityscapes"]
+        launched = dict(LAUNCHES)
+        print(f"cli.eval --wt-layer {' '.join(ZOO_WT)} --ckpt <the zoo run> at {H}x{W}: "
+              f"launches {launched}; mean_iu {scored['mean_iu']:.5f}, {scored['images']} "
+              f"images, {scored['images_per_s']:.3f} images/s")
+        if min(launched[k] for k in ("resize_bilinear", "confusion_matrix")) <= 0 \
+                or scored["images"] != 2 or not math.isfinite(scored["mean_iu"]):
+            raise AssertionError(f"cli.eval of the zoo run: launches {launched}, {scored}")
+        _all_held(calls, "cli.eval of the zoo run")
+        counted["eval"] = launched
+
+        reset_launches()
+        with _recording() as calls:
+            exported = cli_export.main(["--device", DEV, "--height", str(H), "--width",
+                                        str(W), "--check", "--out",
+                                        os.path.join(runs, "zoo.pt2x"), *flags])
+        launched = dict(LAUNCHES)
+        print(f"cli.export --wt-layer {' '.join(ZOO_WT)} --ckpt <the zoo run> at 1x{H}x{W} "
+              f"bf16: {exported['mb']:.1f} MB in {exported['export_s']:.3f} s; "
+              f"{exported['check']}; launches {launched}")
+        if "bit for bit" not in exported["check"] or launched["resize_bilinear"] <= 0:
+            raise AssertionError(f"cli.export of the zoo run: {exported}, launches {launched}")
+        _all_held(calls, "cli.export of the zoo run")
+        counted["export"] = launched
+    torch.cuda.empty_cache()
+    timed = _zoo_step_time()
+    print(f"zoo step bf16 {ZOO_N}x{CROP}x{CROP} r18-D32 wt 0022200 with the ISW loss: "
+          f"{timed['step_ms']:.3f} ms (median of 5 after 2 warm-up), "
+          f"{timed['images_per_s']:.2f} images/s, peak {timed['peak_gib']:.2f} GiB")
+    return {k: sum(c[k] for c in counted.values()) for k in counted["train"]}
 
 
 DP_WORLD = 2  # ranks of the data-parallel phase, all on the one card
@@ -2741,6 +3005,10 @@ def main(argv=None) -> None:
     extras_launches = phase_extras_step(gen)
     accum_launches = phase_cli_train_accum()
     sliding_launches = phase_sliding()
+    phase_trunks(gen, cuda_gen)
+    torch.cuda.empty_cache()
+    zoo_launches = phase_cli_train_zoo(cuda_gen)
+    torch.cuda.empty_cache()
     dp_launches = phase_data_parallel(cuda_gen)
 
     def launches(name, *counted):
@@ -2748,7 +3016,7 @@ def main(argv=None) -> None:
         return sum(c[name] for c in counted)
 
     later_paths = (serving_launches, extras_launches, accum_launches, sliding_launches,
-                   dp_launches)
+                   zoo_launches, dp_launches)
     src = "mrfp_tpu_torch/csrc/"
     kernels = [
         dict(name="resize_bilinear", route="cuda", source=src + "resize_bilinear.cu",
@@ -2769,7 +3037,8 @@ def main(argv=None) -> None:
              **nearest["resize_nearest_bwd"]),
         dict(name="confusion_matrix", route="cuda", source=src + "confusion_matrix.cu",
              replaces="mrfp_tpu/ops/pallas_hist.py:50",
-             launches=launches("confusion_matrix", eval_launches, sliding_launches),
+             launches=launches("confusion_matrix", eval_launches, sliding_launches,
+                               zoo_launches),
              **hist),
         dict(name="dot_with_stats", route="cuda", source=src + "dot_stats.cu",
              replaces="mrfp_tpu/ops/pallas_dot_stats.py:112",

@@ -8,9 +8,14 @@
 
     python -m mrfp_tpu_torch.cli.eval --ckpt runs/<name> --data-root /data
 
+    python -m mrfp_tpu_torch.cli.eval --device cuda --trunk resnet-18 \
+        --variant D32 --wt-layer 0 0 2 2 2 0 0 --ckpt runs/<zoo run>
+
 Reads a reference PyTorch ``.pth`` checkpoint, or what the port's
-``cli.train`` writes: a ``step_<N>.pt``, or a run directory (its latest
-checkpoint; ``runs/<name>/ckpt/best`` for the best by mIoU). Without
+``cli.train`` or ``cli.train_zoo`` writes: a ``step_<N>.pt``, or a run directory (its latest
+checkpoint; ``runs/<name>/ckpt/best`` for the best by mIoU). ``--arch`` or
+``--wt-layer`` selects the zoo's ``DeepV3Plus`` (with ``--use-dsn``, on by
+default, as its trainer). Without
 ``--ckpt`` the model has seeded random weights. ``--device cuda`` runs the
 hand-written kernels and exits non-zero when no CUDA device is present; it
 never falls back to the CPU.
@@ -37,6 +42,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="domain names, or 'all' for the 5-domain reference sweep")
     p.add_argument("--trunk", default="resnet-50")
     p.add_argument("--variant", default="D16")
+    add_zoo_args(p)
     p.add_argument("--eval-size", type=int, default=1536)
     p.add_argument("--max-images", type=int, default=None)
     p.add_argument("--synthetic", action="store_true")
@@ -96,13 +102,47 @@ def check_parity_protocol(args) -> None:
                          + "\n  ".join(violations))
 
 
-def load_model(args, device: torch.device):
+def add_zoo_args(p: argparse.ArgumentParser) -> None:
+    """The flags that select a zoo model (mrfp_tpu/cli/eval.py:32-41)."""
+    p.add_argument("--arch", default=None,
+                   help="evaluate a zoo (cli.train_zoo) model instead of MRFP: a reference "
+                        "factory name (network/deepv3.py:606-779), e.g. DeepR50V3PlusD; "
+                        "overrides --trunk/--variant")
+    p.add_argument("--wt-layer", type=int, nargs=7, default=None, metavar="W",
+                   help="whitening plan of a zoo model (must match its training); "
+                        "selects the zoo model with --trunk/--variant")
+    p.add_argument("--use-dsn", action=argparse.BooleanOptionalAction, default=True,
+                   help="a zoo model carries the DSN head (its checkpoint's keys); "
+                        "the eval forward does not run it")
+
+
+def build_model(args, generator=None):
+    """The eval model the flags name, on the CPU: a zoo ``DeepV3Plus`` when
+    ``--arch`` or ``--wt-layer`` is given (mrfp_tpu/cli/eval.py:114-125),
+    else ``MRFP``; seeded random weights from ``generator``. Other CLIs
+    with fewer flags read absent zoo flags as the MRFP model."""
     from mrfp_tpu_torch.models import build_mrfp
+    from mrfp_tpu_torch.models.deepv3_zoo import DeepV3Plus, get_net
+    from mrfp_tpu_torch.nn.layers import init_random_
+    arch, wt = getattr(args, "arch", None), getattr(args, "wt_layer", None)
+    if arch is None and wt is None:
+        return build_mrfp("cpu", generator=generator, trunk=args.trunk,
+                          variant=args.variant)
+    wt = tuple(wt) if wt else (0,) * 7
+    use_dsn = getattr(args, "use_dsn", True)
+    model = get_net(arch, wt_layer=wt, use_dsn=use_dsn) if arch else \
+        DeepV3Plus(trunk=args.trunk, variant=args.variant, wt_layer=wt, use_dsn=use_dsn)
+    if generator is not None:
+        init_random_(model, generator)
+    return model
+
+
+def load_model(args, device: torch.device):
     from mrfp_tpu_torch.train.checkpoint import find_checkpoint
     from mrfp_tpu_torch.weights import load_torch_checkpoint
 
     gen = None if args.ckpt else torch.Generator().manual_seed(0)
-    model = build_mrfp("cpu", generator=gen, trunk=args.trunk, variant=args.variant)
+    model = build_model(args, gen)
     if args.ckpt:
         load_torch_checkpoint(model, find_checkpoint(args.ckpt))
     return model.to(device)

@@ -10,8 +10,11 @@ becomes one self-contained artifact, the eval forward frozen by
         --check --out /tmp/m.pt2x
 
 ``--ckpt`` takes what ``cli.eval --ckpt`` takes (a reference ``.pth``, or a
-``step_<N>.pt`` or run directory of the port's ``cli.train``); without it
-the weights are seeded random ones. The artifact maps images of one fixed
+``step_<N>.pt`` or run directory of the port's ``cli.train`` or
+``cli.train_zoo``); without it the weights are seeded random ones.
+``--arch`` or ``--wt-layer`` (with ``--use-dsn``, on by default) exports the
+zoo's ``DeepV3Plus``, as ``cli.eval`` selects it; its eval forward goes
+through the same ``mrfp::resize_bilinear`` op. The artifact maps images of one fixed
 shape, NHWC, raw 0..255 (``--wire uint8``: the cast and permute happen
 inside the program, as in ``train/evaluator.py``; ``--wire float32`` for
 callers that feed floats), to float32 NCHW logits. ``--dtype bfloat16``
@@ -38,6 +41,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from mrfp_tpu_torch.cli.eval import add_zoo_args
+
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="mrfp_tpu_torch serving export")
@@ -46,11 +51,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "port's cli.train (default: seeded random weights)")
     p.add_argument("--trunk", default="resnet-50")
     p.add_argument("--variant", default="D16")
-    p.add_argument("--arch", default=None, help="not ported: ROADMAP A12 (the zoo)")
-    p.add_argument("--wt-layer", type=int, nargs=7, default=None, metavar="W",
-                   help="not ported: ROADMAP A12 (the zoo)")
-    p.add_argument("--use-dsn", action=argparse.BooleanOptionalAction, default=None,
-                   help="not ported: ROADMAP A12 (the zoo's DSN head)")
+    add_zoo_args(p)
     p.add_argument("--out", required=True, help="output artifact path (.pt2x)")
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--height", type=int, default=1024)
@@ -66,15 +67,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="load the written file and require it to reproduce the live "
                         "forward bit for bit on a seeded random batch")
     return p.parse_args(argv)
-
-
-def check_args(args) -> None:
-    """Raise on a flag whose model the port does not have yet."""
-    bad = [flag for flag, on in (("--arch", args.arch is not None),
-                                 ("--wt-layer", args.wt_layer is not None),
-                                 ("--use-dsn", bool(args.use_dsn))) if on]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)} (ROADMAP A12: the zoo)")
 
 
 class ServingForward(nn.Module):
@@ -104,6 +96,15 @@ def random_batch(shape, wire: str, device) -> torch.Tensor:
     return torch.from_numpy(x).to(device)
 
 
+def model_manifest(args) -> dict:
+    """What the artifact's model is: MRFP's trunk and variant, or the zoo's
+    arch or trunk and variant, ``wt_layer`` and DSN head."""
+    if args.arch is None and args.wt_layer is None:
+        return {"trunk": args.trunk, "variant": args.variant}
+    return {"zoo": args.arch or "DeepV3Plus", "trunk": args.trunk, "variant": args.variant,
+            "wt_layer": list(args.wt_layer or (0,) * 7), "use_dsn": bool(args.use_dsn)}
+
+
 def export_program(forward: ServingForward, example: torch.Tensor):
     """``torch.export`` of ``forward`` at ``example``'s fixed shape."""
     with torch.no_grad():
@@ -115,7 +116,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     the check's note, with ``--check``)."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    check_args(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: torch.cuda.is_available() is False "
                          "(use --device cpu to export for the CPU)")
@@ -125,8 +125,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     from mrfp_tpu_torch.cli.eval import load_model
+    from mrfp_tpu_torch.models.deepv3_zoo import arch_trunk
     from mrfp_tpu_torch.serving import registered_ops, save_exported
 
+    if args.arch:
+        args.trunk, args.variant = arch_trunk(args.arch)
     forward = ServingForward(load_model(args, device), autocast=args.dtype == "bfloat16")
     shape = (args.batch, args.height, args.width, 3)
     example = torch.zeros(shape, dtype=getattr(torch, args.wire), device=device)
@@ -136,7 +139,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     out_shape = [args.batch, forward.model.final2[0].out_channels, args.height, args.width]
     manifest = {
         "format": "mrfp-torch-export-v1",
-        "model": {"trunk": args.trunk, "variant": args.variant},
+        "model": model_manifest(args),
         "input": {"shape": list(shape), "dtype": args.wire, "layout": "NHWC",
                   "pixel_scale": "raw 0..255"},
         "output": {"shape": out_shape, "dtype": "float32", "layout": "NCHW",

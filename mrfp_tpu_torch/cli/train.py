@@ -6,7 +6,9 @@
     python -m mrfp_tpu_torch.cli.train --source gtav --data-root /data \
         --max-iter 40000 --batch-size 16
 
-The paper's MRFP+ recipe by default: R50-D16, all three gates live, SGD
+The paper's MRFP+ recipe by default: R50-D16 (``--trunk`` takes any of the
+nine ResNet trunks; resnet-101's deep stem takes ``--mode baseline`` only,
+as in JAX: ROADMAP C8), all three gates live, SGD
 with poly decay, bf16 autocast with fp32 parameters (``--no-bf16``: fp32
 with TF32 off). Every single-device flag of the JAX trainer is taken:
 ``--accum-steps``, the training extras (``--use-dsn``,
@@ -169,9 +171,8 @@ def check_args(args) -> None:
     bad = [f"{flag} (ROADMAP {item})" for flag, (item, on) in unported.items() if on]
     if bad:
         raise NotImplementedError("not ported yet: " + ", ".join(bad))
-    if args.trunk != "resnet-50":
-        raise NotImplementedError(f"--trunk {args.trunk}: only resnet-50 is ported "
-                                  f"(ROADMAP A12)")
+    from mrfp_tpu_torch.nn.resnet import check_trunk
+    check_trunk(args.trunk)  # the nine ResNet trunks; the others are ROADMAP A12.4
 
 
 def build_config(args):

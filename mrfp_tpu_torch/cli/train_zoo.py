@@ -1,0 +1,331 @@
+"""The RobustNet zoo trainer, PyTorch port (mrfp_tpu/cli/train_zoo.py).
+
+    python -m mrfp_tpu_torch.cli.train_zoo --device cuda --synthetic \
+        --trunk resnet-18 --variant D32 --wt-layer 0 0 2 2 2 0 0 --use-wtloss \
+        --batch-size 16 --crop-size 768 --max-iter 12
+
+    python -m mrfp_tpu_torch.cli.train_zoo --arch DeepR50V3PlusD \
+        --wt-layer 0 0 2 2 2 0 0 --use-wtloss --source gtav --data-root /data
+
+Objective per step (``train/zoo_step.py``): CE(main) + 0.4 CE(DSN aux) +
+``--wt-reg-weight`` x the ISW/IRW whitening loss. With ``--use-wtloss`` and
+an ISW slot (iw code 2) a statistics phase runs before the loop, and again
+from the restored weights on a resume: ``--covstat-batches`` pairs of
+differently augmented views of the same images give each instrumented
+layer its variance of covariance, k-means (``--clusters``) picks the
+sensitive entries, and the frozen masks feed every step. The flags and
+their defaults are the JAX trainer's (bf16 on, batch 16, crop 768).
+
+The loop, checkpoints and validation are ``cli.train``'s
+(``train/loop.py``, ``train/checkpoint.py``, ``train/evaluator.py``). Every
+checkpoint carries the zoo recipe (``run_recipe``: the data, crop, seed,
+trunk, variant, ``wt_layer``, ``use_wtloss``, ``use_dsn``), so a zoo
+checkpoint never resumes into ``cli.train`` and an MRFP one never resumes
+here. ``cli.eval --trunk/--variant --wt-layer ... --ckpt <run>`` (or
+``--arch``) evaluates a run; ``cli.export`` takes the same flags.
+
+Not ported: an IRW slot (iw code 1) with ``--use-wtloss``, which the JAX
+trainer cannot run either (ROADMAP C6); iw code 5 (A12.3); the non-ResNet
+trunks (A12.4); more than one process (A12.5); other meshes (A14).
+``--device cuda`` runs the hand-written kernels and exits non-zero when no
+CUDA device is present; it never falls back to the CPU. Exit 75 means the
+run was stopped by a signal and can resume.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import os
+import sys
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="mrfp_tpu_torch zoo (RobustNet) trainer")
+    p.add_argument("--arch", default=None,
+                   help="reference factory name (DeepR50V3PlusD, ...; "
+                        "network/deepv3.py:606-779); overrides --trunk/--variant")
+    p.add_argument("--trunk", default="resnet-50")
+    p.add_argument("--variant", default="D16")
+    p.add_argument("--wt-layer", type=int, nargs=7, metavar="W", default=[0] * 7,
+                   help="7-slot whitening plan (0 none, 1 IRW, 2 ISW, 3/4 InstanceNorm; "
+                        "5 SwitchWhiten is ROADMAP A12.3)")
+    p.add_argument("--use-wtloss", action="store_true",
+                   help="ISW whitening regularizer (needs an iw code 2 slot)")
+    p.add_argument("--wt-reg-weight", type=float, default=0.6)
+    p.add_argument("--relax-denom", type=float, default=0.0)
+    p.add_argument("--clusters", type=int, default=50,
+                   help="k-means clusters for ISW mask selection "
+                        "(network/cov_settings.py:52-82)")
+    p.add_argument("--covstat-batches", type=int, default=4,
+                   help="ISW statistics phase: number of view-pair batches")
+    p.add_argument("--use-dsn", action=argparse.BooleanOptionalAction, default=True,
+                   help="auxiliary DSN head on layer3 (zoo default on, "
+                        "network/deepv3.py:417-424)")
+    p.add_argument("--aux-weight", type=float, default=0.4)
+    p.add_argument("--source", default="gtav")
+    p.add_argument("--data-root", default="/data")
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--crop-size", type=int, default=768)
+    p.add_argument("--max-iter", type=int, default=40000)
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--bf16", action="store_true", default=True)
+    p.add_argument("--no-bf16", dest="bf16", action="store_false",
+                   help="fp32 compute with TF32 off")
+    p.add_argument("--random-flip", action=argparse.BooleanOptionalAction, default=True)
+    p.add_argument("--color-jitter", action=argparse.BooleanOptionalAction, default=True)
+    p.add_argument("--gaussian-blur", action=argparse.BooleanOptionalAction, default=True)
+    p.add_argument("--scale-range", type=float, nargs=2, default=(0.5, 2.0),
+                   metavar=("MIN", "MAX"))
+    p.add_argument("--ckpt-every", type=int, default=1000)
+    p.add_argument("--eval-every", type=int, default=0)
+    p.add_argument("--eval-max-images", type=int, default=None)
+    p.add_argument("--log-every", type=int, default=50)
+    p.add_argument("--step-timeout", type=float, default=None,
+                   help="exit 75 when no step syncs for this many seconds. "
+                        "Default: 1800 on cuda, off on cpu; 0 disables")
+    p.add_argument("--first-beat-timeout", type=float, default=None,
+                   help="window for the first sync (model upload, kernel build, "
+                        "statistics phase). Default: max(2x step-timeout, 3600)")
+    p.add_argument("--snapshot-every", type=int, default=0,
+                   help="host-snapshot the state every N steps for the watchdog's "
+                        "emergency checkpoint; see cli.train")
+    p.add_argument("--runs-dir", default="./runs")
+    p.add_argument("--json-out", default=None,
+                   help="also write the result line ({step, preempted, losses, "
+                        "run_dir, covstat}) here")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="more than one is not ported: ROADMAP A12.5")
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--coordinator-address", default=None)
+    p.add_argument("--data-parallel", type=int, default=-1)
+    for flag in ("--model-parallel", "--spatial-parallel"):
+        p.add_argument(flag, type=int, default=1, help="not ported: ROADMAP A14")
+    return p.parse_args(argv)
+
+
+def check_args(args) -> None:
+    """Resolve ``--arch`` into ``--trunk``/``--variant`` and raise on what
+    the port cannot run: several processes (A12.5), a mesh (A14), a trunk
+    outside the ResNet family (A12.4), iw code 5 (A12.3), and an IRW slot
+    under ``--use-wtloss`` (ROADMAP C6: the JAX trainer fails there with an
+    AttributeError)."""
+    from mrfp_tpu_torch.models.deepv3_zoo import arch_trunk
+    from mrfp_tpu_torch.nn.resnet import check_trunk
+    if args.arch:
+        args.trunk, args.variant = arch_trunk(args.arch)
+    nproc = args.num_processes if args.num_processes is not None else \
+        int(os.environ.get("WORLD_SIZE", 1))
+    if nproc != 1:
+        raise NotImplementedError(f"--num-processes {nproc}: the zoo trains in one process; "
+                                  f"its statistics pass and masks across ranks are ROADMAP "
+                                  f"A12.5")
+    bad = [flag for flag, on in (("--data-parallel", args.data_parallel not in (-1, 1)),
+                                 ("--model-parallel", args.model_parallel != 1),
+                                 ("--spatial-parallel", args.spatial_parallel != 1)) if on]
+    if bad:
+        raise NotImplementedError(f"not ported yet: {', '.join(bad)} (ROADMAP A14)")
+    check_trunk(args.trunk)
+    if 5 in args.wt_layer:
+        raise NotImplementedError("iw code 5 (SwitchWhiten2d) is not ported yet: see "
+                                  "ROADMAP item A12.3")
+    if args.use_wtloss and 1 in args.wt_layer:
+        raise ValueError(
+            "--use-wtloss with an IRW slot (iw code 1): the statistics pass calls "
+            "set_variance_of_covariance on every covariance layer and CovMatrixIRW has "
+            "none, so the JAX trainer fails with an AttributeError (ROADMAP C6); use ISW "
+            "(code 2), or train the IRW slots without --use-wtloss")
+
+
+def build_config(args):
+    from mrfp_tpu_torch.core.config import Config
+    cfg = Config()
+    return cfg.replace(
+        model=dataclasses.replace(
+            cfg.model, trunk=args.trunk, variant=args.variant, wt_layer=tuple(args.wt_layer),
+            use_wtloss=args.use_wtloss, use_dsn_aux=args.use_dsn,
+            relax_denom=args.relax_denom, clusters=args.clusters,
+            wt_reg_weight=args.wt_reg_weight, hrfp_plus=False),
+        perturb=dataclasses.replace(cfg.perturb, enabled=False),
+        data=dataclasses.replace(
+            cfg.data, source=args.source, batch_size=args.batch_size,
+            crop_size=args.crop_size, base_size=args.crop_size,
+            random_flip=args.random_flip,
+            color_jitter=cfg.data.color_jitter if args.color_jitter else None,
+            gaussian_blur=args.gaussian_blur, scale_range=tuple(args.scale_range)),
+        train=dataclasses.replace(
+            cfg.train, max_iter=args.max_iter, lr=args.lr, seed=args.seed,
+            checkpoint_every=args.ckpt_every, log_every=args.log_every,
+            compute_dtype="bfloat16" if args.bf16 else "float32"))
+
+
+def run_recipe(args) -> dict:
+    """What a zoo run's checkpoints may be resumed by: the data, the crop,
+    the seed and the model (``mode`` "zoo", which no ``cli.train`` recipe
+    has, so neither trainer resumes the other's checkpoint)."""
+    synthetic = args.synthetic or args.source == "synthetic"
+    return {"source": "synthetic" if synthetic else args.source,
+            "crop_size": args.crop_size, "seed": args.seed, "mode": "zoo",
+            "trunk": args.trunk, "variant": args.variant,
+            "wt_layer": [int(c) for c in args.wt_layer], "use_wtloss": bool(args.use_wtloss),
+            "use_dsn": bool(args.use_dsn)}
+
+
+def build_state(cfg, device: torch.device):
+    """The zoo model from seeded random weights, its optimizer and schedule."""
+    from mrfp_tpu_torch.models.deepv3_zoo import DeepV3Plus
+    from mrfp_tpu_torch.nn.layers import init_random_
+    from mrfp_tpu_torch.train.state import create_train_state
+    m = cfg.model
+    model = DeepV3Plus(num_classes=m.num_classes, trunk=m.trunk, variant=m.variant,
+                       wt_layer=m.wt_layer, use_dsn=m.use_dsn_aux)
+    init_random_(model, torch.Generator().manual_seed(cfg.train.seed))
+    return create_train_state(model.to(device), cfg.train)
+
+
+def build_view_pairs(dataset, n_batches: int, batch_size: int, seed: int
+                     ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """The statistics phase's inputs (mrfp_tpu/cli/train_zoo.py:145-175):
+    pairs of differently augmented views of the same images, fp32 NHWC.
+    The per-sample augmentation follows (seed, epoch, index), so the same
+    indices fetched under two epochs give two photometric views, the role
+    of RobustNet's doubled colour-jitter pipeline (deepv3.py:481-482). An
+    augmentation-free pipeline (``--synthetic``) gives equal views, whose
+    variance of covariance is 0, so the second view is then an explicit
+    photometric jitter drawn from ``seed``."""
+    n = min(len(dataset), n_batches * batch_size)
+    idx = list(range(n))
+
+    def grab(epoch):
+        if hasattr(dataset, "set_epoch"):
+            dataset.set_epoch(epoch)
+        return [dataset[i] for i in idx]
+
+    va, vb = grab(1000003), grab(1000007)
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for k in range(0, n, batch_size):
+        a = np.stack([np.asarray(s["image"], np.float32) for s in va[k:k + batch_size]])
+        b = np.stack([np.asarray(s["image"], np.float32) for s in vb[k:k + batch_size]])
+        if np.array_equal(a, b):
+            scale = rng.uniform(0.8, 1.2, (b.shape[0], 1, 1, 1)).astype(np.float32)
+            b = np.clip(b * scale + rng.normal(0.0, 4.0, b.shape), 0, 255)
+        pairs.append((a, b.astype(np.float32)))
+    return pairs
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    check_args(args)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: torch.cuda.is_available() is False "
+                         "(use --device cpu to run the plain versions on the CPU)")
+    from mrfp_tpu_torch.utils.watchdog import watchdog_from_arg
+    watchdog = watchdog_from_arg(args.step_timeout, args.first_beat_timeout,
+                                 accelerator=args.device == "cuda")
+    return _train(args, torch.device(args.device), watchdog)
+
+
+def _train(args, device: torch.device, watchdog) -> int:
+    if not args.bf16 and device.type == "cuda":
+        # fp32 means full fp32: cuDNN convs default to TF32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    from mrfp_tpu_torch.cli.train import build_dataset
+    from mrfp_tpu_torch.data.loader import TrainLoader
+    from mrfp_tpu_torch.models.deepv3_zoo import build_cov_layers
+    from mrfp_tpu_torch.train.checkpoint import CheckpointManager
+    from mrfp_tpu_torch.train.loop import run_training_loop
+    from mrfp_tpu_torch.train.zoo_step import covstat_pass, zoo_train_step
+    from mrfp_tpu_torch.utils.experiment import prep_experiment
+
+    cfg = build_config(args)
+    exp = prep_experiment(cfg, root=args.runs_dir)
+    logging.info("zoo experiment %s on %s", exp["name"], device)
+    state = build_state(cfg, device)
+    ckpt = CheckpointManager(exp["ckpt_dir"], keep=cfg.train.keep_checkpoints,
+                             recipe=run_recipe(args))
+    if ckpt.restore(state):
+        logging.info("resumed from step %d", state.step)
+    dataset = build_dataset(args, cfg)
+    # the statistics phase reads the (restored) weights, as RobustNet
+    # refreshes its masks from the current model
+    wt_masks = wt_nrc = None
+    covstat = None
+    if cfg.model.use_wtloss and 2 in cfg.model.wt_layer:
+        cov_layers = build_cov_layers(cfg.model.trunk, cfg.model.wt_layer,
+                                      relax_denom=cfg.model.relax_denom,
+                                      clusters=cfg.model.clusters)
+        pairs = build_view_pairs(dataset, args.covstat_batches, cfg.data.batch_size, args.seed)
+        t0 = time.perf_counter()
+        wt_masks, wt_nrc = covstat_pass(state.model, cov_layers, pairs, cfg, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        covstat = {"seconds": time.perf_counter() - t0, "pairs": len(pairs),
+                   "masks": [{"dim": int(layer.dim), "nrc": n}
+                             for layer, n in zip(cov_layers, wt_nrc)]}
+        logging.info("covstat phase: %d masks from %d view pairs in %.3f s: %s",
+                     len(wt_masks), len(pairs), covstat["seconds"], covstat["masks"])
+    workers = cfg.data.num_workers if device.type == "cuda" else 0
+    loader = TrainLoader(dataset, cfg.data.batch_size, seed=args.seed, num_workers=workers,
+                         pin_memory=device.type == "cuda")
+    writer = exp["writer"]
+
+    def step_fn(st, images, labels):
+        return zoo_train_step(st, images, labels, cfg, wt_masks, wt_nrc, args.aux_weight)
+
+    run_validation = None
+    if args.eval_every:
+        from mrfp_tpu_torch.train.evaluator import SegEvaluator
+        val_dataset = build_dataset(args, cfg, train=False)
+        evaluator = SegEvaluator(state.model, num_classes=cfg.model.num_classes,
+                                 device=device,
+                                 autocast_dtype=torch.bfloat16 if args.bf16 else None)
+
+        def run_validation(st, step):
+            st.model.eval()
+            res = evaluator.run(val_dataset, max_images=args.eval_max_images,
+                                log=lambda *a, **k: None,
+                                heartbeat=watchdog.beat if watchdog else None)
+            logging.info("iter %d val mean_iu %.5f acc %.5f", step, res["mean_iu"],
+                         res["acc"])
+            writer.add_scalar("val/mean_iu", res["mean_iu"], step)
+            writer.add_scalar("val/acc", res["acc"], step)
+            return {"mean_iu": res["mean_iu"], "acc": res["acc"]}
+
+    try:
+        step, preempted, losses = run_training_loop(
+            state, loader, step_fn, cfg, ckpt, writer, device,
+            eval_every=args.eval_every, run_validation=run_validation, watchdog=watchdog,
+            snapshot_every=args.snapshot_every)
+    finally:
+        ckpt.close()
+        writer.close()
+        logging.getLogger("").removeHandler(exp["log_handler"])
+        exp["log_handler"].close()
+    result = {"step": step, "preempted": preempted, "run_dir": exp["exp_dir"],
+              "losses": losses, "covstat": covstat}
+    print(json.dumps(result))
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(result, f)
+    if preempted and step < cfg.train.max_iter:
+        logging.warning("preempted at step %d/%d (resumable); exit 75", step,
+                        cfg.train.max_iter)
+        return 75
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

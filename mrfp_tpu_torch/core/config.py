@@ -4,10 +4,13 @@ It is a copy because ``mrfp_tpu.core``'s ``__init__`` imports jax. The
 knobs and their defaults are the JAX package's, so one recipe names the
 same run in both packages. ``MeshConfig`` is not copied: data parallelism
 runs one process per card (``parallel/dist.py``), whose count the launch
-gives, and the other mesh axes wait for ROADMAP item A14. The zoo's knobs (``trunk`` other than resnet-50,
-``wt_layer`` codes other than 0 and 4) raise where they are read
-(``nn/resnet.py``, ``nn/norms.py``) and name ROADMAP item A12; ``remat``, a
-TPU memory measure, and the zoo's ``use_wtloss`` are not read.
+gives, and the other mesh axes wait for ROADMAP item A14. ``trunk`` takes
+the nine ResNet trunks and ``wt_layer`` iw codes 0-4; a trunk outside the
+ResNet family and code 5 raise where they are read (``nn/resnet.py``,
+``nn/norms.py``) and name ROADMAP items A12.4 and A12.3. The zoo's knobs
+(``use_wtloss``, ``relax_denom``, ``clusters``, ``wt_reg_weight``) are
+read by ``cli/train_zoo.py`` and ``train/zoo_step.py``; ``remat``, a TPU
+memory measure, is not read.
 """
 
 from __future__ import annotations

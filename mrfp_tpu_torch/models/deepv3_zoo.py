@@ -1,0 +1,193 @@
+"""The DeepV3Plus zoo: DeepLabV3+ over a ResNet trunk with the whitening
+plan, NCHW (mrfp_tpu/models/deepv3_zoo.py; reference network/deepv3.py:
+103-779).
+
+``DeepV3Plus`` is the port's ``MRFP`` without the perturbation: the same
+trunk, ASPP, decoder, classifier and DSN head under the reference's keys,
+so one ``state_dict_from_jax`` serves both. Its forward collects the
+whitening maps of iw codes 1 and 2 (``w_arr``, before the ReLU, in the
+order the modules run) in train mode and in the statistics pass; the eval
+forward collects none and returns the logits alone, so a ``torch.export``
+trace of it passes no list and keeps no state.
+
+The ISW/IRW state is host numpy (``nn/cov_settings.py``): ``covstat_update``
+takes each map's per-sample covariance and its variance over the batch on
+the map's device, in fp64, and copies only the C x C result to the host,
+where the JAX package copies the whole maps. ``whitening_loss_from_cov``
+and the factory names (``DeepR50V3PlusD``, ...) are the JAX package's; a
+factory whose trunk is not a ResNet raises and names ROADMAP A12.4.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from mrfp_tpu_torch.models.mrfp import MRFP
+from mrfp_tpu_torch.nn.cov_settings import CovMatrixIRW, CovMatrixISW
+from mrfp_tpu_torch.nn.resnet import check_trunk, variant_output_stride
+from mrfp_tpu_torch.ops.resize import resize_bilinear_align_corners
+from mrfp_tpu_torch.train.losses import instance_whitening_loss
+
+# trunk -> the channels of the seven wt_layer slots, which size the cov
+# machinery (mrfp_tpu/models/deepv3_zoo.py:38-71)
+SLOT_CHANNELS = {
+    "resnet-18": (0, 0, 64, 64, 128, 256, 512),
+    "resnet-34": (0, 0, 64, 64, 128, 256, 512),
+    "resnet-50": (0, 0, 64, 256, 512, 1024, 2048),
+    "resnet-101": (64, 64, 128, 256, 512, 1024, 2048),
+    "resnet-152": (0, 0, 64, 256, 512, 1024, 2048),
+    "resnext-50": (0, 0, 64, 256, 512, 1024, 2048),
+    "resnext-101": (0, 0, 64, 256, 512, 1024, 2048),
+    "wide_resnet-50": (0, 0, 64, 256, 512, 1024, 2048),
+    "wide_resnet-101": (0, 0, 64, 256, 512, 1024, 2048),
+}
+
+
+class DeepV3Plus(MRFP):
+    """DeepLabV3+ with a per-slot whitening plan and the DSN head (on by
+    default, network/deepv3.py:417-424). ``forward`` returns, in train mode,
+    ``{"logits", "w_arr", "dsn"}`` (fp32 logits at the input's size, the
+    whitening maps, fp32 DSN logits at layer3's size when ``use_dsn``);
+    with ``cal_covstat``, ``{"w_arr"}`` alone, after layer4; in eval mode,
+    the fp32 logits."""
+
+    def __init__(self, num_classes: int = 19, trunk: str = "resnet-101",
+                 variant: str = "D", wt_layer: Tuple[int, ...] = (0,) * 7,
+                 use_dsn: bool = True):
+        super().__init__(num_classes=num_classes, trunk=trunk, variant=variant,
+                         wt_layer=tuple(wt_layer), oc_branch=False, hrfp_plus=False,
+                         use_dsn=use_dsn)
+        self.trunk, self.wt_layer = trunk, tuple(wt_layer)
+
+    def forward(self, x: torch.Tensor, valid_hw: Optional[Tuple[int, int]] = None,
+                impl: Optional[str] = None, cal_covstat: bool = False,
+                dropout: Union[torch.Generator, torch.Tensor, None] = None):
+        """``valid_hw``, ``impl`` and ``dropout`` as in ``MRFP.forward``."""
+        h, w = x.shape[2], x.shape[3]
+        w_arr: Optional[list] = [] if (self.training or cal_covstat) else None
+        low_level = self.layer1(self.layer0(x, w_arr), None, w_arr)
+        aux_in = self.layer3(self.layer2(low_level, None, w_arr), None, w_arr)
+        feat = self.layer4(aux_in, None, w_arr)
+        if cal_covstat:
+            # the statistics pass needs only the maps (network/deepv3.py:534-545)
+            return {"w_arr": w_arr}
+        if valid_hw is not None:
+            os_ = variant_output_stride(self.variant)
+            valid_hw = tuple((int(v) + os_ - 1) // os_ for v in valid_hw)
+        feat = self.aspp(feat, valid_hw=valid_hw, impl=impl)
+        dec1 = self.decode(feat, low_level, impl=impl)
+        logits = resize_bilinear_align_corners(self.final2(dec1), (h, w), impl).float()
+        if not self.training:
+            return logits
+        out: Dict[str, object] = {"logits": logits, "w_arr": w_arr}
+        if self.use_dsn:
+            out["dsn"] = self.dsn(aux_in, dropout).float()
+        return out
+
+
+def build_cov_layers(trunk: str, wt_layer: Sequence[int], relax_denom: float = 0.0,
+                     clusters: int = 50) -> List:
+    """Host-side ISW/IRW state per instrumented slot, in slot order
+    (network/deepv3.py:456-467)."""
+    check_trunk(trunk)
+    in_ch = SLOT_CHANNELS[trunk]
+    layers = []
+    for i, code in enumerate(wt_layer):
+        if code == 1:
+            layers.append(CovMatrixIRW(dim=in_ch[i], relax_denom=relax_denom))
+        elif code == 2:
+            layers.append(CovMatrixISW(dim=in_ch[i], relax_denom=relax_denom,
+                                       clusters=clusters))
+    return layers
+
+
+def covariance_variance(f_map: torch.Tensor, eps: float = 1e-5,
+                        off_mask: Optional[np.ndarray] = None) -> np.ndarray:
+    """One map's variance of covariance (network/deepv3.py:534-544): per
+    sample ``f_cor = f f^T / (HW - 1) + eps I`` over the (C, HW) map, times
+    ``off_mask`` where given, then its variance over the batch (ddof 1).
+    Taken in fp64 on the map's device; the fp32 C x C result comes back."""
+    n, c, h, w = f_map.shape
+    f = f_map.detach().to(torch.float64).reshape(n, c, h * w)
+    f_cor = torch.bmm(f, f.transpose(1, 2)) / (h * w - 1)
+    f_cor = f_cor + eps * torch.eye(c, dtype=torch.float64, device=f.device)
+    if off_mask is not None:
+        f_cor = f_cor * torch.as_tensor(off_mask, dtype=torch.float64, device=f.device)
+    return f_cor.var(dim=0, unbiased=True).to(torch.float32).cpu().numpy()
+
+
+def covstat_update(cov_layers: List, w_arr: Sequence[torch.Tensor],
+                   eps: float = 1e-5) -> None:
+    """One covstat accumulation step: each map's variance of covariance
+    (off-diagonal only, where the layer has a ``reversal_eye``) into its
+    layer. An IRW layer cannot take it: it has no
+    ``set_variance_of_covariance`` in either package, and the JAX package
+    fails here with an AttributeError (ROADMAP C6)."""
+    for layer, f_map in zip(cov_layers, w_arr):
+        if not hasattr(layer, "set_variance_of_covariance"):
+            raise ValueError(
+                f"{type(layer).__name__} takes no statistics pass: IRW (iw code 1) has a "
+                f"fixed mask, and the JAX package's covstat_update fails on it with an "
+                f"AttributeError (ROADMAP C6); use ISW (code 2) for --use-wtloss")
+        layer.set_variance_of_covariance(
+            covariance_variance(f_map, eps, getattr(layer, "reversal_eye", None)))
+
+
+def whitening_loss_from_cov(w_arr: Sequence[torch.Tensor], cov_layers: List) -> torch.Tensor:
+    """The train-time wt_loss with each layer's own mask, count and margin
+    (network/deepv3.py:561-568), averaged over the maps."""
+    masks, margins, nrcs = [], [], []
+    for layer in cov_layers:
+        _eye, mask, margin, nrc = layer.get_mask_matrix()
+        masks.append(mask)
+        nrcs.append(float(nrc))
+        margins.append(float(margin))
+    loss = instance_whitening_loss(list(w_arr), masks, margins, nrcs)
+    return loss / max(len(w_arr), 1)
+
+
+# the reference's factory names (network/deepv3.py:606-779) -> (trunk, variant)
+FACTORIES = {
+    "DeepR18V3PlusD": ("resnet-18", "D"),
+    "DeepR50V3PlusD": ("resnet-50", "D16"),
+    "DeepR50V3PlusD_OS8": ("resnet-50", "D"),
+    "DeepR101V3PlusD": ("resnet-101", "D16"),
+    "DeepR101V3PlusD_OS8": ("resnet-101", "D"),
+    "DeepR152V3PlusD_OS8": ("resnet-152", "D"),
+    "DeepResNext50V3PlusD": ("resnext-50", "D16"),
+    "DeepResNext101V3PlusD": ("resnext-101", "D16"),
+    "DeepResNext101V3PlusD_OS8": ("resnext-101", "D"),
+    "DeepResNext101V3PlusD_OS4": ("resnext-101", "D4"),
+    "DeepWideResNet50V3PlusD": ("wide_resnet-50", "D16"),
+    "DeepWideResNet50V3PlusD_OS8": ("wide_resnet-50", "D"),
+    "DeepWideResNet101V3PlusD": ("wide_resnet-101", "D16"),
+    "DeepWideResNet101V3PlusD_OS8": ("wide_resnet-101", "D"),
+    "DeepShuffleNetV3PlusD": ("shufflenetv2", "D16"),
+    "DeepShuffleNetV3PlusD_OS8": ("shufflenetv2", "D"),
+    "DeepShuffleNetV3PlusD_OS32": ("shufflenetv2", "D32"),
+    "DeepMobileNetV3PlusD": ("mobilenetv2", "D16"),
+    "DeepMobileNetV3PlusD_OS8": ("mobilenetv2", "D"),
+    "DeepMNASNet05V3PlusD": ("mnasnet_05", "D16"),
+    "DeepMNASNet10V3PlusD": ("mnasnet_10", "D16"),
+    "DeepSEResNext50V3PlusD": ("se_resnext-50", "D16"),
+    "DeepSEResNext101V3PlusD": ("se_resnext-101", "D16"),
+}
+
+
+def arch_trunk(arch: str) -> Tuple[str, str]:
+    """A factory name's (trunk, variant); ValueError for an unknown name."""
+    if arch not in FACTORIES:
+        raise ValueError(f"unknown arch {arch!r}; have {sorted(FACTORIES)}")
+    return FACTORIES[arch]
+
+
+def get_net(arch: str, num_classes: int = 19, wt_layer: Sequence[int] = (0,) * 7,
+            use_dsn: bool = True) -> DeepV3Plus:
+    """network/__init__.py:13-23: a factory name -> its model. A name whose
+    trunk is not a ResNet raises NotImplementedError (ROADMAP A12.4)."""
+    trunk, variant = arch_trunk(arch)
+    return DeepV3Plus(num_classes=num_classes, trunk=trunk, variant=variant,
+                      wt_layer=tuple(wt_layer), use_dsn=use_dsn)

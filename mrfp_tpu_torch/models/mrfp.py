@@ -18,6 +18,14 @@ The gates are Python bools drawn on the host, so a plain ``if`` skips the
 OC halves a step does not use, as ``lax.cond`` does in the JAX package,
 without a device sync.
 
+Any of the nine ResNet trunks (``nn/resnet.py``) may carry the model: the
+heads take the trunk's widths (ASPP reads layer4's channels, the decoder's
+``bot_fine`` layer1's, the DSN head layer3's), as the JAX package's flax
+modules infer them. The OC branch reads 64-channel stem features, so a
+model with OC buffers refuses resnet-101, whose deep stem ends at 128
+channels: the JAX package cannot trace a perturbed forward on it either
+(ROADMAP C8).
+
 With ``use_dsn`` the auxiliary DSN head reads layer3's output; the
 train-mode forward then returns its fp32 logits beside the main logits
 (mrfp_tpu/models/mrfp.py:175,218-219), and the eval forward, which never
@@ -81,17 +89,24 @@ class MRFP(DeepLabDecoder):
                  oc_scales_enc: Tuple[float, ...] = (1.205, 1.2, 1.2),
                  oc_scales_dec: Tuple[float, ...] = (0.838, 0.798),
                  use_dsn: bool = False):
-        super().__init__()
+        net = build_trunk(trunk, wt_layer=wt_layer, variant=variant)
+        if oc_branch and net.stem_channels != 64:
+            raise ValueError(
+                f"trunk {trunk!r}: the OC branch reads 64-channel stem features and this "
+                f"trunk's stem gives {net.stem_channels}; the JAX package's perturbed "
+                f"forward fails on it too (ROADMAP C8). Train it without perturbation "
+                f"(--mode baseline) or the zoo trainer")
+        super().__init__(low_ch=net.stage_channels[0])
         self.variant = variant
         self.hrfp_plus = hrfp_plus
         self.np_std, self.np_scale = np_std, np_scale
         self.oc_scales_enc, self.oc_scales_dec = oc_scales_enc, oc_scales_dec
-        net = build_trunk(trunk, wt_layer=wt_layer, variant=variant)
         # the reference takes the trunk's stages as its own children
         # (deepv3.py:170-189), which puts them at the top of the state_dict
         self.layer0, self.layer1, self.layer2, self.layer3, self.layer4 = (
             net.layer0, net.layer1, net.layer2, net.layer3, net.layer4)
-        self.aspp = ASPP(2048, 256, output_stride=variant_output_stride(variant))
+        self.aspp = ASPP(net.stage_channels[3], 256,
+                         output_stride=variant_output_stride(variant))
         self.final2 = nn.Sequential(conv2d(256, num_classes, 1, bias=True))
         self.oc_branch = oc_branch
         if oc_branch:
@@ -100,7 +115,7 @@ class MRFP(DeepLabDecoder):
         if use_dsn:
             # registered last, so the seeded init of every other module
             # draws what it draws without the head
-            self.dsn = DSNHead(1024, num_classes)
+            self.dsn = DSNHead(net.stage_channels[2], num_classes)
         self.eval()
 
     def _np_plus(self, feat: torch.Tensor, noise) -> torch.Tensor:

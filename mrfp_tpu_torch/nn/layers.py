@@ -20,9 +20,12 @@ from mrfp_tpu_torch.ops.dot_stats import dot_with_stats
 
 
 def conv2d(cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
-           padding: int = 0, dilation: int = 1, bias: bool = False) -> nn.Conv2d:
+           padding: int = 0, dilation: int = 1, bias: bool = False,
+           groups: int = 1) -> nn.Conv2d:
+    """``groups`` splits the channels as ``nn.Conv2d``'s does (ResNeXt's
+    grouped 3x3; mrfp_tpu/nn/layers.py::conv2d ``feature_group_count``)."""
     return nn.Conv2d(cin, cout, kernel_size, stride=stride, padding=padding,
-                     dilation=dilation, bias=bias)
+                     dilation=dilation, bias=bias, groups=groups)
 
 
 def conv1x1_with_stats(conv: nn.Conv2d, x: torch.Tensor, impl: Optional[str] = None):

@@ -3,8 +3,18 @@
 torch's own layers have the semantics the JAX package copies
 (mrfp_tpu/nn/norms.py): BatchNorm2d with eps 1e-5, momentum 0.1 and the
 unbiased running variance; InstanceNorm2d with per-sample statistics and no
-running buffers. The port covers iw codes 0 (none) and 4 (affine
-InstanceNorm), the codes of the paper's model.
+running buffers. The port covers iw codes 0 (none), 1 and 2
+(``InstanceWhitening``: a non-affine InstanceNorm whose output the block
+also hands to the ISW/IRW whitening loss, ``collects_map``), 3 (non-affine
+InstanceNorm) and 4 (affine InstanceNorm); codes 1-3 carry no parameters.
+Code 5, SwitchWhiten, is ROADMAP A12.3.
+
+The instance norms take their variance in two passes, as torch's
+``InstanceNorm2d`` does; the JAX package takes it in one
+(mrfp_tpu/nn/norms.py:97-98). On a map whose spread is small beside its
+mean the two differ (ROADMAP C1 is that difference in BatchNorm);
+``tests/test_torch_resnet_family.py`` holds the port to JAX on maps where
+they do not and shows where they do.
 
 Train-mode BatchNorm takes its moments over the global batch, as the JAX
 package's does under a sharded batch: with more than one process
@@ -25,7 +35,7 @@ from torch import nn
 
 from mrfp_tpu_torch.parallel.dist import all_reduce_sum, all_reduce_sum_grad, rank, world
 
-IW_NONE, IW_IN_AFFINE = 0, 4
+IW_NONE, IW_W1, IW_W2, IW_IN, IW_IN_AFFINE, IW_SW = 0, 1, 2, 3, 4, 5
 
 
 def _channels(t: torch.Tensor) -> torch.Tensor:
@@ -182,12 +192,35 @@ def instance_norm_affine(features: int) -> nn.InstanceNorm2d:
     return nn.InstanceNorm2d(features, eps=1e-5, affine=True)
 
 
+class InstanceWhitening(nn.InstanceNorm2d):
+    """iw codes 1 and 2 (network/instance_whitening.py:5-16;
+    mrfp_tpu/nn/norms.py:107-118): instance standardisation, non-affine,
+    no running statistics. The block that owns it appends its output, the
+    map before the ReLU, to the forward's ``w_arr`` list for the whitening
+    loss (``collects_map``)."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5, affine=False)
+
+
+def collects_map(module: Optional[nn.Module]) -> bool:
+    """Whether ``module``'s output goes to the whitening loss's ``w_arr``."""
+    return isinstance(module, InstanceWhitening)
+
+
 def make_iw_layer(iw: int, features: int) -> Optional[nn.Module]:
-    """The post-residual layer for an iw code (0 -> None, 4 -> affine IN)."""
+    """The post-residual layer for an iw code (mrfp_tpu/nn/norms.py:231-247):
+    0 -> None, 1/2 -> ``InstanceWhitening``, 3 -> non-affine IN, 4 -> affine
+    IN; 5 (SwitchWhiten) raises."""
     if iw == IW_NONE:
         return None
+    if iw in (IW_W1, IW_W2):
+        return InstanceWhitening(features)
+    if iw == IW_IN:
+        return nn.InstanceNorm2d(features, eps=1e-5, affine=False)
     if iw == IW_IN_AFFINE:
         return instance_norm_affine(features)
-    raise NotImplementedError(
-        f"iw code {iw} (whitening / plain IN / SwitchWhiten) is not ported "
-        f"yet: see ROADMAP item A12")
+    if iw == IW_SW:
+        raise NotImplementedError("iw code 5 (SwitchWhiten2d) is not ported yet: "
+                                  "see ROADMAP item A12.3")
+    raise ValueError(f"unknown iw code {iw}")

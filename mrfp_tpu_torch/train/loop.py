@@ -6,7 +6,8 @@
 - batches cross to the device two ahead of the step (``prefetch_to_device``);
 - every ``log_every`` steps the loss is fetched (the loop's one sync point),
   logged and written to the metric sinks (``utils/experiment.py``) with the
-  learning rate of the next step, images/s and the step's gates;
+  learning rate of the next step, images/s, the step's gates and any
+  ``loss_*`` terms the step returns (the zoo step's);
 - with a watchdog, the first steps of a launch sync eagerly (steps 1, 2, 4,
   ... until ``log_every`` takes over), so the watchdog leaves its set-up
   window after one step;
@@ -144,6 +145,9 @@ def run_training_loop(state, loader, step_fn, cfg, ckpt, writer, device,
                     writer.add_scalar("train/lr", state.optimizer.param_groups[0]["lr"], step)
                     writer.add_scalar("train/images_per_sec", ips, step)
                     for k in ("gate_oc", "gate_np", "gate_dec"):
+                        writer.add_scalar(f"train/{k}", float(metrics[k]), step)
+                    for k in sorted(k for k in metrics if k.startswith("loss_")):
+                        # the zoo step's terms: loss_main, loss_aux, loss_wt
                         writer.add_scalar(f"train/{k}", float(metrics[k]), step)
                 if eval_every and step % eval_every == 0:
                     metrics_for_ckpt = run_validation(state, step)

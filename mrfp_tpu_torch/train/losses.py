@@ -9,7 +9,9 @@
   ``--batch-weighting`` (losses.py:47-64).
 - ``relaxed_multihot`` and ``relaxed_cross_entropy``: the border-relaxed CE
   of ``--jointwtborder`` (losses.py:100-181), with the multi-hot target
-  built on the device from the int labels.
+  built on the device from the int labels;
+- ``instance_whitening_loss``: the ISW/IRW penalty of the zoo trainer
+  (losses.py:67-97).
 
 Every denominator over the batch (the valid-pixel count, the class
 weights' sum, the relaxed CE's weight sum, the class histogram) is summed
@@ -21,7 +23,7 @@ global batch's. With one process nothing changes.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -124,3 +126,38 @@ def relaxed_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, num_classe
     w = torch.where(valid, weight, 0.0)
     nll = torch.where(valid, lse - lse_allowed, 0.0)
     return (nll * w).sum() / all_reduce_sum(w.sum().detach()).clamp_min(1.0)
+
+
+def instance_whitening_loss(w_arr: Sequence[torch.Tensor],
+                            mask_matrices: Optional[Sequence] = None,
+                            margin: Union[float, Sequence[float]] = 0.0,
+                            num_remove_cov: Optional[Sequence[float]] = None) -> torch.Tensor:
+    """The ISW/IRW covariance penalty over the collected NCHW whitening
+    maps (mrfp_tpu/train/losses.py:67-97): per map and sample,
+    ``f_cor = f f^T / (HW - 1) + 1e-5 I`` over its (C, HW) view, the masked
+    entries' absolute sum less the margin over the count of removed
+    entries, clamped at 0, averaged over the batch; summed over the maps.
+    ``mask_matrices`` (C x C arrays or tensors; None: the upper triangle),
+    ``num_remove_cov`` (None: the mask's sum) and ``margin`` (a scalar, or
+    one per map: with ``relax_denom`` > 0 each layer has its own) are per
+    map. The per-sample product is ``torch.bmm`` in fp32 with autocast off;
+    TF32 stays off as torch's matmul default leaves it."""
+    total = None
+    for i, w in enumerate(w_arr):
+        n, c, h, wd = w.shape
+        with torch.autocast(w.device.type, enabled=False):
+            f = w.float().reshape(n, c, h * wd)
+            cov = torch.bmm(f, f.transpose(1, 2)) / (h * wd - 1)
+        cov = cov + 1e-5 * torch.eye(c, dtype=torch.float32, device=w.device)
+        if mask_matrices is not None:
+            mask = torch.as_tensor(mask_matrices[i], dtype=torch.float32, device=w.device)
+        else:
+            mask = torch.triu(torch.ones((c, c), dtype=torch.float32, device=w.device), 1)
+        nrc = num_remove_cov[i] if num_remove_cov is not None else mask.sum()
+        m = margin[i] if isinstance(margin, (list, tuple)) else margin
+        off = (cov * mask).abs().sum(dim=(1, 2)) - m
+        term = (off / nrc).clamp_min(0.0).mean()
+        total = term if total is None else total + term
+    if total is None:
+        return torch.zeros((), dtype=torch.float32)
+    return total

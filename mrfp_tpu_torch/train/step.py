@@ -117,9 +117,16 @@ def _loss(out, labels: torch.Tensor, cfg: Config, class_weights: Optional[torch.
     else:
         loss = cross_entropy(logits, labels, d.ignore_index, class_weights)
     if aux is not None:
-        small = resize_nearest(labels[:, None].float(), size=aux.shape[2:], impl=impl)
-        loss = loss + DSN_WEIGHT * cross_entropy(aux, small[:, 0].long(), d.ignore_index)
+        loss = loss + DSN_WEIGHT * dsn_cross_entropy(aux, labels, d.ignore_index, impl)
     return loss
+
+
+def dsn_cross_entropy(aux: torch.Tensor, labels: torch.Tensor, ignore_index: int,
+                      impl: Optional[str] = None) -> torch.Tensor:
+    """CE of the DSN head's logits against the labels nearest-resized to
+    their size (network/deepv3.py:570-576; the nearest kernel on the card)."""
+    small = resize_nearest(labels[:, None].float(), size=aux.shape[2:], impl=impl)
+    return cross_entropy(aux, small[:, 0].long(), ignore_index)
 
 
 def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,

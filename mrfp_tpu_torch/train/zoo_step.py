@@ -1,0 +1,104 @@
+"""The train step of the DeepV3Plus zoo (mrfp_tpu/train/zoo_step.py;
+network/deepv3.py:548-585):
+
+  total = CE(main) + aux_weight * CE(dsn, labels nearest-resized to its size)
+          [+ wt_reg_weight * the whitening loss over the collected maps]
+
+and the ISW statistics phase, ``covstat_pass``: pairs of augmented views
+of the same images run through the eval-mode model, the variance of
+covariance accumulates per instrumented layer (deepv3.py:478-545), and the
+masks are frozen on the host and handed to the step as device tensors.
+
+As in the JAX step, the whitening loss takes margin 0 for every map, where
+``models.deepv3_zoo.whitening_loss_from_cov`` passes each layer's own
+margin; the two differ only with ``relax_denom`` > 0 (ROADMAP C7). The step
+updates ``state`` in place with the port's SGD and poly schedule
+(``train/state.py``) and never waits for the device.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from mrfp_tpu_torch.core.config import Config
+from mrfp_tpu_torch.core.rng import device_generator
+from mrfp_tpu_torch.models.deepv3_zoo import covstat_update
+from mrfp_tpu_torch.train.losses import cross_entropy, instance_whitening_loss
+from mrfp_tpu_torch.train.state import TrainState
+from mrfp_tpu_torch.train.step import DSN_WEIGHT, autocast_for, dsn_cross_entropy
+
+
+def zoo_train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
+                   cfg: Config, wt_masks: Optional[Sequence[torch.Tensor]] = None,
+                   wt_nrc: Optional[Sequence[float]] = None,
+                   aux_weight: float = DSN_WEIGHT, impl: Optional[str] = None,
+                   dropout: Union[torch.Tensor, torch.Generator, None] = None
+                   ) -> Dict[str, object]:
+    """One SGD step of the zoo objective on ``state`` in place. ``images``
+    NHWC uint8 or float, ``labels`` NHW integer, on the model's device.
+    Returns ``{"loss", "loss_main", ["loss_aux"], ["loss_wt"]}`` as device
+    tensors, and the three gates of the loop's log, always off.
+    ``dropout`` injects the DSN head's keep mask (the parity tests give
+    JAX's); by default it comes from the step's ``dropout`` stream.
+    ``impl="plain"`` runs every resize through its plain version."""
+    model = state.model
+    device = images.device
+    x = images.permute(0, 3, 1, 2).float().contiguous()  # exact for uint8
+    labels = labels.long()
+    if dropout is None and model.use_dsn:
+        dropout = device_generator(state.seed, state.step, "dropout", device)
+    ignore = cfg.data.ignore_index
+    model.train()
+    with autocast_for(cfg, device):
+        out = model(x, impl=impl, dropout=dropout)
+    loss = cross_entropy(out["logits"], labels, ignore)
+    metrics: Dict[str, object] = {"loss_main": loss.detach()}
+    if "dsn" in out:
+        aux = dsn_cross_entropy(out["dsn"], labels, ignore, impl)
+        loss = loss + aux_weight * aux
+        metrics["loss_aux"] = aux.detach()
+    if cfg.model.use_wtloss and out["w_arr"]:
+        wl = instance_whitening_loss(out["w_arr"], wt_masks, 0.0, wt_nrc) / len(out["w_arr"])
+        loss = loss + cfg.model.wt_reg_weight * wl
+        metrics["loss_wt"] = wl.detach()
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    metrics.update(loss=loss.detach(), gate_oc=False, gate_np=False, gate_dec=False)
+    return metrics
+
+
+@torch.no_grad()
+def covstat_pass(model, cov_layers: List, view_pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
+                 cfg: Config, device: torch.device
+                 ) -> Tuple[List[torch.Tensor], List[float]]:
+    """The ISW statistics phase: each pair's two NHWC batches, concatenated,
+    through the eval-mode model with ``cal_covstat`` (under the step's
+    autocast), each map's variance of covariance into its layer
+    (``covstat_update``), then the masks frozen. Returns ``(wt_masks,
+    wt_nrc)`` for ``zoo_train_step``: fp32 masks on ``device`` and the
+    counts of removed entries."""
+    was_training = model.training
+    model.eval()
+    try:
+        for a, b in view_pairs:
+            x = torch.from_numpy(np.concatenate([a, b], axis=0)).to(device)
+            x = x.permute(0, 3, 1, 2).float().contiguous()
+            with autocast_for(cfg, device):
+                w_arr = model(x, cal_covstat=True)["w_arr"]
+            covstat_update(cov_layers, w_arr)
+    finally:
+        model.train(was_training)
+    masks, nrc = [], []
+    for layer in cov_layers:
+        if hasattr(layer, "set_mask_matrix"):
+            layer.set_mask_matrix()
+        _eye, mask, _margin, n = layer.get_mask_matrix()
+        masks.append(torch.as_tensor(mask, dtype=torch.float32, device=device))
+        nrc.append(float(n))
+    return masks, nrc

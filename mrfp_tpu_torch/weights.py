@@ -3,9 +3,9 @@
 The port keeps the reference's state_dict key layout, so both reduce to
 ``load_state_dict(strict=True)``:
 
-- ``state_dict_from_jax`` maps the JAX ``MRFP`` tree (nested dicts of numpy
-  arrays; no JAX import; with ``use_dsn`` its ``dsn`` head too) to the
-  port's keys, as
+- ``state_dict_from_jax`` maps the JAX ``MRFP`` or zoo ``DeepV3Plus`` tree
+  over any ResNet trunk (nested dicts of numpy arrays; no JAX import; with
+  ``use_dsn`` its ``dsn`` head too) to the port's keys, as
   mrfp_tpu/train/export_torch.py::export_state_dict does for the reference:
   conv kernels HWIO -> OIHW, BN scale/bias/mean/var ->
   weight/bias/running_mean/running_var, ``num_batches_tracked`` = 0.
@@ -65,28 +65,18 @@ def _conv_bn(sd: dict, ref: str, node: dict, stats: dict) -> None:
 def state_dict_from_jax(params: Dict[str, Any],
                         batch_stats: Optional[Dict[str, Any]] = None
                         ) -> Dict[str, torch.Tensor]:
-    """JAX ``MRFP`` (resnet-50) variables -> the port's state_dict."""
+    """JAX ``MRFP`` or zoo ``DeepV3Plus`` variables, over any of the nine
+    ResNet trunks, -> the port's state_dict: the inverse of the key map of
+    mrfp_tpu/train/import_torch.py:98-278. The stem is ``conv1`` and its norm
+    (``bn1``, or ``bn1_iw`` for an affine IN) at ``layer0.0/1``; the deep
+    stem of resnet-101 adds ``conv2``/``conv3`` and their norms at
+    ``layer0.3/4`` and ``layer0.6/7``. A block maps ``conv1..3``/``bn1..3``
+    (a BasicBlock has two of each), the downsample pair and an affine
+    ``instance_norm_layer``; iw codes 1-3 have no variables. Grouped
+    kernels keep their HWIO per-group layout, which transposes to torch's
+    ``(out, in / groups, kh, kw)``."""
     stats = batch_stats or {}
-    sd: Dict[str, torch.Tensor] = {}
-    bp, bst = params["backbone"], stats.get("backbone", {})
-    _conv(sd, "layer0.0", bp["conv1"])
-    stem = "bn1" if "bn1" in bp else "bn1_iw"
-    _norm(sd, "layer0.1", bp[stem], bst.get(stem))
-    for L in (1, 2, 3, 4):
-        lyr, lst = bp[f"layer{L}"], bst.get(f"layer{L}", {})
-        for blk in sorted(lyr, key=lambda n: int(re.sub(r"\D", "", n))):
-            b, bs = lyr[blk], lst.get(blk, {})
-            ref = f"layer{L}.{int(blk[len('block'):])}"
-            for i in (1, 2, 3):
-                _conv(sd, f"{ref}.conv{i}", b[f"conv{i}"])
-                _norm(sd, f"{ref}.bn{i}", b[f"bn{i}"], bs.get(f"bn{i}"))
-            if "downsample_conv" in b:
-                _conv(sd, f"{ref}.downsample.0", b["downsample_conv"])
-                _norm(sd, f"{ref}.downsample.1", b["downsample_bn"],
-                      bs.get("downsample_bn"))
-            if "instance_norm_layer" in b:
-                _norm(sd, f"{ref}.instance_norm_layer", b["instance_norm_layer"],
-                      None)
+    sd = backbone_state_from_jax(params["backbone"], stats.get("backbone"))
     ap, ast = params["aspp"], stats.get("aspp", {})
     for name in ap:
         ref = "aspp.img_conv" if name == "img_conv" else \
@@ -103,6 +93,44 @@ def state_dict_from_jax(params: Dict[str, Any],
         dsn, dst = params["dsn"], stats.get("dsn", {})
         _conv_bn(sd, "dsn", dsn["conv"], dst.get("conv", {}))
         _conv(sd, "dsn.4", dsn["classifier"])
+    return sd
+
+
+def backbone_state_from_jax(bp: Dict[str, Any], bst: Optional[Dict[str, Any]] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """A JAX ``ResNet``'s variables -> ``layer0``..``layer4`` of the port's
+    state_dict (``state_dict_from_jax`` says how)."""
+    bst = bst or {}
+    sd: Dict[str, torch.Tensor] = {}
+    for i in (1, 2, 3) if "conv2" in bp else (1,):
+        _conv(sd, f"layer0.{3 * (i - 1)}", bp[f"conv{i}"])
+        for name in (f"bn{i}", f"bn{i}_iw"):
+            if name in bp:
+                _norm(sd, f"layer0.{3 * (i - 1) + 1}", bp[name], bst.get(name))
+    for L in (1, 2, 3, 4):
+        lyr, lst = bp[f"layer{L}"], bst.get(f"layer{L}", {})
+        for blk in sorted(lyr, key=lambda n: int(re.sub(r"\D", "", n))):
+            ref = f"layer{L}.{int(blk[len('block'):])}"
+            for k, v in block_state_from_jax(lyr[blk], lst.get(blk, {})).items():
+                sd[f"{ref}.{k}"] = v
+    return sd
+
+
+def block_state_from_jax(b: Dict[str, Any], bs: Optional[Dict[str, Any]] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """One JAX ``BasicBlock`` or ``Bottleneck``'s variables -> the port
+    block's state_dict (keys relative to the block)."""
+    bs = bs or {}
+    sd: Dict[str, torch.Tensor] = {}
+    for i in (1, 2, 3):
+        if f"conv{i}" in b:
+            _conv(sd, f"conv{i}", b[f"conv{i}"])
+            _norm(sd, f"bn{i}", b[f"bn{i}"], bs.get(f"bn{i}"))
+    if "downsample_conv" in b:
+        _conv(sd, "downsample.0", b["downsample_conv"])
+        _norm(sd, "downsample.1", b["downsample_bn"], bs.get("downsample_bn"))
+    if "instance_norm_layer" in b:
+        _norm(sd, "instance_norm_layer", b["instance_norm_layer"], None)
     return sd
 
 

@@ -216,9 +216,12 @@ def test_cli_export_checks_and_writes_the_manifest(tmp_path):
         os.unlink(out)
 
 
-@pytest.mark.parametrize("flags", [["--arch", "DeepR50V3PlusD"], ["--wt-layer", *"0004400"],
-                                   ["--use-dsn"]])
+@pytest.mark.parametrize("flags", [["--arch", "DeepMobileNetV3PlusD"], ["--wt-layer", *"0004500"],
+                                   ["--trunk", "shufflenetv2", "--wt-layer", *"0000000"]])
 def test_cli_export_refuses_the_zoo(tmp_path, flags):
+    """The zoo's ResNet models export (tests/test_torch_cli_zoo.py); what
+    stays refused names its ROADMAP item: the other trunks (A12.4) and iw
+    code 5 (A12.3)."""
     with pytest.raises(NotImplementedError, match="A12"):
         cli_export.main(["--device", "cpu", "--out", str(tmp_path / "m.pt2x"), *flags])
 
