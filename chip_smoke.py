@@ -85,6 +85,17 @@ plain path, after the resize kernels are held at that batch; then
 take its checkpoint at 1024x2048; the zoo step's time, images/s and peak
 memory are timed in process.
 
+The zoo's other trunks and SwitchWhiten (``phase_zoo_trunks``): after the
+resizes of their paths are held (layer1 at 1/8 for ShuffleNetV2,
+MobileNetV2 and MNASNet; layer4 at 1/32 for SE-ResNeXt), each of
+MobileNetV2, ShuffleNetV2, MNASNet 0.5/1.0 and SE-ResNeXt-50/101 in the
+zoo's DeepV3Plus at D16 runs the fp32 eval forward at 1x3x1024x2048 and
+one bf16 zoo step at 2x768x768 (the ISW loss where the trunk has iw
+slots), kernel path against plain path; then the zoo recipe with
+SwitchWhiten (iw code 5 in the stem and layers 1-2) is timed at batch 16,
+768x768, and its ``cli.export --check`` runs at 1024x2048. Its kernel
+paths' launches are counted.
+
 Data parallelism (``phase_data_parallel``): two ranks, each a process of
 its own, share the card through gloo and take an fp32 step (TF32 off, the
 damped fixture) and the bf16 recipe's step on their halves of a global
@@ -96,8 +107,9 @@ process group (NCCL refuses two ranks on one card).
 
 Any failure raises and exits non-zero; the last line of stdout is the JSON
 verdict, printed only when every phase passed. With ``--profile DIR`` it
-also writes torch.profiler kernel tables of one fp32 eval forward and of
-one bf16 train step, unfused and fused, to DIR.
+also writes torch.profiler kernel tables of one fp32 eval forward, of
+one bf16 train step, unfused and fused, and of one SwitchWhiten layer's
+forward and backward to DIR.
 """
 
 from __future__ import annotations
@@ -2533,24 +2545,28 @@ def phase_trunks(gen, cuda_gen) -> dict:
     return eval_ms
 
 
-def _zoo_step_time() -> dict:
-    """The zoo step of ``cli.train_zoo``'s recipe in process: masks from a
-    statistics pass over 4 view pairs, then the bf16 step at batch
-    ``ZOO_N`` timed with CUDA events (median of 5 after 2 warm-up steps),
-    images/s from it, and the peak device memory of those steps."""
+def _zoo_step_time(wt=ZOO_WT) -> dict:
+    """The zoo step of ``cli.train_zoo``'s recipe (r18-D32, bf16, batch
+    ``ZOO_N``, ``wt`` the plan) in process: with an ISW slot, masks from a
+    statistics pass over 4 view pairs and the whitening loss; then the step
+    timed with CUDA events (median of 5 after 2 warm-up steps), images/s
+    from it, and the peak device memory of those steps."""
     from mrfp_tpu_torch.cli import train_zoo
     from mrfp_tpu_torch.models.deepv3_zoo import build_cov_layers
     from mrfp_tpu_torch.train.zoo_step import covstat_pass, zoo_train_step
-    args = train_zoo.parse_args(["--trunk", "resnet-18", "--variant", "D32", "--wt-layer",
-                                 *ZOO_WT, "--use-wtloss", "--batch-size", str(ZOO_N),
-                                 "--crop-size", str(CROP)])
+    isw = "2" in wt
+    args = train_zoo.parse_args(["--trunk", "resnet-18", "--variant", "D32", "--wt-layer", *wt,
+                                 "--batch-size", str(ZOO_N), "--crop-size", str(CROP)]
+                                + (["--use-wtloss"] if isw else []))
     cfg = train_zoo.build_config(args)
     state = train_zoo.build_state(cfg, torch.device(DEV))
     gen = torch.Generator().manual_seed(5)
-    pairs = [tuple((torch.rand((ZOO_N, CROP, CROP, 3), generator=gen) * 255).numpy()
-                   for _ in range(2)) for _ in range(4)]
-    layers = build_cov_layers("resnet-18", tuple(map(int, ZOO_WT)))
-    masks, nrc = covstat_pass(state.model, layers, pairs, cfg, torch.device(DEV))
+    masks = nrc = None
+    if isw:
+        pairs = [tuple((torch.rand((ZOO_N, CROP, CROP, 3), generator=gen) * 255).numpy()
+                       for _ in range(2)) for _ in range(4)]
+        layers = build_cov_layers("resnet-18", tuple(map(int, wt)))
+        masks, nrc = covstat_pass(state.model, layers, pairs, cfg, torch.device(DEV))
     img, lbl = _batch(gen, ZOO_N)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2678,6 +2694,259 @@ def phase_cli_train_zoo(cuda_gen) -> dict:
           f"{timed['step_ms']:.3f} ms (median of 5 after 2 warm-up), "
           f"{timed['images_per_s']:.2f} images/s, peak {timed['peak_gib']:.2f} GiB")
     return {k: sum(c[k] for c in counted.values()) for k in counted["train"]}
+
+
+# the zoo's other trunks at their factories' variant (D16 for all six)
+# and the strides of the features the heads read there, (layer1's,
+# layer4's): ShuffleNetV2's, MobileNetV2's and MNASNet's low-level features
+# come at 1/8; SE-ResNeXt takes no variant, so its layer4 stays at 1/32
+# (ROADMAP C12)
+ZOO_TRUNK_STRIDES = {"mobilenetv2": (8, 16), "shufflenetv2": (8, 16), "mnasnet_05": (8, 16),
+                     "mnasnet_10": (8, 16), "se_resnext-50": (4, 32), "se_resnext-101": (4, 32)}
+# the step's plan: ISW in the three slots of the trunks that have them
+ZOO_TRUNK_WT = {"mobilenetv2": (0, 0, 2, 2, 2, 0, 0), "shufflenetv2": (0, 0, 2, 2, 2, 0, 0)}
+ZOO_TRUNK_N = 2  # the bf16 step's batch of 768x768 crops
+SW_WT = ("0", "0", "5", "5", "5", "0", "0")  # SwitchWhiten in the stem and layers 1-2
+
+
+def _head_resizes(n: int, c: int, hw, low: int, top: int) -> list:
+    """(name, N, C, in_hw, out_hw): the three bilinear resizes of a
+    DeepV3Plus forward at ``hw`` whose layer1 is at stride ``low`` and
+    layer4 at ``top``."""
+    h, w = hw
+    return [("aspp broadcast", n, 256, (1, 1), (h // top, w // top)),
+            ("decoder upsample", n, 256, (h // top, w // top), (h // low, w // low)),
+            ("logit upsample", n, c, (h // low, w // low), (h, w))]
+
+
+def _hold_zoo_trunk_shapes(cuda_gen) -> float:
+    """The resizes of the six trunks' paths against the plain versions:
+    the eval forward's three at 1xHxW (forward exactly equal), the step's
+    three at ``ZOO_TRUNK_N`` x CROP (bilinear pairs, bf16 and fp32) and its
+    DSN label map (nearest, exactly equal). Returns the largest bilinear
+    backward error."""
+    from mrfp_tpu_torch.ops import cuda_resize
+    from mrfp_tpu_torch.ops.resize import nearest_table, resize_bilinear_align_corners
+    errs = []
+    for low, top in sorted(set(ZOO_TRUNK_STRIDES.values())):
+        for dtype in (torch.bfloat16, torch.float32):
+            for name, n, c, (h, w), size in _head_resizes(1, 19, (H, W), low, top):
+                x = torch.randn((n, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
+                got = resize_bilinear_align_corners(x, size)
+                _bilinear_fwd_equal(got, resize_bilinear_align_corners(x, size, impl="plain"),
+                                    f"{_dtype_name(dtype)} zoo trunk eval {name}")
+                _held("resize_bilinear", x, got)
+            for name, n, c, (h, w), size in _head_resizes(ZOO_TRUNK_N, 19, (CROP, CROP), low,
+                                                          top):
+                x = torch.randn((n, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
+                what = f"{_dtype_name(dtype)} zoo trunk step {name} ({n},{c},{h},{w})->{size}"
+                errs.append(_bilinear_pair(x, size, cuda_gen, what)[3])
+    shape = (ZOO_TRUNK_N, 1, CROP, CROP)
+    ty = nearest_table(CROP, "size", CROP // 16, DEV)
+    lbl = torch.randint(0, 19, shape, device=DEV, generator=cuda_gen).float()
+    got = cuda_resize.resize_nearest_cuda(lbl, ty, ty)
+    if not torch.equal(got, cuda_resize.resize_nearest_plain(lbl, ty, ty)):
+        raise AssertionError(f"resize_nearest zoo trunk DSN labels {shape}: kernel != plain")
+    _held("resize_nearest", lbl, got)
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def _zoo_trunk_step(trunk: str, img, lbl):
+    """One bf16 zoo step of ``trunk`` (DSN head; the ISW loss over fixed
+    strictly-upper masks where the trunk has slots) from one seeded state
+    through the kernels, through the plain versions and through them again.
+    Returns the three losses, the relative gradient differences of the
+    stem's first conv, the ASPP pool conv, the classifier and the DSN
+    classifier (kernel vs plain, plain again vs plain), the kernel step's
+    resize calls, and the kernel path's step ms (median of 5 after one
+    warm-up step, from the compared state on)."""
+    from mrfp_tpu_torch.core.config import Config
+    from mrfp_tpu_torch.models.deepv3_zoo import DeepV3Plus, SLOT_CHANNELS
+    from mrfp_tpu_torch.nn.layers import init_random_
+    from mrfp_tpu_torch.train.state import create_train_state
+    from mrfp_tpu_torch.train.zoo_step import zoo_train_step
+    wt = ZOO_TRUNK_WT.get(trunk, (0,) * 7)
+    cfg = Config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, trunk=trunk, variant="D16",
+                                                wt_layer=wt, use_wtloss=2 in wt),
+                      train=dataclasses.replace(cfg.train, compute_dtype="bfloat16"))
+    masks = [torch.triu(torch.ones(d, d, device=DEV), 1)
+             for d, c in zip(SLOT_CHANNELS[trunk], wt) if c == 2]
+    nrc = [float(m.sum()) for m in masks]
+    base = DeepV3Plus(trunk=trunk, variant="D16", wt_layer=wt, use_dsn=True)
+    init_random_(base, torch.Generator().manual_seed(0))
+    base = base.to(DEV)
+    stem = next(k for k, p in base.named_parameters() if k.startswith("layer0") and p.dim() == 4)
+    keys = (stem, "aspp.img_conv.0.weight", "final2.0.weight", "dsn.4.weight")
+    losses, grads, calls = {}, {}, []
+    for name in ("kernel", "plain", "plain again"):
+        st = create_train_state(copy.deepcopy(base), cfg.train)
+        with _recording() if name == "kernel" else contextlib.nullcontext([]) as seen:
+            losses[name] = zoo_train_step(st, img, lbl, cfg, masks, nrc,
+                                          impl=None if name == "kernel" else "plain")[
+                                              "loss"].item()
+        calls += seen
+        params = dict(st.model.named_parameters())
+        grads[name] = {k: params[k].grad.clone() for k in keys}
+        if name == "kernel":
+            with _recording() as seen:
+                ms = median_ms(lambda: zoo_train_step(st, img, lbl, cfg, masks, nrc), runs=5,
+                               warmup=1)
+            calls += seen
+        del st, params
+    errs = {k: _rel(grads["kernel"][k], grads["plain"][k]) for k in keys}
+    floor = {k: _rel(grads["plain again"][k], grads["plain"][k]) for k in keys}
+    del base
+    return losses, errs, floor, calls, ms
+
+
+def _switchwhiten_layer(cuda_gen, profile_dir) -> float:
+    """One train-mode SwitchWhiten layer (``make_iw_layer(5)``) at the zoo
+    recipe's stem map, ``ZOO_N`` x 64 x CROP/2 x CROP/2 bf16: the median ms
+    of its forward and backward, and with ``profile_dir`` the
+    torch.profiler kernel table of one such call."""
+    from mrfp_tpu_torch.nn.norms import make_iw_layer
+    layer = make_iw_layer(5, 64).to(DEV).train()
+    x = torch.randn((ZOO_N, 64, CROP // 2, CROP // 2), generator=cuda_gen, device=DEV,
+                    dtype=torch.bfloat16).requires_grad_()
+    g = torch.randn(x.shape, generator=cuda_gen, device=DEV, dtype=torch.bfloat16)
+
+    def run():
+        layer(x).backward(g)
+
+    ms = median_ms(run, runs=5, warmup=2)
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        out = Path(profile_dir) / "profile_switchwhiten.txt"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
+        print(f"profile: {out}")
+    return ms
+
+
+def phase_zoo_trunks(gen, cuda_gen, profile_dir=None) -> dict:
+    """The zoo's other trunks and SwitchWhiten at full width and depth,
+    seeded random weights. First the resizes of their paths are held
+    against the plain versions (``_hold_zoo_trunk_shapes``). Then, for each
+    of MobileNetV2, ShuffleNetV2, MNASNet 0.5 and 1.0 and SE-ResNeXt-50 and
+    -101 in ``DeepV3Plus`` at D16: the fp32 eval forward at 1x3xHxW (TF32
+    off) through the kernels and through the plain versions, logits within
+    1e-4 and argmax 99.99%, the kernel path's median ms of 5; one bf16 zoo
+    step at ``ZOO_TRUNK_N`` x 768x768, kernel against plain from one state
+    (``_zoo_trunk_step``): loss within 1e-4, each gradient within 3x its
+    own difference between two plain steps plus 1e-3, and the kernel path's
+    step ms. Then
+    the zoo recipe with SwitchWhiten (``SW_WT``; r18-D32, bf16, batch
+    ``ZOO_N``, 768x768): its step time, images/s and peak memory
+    (``_zoo_step_time``), one of its SwitchWhiten layers alone
+    (``_switchwhiten_layer``), and ``cli.export --check`` of that model at
+    1xHxW, bit for bit. Every resize call is at a held shape; the kernel
+    paths' launches are counted and returned."""
+    from mrfp_tpu_torch.cli import export as cli_export
+    from mrfp_tpu_torch.models.deepv3_zoo import DeepV3Plus
+    from mrfp_tpu_torch.nn.layers import init_random_
+    from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
+    err = _hold_zoo_trunk_shapes(cuda_gen)
+    print(f"zoo trunk shapes: the eval forward's bilinear resizes at 1x{H}x{W} for layer1 at "
+          f"1/8 and 1/4 exactly equal; the step's at batch {ZOO_TRUNK_N}, bf16 and fp32, "
+          f"forward exactly equal, backward within the bound (max_abs_err {err:.3e}); the DSN "
+          f"label map ({ZOO_TRUNK_N},1,{CROP},{CROP}) -> {CROP // 16} exactly equal")
+    counted = {k: 0 for k in LAUNCHES}
+
+    def count():
+        for k, v in LAUNCHES.items():
+            counted[k] += v
+
+    x = (torch.rand((1, 3, H, W), generator=gen) * 255).to(DEV)
+    img, lbl = _batch(gen, ZOO_TRUNK_N)
+    for trunk in ZOO_TRUNK_STRIDES:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model = DeepV3Plus(trunk=trunk, variant="D16", wt_layer=ZOO_TRUNK_WT.get(trunk, (0,) * 7))
+        init_random_(model, torch.Generator().manual_seed(0))
+        model = model.to(DEV).eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        with torch.inference_mode():
+            reset_launches()
+            with _recording() as calls:
+                got = model(x)
+            torch.cuda.synchronize()
+            count()
+            ref = model(x, impl="plain")
+            torch.cuda.synchronize()
+            if got.shape != (1, 19, H, W) or not torch.isfinite(got).all():
+                raise AssertionError(f"{trunk} eval logits: shape {tuple(got.shape)}")
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+            agree = (got.argmax(1) == ref.argmax(1)).float().mean().item()
+            if agree < 0.9999:
+                raise AssertionError(f"{trunk} eval: argmax agreement {agree} < 0.9999")
+            _all_held(calls, f"{trunk} eval forward")
+            eval_ms = median_ms(lambda: model(x), runs=5, warmup=1)
+        del model, got, ref
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.allow_tf32 = True
+        reset_launches()
+        losses, errs, floor, calls, step_ms = _zoo_trunk_step(trunk, img, lbl)
+        torch.cuda.synchronize()
+        count()
+        loss_err = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+        # each gradient against 3x its own plain-again noise: the stem conv's cuDNN
+        # bf16 noise must not widen the bound on the heads behind the resize kernels
+        limit = {k: 3 * floor[k] + 1e-3 for k in errs}
+        print(f"zoo trunk {trunk} D16 ({n_params / 1e6:.1f} M parameters): eval fp32 1x3x{H}x{W} "
+              f"kernel vs plain argmax agreement {agree}, kernel path {eval_ms:.3f} ms (median "
+              f"of 5); bf16 zoo step {ZOO_TRUNK_N}x{CROP}x{CROP} (DSN"
+              f"{', ISW ' + str(ZOO_TRUNK_WT[trunk]) if trunk in ZOO_TRUNK_WT else ''}): loss "
+              f"kernel {losses['kernel']:.6f} plain {losses['plain']:.6f} (rel {loss_err:.3e}); "
+              f"gradient rel err kernel vs plain {({k: round(v, 6) for k, v in errs.items()})}, "
+              f"plain again vs plain {({k: round(v, 6) for k, v in floor.items()})}, limits "
+              f"{({k: round(v, 6) for k, v in limit.items()})}; kernel path step "
+              f"{step_ms:.3f} ms (median of 5 after 1 warm-up)")
+        if not all(math.isfinite(v) for v in losses.values()) or loss_err > 1e-4:
+            raise AssertionError(f"{trunk} zoo step: kernel vs plain path losses {losses}")
+        bad = {k: v for k, v in errs.items() if not v <= limit[k]}
+        if bad:
+            raise AssertionError(f"{trunk} zoo step: gradient rel err above its limit "
+                                 f"{limit}: {bad}")
+        _all_held(calls, f"{trunk} zoo step")
+        torch.cuda.empty_cache()
+
+    reset_launches()
+    with _recording() as calls:
+        timed = _zoo_step_time(SW_WT)
+    count()
+    _all_held(calls, "SwitchWhiten zoo step")
+    print(f"zoo step bf16 {ZOO_N}x{CROP}x{CROP} r18-D32 wt {''.join(SW_WT)} (SwitchWhiten): "
+          f"{timed['step_ms']:.3f} ms (median of 5 after 2 warm-up), "
+          f"{timed['images_per_s']:.2f} images/s, peak {timed['peak_gib']:.2f} GiB")
+    sw_ms = _switchwhiten_layer(cuda_gen, profile_dir)
+    print(f"SwitchWhiten layer alone ({ZOO_N}x64x{CROP // 2}x{CROP // 2} bf16, train mode, the "
+          f"stem's): forward + backward {sw_ms:.3f} ms (median of 5 after 2 warm-up)")
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        with _recording() as calls:
+            exported = cli_export.main(["--device", DEV, "--height", str(H), "--width", str(W),
+                                        "--trunk", "resnet-18", "--variant", "D32",
+                                        "--wt-layer", *SW_WT, "--check", "--out",
+                                        os.path.join(tmp, "sw.pt2x")])
+        launched = dict(LAUNCHES)
+        count()
+    print(f"cli.export --trunk resnet-18 --variant D32 --wt-layer {' '.join(SW_WT)} at "
+          f"1x{H}x{W} bf16: {exported['mb']:.1f} MB in {exported['export_s']:.3f} s; "
+          f"{exported['check']}; launches {launched}")
+    if "bit for bit" not in exported["check"] or launched["resize_bilinear"] <= 0:
+        raise AssertionError(f"cli.export of the SwitchWhiten model: {exported}")
+    _all_held(calls, "cli.export of the SwitchWhiten model")
+    print(f"zoo trunks: launches {counted}")
+    if min(counted[k] for k in ("resize_bilinear", "resize_bilinear_bwd",
+                                "resize_nearest")) <= 0:
+        raise AssertionError(f"zoo trunks: a resize kernel was not launched: {counted}")
+    torch.cuda.empty_cache()
+    return counted
 
 
 DP_WORLD = 2  # ranks of the data-parallel phase, all on the one card
@@ -3009,6 +3278,8 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
     zoo_launches = phase_cli_train_zoo(cuda_gen)
     torch.cuda.empty_cache()
+    zoo_trunk_launches = phase_zoo_trunks(gen, cuda_gen, args.profile)
+    torch.cuda.empty_cache()
     dp_launches = phase_data_parallel(cuda_gen)
 
     def launches(name, *counted):
@@ -3016,7 +3287,7 @@ def main(argv=None) -> None:
         return sum(c[name] for c in counted)
 
     later_paths = (serving_launches, extras_launches, accum_launches, sliding_launches,
-                   zoo_launches, dp_launches)
+                   zoo_launches, zoo_trunk_launches, dp_launches)
     src = "mrfp_tpu_torch/csrc/"
     kernels = [
         dict(name="resize_bilinear", route="cuda", source=src + "resize_bilinear.cu",

@@ -172,7 +172,7 @@ def check_args(args) -> None:
     if bad:
         raise NotImplementedError("not ported yet: " + ", ".join(bad))
     from mrfp_tpu_torch.nn.resnet import check_trunk
-    check_trunk(args.trunk)  # the nine ResNet trunks; the others are ROADMAP A12.4
+    check_trunk(args.trunk)  # the nine ResNets; the zoo's others raise JAX's ValueError
 
 
 def build_config(args):

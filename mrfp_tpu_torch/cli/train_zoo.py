@@ -24,9 +24,11 @@ checkpoint never resumes into ``cli.train`` and an MRFP one never resumes
 here. ``cli.eval --trunk/--variant --wt-layer ... --ckpt <run>`` (or
 ``--arch``) evaluates a run; ``cli.export`` takes the same flags.
 
-Not ported: an IRW slot (iw code 1) with ``--use-wtloss``, which the JAX
-trainer cannot run either (ROADMAP C6); iw code 5 (A12.3); the non-ResNet
-trunks (A12.4); more than one process (A12.5); other meshes (A14).
+Every trunk of the JAX zoo trains (``--trunk`` or ``--arch``, the 23
+factory names) with every iw code 0-5. Refused: an IRW slot (iw code 1)
+with ``--use-wtloss``, which the JAX trainer cannot run either (ROADMAP C6),
+and ``--use-wtloss`` with an ISW slot that the trunk does not read (C11);
+more than one process (A12.5); other meshes (A14).
 ``--device cuda`` runs the hand-written kernels and exits non-zero when no
 CUDA device is present; it never falls back to the CPU. Exit 75 means the
 run was stopped by a signal and can resume.
@@ -55,8 +57,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--trunk", default="resnet-50")
     p.add_argument("--variant", default="D16")
     p.add_argument("--wt-layer", type=int, nargs=7, metavar="W", default=[0] * 7,
-                   help="7-slot whitening plan (0 none, 1 IRW, 2 ISW, 3/4 InstanceNorm; "
-                        "5 SwitchWhiten is ROADMAP A12.3)")
+                   help="7-slot whitening plan (0 none, 1 IRW, 2 ISW, 3/4 InstanceNorm, "
+                        "5 SwitchWhiten)")
     p.add_argument("--use-wtloss", action="store_true",
                    help="ISW whitening regularizer (needs an iw code 2 slot)")
     p.add_argument("--wt-reg-weight", type=float, default=0.6)
@@ -116,12 +118,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def check_args(args) -> None:
     """Resolve ``--arch`` into ``--trunk``/``--variant`` and raise on what
-    the port cannot run: several processes (A12.5), a mesh (A14), a trunk
-    outside the ResNet family (A12.4), iw code 5 (A12.3), and an IRW slot
-    under ``--use-wtloss`` (ROADMAP C6: the JAX trainer fails there with an
-    AttributeError)."""
-    from mrfp_tpu_torch.models.deepv3_zoo import arch_trunk
-    from mrfp_tpu_torch.nn.resnet import check_trunk
+    the port cannot run: several processes (A12.5), a mesh (A14), an
+    unknown trunk, and under ``--use-wtloss`` an IRW slot (ROADMAP C6: the
+    JAX trainer fails there with an AttributeError) or an ISW slot the
+    trunk does not read (C11: the statistics pass gets no map for it, and
+    the JAX trainer fails freezing its mask)."""
+    from mrfp_tpu_torch.models.deepv3_zoo import arch_trunk, check_zoo_trunk, iw_slots
     if args.arch:
         args.trunk, args.variant = arch_trunk(args.arch)
     nproc = args.num_processes if args.num_processes is not None else \
@@ -135,10 +137,15 @@ def check_args(args) -> None:
                                  ("--spatial-parallel", args.spatial_parallel != 1)) if on]
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)} (ROADMAP A14)")
-    check_trunk(args.trunk)
-    if 5 in args.wt_layer:
-        raise NotImplementedError("iw code 5 (SwitchWhiten2d) is not ported yet: see "
-                                  "ROADMAP item A12.3")
+    check_zoo_trunk(args.trunk)
+    unread = [i for i, c in enumerate(args.wt_layer) if c == 2 and i not in iw_slots(args.trunk)]
+    if args.use_wtloss and unread:
+        raise ValueError(
+            f"--use-wtloss with ISW (iw code 2) in wt_layer slot(s) {unread}, which trunk "
+            f"{args.trunk!r} does not read (it reads {list(iw_slots(args.trunk))}): the "
+            f"statistics pass gets no map for them, and the JAX trainer fails freezing their "
+            f"masks (ROADMAP C11); put the ISW codes in read slots, or train without "
+            f"--use-wtloss")
     if args.use_wtloss and 1 in args.wt_layer:
         raise ValueError(
             "--use-wtloss with an IRW slot (iw code 1): the statistics pass calls "

@@ -5,9 +5,9 @@ knobs and their defaults are the JAX package's, so one recipe names the
 same run in both packages. ``MeshConfig`` is not copied: data parallelism
 runs one process per card (``parallel/dist.py``), whose count the launch
 gives, and the other mesh axes wait for ROADMAP item A14. ``trunk`` takes
-the nine ResNet trunks and ``wt_layer`` iw codes 0-4; a trunk outside the
-ResNet family and code 5 raise where they are read (``nn/resnet.py``,
-``nn/norms.py``) and name ROADMAP items A12.4 and A12.3. The zoo's knobs
+the nine ResNet trunks for MRFP and the zoo's 15 for ``DeepV3Plus``
+(``models/deepv3_zoo.py``), and ``wt_layer`` iw codes 0-5; MRFP raises the
+JAX package's ValueError for a zoo-only trunk (``nn/resnet.py``). The zoo's knobs
 (``use_wtloss``, ``relax_denom``, ``clusters``, ``wt_reg_weight``) are
 read by ``cli/train_zoo.py`` and ``train/zoo_step.py``; ``remat``, a TPU
 memory measure, is not read.

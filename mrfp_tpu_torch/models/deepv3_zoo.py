@@ -1,12 +1,20 @@
-"""The DeepV3Plus zoo: DeepLabV3+ over a ResNet trunk with the whitening
-plan, NCHW (mrfp_tpu/models/deepv3_zoo.py; reference network/deepv3.py:
-103-779).
+"""The DeepV3Plus zoo: DeepLabV3+ over any of the zoo's 15 trunks with the
+whitening plan, NCHW (mrfp_tpu/models/deepv3_zoo.py; reference
+network/deepv3.py:103-779).
 
 ``DeepV3Plus`` is the port's ``MRFP`` without the perturbation: the same
-trunk, ASPP, decoder, classifier and DSN head under the reference's keys,
-so one ``state_dict_from_jax`` serves both. Its forward collects the
-whitening maps of iw codes 1 and 2 (``w_arr``, before the ReLU, in the
-order the modules run) in train mode and in the statistics pass; the eval
+ASPP, decoder, classifier and DSN head under the reference's keys, over
+the nine ResNets (``nn/resnet.py``), MobileNetV2, ShuffleNetV2 x1.0,
+MNASNet 0.5/1.0 or SE-ResNeXt-50/101 (``ZOO_TRUNKS``), each of which
+exposes ``layer0``..``layer4``, so one forward and one
+``state_dict_from_jax`` serve them all. The heads read the trunk's widths.
+As in JAX, MNASNet and SE-ResNeXt read no ``wt_layer``, and SE-ResNeXt
+takes no ``variant``: its layer4 is at stride 32 while the ASPP's rates
+and the ``valid_hw`` ceiling follow the factory's D16 (ROADMAP C12).
+
+The forward collects the whitening maps of iw codes 1 and 2 (``w_arr``,
+before the ReLU, in the order the modules run) in train mode and in the
+statistics pass; the eval
 forward collects none and returns the logits alone, so a ``torch.export``
 trace of it passes no list and keeps no state.
 
@@ -14,20 +22,26 @@ The ISW/IRW state is host numpy (``nn/cov_settings.py``): ``covstat_update``
 takes each map's per-sample covariance and its variance over the batch on
 the map's device, in fp64, and copies only the C x C result to the host,
 where the JAX package copies the whole maps. ``whitening_loss_from_cov``
-and the factory names (``DeepR50V3PlusD``, ...) are the JAX package's; a
-factory whose trunk is not a ResNet raises and names ROADMAP A12.4.
+and the 23 factory names (``DeepR50V3PlusD``, ...) are the JAX package's.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from mrfp_tpu_torch.models.mrfp import MRFP
 from mrfp_tpu_torch.nn.cov_settings import CovMatrixIRW, CovMatrixISW
-from mrfp_tpu_torch.nn.resnet import check_trunk, variant_output_stride
+from mrfp_tpu_torch.nn.mnasnet import mnasnet0_5, mnasnet1_0
+from mrfp_tpu_torch.nn.mobilenet import MobileNetV2
+from mrfp_tpu_torch.nn.norms import collects_map
+from mrfp_tpu_torch.nn.resnet import build_trunk, variant_output_stride
+from mrfp_tpu_torch.nn.seresnext import se_resnext50_32x4d, se_resnext101_32x4d
+from mrfp_tpu_torch.nn.shufflenet import ShuffleNetV2
 from mrfp_tpu_torch.ops.resize import resize_bilinear_align_corners
 from mrfp_tpu_torch.train.losses import instance_whitening_loss
 
@@ -43,7 +57,43 @@ SLOT_CHANNELS = {
     "resnext-101": (0, 0, 64, 256, 512, 1024, 2048),
     "wide_resnet-50": (0, 0, 64, 256, 512, 1024, 2048),
     "wide_resnet-101": (0, 0, 64, 256, 512, 1024, 2048),
+    "shufflenetv2": (0, 0, 24, 116, 232, 464, 1024),
+    "mobilenetv2": (0, 0, 16, 32, 64, 320, 1280),
+    "mnasnet_05": (0, 0, 8, 24, 48, 160, 1280),
+    "mnasnet_10": (0, 0, 16, 40, 96, 320, 1280),
+    "se_resnext-50": (0, 0, 64, 256, 512, 1024, 2048),
+    "se_resnext-101": (0, 0, 64, 256, 512, 1024, 2048),
 }
+# the trunks other than the ResNets -> builder(wt_layer, variant)
+# (mrfp_tpu/models/deepv3_zoo.py:85-102)
+ZOO_TRUNKS = {
+    "shufflenetv2": lambda wt, variant: ShuffleNetV2(wt_layer=wt, variant=variant),
+    "mobilenetv2": lambda wt, variant: MobileNetV2(wt_layer=wt, variant=variant),
+    "mnasnet_05": lambda wt, variant: mnasnet0_5(variant=variant),
+    "mnasnet_10": lambda wt, variant: mnasnet1_0(variant=variant),
+    "se_resnext-50": lambda wt, variant: se_resnext50_32x4d(),
+    "se_resnext-101": lambda wt, variant: se_resnext101_32x4d(),
+}
+
+
+def check_zoo_trunk(trunk: str) -> None:
+    """ValueError for a name that is no zoo trunk."""
+    if trunk not in SLOT_CHANNELS:
+        raise ValueError(f"unknown trunk {trunk!r}; have {sorted(SLOT_CHANNELS)}")
+
+
+@functools.lru_cache(maxsize=None)
+def iw_slots(trunk: str) -> Tuple[int, ...]:
+    """The ``wt_layer`` slots whose code ``trunk`` reads, as its builder
+    places iw layers: the others take none, in JAX too (a ResNet's stem
+    slots 0-1 exist only in resnet-101's deep stem; MNASNet and SE-ResNeXt
+    read none). Found by building the trunk on the meta device with a
+    whitening code in one slot at a time."""
+    def whitens(slot: int) -> bool:
+        with torch.device("meta"):
+            net = DeepV3Plus.build_trunk(trunk, tuple(int(i == slot) for i in range(7)), "D16")
+        return any(collects_map(m) for m in net.modules())
+    return tuple(slot for slot in range(7) if whitens(slot))
 
 
 class DeepV3Plus(MRFP):
@@ -62,15 +112,23 @@ class DeepV3Plus(MRFP):
                          use_dsn=use_dsn)
         self.trunk, self.wt_layer = trunk, tuple(wt_layer)
 
+    @staticmethod
+    def build_trunk(trunk: str, wt_layer: Tuple[int, ...], variant: str) -> nn.Module:
+        """A ResNet (``nn/resnet.py``) or one of ``ZOO_TRUNKS``."""
+        if trunk in ZOO_TRUNKS:
+            return ZOO_TRUNKS[trunk](tuple(wt_layer), variant)
+        check_zoo_trunk(trunk)
+        return build_trunk(trunk, wt_layer=wt_layer, variant=variant)
+
     def forward(self, x: torch.Tensor, valid_hw: Optional[Tuple[int, int]] = None,
                 impl: Optional[str] = None, cal_covstat: bool = False,
                 dropout: Union[torch.Generator, torch.Tensor, None] = None):
         """``valid_hw``, ``impl`` and ``dropout`` as in ``MRFP.forward``."""
         h, w = x.shape[2], x.shape[3]
         w_arr: Optional[list] = [] if (self.training or cal_covstat) else None
-        low_level = self.layer1(self.layer0(x, w_arr), None, w_arr)
-        aux_in = self.layer3(self.layer2(low_level, None, w_arr), None, w_arr)
-        feat = self.layer4(aux_in, None, w_arr)
+        low_level = self.layer1(self.layer0(x, w_arr=w_arr), w_arr=w_arr)
+        aux_in = self.layer3(self.layer2(low_level, w_arr=w_arr), w_arr=w_arr)
+        feat = self.layer4(aux_in, w_arr=w_arr)
         if cal_covstat:
             # the statistics pass needs only the maps (network/deepv3.py:534-545)
             return {"w_arr": w_arr}
@@ -92,7 +150,7 @@ def build_cov_layers(trunk: str, wt_layer: Sequence[int], relax_denom: float = 0
                      clusters: int = 50) -> List:
     """Host-side ISW/IRW state per instrumented slot, in slot order
     (network/deepv3.py:456-467)."""
-    check_trunk(trunk)
+    check_zoo_trunk(trunk)
     in_ch = SLOT_CHANNELS[trunk]
     layers = []
     for i, code in enumerate(wt_layer):
@@ -186,8 +244,7 @@ def arch_trunk(arch: str) -> Tuple[str, str]:
 
 def get_net(arch: str, num_classes: int = 19, wt_layer: Sequence[int] = (0,) * 7,
             use_dsn: bool = True) -> DeepV3Plus:
-    """network/__init__.py:13-23: a factory name -> its model. A name whose
-    trunk is not a ResNet raises NotImplementedError (ROADMAP A12.4)."""
+    """network/__init__.py:13-23: a factory name -> its model."""
     trunk, variant = arch_trunk(arch)
     return DeepV3Plus(num_classes=num_classes, trunk=trunk, variant=variant,
                       wt_layer=tuple(wt_layer), use_dsn=use_dsn)

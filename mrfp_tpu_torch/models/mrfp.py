@@ -24,7 +24,8 @@ heads take the trunk's widths (ASPP reads layer4's channels, the decoder's
 modules infer them. The OC branch reads 64-channel stem features, so a
 model with OC buffers refuses resnet-101, whose deep stem ends at 128
 channels: the JAX package cannot trace a perturbed forward on it either
-(ROADMAP C8).
+(ROADMAP C8). The zoo's other trunks raise the JAX package's ValueError
+here: ``models/deepv3_zoo.py`` builds them.
 
 With ``use_dsn`` the auxiliary DSN head reads layer3's output; the
 train-mode forward then returns its fp32 logits beside the main logits
@@ -89,7 +90,7 @@ class MRFP(DeepLabDecoder):
                  oc_scales_enc: Tuple[float, ...] = (1.205, 1.2, 1.2),
                  oc_scales_dec: Tuple[float, ...] = (0.838, 0.798),
                  use_dsn: bool = False):
-        net = build_trunk(trunk, wt_layer=wt_layer, variant=variant)
+        net = self.build_trunk(trunk, wt_layer, variant)
         if oc_branch and net.stem_channels != 64:
             raise ValueError(
                 f"trunk {trunk!r}: the OC branch reads 64-channel stem features and this "
@@ -117,6 +118,13 @@ class MRFP(DeepLabDecoder):
             # draws what it draws without the head
             self.dsn = DSNHead(net.stage_channels[2], num_classes)
         self.eval()
+
+    @staticmethod
+    def build_trunk(trunk: str, wt_layer: Tuple[int, ...], variant: str) -> nn.Module:
+        """The trunk whose ``layer0``..``layer4`` the model takes: one of the
+        nine ResNets (``nn/resnet.py``); a zoo-only trunk raises the JAX
+        package's ValueError."""
+        return build_trunk(trunk, wt_layer=wt_layer, variant=variant)
 
     def _np_plus(self, feat: torch.Tensor, noise) -> torch.Tensor:
         return np_plus(feat, noise, self.np_std, self.np_scale)

@@ -11,11 +11,13 @@ kaiming-normal fan_in (network/mynn.py:38-55), norms at weight 1, bias 0.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from mrfp_tpu_torch.nn.norms import batch_norm
 from mrfp_tpu_torch.ops.dot_stats import dot_with_stats
 
 
@@ -58,9 +60,60 @@ def max_pool_3x3_s2() -> nn.MaxPool2d:
     return nn.MaxPool2d(kernel_size=3, stride=2, padding=1)
 
 
+def max_pool_ceil() -> nn.MaxPool2d:
+    """torch nn.MaxPool2d(3, 2, ceil_mode=True), SENet's Caffe-style stem
+    pool (mrfp_tpu/nn/seresnext.py:23-32 pads bottom/right to the same
+    windows)."""
+    return nn.MaxPool2d(kernel_size=3, stride=2, ceil_mode=True)
+
+
 def avg_pool_global(x: torch.Tensor) -> torch.Tensor:
     """AdaptiveAvgPool2d(1): NCHW -> NC11."""
     return x.mean(dim=(2, 3), keepdim=True)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """min(max(x, 0), 6) (mrfp_tpu/nn/mobilenet.py:35)."""
+    return torch.clamp(x, 0.0, 6.0)
+
+
+class ConvBN(nn.Module):
+    """conv (``conv``, no bias, padding ``(k - 1) // 2 * dilation``) ->
+    BatchNorm (``bn``) -> ``act`` ("relu", "relu6" or None): the zoo
+    trunks' ConvBN/ConvBNReLU(6) units, named as the JAX package's
+    (mrfp_tpu/nn/mobilenet.py:38-52, shufflenet.py:38-53, mnasnet.py:
+    40-56). ``w_arr`` is taken and ignored, as a stage's child."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 1, stride: int = 1,
+                 dilation: int = 1, groups: int = 1, act: Optional[str] = "relu",
+                 momentum: float = 0.1):
+        super().__init__()
+        self.conv = conv2d(cin, cout, kernel_size, stride, (kernel_size - 1) // 2 * dilation,
+                           dilation, groups=groups)
+        self.bn = batch_norm(cout, momentum)
+        self.act = act
+
+    def forward(self, x: torch.Tensor, w_arr: Optional[list] = None) -> torch.Tensor:
+        x = self.bn(self.conv(x))
+        if self.act == "relu":
+            return F.relu(x)
+        return relu6(x) if self.act == "relu6" else x
+
+
+class NamedStage(nn.Module):
+    """One stage (``layer0``..``layer4``) of a zoo trunk: its children,
+    named after the JAX package's modules, run in order, each called with
+    ``(x, w_arr)``."""
+
+    def __init__(self, children: Dict[str, nn.Module]):
+        super().__init__()
+        for name, m in children.items():
+            self.add_module(name, m)
+
+    def forward(self, x: torch.Tensor, w_arr: Optional[list] = None) -> torch.Tensor:
+        for m in self.children():
+            x = m(x, w_arr)
+        return x
 
 
 @torch.no_grad()

@@ -3,11 +3,11 @@
 torch's own layers have the semantics the JAX package copies
 (mrfp_tpu/nn/norms.py): BatchNorm2d with eps 1e-5, momentum 0.1 and the
 unbiased running variance; InstanceNorm2d with per-sample statistics and no
-running buffers. The port covers iw codes 0 (none), 1 and 2
+running buffers. The port covers every iw code: 0 (none), 1 and 2
 (``InstanceWhitening``: a non-affine InstanceNorm whose output the block
 also hands to the ISW/IRW whitening loss, ``collects_map``), 3 (non-affine
-InstanceNorm) and 4 (affine InstanceNorm); codes 1-3 carry no parameters.
-Code 5, SwitchWhiten, is ROADMAP A12.3.
+InstanceNorm), 4 (affine InstanceNorm) and 5 (``SwitchWhiten2d``, grouped
+switchable whitening); codes 1-3 carry no parameters.
 
 The instance norms take their variance in two passes, as torch's
 ``InstanceNorm2d`` does; the JAX package takes it in one
@@ -22,7 +22,9 @@ package's does under a sharded batch: with more than one process
 ``_GlobalBatchNorm``, whose forward combines the ranks' exact moments and
 whose backward sums ``(sum dy, sum dy * x_hat)`` over the ranks. In a single
 process both are torch's own BatchNorm, call for call. InstanceNorm is per
-sample and stays local.
+sample and stays local. SwitchWhiten's batch mean and covariance over the
+ranks (the reference's ``SyncMeanCov``) are ROADMAP A12.5: with more than
+one process its train forward raises.
 """
 
 from __future__ import annotations
@@ -148,8 +150,10 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
                                 self.running_var, m, self.eps)
 
 
-def batch_norm(features: int) -> nn.BatchNorm2d:
-    return GlobalBatchNorm2d(features, eps=1e-5, momentum=0.1)
+def batch_norm(features: int, momentum: float = 0.1) -> nn.BatchNorm2d:
+    """BatchNorm2d, eps 1e-5; ``momentum`` in torch's convention (MNASNet's
+    is 1 - 0.9997, mrfp_tpu/nn/mnasnet.py:27)."""
+    return GlobalBatchNorm2d(features, eps=1e-5, momentum=momentum)
 
 
 def batch_norm_from_stats(bn: nn.BatchNorm2d, y: torch.Tensor, s1: torch.Tensor,
@@ -208,10 +212,124 @@ def collects_map(module: Optional[nn.Module]) -> bool:
     return isinstance(module, InstanceWhitening)
 
 
+# SwitchWhiten's settings, make_iw_layer(5)'s (mrfp_tpu/nn/norms.py:244-246):
+# groups of 16 channels, 5 Newton-Schulz steps, eps, running-stat momentum
+SW_PERGROUP, SW_T, SW_EPS, SW_MOMENTUM = 16, 5, 1e-5, 0.99
+
+
+class SwitchWhiten2d(nn.Module):
+    """(Sync)SwitchWhiten2d, grouped switchable whitening through
+    Newton-Schulz (network/sync_switchwhiten.py:59-223;
+    mrfp_tpu/nn/norms.py:119-228), NCHW. The channels split into groups of
+    ``SW_PERGROUP``; each group's statistics blend by softmax weights:
+    ``sw_type`` 2 = BW + IW, 3 = BW + IW + LN, 5 = BW + IW + BN + IN + LN.
+    The blended covariance's inverse square root takes ``SW_T``
+    Newton-Schulz steps, ``P = 1.5 P - 0.5 ((P @ P) @ P) @ cov_n``, in that
+    association.
+
+    As in JAX, everything runs in fp32, autocast off, and the output is
+    cast back to the input's dtype. The BW statistics divide by N*H*W, the
+    IW ones by H*W, the LN variance is unbiased. In train mode the running
+    statistics move as ``running = m * running + (1 - m) * batch`` (m =
+    ``SW_MOMENTUM``, 0.99: the opposite of BatchNorm's convention), without
+    gradient; in eval mode they stand in for the batch's. The state_dict
+    keys are the reference's: ``sw_mean_weight``, ``sw_var_weight`` (k,),
+    ``weight``, ``bias`` (C,) and the buffers ``running_mean`` (g, c, 1)
+    and ``running_cov`` (g, c, c)."""
+
+    def __init__(self, features: int, sw_type: int = 2):
+        super().__init__()
+        if sw_type not in (2, 3, 5):
+            raise ValueError(f"sw_type {sw_type} not in (2,3,5)")
+        if features % SW_PERGROUP:
+            raise ValueError(f"SwitchWhiten2d: {features} channels are no whole number of "
+                             f"groups of {SW_PERGROUP} (the JAX package's reshape fails "
+                             f"there too)")
+        self.num_features, self.sw_type = features, sw_type
+        g, c = features // SW_PERGROUP, SW_PERGROUP
+        self.sw_mean_weight = nn.Parameter(torch.ones(sw_type))
+        self.sw_var_weight = nn.Parameter(torch.ones(sw_type))
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(g, c, 1))
+        self.register_buffer("running_cov", torch.eye(c).repeat(g, 1, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and world() > 1:
+            raise NotImplementedError("SwitchWhiten2d's batch statistics across processes "
+                                      "(the reference's SyncMeanCov) are ROADMAP A12.5")
+        with torch.autocast(x.device.type, enabled=False):
+            return self._whiten(x.float()).to(x.dtype)
+
+    def _whiten(self, xf: torch.Tensor) -> torch.Tensor:
+        n, ch, h, w = xf.shape
+        c = SW_PERGROUP
+        g = ch // c
+        k = self.sw_type
+        xg = xf.reshape(n, g, c, h * w)
+        eye = torch.eye(c, dtype=xf.dtype, device=xf.device)
+        if self.training:
+            mean_bn = xg.mean(dim=(0, 3))[..., None]                       # (g,c,1)
+            xc = xg - mean_bn
+            cov_bn = torch.matmul(xc, xc.transpose(-1, -2)).sum(0) / (n * h * w)  # (g,c,c)
+            with torch.no_grad():
+                self.running_mean.mul_(SW_MOMENTUM).add_(mean_bn.detach(), alpha=1 - SW_MOMENTUM)
+                self.running_cov.mul_(SW_MOMENTUM).add_(cov_bn.detach(), alpha=1 - SW_MOMENTUM)
+        else:
+            mean_bn, cov_bn = self.running_mean, self.running_cov
+        mean_in = xg.mean(dim=3, keepdim=True)                              # (n,g,c,1)
+        xin = xg - mean_in
+        cov_in = torch.matmul(xin, xin.transpose(-1, -2)) / (h * w)         # (n,g,c,c)
+        mean_bn = mean_bn.expand(n, g, c, 1)
+        cov_bn = cov_bn.expand(n, g, c, c)
+        if k in (3, 5):
+            flat = xf.reshape(n, -1)
+            mean_ln = flat.mean(dim=1)[:, None, None, None]                # (n,1,1,1)
+            var_ln = flat.var(dim=1, unbiased=True)[:, None, None, None] * eye
+        mw = torch.softmax(self.sw_mean_weight, 0)
+        vw = torch.softmax(self.sw_var_weight, 0)
+        if k == 2:
+            mean = mw[0] * mean_bn + mw[1] * mean_in
+            cov = vw[0] * cov_bn + vw[1] * cov_in + SW_EPS * eye
+        elif k == 3:
+            mean = mw[0] * mean_bn + mw[1] * mean_in + mw[2] * mean_ln
+            cov = vw[0] * cov_bn + vw[1] * cov_in + vw[2] * var_ln + SW_EPS * eye
+        else:
+            var_bn = torch.diag_embed(torch.diagonal(cov_bn, dim1=-2, dim2=-1))
+            var_in = torch.diag_embed(torch.diagonal(cov_in, dim1=-2, dim2=-1))
+            mean = (mw[0] + mw[2]) * mean_bn + (mw[1] + mw[3]) * mean_in + mw[4] * mean_ln
+            cov = (vw[0] * cov_bn + vw[1] * cov_in + vw[0] * var_bn + vw[1] * var_in
+                   + vw[4] * var_ln + SW_EPS * eye)
+        # Newton-Schulz for cov^(-1/2) (reference :206-215)
+        r_tr = 1.0 / torch.diagonal(cov, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+        cov_n = cov * r_tr
+        p = eye.expand_as(cov)
+        for _ in range(SW_T):
+            p3 = torch.matmul(torch.matmul(p, p), p)
+            p = 1.5 * p - 0.5 * torch.matmul(p3, cov_n)
+        wm = p * torch.sqrt(r_tr)                                           # (n,g,c,c)
+        out = torch.matmul(wm, xg - mean).reshape(n, ch, h, w)
+        return out * _channels(self.weight) + _channels(self.bias)
+
+
+def apply_iw(layer: Optional[nn.Module], x: torch.Tensor, w_arr: Optional[list]) -> torch.Tensor:
+    """``layer`` (from ``make_iw_layer``; None is the identity) on ``x``; a
+    whitening map goes to ``w_arr`` when one is given
+    (mrfp_tpu/nn/norms.py:250-260). The caller must not change the result
+    in place."""
+    if layer is None:
+        return x
+    x = layer(x)
+    if w_arr is not None and collects_map(layer):
+        w_arr.append(x)
+    return x
+
+
 def make_iw_layer(iw: int, features: int) -> Optional[nn.Module]:
     """The post-residual layer for an iw code (mrfp_tpu/nn/norms.py:231-247):
     0 -> None, 1/2 -> ``InstanceWhitening``, 3 -> non-affine IN, 4 -> affine
-    IN; 5 (SwitchWhiten) raises."""
+    IN, 5 -> ``SwitchWhiten2d`` (type 2, groups of 16, T 5, eps 1e-5,
+    momentum 0.99)."""
     if iw == IW_NONE:
         return None
     if iw in (IW_W1, IW_W2):
@@ -221,6 +339,5 @@ def make_iw_layer(iw: int, features: int) -> Optional[nn.Module]:
     if iw == IW_IN_AFFINE:
         return instance_norm_affine(features)
     if iw == IW_SW:
-        raise NotImplementedError("iw code 5 (SwitchWhiten2d) is not ported yet: "
-                                  "see ROADMAP item A12.3")
+        return SwitchWhiten2d(features, sw_type=2)
     raise ValueError(f"unknown iw code {iw}")

@@ -272,21 +272,19 @@ _TRUNKS = {
     "wide_resnet-101": dict(block="bottleneck", layers=(3, 4, 23, 3), base_width=128),
 }
 RESNET_TRUNKS = tuple(_TRUNKS)
-# the JAX zoo's other trunks (mrfp_tpu/models/deepv3_zoo.py:38-71)
-OTHER_TRUNKS = ("shufflenetv2", "mobilenetv2", "mnasnet_05", "mnasnet_10",
-                "se_resnext-50", "se_resnext-101")
 
 
 def check_trunk(trunk: str) -> None:
-    """Raise for a trunk the port cannot build: NotImplementedError naming
-    ROADMAP A12.4 for the JAX zoo's other trunks, ValueError for a name
-    neither package knows."""
+    """Raise ValueError for a trunk MRFP cannot carry: the zoo's other
+    trunks with the JAX package's message (mrfp_tpu/models/mrfp.py:96-98),
+    and a name neither package knows."""
+    from mrfp_tpu_torch.models.deepv3_zoo import ZOO_TRUNKS  # the zoo builds on this module
     if trunk in _TRUNKS:
         return
-    if trunk in OTHER_TRUNKS:
-        raise NotImplementedError(f"trunk {trunk!r} is not ported yet (the ResNet family "
-                                  f"is): see ROADMAP item A12.4")
-    raise ValueError(f"unknown trunk {trunk!r}; have {sorted(RESNET_TRUNKS + OTHER_TRUNKS)}")
+    if trunk in ZOO_TRUNKS:
+        raise ValueError(f"unsupported trunk {trunk!r} for MRFP "
+                         f"(zoo trunks live in models.deepv3_zoo)")
+    raise ValueError(f"unknown trunk {trunk!r}; have {sorted(RESNET_TRUNKS + tuple(ZOO_TRUNKS))}")
 
 
 def build_trunk(trunk: str, **kw) -> ResNet:

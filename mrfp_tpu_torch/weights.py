@@ -4,11 +4,16 @@ The port keeps the reference's state_dict key layout, so both reduce to
 ``load_state_dict(strict=True)``:
 
 - ``state_dict_from_jax`` maps the JAX ``MRFP`` or zoo ``DeepV3Plus`` tree
-  over any ResNet trunk (nested dicts of numpy arrays; no JAX import; with
-  ``use_dsn`` its ``dsn`` head too) to the port's keys, as
+  over any trunk of the zoo (nested dicts of numpy arrays; no JAX import;
+  with ``use_dsn`` its ``dsn`` head too) to the port's keys, as
   mrfp_tpu/train/export_torch.py::export_state_dict does for the reference:
-  conv kernels HWIO -> OIHW, BN scale/bias/mean/var ->
-  weight/bias/running_mean/running_var, ``num_batches_tracked`` = 0.
+  conv kernels HWIO -> OIHW (a depthwise (kh, kw, 1, C) -> (C, 1, kh, kw)),
+  BN scale/bias/mean/var -> weight/bias/running_mean/running_var,
+  ``num_batches_tracked`` = 0, SwitchWhiten's leaves by their own names.
+  The ResNets keep the reference's keys; the other trunks name their
+  modules after the JAX tree under ``layer0``..``layer4``
+  (``tree_state_from_jax``), and no reference ``.pth`` of them loads in
+  either package (ROADMAP C13).
 - ``oc_state_from_jax`` maps the JAX OC tree (``enc1..dec4`` with
   ``kernel`` HWIO, ``bias``, ``bn_scale``, ``bn_bias``;
   mrfp_tpu/train/import_torch.py:26-33) to the port's OC buffers under the
@@ -32,7 +37,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from mrfp_tpu_torch.nn import mnasnet, mobilenet, seresnext, shufflenet
 from mrfp_tpu_torch.perturb.oc_branch import REF_NAMES
+
+_STAGE_OF = (mobilenet.stage_of, shufflenet.stage_of, mnasnet.stage_of, seresnext.stage_of)
 
 
 def _t(x) -> torch.Tensor:
@@ -47,13 +55,20 @@ def _conv(sd: dict, ref: str, node: Dict[str, Any]) -> None:
 
 def _norm(sd: dict, ref: str, node: Dict[str, Any],
           stats: Optional[Dict[str, Any]]) -> None:
-    """BatchNorm (with stats) or affine InstanceNorm (without)."""
+    """BatchNorm (with stats), affine InstanceNorm (without), or
+    SwitchWhiten (its weights and its running mean and covariance)."""
     sd[f"{ref}.weight"] = _t(node["scale"])
     sd[f"{ref}.bias"] = _t(node["bias"])
-    if stats:
+    for k in ("sw_mean_weight", "sw_var_weight"):
+        if k in node:
+            sd[f"{ref}.{k}"] = _t(node[k])
+    if stats and "mean" in stats:
         sd[f"{ref}.running_mean"] = _t(stats["mean"])
         sd[f"{ref}.running_var"] = _t(stats["var"])
         sd[f"{ref}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+    for k in ("running_mean", "running_cov"):
+        if stats and k in stats:
+            sd[f"{ref}.{k}"] = _t(stats[k])
 
 
 def _conv_bn(sd: dict, ref: str, node: dict, stats: dict) -> None:
@@ -65,14 +80,15 @@ def _conv_bn(sd: dict, ref: str, node: dict, stats: dict) -> None:
 def state_dict_from_jax(params: Dict[str, Any],
                         batch_stats: Optional[Dict[str, Any]] = None
                         ) -> Dict[str, torch.Tensor]:
-    """JAX ``MRFP`` or zoo ``DeepV3Plus`` variables, over any of the nine
-    ResNet trunks, -> the port's state_dict: the inverse of the key map of
+    """JAX ``MRFP`` or zoo ``DeepV3Plus`` variables -> the port's state_dict.
+    A trunk other than a ResNet maps path for path (``backbone_state_from_jax``).
+    A ResNet's map is the inverse of the key map of
     mrfp_tpu/train/import_torch.py:98-278. The stem is ``conv1`` and its norm
-    (``bn1``, or ``bn1_iw`` for an affine IN) at ``layer0.0/1``; the deep
+    (``bn1``, or ``bn1_iw`` for an affine IN or SwitchWhiten) at ``layer0.0/1``; the deep
     stem of resnet-101 adds ``conv2``/``conv3`` and their norms at
     ``layer0.3/4`` and ``layer0.6/7``. A block maps ``conv1..3``/``bn1..3``
     (a BasicBlock has two of each), the downsample pair and an affine
-    ``instance_norm_layer``; iw codes 1-3 have no variables. Grouped
+    IN's or SwitchWhiten's ``instance_norm_layer``; iw codes 1-3 have no variables. Grouped
     kernels keep their HWIO per-group layout, which transposes to torch's
     ``(out, in / groups, kh, kw)``."""
     stats = batch_stats or {}
@@ -98,10 +114,18 @@ def state_dict_from_jax(params: Dict[str, Any],
 
 def backbone_state_from_jax(bp: Dict[str, Any], bst: Optional[Dict[str, Any]] = None
                             ) -> Dict[str, torch.Tensor]:
-    """A JAX ``ResNet``'s variables -> ``layer0``..``layer4`` of the port's
-    state_dict (``state_dict_from_jax`` says how)."""
+    """A JAX trunk's variables -> ``layer0``..``layer4`` of the port's
+    state_dict (``state_dict_from_jax`` says how): a ResNet (its tree has
+    ``layer1``) by the reference's keys, any other trunk by
+    ``tree_state_from_jax`` under the layer ``zoo_layer`` gives each of its
+    top-level modules."""
     bst = bst or {}
     sd: Dict[str, torch.Tensor] = {}
+    if "layer1" not in bp:
+        for name in bp:
+            k = zoo_layer(name)
+            sd.update(tree_state_from_jax(bp[name], bst.get(name), f"layer{k}.{name}."))
+        return sd
     for i in (1, 2, 3) if "conv2" in bp else (1,):
         _conv(sd, f"layer0.{3 * (i - 1)}", bp[f"conv{i}"])
         for name in (f"bn{i}", f"bn{i}_iw"):
@@ -130,7 +154,36 @@ def block_state_from_jax(b: Dict[str, Any], bs: Optional[Dict[str, Any]] = None
         _conv(sd, "downsample.0", b["downsample_conv"])
         _norm(sd, "downsample.1", b["downsample_bn"], bs.get("downsample_bn"))
     if "instance_norm_layer" in b:
-        _norm(sd, "instance_norm_layer", b["instance_norm_layer"], None)
+        _norm(sd, "instance_norm_layer", b["instance_norm_layer"], bs.get("instance_norm_layer"))
+    return sd
+
+
+def zoo_layer(name: str) -> int:
+    """The stage (0-4) whose ``layer<k>`` holds a non-ResNet trunk's
+    top-level JAX module ``name``: the ``stage_of`` of the trunk module
+    that builds it, the one its constructor groups by."""
+    for stage_of in _STAGE_OF:
+        k = stage_of(name)
+        if k is not None:
+            return k
+    raise ValueError(f"no stage for the JAX trunk module {name!r}")
+
+
+def tree_state_from_jax(params: Dict[str, Any], stats: Optional[Dict[str, Any]] = None,
+                        prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX module tree -> the state_dict of a port module whose children
+    bear the JAX names, path for path under ``prefix``: a conv node
+    (``kernel``, ``bias``) to ``weight`` (OIHW) and ``bias``, a norm node
+    (``scale``, ...) as ``_norm`` maps it with the stats at the same path."""
+    stats = stats or {}
+    sd: Dict[str, torch.Tensor] = {}
+    if "kernel" in params:
+        _conv(sd, prefix[:-1], params)
+    elif "scale" in params:
+        _norm(sd, prefix[:-1], params, stats)
+    for name, node in params.items():
+        if isinstance(node, dict) or hasattr(node, "items"):
+            sd.update(tree_state_from_jax(node, stats.get(name), f"{prefix}{name}."))
     return sd
 
 

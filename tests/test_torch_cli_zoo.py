@@ -2,8 +2,9 @@
 ISW statistics phase, a resume that runs it again), ``cli.eval --trunk
 --variant --wt-layer --ckpt`` against the in-process evaluator (equal
 scores), ``cli.export --wt-layer --check`` (bit for bit), resume refused
-across the zoo and MRFP recipes, and the flags that stay unported or
-cannot run (each names its ROADMAP item)."""
+across the zoo and MRFP recipes, one-step runs of the zoo's other trunks
+and of iw code 5, and the flags that stay unported or cannot run (each
+names its ROADMAP item)."""
 
 import json
 import os
@@ -150,20 +151,47 @@ def test_irw_with_the_whitening_loss_fails_in_jax_and_is_refused_here(tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--num-processes", "2"], "A12.5"), (["--model-parallel", "2"], "A14"),
-    (["--wt-layer", "0", "0", "5", "0", "0", "0", "0"], "A12.3"),
-    (["--trunk", "mobilenetv2"], "A12.4"), (["--arch", "DeepShuffleNetV3PlusD"], "A12.4")])
-def test_unported_zoo_flags_raise(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train_zoo.main(ZOO + flags + ["--max-iter", "1", "--runs-dir", str(tmp_path)])
+    (["--wt-layer", "0", "0", "5", "0", "0", "0", "0"], None),
+    (["--trunk", "mobilenetv2"], None), (["--arch", "DeepShuffleNetV3PlusD"], None)])
+def test_unported_zoo_flags_raise(tmp_path, capsys, flags, item):
+    """Several processes (A12.5) and a mesh (A14) stay refused. iw code 5,
+    the MobileNetV2 trunk and a ShuffleNetV2 factory (refused until they
+    were ported) train: one step each on the CPU, 48 px, a finite loss."""
+    argv = ZOO + ["--crop-size", "48"] + flags + ["--max-iter", "1", "--runs-dir", str(tmp_path)]
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            train_zoo.main(argv)
+        return
+    assert train_zoo.main(argv) == 0
+    result = _result(capsys)
+    assert result["step"] == 1 and all(np.isfinite(v) for v in result["losses"].values())
+
+
+def test_use_wtloss_with_unread_isw_slots_fails_in_jax_and_is_refused_here(tmp_path):
+    """ROADMAP C11: MNASNet reads no wt_layer slot, so its forward collects
+    no map; JAX's statistics pass then freezes a mask that saw no variance
+    (``set_mask_matrix`` asserts). The port refuses the flags up front, and
+    trains the same plan without ``--use-wtloss`` (the slots are ignored,
+    as in JAX)."""
+    layers = jax_zoo.build_cov_layers("mnasnet_05", (0, 0, 2, 0, 0, 0, 0))
+    jax_zoo.covstat_update(layers, [])  # the pass over an empty w_arr
+    with pytest.raises(AssertionError, match="covstat pass"):
+        layers[0].set_mask_matrix()
+    plan = ["--trunk", "mnasnet_05", "--variant", "D16", "--wt-layer", "0", "0", "2", "0",
+            "0", "0", "0", "--crop-size", "48", "--max-iter", "1", "--runs-dir", str(tmp_path)]
+    with pytest.raises(ValueError, match="ROADMAP C11"):
+        train_zoo.main(ZOO + plan + ["--use-wtloss"])
+    assert train_zoo.main(ZOO + plan) == 0
 
 
 def test_cli_train_takes_the_nine_trunks():
     """``cli.train --trunk`` passes its checks for every ResNet trunk and
-    names A12.4 for the others; resnet-101 with the OC branch (the MRFP+
-    recipe) names ROADMAP C8 when its model is built."""
+    raises the JAX package's ValueError for a zoo-only trunk; resnet-101
+    with the OC branch (the MRFP+ recipe) names ROADMAP C8 when its model
+    is built."""
     for trunk in RESNET_TRUNKS:
         cli_train.check_args(cli_train.parse_args(["--trunk", trunk]))
-    with pytest.raises(NotImplementedError, match="A12.4"):
+    with pytest.raises(ValueError, match="zoo trunks live in models.deepv3_zoo"):
         cli_train.check_args(cli_train.parse_args(["--trunk", "mobilenetv2"]))
     cfg = cli_train.build_config(cli_train.parse_args(["--trunk", "resnet-101"]))
     with pytest.raises(ValueError, match="ROADMAP C8"):

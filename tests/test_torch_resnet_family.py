@@ -316,14 +316,20 @@ def test_resnet101_refuses_the_oc_branch_as_jax_cannot_trace_it(monkeypatch):
 
 def test_iw_codes_and_their_errors():
     """Codes 1-3 carry no parameters, so the state_dict layout is the
-    plain one; code 5 names ROADMAP A12.3; the non-ResNet trunks A12.4."""
+    plain one; code 5 builds SwitchWhiten; MRFP raises the JAX package's
+    ValueError for a zoo-only trunk, as JAX's MRFP does."""
     for code in (1, 2, 3):
         layer = norms.make_iw_layer(code, 8)
         assert not list(layer.state_dict()) and norms.collects_map(layer) == (code != 3)
-    with pytest.raises(NotImplementedError, match="A12.3"):
-        norms.make_iw_layer(5, 8)
+    layer = norms.make_iw_layer(5, 32)
+    assert isinstance(layer, norms.SwitchWhiten2d) and not norms.collects_map(layer)
+    assert tuple(layer.running_cov.shape) == (2, 16, 16)
     for trunk in ("mobilenetv2", "shufflenetv2", "se_resnext-50", "mnasnet_05"):
-        with pytest.raises(NotImplementedError, match="A12.4"):
+        jmodel = JaxMRFP(trunk=trunk)
+        with pytest.raises(ValueError, match="zoo trunks live in models.deepv3_zoo"):
+            jax.eval_shape(lambda: jmodel.init({"params": jax.random.PRNGKey(0)},
+                                               jnp.zeros((1, 32, 32, 3)), train=False))
+        with pytest.raises(ValueError, match="zoo trunks live in models.deepv3_zoo"):
             MRFP(trunk=trunk)
     with pytest.raises(ValueError, match="unknown trunk"):
         MRFP(trunk="resnet-9")

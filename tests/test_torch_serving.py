@@ -219,11 +219,19 @@ def test_cli_export_checks_and_writes_the_manifest(tmp_path):
 @pytest.mark.parametrize("flags", [["--arch", "DeepMobileNetV3PlusD"], ["--wt-layer", *"0004500"],
                                    ["--trunk", "shufflenetv2", "--wt-layer", *"0000000"]])
 def test_cli_export_refuses_the_zoo(tmp_path, flags):
-    """The zoo's ResNet models export (tests/test_torch_cli_zoo.py); what
-    stays refused names its ROADMAP item: the other trunks (A12.4) and iw
-    code 5 (A12.3)."""
-    with pytest.raises(NotImplementedError, match="A12"):
-        cli_export.main(["--device", "cpu", "--out", str(tmp_path / "m.pt2x"), *flags])
+    """The zoo's other trunks and iw code 5 export too: each ``--check``
+    holds the artifact to the live forward bit for bit (the three flag
+    sets were refused before those modules were ported)."""
+    out = str(tmp_path / "m.pt2x")
+    res = cli_export.main(["--device", "cpu", "--out", out, "--height", "48", "--width", "64",
+                           "--dtype", "float32", "--check", *flags])
+    try:
+        assert "bit for bit" in res["check"]
+        assert res["manifest"]["output"]["shape"] == [1, 19, 48, 64]
+        assert res["manifest"]["model"]["zoo"] == (flags[1] if flags[0] == "--arch"
+                                                   else "DeepV3Plus")
+    finally:
+        os.unlink(out)
 
 
 def test_cli_export_cuda_without_cuda_exits_nonzero(tmp_path, monkeypatch):

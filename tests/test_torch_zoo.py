@@ -144,6 +144,9 @@ def test_instance_whitening_loss_matches_jax(case):
 
 
 def test_factory_names_are_jax_s_and_other_trunks_raise():
+    """The 23 factory names and their (trunk, variant) are JAX's, every
+    one builds (tests/test_torch_zoo_trunks.py holds their keys), and an
+    unknown name raises."""
     # JAX's registry also picks up the imported DeepLabDecoder class (its
     # filter is "a callable whose name starts with Deep"): not a factory
     assert sorted(deepv3_zoo.FACTORIES) == sorted(set(jax_zoo.MODEL_REGISTRY) -
@@ -151,9 +154,8 @@ def test_factory_names_are_jax_s_and_other_trunks_raise():
     for name, (trunk, variant) in deepv3_zoo.FACTORIES.items():
         probe = jax_zoo.MODEL_REGISTRY[name]()
         assert (probe.trunk, probe.variant) == (trunk, variant), name
-        if trunk not in deepv3_zoo.SLOT_CHANNELS:
-            with pytest.raises(NotImplementedError, match="A12.4"):
-                deepv3_zoo.get_net(name)
+        assert trunk in deepv3_zoo.SLOT_CHANNELS
+    assert len(deepv3_zoo.FACTORIES) == 23 and len(deepv3_zoo.SLOT_CHANNELS) == 15
     net = deepv3_zoo.get_net("DeepR18V3PlusD", wt_layer=WT)
     assert (net.trunk, net.variant, net.wt_layer, net.use_dsn) == ("resnet-18", "D", WT, True)
     with pytest.raises(ValueError, match="unknown arch"):

@@ -1,7 +1,8 @@
-"""Probes of two reference-side findings (ROADMAP C9, C10), run by hand:
+"""Probes of three reference-side findings (ROADMAP C9, C10, C12), run by hand:
 
     python tests/torch_reference_probes.py gates-on wide [--jax-init]
     python tests/torch_reference_probes.py kmeans
+    python tests/torch_reference_probes.py zoo-step se_resnext-50 [--raw]
 
 ``gates-on FAMILY``: one fp32 MRFP+ step with every gate on at batch 4,
 48 px, on the damped reduced-depth family of ``torch_zoo_fixture`` (its
@@ -10,6 +11,12 @@ fan-out), JAX's jitted step against the port's fp32 and fp64 gradients of
 the same loss with the same draws; prints the losses and the parameters
 whose port-fp32-vs-JAX distance is largest, with the port's fp32-vs-fp64
 and fp64-vs-JAX distances, each relative to the JAX gradient's norm.
+
+``zoo-step TRUNK``: one fp32 zoo step of a zoo trunk's case in
+tests/test_torch_zoo_trunk_steps.py (batch 4, 64 px, the damped fixture,
+JAX's DSN dropout mask; with ``--raw``, raw 0-255 images in place of the
+test's normalised ones), JAX's jitted ``zoo_train_step`` against the port's
+fp32 and fp64 gradients of the same loss, printed as for ``gates-on``.
 
 ``kmeans``: the ISW mask count of ``CovMatrixISW`` (JAX's host code) on 20
 seeded upper-triangular variance matrices at C = 64 and 128: how often it
@@ -102,6 +109,54 @@ def gates_on(family: str, jax_init: bool) -> None:
         loss.backward()
         grads[dtype] = {k: p.grad.double() for k, p in model.named_parameters()}
         print(f"{family}: loss port {dtype} {float(loss):.7f}, JAX {float(m['loss']):.7f}")
+    _print_rows(start, after, grads)
+
+
+def zoo_step(trunk: str, raw: bool) -> None:
+    from mrfp_tpu.core.config import Config as JaxConfig
+    from mrfp_tpu.train.zoo_step import zoo_train_step as jax_zoo_train_step
+    from mrfp_tpu_torch.models.deepv3_zoo import DeepV3Plus
+    from mrfp_tpu_torch.train.losses import instance_whitening_loss
+    from mrfp_tpu_torch.train.step import dsn_cross_entropy
+    from test_torch_zoo_trunk_steps import HW as ZHW, _keep_mask, step_inputs
+    from torch_zoo_fixture import jax_vars, zoo_trunk_reference
+    variant, wt, wtloss, jmodel, params, stats = zoo_trunk_reference(_Patch(), trunk, ZHW)
+    img, lbl, masks, nrc = step_inputs(trunk, wt)
+    if raw:
+        img = np.random.default_rng(14).uniform(0, 255, img.shape).astype(np.float32)
+    jcfg = JaxConfig()
+    jcfg = jcfg.replace(model=dataclasses.replace(jcfg.model, use_wtloss=wtloss),
+                        train=dataclasses.replace(jcfg.train, lr=1.0))
+    jstate = create_train_state(jmodel, jcfg.train, (1, ZHW, ZHW, 3))
+    jstate = jstate.replace(params=jax.tree_util.tree_map(jnp.asarray, params),
+                            batch_stats=jax.tree_util.tree_map(jnp.asarray, stats))
+    keep = _keep_mask(jmodel, jax_vars(params, stats), img,
+                      jax.random.fold_in(jax.random.PRNGKey(17), 0))
+    jstate, m = jax.jit(lambda st, x, y: jax_zoo_train_step(
+        st, x, y, model=jmodel, cfg=jcfg, wt_masks=[jnp.asarray(k) for k in masks],
+        wt_nrc=nrc))(jstate, jnp.asarray(img), jnp.asarray(lbl))
+    after = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jstate.params))
+    start = state_dict_from_jax(params)
+    grads = {}
+    labels = torch.from_numpy(lbl).long()
+    for dtype in (torch.float32, torch.float64):
+        model = DeepV3Plus(trunk=trunk, variant=variant, wt_layer=wt, use_dsn=True)
+        model.load_state_dict(state_dict_from_jax(params, stats), strict=True)
+        model = model.to(dtype).train()
+        out = model(nchw(img).to(dtype), dropout=keep)
+        loss = cross_entropy(out["logits"], labels) + 0.4 * dsn_cross_entropy(
+            out["dsn"], labels, 255, None)
+        if wtloss:
+            loss = loss + 0.6 * instance_whitening_loss(
+                out["w_arr"], [torch.from_numpy(k).to(dtype) for k in masks], 0.0,
+                nrc) / len(out["w_arr"])
+        loss.backward()
+        grads[dtype] = {k: p.grad.double() for k, p in model.named_parameters()}
+        print(f"{trunk}: loss port {dtype} {float(loss):.7f}, JAX {float(m['loss']):.7f}")
+    _print_rows(start, after, grads)
+
+
+def _print_rows(start, after, grads) -> None:
     rows = []
     for k, v in after.items():
         if k not in grads[torch.float32]:
@@ -110,7 +165,7 @@ def gates_on(family: str, jax_init: bool) -> None:
         g_jax = (p0 - v.double()) - WD * p0  # lr 1: the raw gradient
         norm = float(g_jax.norm())
         if norm < 1e-6:
-            continue  # a bias whose exact gradient is 0 (it feeds an IN)
+            continue  # a bias whose exact gradient is 0 (a BN follows)
         g32, g64 = grads[torch.float32][k], grads[torch.float64][k]
         rows.append((float((g32 - g_jax).norm()) / norm, float((g32 - g64).norm()) / norm,
                      float((g64 - g_jax).norm()) / norm, k))
@@ -138,9 +193,15 @@ if __name__ == "__main__":
     g.add_argument("family", choices=["basic", "bottleneck", "grouped", "wide"])
     g.add_argument("--jax-init", action="store_true")
     sub.add_parser("kmeans")
+    z = sub.add_parser("zoo-step")
+    z.add_argument("trunk", choices=sorted(("mobilenetv2", "shufflenetv2", "mnasnet_05",
+                                            "mnasnet_10", "se_resnext-50", "se_resnext-101")))
+    z.add_argument("--raw", action="store_true")
     args = p.parse_args()
     torch.set_num_threads(4)
     if args.probe == "kmeans":
         kmeans()
+    elif args.probe == "zoo-step":
+        zoo_step(args.trunk, args.raw)
     else:
         gates_on(args.family, args.jax_init)

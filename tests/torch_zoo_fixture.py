@@ -1,7 +1,10 @@
 """Shared set-up of the port's ResNet-family and zoo parity tests: one JAX
 variable tree, drawn from a seed, drives both packages through
 ``state_dict_from_jax``; reduced-depth trunks are swapped into both
-packages' builder tables so that each structural option runs small."""
+packages' builder tables so that each structural option runs small. The
+zoo's other trunks (``zoo_trunk_reference``) take the same draw, with
+SwitchWhiten's running covariances made covariances and their residual
+branches' last BN scales damped."""
 
 from __future__ import annotations
 
@@ -14,7 +17,9 @@ import jax
 import jax.numpy as jnp
 
 from mrfp_tpu.nn import resnet as jax_resnet
+from mrfp_tpu.nn import seresnext as jax_seresnext
 from mrfp_tpu_torch.nn import resnet as port_resnet
+from mrfp_tpu_torch.nn import seresnext as port_seresnext
 
 DAMP = 0.1
 
@@ -125,3 +130,60 @@ def nchw(a) -> torch.Tensor:
 
 def nhwc(t: torch.Tensor) -> np.ndarray:
     return np.transpose(t.detach().numpy(), (0, 2, 3, 1))
+
+
+def spd_running_cov(stats, seed: int = 0):
+    """Every SwitchWhiten ``running_cov`` of a drawn tree made a covariance
+    (the identity plus a small SPD term): ``random_variables``' 0.1-normal
+    draw has no inverse square root."""
+    rng = np.random.default_rng(seed)
+    for path, a in list(_walk(stats)):
+        if path[-1] == "running_cov":
+            m = 0.3 * rng.standard_normal(a.shape)
+            _set(stats, path, (np.eye(a.shape[-1]) + m @ m.transpose(0, 2, 1) / a.shape[-1])
+                 .astype(np.float32))
+    return stats
+
+
+# each residual branch's last BN in the zoo's other trunks: MobileNetV2's
+# project_bn, MNASNet's pw_linear, SE-ResNeXt's bn3
+_LAST_BN = ("project_bn", "pw_linear", "bn3")
+
+
+def damp_last_bns(params):
+    """Those BN scales times ``DAMP`` (ROADMAP C3's fixture)."""
+    for path, a in list(_walk(params)):
+        if path[-1] == "scale" and any(p in _LAST_BN for p in path[-3:-1]):
+            _set(params, path, a * DAMP)
+    return params
+
+
+# trunk -> (variant, wt_layer, whether the step takes the whitening loss):
+# every iw code where the trunk has slots, D, D16 and dilation both ways
+ZOO_TRUNK_CASES = {
+    "mobilenetv2": ("D16", (0, 0, 2, 5, 2, 4, 0), True),
+    "shufflenetv2": ("D", (0, 0, 3, 2, 4, 5, 2), True),
+    "mnasnet_05": ("D16", (0,) * 7, False),
+    "mnasnet_10": ("D", (0,) * 7, False),
+    "se_resnext-50": ("D16", (0,) * 7, False),
+    "se_resnext-101": ("D16", (0,) * 7, False),
+}
+
+
+def zoo_trunk_reference(monkeypatch, trunk: str, hw: int, seed: int = 12):
+    """``(variant, wt, use_wtloss, JAX DeepV3Plus, params, stats)`` of
+    ``trunk``'s case with the DSN head, on the damped fixture.
+    SE-ResNeXt-101 is cut to depth (1, 1, 2, 1) in both packages' tables."""
+    from mrfp_tpu.models import deepv3_zoo as jax_zoo
+    from mrfp_tpu_torch.models import deepv3_zoo as port_zoo
+    if trunk == "se_resnext-101":
+        build = functools.partial(jax_seresnext.SENet, layers=(1, 1, 2, 1), kind="seresnext",
+                                  groups=32)
+        monkeypatch.setitem(jax_zoo._TRUNKS, trunk, dict(jax_zoo._TRUNKS[trunk], build=build))
+        monkeypatch.setitem(port_zoo.ZOO_TRUNKS, trunk, lambda wt, variant: port_seresnext.SENet(
+            layers=(1, 1, 2, 1), kind="seresnext", groups=32))
+    variant, wt, wtloss = ZOO_TRUNK_CASES[trunk]
+    jmodel = jax_zoo.DeepV3Plus(trunk=trunk, variant=variant, wt_layer=wt, use_dsn=True)
+    params, stats = random_variables(jmodel, np.zeros((1, hw, hw, 3), np.float32), seed=seed,
+                                     train=False)
+    return variant, wt, wtloss, jmodel, damp_last_bns(params), spd_running_cov(stats)
