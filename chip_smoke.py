@@ -50,7 +50,8 @@ the seven OC nearest ones at batch 4); takes the step with every extra (the
 DSN head, the border-relaxed CE with its window full and halved, batch
 class weights, HPF) through the kernels and through the plain versions
 from one state, in fp32 at batch 2 (loss and gradients) and in bf16 at
-batch 8 (loss, and gradients beside a second plain step's), then times the
+batch 8 (loss, and gradients beside a second plain step's and one whose
+resize transposes round another way), then times the
 bf16 step with either window beside the default step; drives ``cli.train
 --accum-steps 2 --use-dsn`` with the bf16 momentum, resumes it and prints
 its peak device memory beside the unaccumulated run's; and runs the
@@ -81,7 +82,7 @@ resnet-101, whose deep stem the OC branch cannot read), kernel path against
 plain path, after the resize kernels are held at that batch; then
 ``cli.train_zoo`` trains the zoo recipe at the JAX CLI's defaults (r18-D32,
 ``wt_layer`` 0022200, the ISW loss and its statistics phase, bf16, batch 16,
-768x768) for 12 counted steps, and ``cli.eval`` and ``cli.export --check``
+768x768) for 6 counted steps, and ``cli.eval`` and ``cli.export --check``
 take its checkpoint at 1024x2048; the zoo step's time, images/s and peak
 memory are timed in process.
 
@@ -104,6 +105,20 @@ the input by a rounding step; the ranks must end bit-identical, and every
 resize call of theirs must be at a held shape. Then ``cli.train
 --num-processes 1 --coordinator-address`` trains two steps through an NCCL
 process group (NCCL refuses two ranks on one card).
+
+The zoo on several processes (``phase_zoo_data_parallel``): two ranks
+share the card through gloo as above and take the statistics pass (rank
+0's masks broadcast) and one zoo step of DeepR50V3PlusD with ISW in slots
+2-3 and SwitchWhiten in slot 4 (the global batch's BatchNorm and
+SwitchWhiten statistics) on their halves of a global batch of 768x768
+images, in fp32 (TF32 off, the damped fixture, 4 images: every gradient
+checked) and in bf16 (8 images), against one process on the whole batch
+with the same masks and draws and a control that moves the input by a
+rounding step; the bf16 step's collectives are counted
+(``parallel/audit.py``). Then ``cli.plan`` reports the MRFP+ R50-D16 launch
+of global batch 8 on 2 ranks, whose all-reduce bill must be the one
+``phase_data_parallel`` counted, and ``cli.train_zoo --num-processes 1``
+trains two steps through NCCL.
 
 Any failure raises and exits non-zero; the last line of stdout is the JSON
 verdict, printed only when every phase passed. With ``--profile DIR`` it
@@ -594,11 +609,14 @@ def phase_hist(gen) -> dict:
                    profiled_device_ms(lambda: torch.bincount(flat, minlength=c * c)))
             print(f"confusion_matrix C={c} uniform: device time kernel {dev[0]:.4f} ms (graph), "
                   f"bincount {dev[1]:.4f} ms (profiler)")
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                update(hist, pred, label, c)
-                torch.cuda.synchronize()
-            on_card = [(e.key, e.count) for e in prof.key_averages()
-                       if e.self_device_time_total > 0]
+            for _ in range(3):  # a trace can come back empty, which shows nothing
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    update(hist, pred, label, c)
+                    torch.cuda.synchronize()
+                on_card = [(e.key, e.count) for e in prof.key_averages()
+                           if e.self_device_time_total > 0]
+                if on_card:
+                    break
             print(f"confusion_matrix int64 pred, uint8 label: one call's device work {on_card}")
             if len(on_card) != 1 or "confusion_matrix_kernel" not in on_card[0][0] \
                     or on_card[0][1] != 1:
@@ -2182,37 +2200,103 @@ def _extras_cfg(batch: int, dtype: str, reduce_border_iter: int = 0):
                                  freq_transform="hpf"))
 
 
-def _damped_state(cfg):
-    """A fresh train state of ``cfg`` on the damped fixture (ROADMAP C3):
-    each residual branch's last BN scale (a Bottleneck's ``bn3``, a
-    BasicBlock's ``bn2``) times ``DAMP``."""
-    from mrfp_tpu_torch.cli.train import build_state
+def _damp_(model) -> None:
+    """The damped fixture (ROADMAP C3): each residual branch's last BN
+    scale (a Bottleneck's ``bn3``, a BasicBlock's ``bn2``) times ``DAMP``."""
     from mrfp_tpu_torch.nn.resnet import BasicBlock, Bottleneck
-    state = build_state(cfg, torch.device(DEV))
     with torch.no_grad():
-        for m in state.model.modules():
+        for m in model.modules():
             if isinstance(m, Bottleneck):
                 m.bn3.weight.mul_(DAMP)
             elif isinstance(m, BasicBlock):
                 m.bn2.weight.mul_(DAMP)
+
+
+def _damped_state(cfg):
+    """A fresh train state of ``cfg`` on the damped fixture."""
+    from mrfp_tpu_torch.cli.train import build_state
+    state = build_state(cfg, torch.device(DEV))
+    _damp_(state.model)
     return state
 
 
+@contextlib.contextmanager
+def _fp64_transposes():
+    """The plain resize backwards, while open, summed in fp64 and rounded
+    once to the cotangent's dtype: the same transposes as the plain fp32
+    ``index_add_`` ones, rounded another way, as the kernels' are. A step
+    under it is the control of a kernel-vs-plain gradient check."""
+    from mrfp_tpu_torch.ops import cuda_resize
+
+    def bilinear(g, ty, tx, h, w):
+        gd = g.double()
+        n, c, oh, _ow = gd.shape
+        fx, fy = tx.frac.double(), ty.frac.double()[:, None]
+        gw = gd.new_zeros((n, c, oh, w))
+        gw.index_add_(3, tx.idx0.long(), gd * (1 - fx))
+        gw.index_add_(3, tx.idx1.long(), gd * fx)
+        gx = gd.new_zeros((n, c, h, w))
+        gx.index_add_(2, ty.idx0.long(), gw * (1 - fy))
+        gx.index_add_(2, ty.idx1.long(), gw * fy)
+        return gx.to(g.dtype)
+
+    def nearest(g, ty, tx, h, w):
+        gd = g.double()
+        n, c, oh, _ow = gd.shape
+        gw = gd.new_zeros((n, c, oh, w)).index_add_(3, tx.idx.long(), gd)
+        return gd.new_zeros((n, c, h, w)).index_add_(2, ty.idx.long(), gw).to(g.dtype)
+
+    saved = cuda_resize.resize_bilinear_bwd_plain, cuda_resize.resize_nearest_bwd_plain
+    cuda_resize.resize_bilinear_bwd_plain, cuda_resize.resize_nearest_bwd_plain = (bilinear,
+                                                                                   nearest)
+    try:
+        yield
+    finally:
+        cuda_resize.resize_bilinear_bwd_plain, cuda_resize.resize_nearest_bwd_plain = saved
+
+
+def _noise(grads: dict, keys) -> dict:
+    """The noise runs' relative gradient distances from the plain step:
+    ``plain again`` (the plain transposes' ``index_add_`` atomics, cuDNN's
+    backward) and, where it ran, ``control`` (the plain step under
+    ``_fp64_transposes``)."""
+    return {name: {k: _rel(grads[name][k], grads["plain"][k]) for k in keys}
+            for name in ("plain again", "control") if name in grads}
+
+
+def _floor(noise: dict) -> dict:
+    """Each gradient's rounding floor: its largest distance over the noise
+    runs. A second plain step alone is no floor: it can land on the first
+    bit for bit, while the kernels' other fp32 summation order still moves
+    a bf16 step's stem gradient by about 2%; the control moves it by
+    rounding the same transposes another way."""
+    runs = list(noise.values())
+    return {k: max(r[k] for r in runs) for k in runs[0]}
+
+
+def _noise_text(noise: dict) -> str:
+    """The noise runs' distances as the check lines print them."""
+    return ", ".join(f"{name} vs plain {({k: round(v, 6) for k, v in d.items()})}"
+                     for name, d in noise.items())
+
+
 def _extras_compare(base, img, lbl, cfg, start: int, record: bool,
-                    keys=GRAD_KEYS + ("dsn.4.weight",)) -> tuple:
+                    keys=GRAD_KEYS + ("dsn.4.weight",), control: bool = False) -> tuple:
     """One step of ``cfg`` from ``base`` at step ``start`` through the kernels,
-    through the plain versions and through them again, each from a copy of
-    the same state (so the same gates and dropout masks). Returns the three
-    losses, the relative gradient differences of ``keys`` (kernel vs plain,
-    plain again vs plain) and, with ``record``, the kernel step's resize
-    calls."""
+    through the plain versions and through them again and, with
+    ``control``, under ``_fp64_transposes``, each from a copy of
+    the same state (so the same gates and dropout masks). Returns the
+    losses, the relative gradient differences of ``keys`` (kernel vs plain),
+    the noise runs' (``_noise``) and, with ``record``, the kernel step's
+    resize calls."""
     from mrfp_tpu_torch.train.state import create_train_state
     from mrfp_tpu_torch.train.step import train_step
     losses, grads, calls = {}, {}, []
-    for name in ("kernel", "plain", "plain again"):
+    for name in ("kernel", "plain", "plain again") + (("control",) if control else ()):
         st = create_train_state(copy.deepcopy(base.model), cfg.train)
         st.step = start
-        with _recording() if record and name == "kernel" else contextlib.nullcontext([]) as seen:
+        with _recording() if record and name == "kernel" else contextlib.nullcontext([]) as seen, \
+                _fp64_transposes() if name == "control" else contextlib.nullcontext():
             losses[name] = train_step(st, img, lbl, cfg, impl=None if name == "kernel"
                                       else "plain")["loss"].item()
         calls += seen
@@ -2220,8 +2304,7 @@ def _extras_compare(base, img, lbl, cfg, start: int, record: bool,
         grads[name] = {k: params[k].grad.clone() for k in keys}
         del st, params
     errs = {k: _rel(grads["kernel"][k], grads["plain"][k]) for k in keys}
-    floor = {k: _rel(grads["plain again"][k], grads["plain"][k]) for k in keys}
-    return losses, errs, floor, calls
+    return losses, errs, _noise(grads, keys), calls
 
 
 def phase_extras_step(gen) -> dict:
@@ -2233,8 +2316,9 @@ def phase_extras_step(gen) -> dict:
     loss within 1e-4 and the gradients of ``GRAD_KEYS`` and the DSN
     classifier within 1e-3 relative. Then in bf16 at batch 8, 768x768: the
     loss within 1e-4; the gradients, whose bf16 backward differs between
-    two plain runs by about 1.5% (cuDNN's backward is not bit-reproducible),
-    within 3x the largest plain-again difference of that step. The bf16
+    two plain runs by about 1.5% where cuDNN's backward is not
+    bit-reproducible, within 3x the largest rounding floor of that step
+    (``_floor``: the plain-again and the fp64-transpose differences). The bf16
     kernel path's two steps are counted: they must launch every forward
     resize kernel, the nearest one at the DSN label shape once a step, and
     only at shapes held against the plain versions. Then the extras step's
@@ -2253,12 +2337,13 @@ def phase_extras_step(gen) -> dict:
         base = _damped_state(cfg)
         img, lbl = _batch(gen, 2)
         for start in (0, 1):
-            losses, errs, floor, _ = _extras_compare(base, img, lbl, cfg, start, record=False)
+            losses, errs, noise, _ = _extras_compare(base, img, lbl, cfg, start, record=False)
             err = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
             print(f"extras step fp32 2x{CROP}x{CROP} (TF32 off, cuDNN deterministic) from step "
                   f"{start} ({'halved' if start else 'full'} window), bn3 scales x{DAMP}: loss "
                   f"kernel {losses['kernel']:.6f} plain {losses['plain']:.6f} (rel {err:.3e}); "
-                  f"gradient rel err kernel vs plain {errs}; plain again vs plain {floor}")
+                  f"gradient rel err kernel vs plain {errs}; plain again vs plain "
+                  f"{noise['plain again']}")
             if not all(math.isfinite(v) for v in losses.values()) or err > 1e-4:
                 raise AssertionError(f"extras step fp32: kernel vs plain path losses {losses}")
             bad = {k: v for k, v in errs.items() if not v <= 1e-3}
@@ -2277,16 +2362,17 @@ def phase_extras_step(gen) -> dict:
     reset_launches()  # the plain steps launch nothing: this counts the kernel path's
     calls = []
     for start in (0, 1):
-        losses, errs, floor, seen = _extras_compare(base, img, lbl, cfg, start, record=True)
+        losses, errs, noise, seen = _extras_compare(base, img, lbl, cfg, start, record=True,
+                                                    control=True)
         calls += seen
         err = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
-        limit = 3 * max(floor.values())
+        limit = 3 * max(_floor(noise).values())
         print(f"extras step bf16 {TRAIN_N}x{CROP}x{CROP} from step {start} (DSN, relaxed "
               f"CE border 1, {'halved' if start else 'full'} window; batch weights, HPF), "
               f"gates as drawn, bn3 scales x{DAMP}: loss kernel {losses['kernel']:.6f} "
               f"plain {losses['plain']:.6f} (rel {err:.3e}); gradient rel err kernel vs "
-              f"plain {({k: round(v, 6) for k, v in errs.items()})}, plain again vs plain "
-              f"{({k: round(v, 6) for k, v in floor.items()})}, limit {limit:.6f}")
+              f"plain {({k: round(v, 6) for k, v in errs.items()})}, {_noise_text(noise)}, "
+              f"limit {limit:.6f}")
         if not all(math.isfinite(v) for v in losses.values()) or err > 1e-4:
             raise AssertionError(f"extras step bf16: kernel vs plain path losses {losses}")
         bad = {k: v for k, v in errs.items() if not v <= limit}
@@ -2451,6 +2537,7 @@ TRUNK_STEP_N = 2
 # ISW loss; bf16, batch 16, 768x768) and the resizes it runs on the card:
 # (name, N, C, in_hw, out_hw), forward and backward in the step
 ZOO_N, ZOO_WT = 16, ("0", "0", "2", "2", "2", "0", "0")
+ZOO_STEPS = 6  # cli.train_zoo's counted steps, few for the script's time
 ZOO_TRAIN_RESIZES = [
     ("zoo aspp broadcast", ZOO_N, 256, (1, 1), (CROP // 32,) * 2),
     ("zoo decoder upsample", ZOO_N, 256, (CROP // 32,) * 2, (CROP // 4,) * 2),
@@ -2473,7 +2560,8 @@ def phase_trunks(gen, cuda_gen) -> dict:
     then one bf16 MRFP+ step at ``TRUNK_STEP_N`` x 768x768 on the damped
     fixture, kernel path against plain path from one state (the same drawn
     gates), with ``phase_extras_step``'s bound: loss within 1e-4, the
-    gradients of ``GRAD_KEYS`` within 3x a second plain step's difference.
+    gradients of ``GRAD_KEYS`` within 3x the largest rounding floor
+    (``_floor``).
     resnet-101 takes the baseline step: its deep stem gives 128 channels
     and the OC branch reads 64, so the JAX package cannot trace its
     perturbed step and the port refuses the OC buffers (ROADMAP C8), which
@@ -2522,18 +2610,18 @@ def phase_trunks(gen, cuda_gen) -> dict:
                               model=dataclasses.replace(cfg.model, hrfp_plus=False))
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, trunk=trunk))
         base = _damped_state(cfg)
-        losses, errs, floor, calls = _extras_compare(base, img, lbl, cfg, 0, record=True,
-                                                     keys=GRAD_KEYS)
+        losses, errs, noise, calls = _extras_compare(base, img, lbl, cfg, 0, record=True,
+                                                     keys=GRAD_KEYS, control=True)
         loss_err = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
-        limit = 3 * max(floor.values())
+        limit = 3 * max(_floor(noise).values())
         print(f"trunk {trunk} ({n_params / 1e6:.1f} M parameters): eval fp32 1x3x{H}x{W} "
               f"kernel vs plain argmax agreement {agree}, kernel path {eval_ms[trunk]:.3f} "
               f"ms (median of 5); bf16 {'MRFP+' if cfg.perturb.enabled else 'baseline'} "
               f"step {TRUNK_STEP_N}x{CROP}x{CROP}, gates as drawn at step 0, bn scales "
               f"x{DAMP}: loss kernel {losses['kernel']:.6f} plain {losses['plain']:.6f} "
               f"(rel {loss_err:.3e}); gradient rel err kernel vs plain "
-              f"{({k: round(v, 6) for k, v in errs.items()})}, plain again vs plain "
-              f"{({k: round(v, 6) for k, v in floor.items()})}, limit {limit:.6f}")
+              f"{({k: round(v, 6) for k, v in errs.items()})}, {_noise_text(noise)}, "
+              f"limit {limit:.6f}")
         if not all(math.isfinite(v) for v in losses.values()) or loss_err > 1e-4:
             raise AssertionError(f"{trunk} step: kernel vs plain path losses {losses}")
         bad = {k: v for k, v in errs.items() if not v <= limit}
@@ -2580,7 +2668,7 @@ def _zoo_step_time(wt=ZOO_WT) -> dict:
 def phase_cli_train_zoo(cuda_gen) -> dict:
     """The zoo recipe at full width, the JAX CLI's defaults: ``cli.train_zoo
     --synthetic --trunk resnet-18 --variant D32 --wt-layer 0 0 2 2 2 0 0
-    --use-wtloss --batch-size 16 --crop-size 768 --max-iter 12`` (bf16, the
+    --use-wtloss --batch-size 16 --crop-size 768 --max-iter 6`` (bf16, the
     ISW statistics phase over 4 view pairs of 32 images, the DSN head),
     counted; then ``cli.eval`` of its checkpoint at 1xHxW (the bilinear and
     confusion-matrix kernels launched) and ``cli.export --check`` of it at
@@ -2626,7 +2714,7 @@ def phase_cli_train_zoo(cuda_gen) -> dict:
         out = os.path.join(runs, "result.json")
         argv = ["--device", DEV, "--synthetic", "--trunk", "resnet-18", "--variant", "D32",
                 "--wt-layer", *ZOO_WT, "--use-wtloss", "--batch-size", str(ZOO_N),
-                "--crop-size", str(CROP), "--max-iter", "12", "--log-every", "1",
+                "--crop-size", str(CROP), "--max-iter", str(ZOO_STEPS), "--log-every", "1",
                 "--runs-dir", runs, "--json-out", out]
         reset_launches()  # count this run alone
         t0 = time.perf_counter()
@@ -2639,15 +2727,17 @@ def phase_cli_train_zoo(cuda_gen) -> dict:
         m = _metrics(result["run_dir"])
         ips = [m["train/images_per_sec"][s] for s in sorted(m["train/images_per_sec"])][2:]
         cov = result["covstat"]
-        print(f"cli.train_zoo r18-D32 wt 0022200 ISW, bf16 {ZOO_N}x{CROP}x{CROP}, 12 steps: "
+        print(f"cli.train_zoo r18-D32 wt 0022200 ISW, bf16 {ZOO_N}x{CROP}x{CROP}, {ZOO_STEPS} "
+              f"steps: "
               f"rc {rc}, {seconds:.1f} s end to end; covstat phase {cov['seconds']:.3f} s over "
               f"{cov['pairs']} view pairs of {2 * ZOO_N} images, masks (dim, nrc) "
               f"{[(k['dim'], k['nrc']) for k in cov['masks']]}; launches {launched}; losses "
               f"{ {k: round(v, 4) for k, v in result['losses'].items()} }; loss_wt "
               f"{ {k: round(v, 5) for k, v in m.get('train/loss_wt', {}).items()} }; images/s "
-              f"steps 3-12 end to end (a checkpoint each) median {statistics.median(ips):.3f}")
+              f"steps 3-{ZOO_STEPS} end to end (a checkpoint each) median "
+              f"{statistics.median(ips):.3f}")
         losses = list(result["losses"].values())
-        if rc != 0 or result["step"] != 12 or len(losses) != 12 \
+        if rc != 0 or result["step"] != ZOO_STEPS or len(losses) != ZOO_STEPS \
                 or not all(math.isfinite(v) for v in losses) \
                 or [k["dim"] for k in cov["masks"]] != [64, 64, 128] \
                 or not all(k["nrc"] > 0 for k in cov["masks"]):
@@ -2755,10 +2845,11 @@ def _hold_zoo_trunk_shapes(cuda_gen) -> float:
 def _zoo_trunk_step(trunk: str, img, lbl):
     """One bf16 zoo step of ``trunk`` (DSN head; the ISW loss over fixed
     strictly-upper masks where the trunk has slots) from one seeded state
-    through the kernels, through the plain versions and through them again.
-    Returns the three losses, the relative gradient differences of the
-    stem's first conv, the ASPP pool conv, the classifier and the DSN
-    classifier (kernel vs plain, plain again vs plain), the kernel step's
+    through the kernels, through the plain versions, through them again and
+    under ``_fp64_transposes``. Returns the losses, the relative
+    gradient differences of the stem's first conv, the ASPP pool conv, the
+    classifier and the DSN classifier (kernel vs plain), the noise runs'
+    (``_noise``), the kernel step's
     resize calls, and the kernel path's step ms (median of 5 after one
     warm-up step, from the compared state on)."""
     from mrfp_tpu_torch.core.config import Config
@@ -2780,9 +2871,10 @@ def _zoo_trunk_step(trunk: str, img, lbl):
     stem = next(k for k, p in base.named_parameters() if k.startswith("layer0") and p.dim() == 4)
     keys = (stem, "aspp.img_conv.0.weight", "final2.0.weight", "dsn.4.weight")
     losses, grads, calls = {}, {}, []
-    for name in ("kernel", "plain", "plain again"):
+    for name in ("kernel", "plain", "plain again", "control"):
         st = create_train_state(copy.deepcopy(base), cfg.train)
-        with _recording() if name == "kernel" else contextlib.nullcontext([]) as seen:
+        with _recording() if name == "kernel" else contextlib.nullcontext([]) as seen, \
+                _fp64_transposes() if name == "control" else contextlib.nullcontext():
             losses[name] = zoo_train_step(st, img, lbl, cfg, masks, nrc,
                                           impl=None if name == "kernel" else "plain")[
                                               "loss"].item()
@@ -2796,9 +2888,8 @@ def _zoo_trunk_step(trunk: str, img, lbl):
             calls += seen
         del st, params
     errs = {k: _rel(grads["kernel"][k], grads["plain"][k]) for k in keys}
-    floor = {k: _rel(grads["plain again"][k], grads["plain"][k]) for k in keys}
     del base
-    return losses, errs, floor, calls, ms
+    return losses, errs, _noise(grads, keys), calls, ms
 
 
 def _switchwhiten_layer(cuda_gen, profile_dir) -> float:
@@ -2838,8 +2929,8 @@ def phase_zoo_trunks(gen, cuda_gen, profile_dir=None) -> dict:
     1e-4 and argmax 99.99%, the kernel path's median ms of 5; one bf16 zoo
     step at ``ZOO_TRUNK_N`` x 768x768, kernel against plain from one state
     (``_zoo_trunk_step``): loss within 1e-4, each gradient within 3x its
-    own difference between two plain steps plus 1e-3, and the kernel path's
-    step ms. Then
+    own rounding floor (``_floor``) plus 1e-3, and the kernel path's step
+    ms. Then
     the zoo recipe with SwitchWhiten (``SW_WT``; r18-D32, bf16, batch
     ``ZOO_N``, 768x768): its step time, images/s and peak memory
     (``_zoo_step_time``), one of its SwitchWhiten layers alone
@@ -2890,12 +2981,13 @@ def phase_zoo_trunks(gen, cuda_gen, profile_dir=None) -> dict:
         torch.cuda.empty_cache()
         torch.backends.cudnn.allow_tf32 = True
         reset_launches()
-        losses, errs, floor, calls, step_ms = _zoo_trunk_step(trunk, img, lbl)
+        losses, errs, noise, calls, step_ms = _zoo_trunk_step(trunk, img, lbl)
         torch.cuda.synchronize()
         count()
         loss_err = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
-        # each gradient against 3x its own plain-again noise: the stem conv's cuDNN
-        # bf16 noise must not widen the bound on the heads behind the resize kernels
+        # each gradient against 3x its own rounding floor: the stem conv's bf16
+        # noise must not widen the bound on the heads behind the resize kernels
+        floor = _floor(noise)
         limit = {k: 3 * floor[k] + 1e-3 for k in errs}
         print(f"zoo trunk {trunk} D16 ({n_params / 1e6:.1f} M parameters): eval fp32 1x3x{H}x{W} "
               f"kernel vs plain argmax agreement {agree}, kernel path {eval_ms:.3f} ms (median "
@@ -2903,7 +2995,7 @@ def phase_zoo_trunks(gen, cuda_gen, profile_dir=None) -> dict:
               f"{', ISW ' + str(ZOO_TRUNK_WT[trunk]) if trunk in ZOO_TRUNK_WT else ''}): loss "
               f"kernel {losses['kernel']:.6f} plain {losses['plain']:.6f} (rel {loss_err:.3e}); "
               f"gradient rel err kernel vs plain {({k: round(v, 6) for k, v in errs.items()})}, "
-              f"plain again vs plain {({k: round(v, 6) for k, v in floor.items()})}, limits "
+              f"{_noise_text(noise)}, limits "
               f"{({k: round(v, 6) for k, v in limit.items()})}; kernel path step "
               f"{step_ms:.3f} ms (median of 5 after 1 warm-up)")
         if not all(math.isfinite(v) for v in losses.values()) or loss_err > 1e-4:
@@ -2951,6 +3043,9 @@ def phase_zoo_trunks(gen, cuda_gen, profile_dir=None) -> dict:
 
 DP_WORLD = 2  # ranks of the data-parallel phase, all on the one card
 DP_FP32_N = 4  # the fp32 comparison's global batch (2 a rank)
+# a rank's all_reduce calls and bytes in the MRFP+ bf16 step (R50-D16, global
+# batch 8 on 2 ranks) as phase_data_parallel counts them on an H100
+DP_BILL = (145, 162374872)
 
 
 def _dp_setup(batch: int, dtype: str, damped: bool):
@@ -3055,6 +3150,35 @@ def dp_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
         torch.distributed.destroy_process_group()
 
 
+def _run_ranks(target: str, timeout: float = 900) -> tuple:
+    """``DP_WORLD`` processes of ``chip_smoke.<target>(rank, world,
+    rendezvous, out)`` on a file rendezvous; their results and seconds."""
+    with tempfile.TemporaryDirectory() as tmp:
+        rendezvous = f"file://{tmp}/rendezvous"
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.{target}({r}, {DP_WORLD}, "
+                                   f"{rendezvous!r}, {tmp!r})"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DP_WORLD)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=timeout)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        seconds = time.perf_counter() - t0
+        bad = [(r, p.returncode, out[-3000:]) for r, (p, out) in enumerate(zip(procs, outs))
+               if p.returncode != 0]
+        if bad:
+            raise AssertionError(f"{target}: a rank failed: {bad}")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                for r in range(DP_WORLD)], seconds
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as sock:
@@ -3092,36 +3216,14 @@ def phase_data_parallel(cuda_gen) -> dict:
     here first). Then
     ``cli.train --num-processes 1 --coordinator-address`` on NCCL for two
     steps: the launch path with its process group, whose one rank reduces
-    nothing. Returns the ranks' summed kernel launches in the bf16 step."""
+    nothing. Returns the ranks' summed kernel launches in the bf16 step and
+    a rank's all_reduce bill of that step, (calls, bytes)."""
     n = DP_FP32_N // DP_WORLD
     err = _hold_train_shapes(n, (torch.float32,), cuda_gen)
     print(f"the fp32 ranks' shapes, batch {n}: the five train bilinear resizes' forward "
           f"exactly equal, backward within the bound (max_abs_err {err:.3e}); the seven OC "
           f"nearest resizes exactly equal both ways")
-    with tempfile.TemporaryDirectory() as tmp:
-        rendezvous = f"file://{tmp}/rendezvous"
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, "-c", f"import chip_smoke; chip_smoke.dp_rank({r}, {DP_WORLD}, "
-                                   f"{rendezvous!r}, {tmp!r})"],
-            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(DP_WORLD)]
-        outs = []
-        try:
-            for proc in procs:
-                outs.append(proc.communicate(timeout=900)[0])
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        seconds = time.perf_counter() - t0
-        bad = [(r, p.returncode, out[-3000:]) for r, (p, out) in enumerate(zip(procs, outs))
-               if p.returncode != 0]
-        if bad:
-            raise AssertionError(f"data parallel: a rank failed: {bad}")
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-                 for r in range(DP_WORLD)]
+    ranks, seconds = _run_ranks("dp_rank")
 
     every = slice(None)
     with _strict_fp32():
@@ -3235,7 +3337,352 @@ def phase_data_parallel(cuda_gen) -> dict:
                 or not all(math.isfinite(v) for v in result["losses"].values()):
             raise AssertionError(f"cli.train on NCCL: rc {proc.returncode}, result {result}, "
                                  f"stderr {proc.stderr[-3000:]}")
+    return launched, (len(sizes), sum(sizes))
+
+
+# the zoo's data-parallel phase: DeepR50V3PlusD (resnet-50 D16, full width
+# and depth), ISW in slots 2-3 and SwitchWhiten in slot 4, the whitening
+# loss and the DSN head, 768x768 crops on DP_WORLD ranks: the bf16 recipe at
+# global batch ZOO_DP_N, fp32 on the damped fixture at ZOO_DP_FP32_N
+ZOO_DP_WT, ZOO_DP_N, ZOO_DP_FP32_N = ("0", "0", "2", "2", "5", "0", "0"), 8, 4
+
+
+def _zoo_dp_setup(batch: int, dtype: str):
+    """The zoo phase's config, state (fp32: on the damped fixture), view
+    pairs (2 pairs at the bf16 ranks' batch) and global batch of ``batch``
+    images, the same in every process."""
+    from mrfp_tpu_torch.cli import train_zoo
+    args = train_zoo.parse_args(["--arch", "DeepR50V3PlusD", "--wt-layer", *ZOO_DP_WT,
+                                 "--use-wtloss", "--batch-size", str(batch),
+                                 "--crop-size", str(CROP)]
+                                + (["--no-bf16"] if dtype == "float32" else []))
+    train_zoo.check_args(args)
+    cfg = train_zoo.build_config(args)
+    state = train_zoo.build_state(cfg, torch.device(DEV))
+    if dtype == "float32":
+        _damp_(state.model)
+    gen = torch.Generator().manual_seed(5)
+    local = ZOO_DP_N // DP_WORLD
+    pairs = [tuple((torch.rand((local, CROP, CROP, 3), generator=gen) * 255).numpy()
+                   for _ in range(2)) for _ in range(2)]
+    img, lbl = _batch(gen, batch)
+    return cfg, state, pairs, img, lbl
+
+
+def _zoo_dp_step(rows: slice, noise: float = 0.0, steps=None, batch: int = ZOO_DP_N,
+                 dtype: str = "bfloat16") -> dict:
+    """The statistics pass, then one zoo step of ``_zoo_dp_setup(batch,
+    dtype)`` on ``rows`` of its batch, the images x (1 + ``noise`` x N(0,
+    1)), with every resize call recorded and the step's collectives and
+    launches counted; then ``steps`` more steps timed. The tensors (the
+    state before and after, the gradients) come back on the host, with the
+    names of SwitchWhiten's parameters."""
+    from mrfp_tpu_torch.models.deepv3_zoo import build_cov_layers
+    from mrfp_tpu_torch.nn.norms import SwitchWhiten2d
+    from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
+    from mrfp_tpu_torch.parallel.audit import count_collectives
+    from mrfp_tpu_torch.train.zoo_step import covstat_pass, zoo_train_step
+    cfg, state, pairs, img, lbl = _zoo_dp_setup(batch, dtype)
+    layers = build_cov_layers("resnet-50", tuple(map(int, ZOO_DP_WT)))
+    masks, nrc = covstat_pass(state.model, layers, pairs, cfg, torch.device(DEV))
+    eps = torch.randn(img.shape, generator=torch.Generator().manual_seed(2)).to(img.device)
+    img = (img.float() * (1 + noise * eps))[rows].contiguous()
+    lbl = lbl[rows].contiguous()
+    host = lambda d: {k: v.detach().to("cpu", copy=True) for k, v in d.items()}  # noqa: E731
+    before = host(state.model.state_dict())
+    torch.cuda.synchronize()
+    reset_launches()
+    with _recording() as calls, count_collectives() as log:
+        m = zoo_train_step(state, img, lbl, cfg, masks, nrc)
+        losses = {k: float(v) for k, v in m.items() if k.startswith("loss")}
+    launched = dict(LAUNCHES)
+    after = host(state.model.state_dict())
+    grads = host({k: p.grad for k, p in state.model.named_parameters() if p.grad is not None})
+    sw = [f"{name}.{k}" for name, mod in state.model.named_modules()
+          if isinstance(mod, SwitchWhiten2d) for k, _ in mod.named_parameters()]
+    times = []
+    for _ in range(steps or 0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zoo_train_step(state, img, lbl, cfg, masks, nrc)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"before": before, "losses": losses, "after": after, "grads": grads, "sw": sw,
+            "launched": launched, "masks": [t.cpu() for t in masks], "nrc": nrc, "ms": times,
+            "collectives": [vars(c) for c in log],
+            "calls": [(k, _dtype_name(d), i, o) for k, d, i, o in calls]}
+
+
+def zoo_dp_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
+    """One rank of ``phase_zoo_data_parallel`` (its own process): joins the
+    gloo group, takes the fp32 ``_zoo_dp_step`` on its rows, then the bf16
+    one and three timed bf16 steps, and writes what it saw to
+    ``out/rank<rank>.pt``."""
+    from mrfp_tpu_torch.parallel import dist
+    dist.initialize_distributed(rendezvous, world, rank, DEV, backend="gloo", timeout_s=600)
+    try:
+        n = ZOO_DP_FP32_N // world
+        with _strict_fp32():
+            fp32 = _zoo_dp_step(slice(rank * n, (rank + 1) * n), batch=ZOO_DP_FP32_N,
+                                dtype="float32")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        n = ZOO_DP_N // world
+        res = _zoo_dp_step(slice(rank * n, (rank + 1) * n), steps=3)
+        res["fp32"] = {k: fp32[k] for k in ("losses", "grads", "masks", "nrc")}
+        res["calls"] += fp32["calls"]
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_zoo_data_parallel(cuda_gen, dp_bill=None) -> dict:
+    """The zoo on several processes, on the one card there is.
+
+    First the resizes of the ranks' batches and of the one process's are
+    held against their plain versions: the head's three bilinear resizes
+    in bf16 and fp32 (forward exactly, backward within the bound) and the
+    DSN label map (exactly). ``DP_WORLD`` ranks then share the card
+    through gloo (``zoo_dp_rank``), each running the statistics pass over
+    the same view pairs (rank 0's masks broadcast) and a zoo step of
+    ``_zoo_dp_setup`` on its half of the global batch, fp32 then bf16; this
+    process takes the same passes and steps on the whole batches, and
+    again on the input moved by a rounding step (the controls: 1e-7 in
+    fp32, half a bf16 ulp in bf16). Checks:
+
+    - fp32 (TF32 off, cuDNN deterministic, the damped fixture): the masks
+      equal across ranks and to one process's; each loss and every
+      gradient, SwitchWhiten's parameters' included, within 3x the
+      control's distance plus 1e-4 of its size (tests/test_torch_dist.py's
+      rule);
+    - bf16: the ranks' masks equal each other's and the one-process pass's
+      bit for bit; the ranks end with bit-identical parameters and
+      buffers; the loss within 2^-9 relative of the one-process loss; each
+      BatchNorm and SwitchWhiten running statistic's move within 3x the
+      control's relative distance + 2e-2 (``phase_data_parallel``'s bf16
+      bound);
+    - every resize call at a held shape.
+
+    Prints the ranks' bf16 step ms (gloo through the host: a correctness
+    time) and the step's collectives by op and dtype. Then ``cli.plan``
+    plans the MRFP+ R50-D16 launch of global batch 8 on 2 ranks (bf16): its
+    all-reduce count and bytes must be ``dp_bill``, those
+    ``phase_data_parallel`` counted in this run (``DP_BILL`` when that
+    phase did not run); and ``cli.train_zoo --num-processes 1
+    --coordinator-address`` trains two steps of the recipe on NCCL. Both
+    run in processes of their own beside the ranks. Returns the ranks'
+    summed launches."""
+    from mrfp_tpu_torch.models.deepv3_zoo import iw_slots
+    from mrfp_tpu_torch.ops import cuda_resize
+    from mrfp_tpu_torch.ops.resize import nearest_table
+    from mrfp_tpu_torch.parallel.audit import Collective, summarize, summarize_by_dtype
+    slots = [i for i, c in enumerate(ZOO_DP_WT) if c != "0"]
+    if not set(slots) <= set(iw_slots("resnet-50")):
+        raise AssertionError(f"resnet-50 reads slots {iw_slots('resnet-50')}, not {slots}")
+    local, local32 = ZOO_DP_N // DP_WORLD, ZOO_DP_FP32_N // DP_WORLD
+    errs = []
+    for dtype, batches in ((torch.bfloat16, (local, ZOO_DP_N)),
+                           (torch.float32, (local32, ZOO_DP_FP32_N))):
+        for name, n, c, (h, w), size in [r for b in batches
+                                         for r in _head_resizes(b, 19, (CROP, CROP), 4, 16)]:
+            x = torch.randn((n, c, h, w), device=DEV, generator=cuda_gen).to(dtype)
+            what = f"{_dtype_name(dtype)} zoo {name} ({n},{c},{h},{w})->{size}"
+            errs.append(_bilinear_pair(x, size, cuda_gen, what)[3])
+    ty = nearest_table(CROP, "size", CROP // 16, DEV)
+    for n in sorted({local, ZOO_DP_N, local32, ZOO_DP_FP32_N}):
+        lbl = torch.randint(0, 19, (n, 1, CROP, CROP), device=DEV, generator=cuda_gen).float()
+        got = cuda_resize.resize_nearest_cuda(lbl, ty, ty)
+        if not torch.equal(got, cuda_resize.resize_nearest_plain(lbl, ty, ty)):
+            raise AssertionError(f"resize_nearest zoo DSN labels {tuple(lbl.shape)}: "
+                                 f"kernel != plain")
+        _held("resize_nearest", lbl, got)
+    del lbl, got
+    torch.cuda.empty_cache()
+    print(f"zoo shapes, batch {local} (a rank's) and {ZOO_DP_N} in bf16, {local32} and "
+          f"{ZOO_DP_FP32_N} in fp32: the head's three bilinear resizes forward exactly "
+          f"equal, backward within the bound (max_abs_err "
+          f"{max(errs):.3e}); the DSN label map (n,1,{CROP},{CROP}) -> "
+          f"{CROP // 16}x{CROP // 16} exactly equal")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # cli.plan and cli.train_zoo on NCCL run beside the ranks: all are
+        # correctness runs, and none waits for another
+        plan_out, zoo_out = os.path.join(tmp, "plan.json"), os.path.join(tmp, "zoo.json")
+        side = {"plan": [sys.executable, "-m", "mrfp_tpu_torch.cli.plan", "--trunk", "resnet-50",
+                         "--variant", "D16", "--mode", "mrfp+", "--batch-size", str(TRAIN_N),
+                         "--crop-size", str(CROP), "--data-parallel", str(DP_WORLD),
+                         "--device", DEV, "--json-out", plan_out],
+                "nccl": [sys.executable, "-m", "mrfp_tpu_torch.cli.train_zoo", "--device", DEV,
+                         "--synthetic", "--arch", "DeepR50V3PlusD", "--wt-layer", *ZOO_DP_WT,
+                         "--use-wtloss", "--covstat-batches", "1", "--batch-size", str(local),
+                         "--crop-size", str(CROP), "--max-iter", "2", "--log-every", "1",
+                         "--runs-dir", os.path.join(tmp, "runs"), "--json-out", zoo_out,
+                         "--num-processes", "1", "--process-id", "0", "--coordinator-address",
+                         f"127.0.0.1:{_free_port()}", "--data-parallel", "-1"]}
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+                 for k, cmd in side.items()}
+        try:
+            ranks, seconds = _run_ranks("zoo_dp_rank")
+            with _strict_fp32():
+                one32 = _zoo_dp_step(slice(None), batch=ZOO_DP_FP32_N, dtype="float32")
+                ctrl32 = _zoo_dp_step(slice(None), 1e-7, batch=ZOO_DP_FP32_N, dtype="float32")
+            one = _zoo_dp_step(slice(None))
+            ctrl = _zoo_dp_step(slice(None), 2.0 ** -9)
+            outs = {k: p.communicate(timeout=900) for k, p in procs.items()}
+            side_s = time.perf_counter() - t0
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        report = result = None
+        if procs["plan"].returncode == 0:
+            with open(plan_out) as f:
+                report = json.load(f)
+        if procs["nccl"].returncode == 0:
+            with open(zoo_out) as f:
+                result = json.load(f)
+            ckpt = os.path.exists(os.path.join(result["run_dir"], "ckpt", "step_2.pt"))
+    torch.cuda.empty_cache()
+
+    def masks_equal(a: dict, b: dict, c: dict) -> bool:
+        return a["nrc"] == b["nrc"] == c["nrc"] and all(
+            torch.equal(x, y) and torch.equal(x, z)
+            for x, y, z in zip(a["masks"], b["masks"], c["masks"]))
+
+    r32 = ranks[0]["fp32"]
+    masks32 = masks_equal(r32, ranks[1]["fp32"], one32)
+    loss32 = {k: (abs(r32["losses"][k] - v) / max(abs(v), 1e-30),
+                  (3 * abs(ctrl32["losses"][k] - v) + 1e-4 * abs(v)) / max(abs(v), 1e-30))
+              for k, v in one32["losses"].items()}
+    ratio32 = {}
+    for k, g in one32["grads"].items():
+        ratio32[k] = float((r32["grads"][k] - g).norm()) / (
+            3 * float((ctrl32["grads"][k] - g).norm()) + 1e-4 * float(g.norm()) + 1e-12)
+    worst32 = sorted(ratio32.items(), key=lambda kv: -kv[1])[:3]
+    sw32 = {k: round(ratio32[k], 3) for k in one32["sw"]}
+    print(f"zoo data parallel fp32 (TF32 off, deterministic), damped fixture: DeepR50V3PlusD wt "
+          f"{''.join(ZOO_DP_WT)}, DSN, {DP_WORLD} ranks x {local32} against one process x "
+          f"{ZOO_DP_FP32_N}, {CROP}x{CROP}: masks bit-equal across ranks and to one process's: "
+          f"{masks32}; losses (rel, bound) "
+          f"{ {k: (float(f'{e:.3e}'), float(f'{b:.3e}')) for k, (e, b) in loss32.items()} }; "
+          f"gradients of {len(ratio32)} tensors (ranks {len(r32['grads'])}), worst error / "
+          f"bound (3x the 1e-7-input control + 1e-4) "
+          f"{[(k, round(v, 3)) for k, v in worst32]}, median "
+          f"{statistics.median(ratio32.values()):.3f}; SwitchWhiten's {len(sw32)} "
+          f"parameters {sw32}")
+    if not masks32 or set(r32["grads"]) != set(one32["grads"]) or not sw32 \
+            or any(not math.isfinite(e) or e > b for e, b in loss32.values()) \
+            or worst32[0][1] > 1:
+        raise AssertionError(f"zoo data parallel fp32: masks equal {masks32}; losses {loss32}; "
+                             f"gradients over their bounds "
+                             f"{[kv for kv in worst32 if kv[1] > 1]}; SwitchWhiten {sw32}")
+
+    masks_bf16 = masks_equal(ranks[0], ranks[1], one)
+    same = [k for k, v in ranks[0]["after"].items() if not torch.equal(v, ranks[1]["after"][k])]
+    if any(not torch.equal(v, ctrl["before"][k]) for k, v in one["before"].items()):
+        raise AssertionError("zoo data parallel: the control started from another state")
+    loss, one_loss = ranks[0]["losses"]["loss"], one["losses"]["loss"]
+    loss_err = abs(loss - one_loss) / abs(one_loss)
+    loss_ctrl = abs(ctrl["losses"]["loss"] - one_loss) / abs(one_loss)
+
+    def moved(res: dict, k: str) -> torch.Tensor:
+        return res["after"][k].double() - one["before"][k].double()
+
+    err, control = {}, {}
+    for k in one["after"]:
+        if "running" in k and moved(one, k).norm() > 0:
+            err[k] = _rel(moved(ranks[0], k), moved(one, k))
+            control[k] = _rel(moved(ctrl, k), moved(one, k))
+    over = {k: (v, control[k]) for k, v in err.items() if v > 3 * control[k] + 2e-2}
+    # SwitchWhiten's running mean is (g, c, 1), BatchNorm's (C,)
+    sw = [k for k in err if "running_cov" in k or one["after"][k].dim() == 3]
+    log = [Collective(**{**c, "shape": tuple(c["shape"])}) for c in ranks[0]["collectives"]]
+    rollup, by_dtype = summarize(log), summarize_by_dtype(log)
+    largest = max(c.bytes for c in log)
+    launched = {k: sum(r["launched"][k] for r in ranks) for k in ranks[0]["launched"]}
+    ms = [statistics.median(r["ms"]) for r in ranks]
+    print(f"zoo data parallel bf16: DeepR50V3PlusD wt {''.join(ZOO_DP_WT)} (ISW slots 2-3, "
+          f"SwitchWhiten slot 4), DSN, {DP_WORLD} ranks x {local} images on one card over "
+          f"gloo, {CROP}x{CROP}, against one process x {ZOO_DP_N}: masks (dim, nrc) "
+          f"{[(m.shape[0], n) for m, n in zip(one['masks'], one['nrc'])]} bit-equal across "
+          f"ranks and to one process's pass at batch {local}: {masks_bf16}; losses "
+          f"{ {k: round(v, 6) for k, v in ranks[0]['losses'].items()} } vs "
+          f"{ {k: round(v, 6) for k, v in one['losses'].items()} }, loss rel {loss_err:.3e} "
+          f"(bound 2^-9 = {2.0 ** -9:.3e}; control, the input moved half a bf16 ulp: "
+          f"{loss_ctrl:.3e}); running-statistic moves off the one-process moves, {len(err)} "
+          f"tensors ({len(sw)} SwitchWhiten): median "
+          f"{statistics.median(err.values()):.3e} (control "
+          f"{statistics.median(control.values()):.3e}), max {max(err.values()):.3e} "
+          f"(control {max(control.values()):.3e}), SwitchWhiten "
+          f"{ {k: (float(f'{err[k]:.3e}'), float(f'{control[k]:.3e}')) for k in sw} }; "
+          f"ranks identical: {not same}; launches (both ranks) {launched}; step on the ranks "
+          f"(gloo through the host, beside cli.plan and cli.train_zoo: a correctness run, "
+          f"not a speed) median {[round(m, 3) for m in ms]} ms, peak "
+          f"{max(r['peak_gib'] for r in ranks):.2f} GiB a rank; {seconds:.1f} s for the ranks "
+          f"end to end")
+    dtypes = {op: {dt: (v["count"], v["bytes"]) for dt, v in d.items()}
+              for op, d in by_dtype.items()}
+    print(f"zoo data parallel collectives a rank a step (parallel/audit.py): "
+          f"{ {op: (v['count'], round(v['bytes'] / 1e6, 3)) for op, v in rollup.items()} } "
+          f"(count, MB); by dtype (count, bytes) {dtypes}; the largest {largest / 1e6:.1f} MB, "
+          f"the others {(sum(c.bytes for c in log) - largest) / 1e6:.3f} MB")
+    if not masks_bf16:
+        raise AssertionError("zoo data parallel: the masks differ across ranks or from one "
+                             "process's pass at the ranks' batch")
+    if same:
+        raise AssertionError(f"zoo data parallel: ranks differ at {same}")
+    if not math.isfinite(loss) or loss_err > 2.0 ** -9:
+        raise AssertionError(f"zoo data parallel: loss {loss} against one process's {one_loss}")
+    if over or not sw:
+        raise AssertionError(f"zoo data parallel: running-statistic moves off the one-process "
+                             f"step's beyond 3x the control's + 2e-2: {over} (SwitchWhiten "
+                             f"keys {sw})")
+    # the zoo has no OC branch: no nearest backward (the DSN labels take none)
+    if min(launched[k] for k in ("resize_bilinear", "resize_bilinear_bwd",
+                                 "resize_nearest")) <= 0:
+        raise AssertionError(f"zoo data parallel: a resize kernel was not launched: {launched}")
+    for res in ranks + [one, one32]:
+        _all_held([(k, getattr(torch, d), i, o) for k, d, i, o in res["calls"]],
+                  "zoo data parallel: a step")
+
+    if report is None:
+        raise AssertionError(f"cli.plan: rc {procs['plan'].returncode}: "
+                             f"{outs['plan'][0][-3000:]} {outs['plan'][1][-3000:]}")
+    print("\n".join(line for line in outs["plan"][0].splitlines() if not line.startswith("{")))
+    print(f"cli.plan MRFP+ R50-D16, global batch {TRAIN_N} on {DP_WORLD} ranks, bf16: "
+          f"{json.dumps(report)}")
+    ar = report["collectives_per_step"].get("all-reduce", {})
+    got = (ar.get("count"), sum(v["bytes"] for v in
+                                report["collectives_by_dtype"].get("all-reduce", {}).values()))
+    want = tuple(dp_bill or DP_BILL)
+    print(f"cli.plan all-reduce bill (calls, bytes): {got}; phase_data_parallel's count "
+          f"{'in this run' if dp_bill else 'recorded (the phase did not run)'}: {want}")
+    if sorted(report["collectives_per_step"]) != ["all-reduce"] or got != want:
+        raise AssertionError(f"cli.plan: all-reduce bill {got} against the hand count {want}")
+
+    nccl = "(nccl, tcp://127.0.0.1:" in outs["nccl"][1]
+    print(f"cli.train_zoo DeepR50V3PlusD wt {''.join(ZOO_DP_WT)} --num-processes 1 "
+          f"--process-id 0 --coordinator-address 127.0.0.1 (nccl: {nccl}): rc "
+          f"{procs['nccl'].returncode}, losses {result and result['losses']}, covstat masks "
+          f"{result and result['covstat']['masks']}, checkpoint {result and ckpt}; "
+          f"{side_s:.1f} s for cli.plan and cli.train_zoo end to end, beside the ranks")
+    if result is None or not nccl or result["step"] != 2 or not ckpt \
+            or not all(math.isfinite(v) for v in result["losses"].values()):
+        raise AssertionError(f"cli.train_zoo on NCCL: rc {procs['nccl'].returncode}, result "
+                             f"{result}, stderr {outs['nccl'][1][-3000:]}")
     return launched
+
+
+def _phase(fn, *args):
+    """``fn(*args)``, its seconds printed on a line of their own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"{fn.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main(argv=None) -> None:
@@ -3249,45 +3696,47 @@ def main(argv=None) -> None:
         raise SystemExit(f"chip_smoke: mrfp_tpu_torch comes from "
                          f"{mrfp_tpu_torch.__file__}, not from this checkout")
     kind = phase_report()
-    phase_build()
+    _phase(phase_build)
     gen = torch.Generator().manual_seed(0)
-    phase_resize(gen)
-    hist = phase_hist(gen)
-    live_fp32_ms = phase_model(gen, args.profile)
+    _phase(phase_resize, gen)
+    hist = _phase(phase_hist, gen)
+    live_fp32_ms = _phase(phase_model, gen, args.profile)
     torch.cuda.empty_cache()
-    serving_launches = phase_serving(live_fp32_ms)
+    serving_launches = _phase(phase_serving, live_fp32_ms)
     torch.cuda.empty_cache()
-    eval_launches = phase_entry_point()
+    eval_launches = _phase(phase_entry_point)
     cuda_gen = torch.Generator(device=DEV).manual_seed(0)
-    nearest = phase_nearest(cuda_gen)
-    phase_dsn_nearest(gen)
-    bilinear = phase_bilinear_train(cuda_gen)
-    phase_microbatch(cuda_gen)
-    dot_stats = phase_dot_stats(cuda_gen)
-    row_mix = phase_row_mix(cuda_gen)
-    channel_sums = phase_channel_sums(cuda_gen)
-    np_plus = phase_np_plus(cuda_gen)
-    public_launches = phase_public_paths(cuda_gen)
-    phase_train_step(gen, args.profile)
-    fused_launches = phase_fused_step(gen)
-    train_launches = phase_cli_train()
-    extras_launches = phase_extras_step(gen)
-    accum_launches = phase_cli_train_accum()
-    sliding_launches = phase_sliding()
-    phase_trunks(gen, cuda_gen)
+    nearest = _phase(phase_nearest, cuda_gen)
+    _phase(phase_dsn_nearest, gen)
+    bilinear = _phase(phase_bilinear_train, cuda_gen)
+    _phase(phase_microbatch, cuda_gen)
+    dot_stats = _phase(phase_dot_stats, cuda_gen)
+    row_mix = _phase(phase_row_mix, cuda_gen)
+    channel_sums = _phase(phase_channel_sums, cuda_gen)
+    np_plus = _phase(phase_np_plus, cuda_gen)
+    public_launches = _phase(phase_public_paths, cuda_gen)
+    _phase(phase_train_step, gen, args.profile)
+    fused_launches = _phase(phase_fused_step, gen)
+    train_launches = _phase(phase_cli_train)
+    extras_launches = _phase(phase_extras_step, gen)
+    accum_launches = _phase(phase_cli_train_accum)
+    sliding_launches = _phase(phase_sliding)
+    _phase(phase_trunks, gen, cuda_gen)
     torch.cuda.empty_cache()
-    zoo_launches = phase_cli_train_zoo(cuda_gen)
+    zoo_launches = _phase(phase_cli_train_zoo, cuda_gen)
     torch.cuda.empty_cache()
-    zoo_trunk_launches = phase_zoo_trunks(gen, cuda_gen, args.profile)
+    zoo_trunk_launches = _phase(phase_zoo_trunks, gen, cuda_gen, args.profile)
     torch.cuda.empty_cache()
-    dp_launches = phase_data_parallel(cuda_gen)
+    dp_launches, dp_bill = _phase(phase_data_parallel, cuda_gen)
+    torch.cuda.empty_cache()
+    zoo_dp_launches = _phase(phase_zoo_data_parallel, cuda_gen, dp_bill)
 
     def launches(name, *counted):
         """The kernel's count over the counted drives of its paths."""
         return sum(c[name] for c in counted)
 
     later_paths = (serving_launches, extras_launches, accum_launches, sliding_launches,
-                   zoo_launches, zoo_trunk_launches, dp_launches)
+                   zoo_launches, zoo_trunk_launches, dp_launches, zoo_dp_launches)
     src = "mrfp_tpu_torch/csrc/"
     kernels = [
         dict(name="resize_bilinear", route="cuda", source=src + "resize_bilinear.cu",

@@ -1,0 +1,305 @@
+"""Preflight launch planner, PyTorch port (mrfp_tpu/cli/plan.py): what one
+step of a data-parallel ``cli.train`` launch pays, before the launch.
+
+    python -m mrfp_tpu_torch.cli.plan --trunk resnet-50 --variant D16 \
+        --batch-size 8 --data-parallel 2            # on the card(s)
+
+    python -m mrfp_tpu_torch.cli.plan --device cpu --trunk resnet-18 \
+        --variant D32 --batch-size 4 --crop-size 64 --data-parallel 2
+
+It builds what ``cli.train`` would run (its config factories, ``build_state``
+and ``train_step``) and reports
+
+  - the mesh and each rank's bytes of parameters, momentum and running
+    statistics (every rank holds all of them: data parallelism);
+  - every collective of one step, rolled up by op with its bytes, and by
+    dtype: the gradient's flat ``all_reduce``, the BatchNorm statistics
+    forward and backward, NP+'s gathered means, the loss denominators;
+  - the step's FLOPs and bytes (roofline inputs),
+
+plus one JSON line with the JAX report's keys (``--json-out`` writes it to
+a file too).
+
+The collectives are counted, not parsed: the port issues each of them
+explicitly through ``parallel/dist.py``, so N rank processes (N the data
+axis; ``torch.multiprocessing``, a file rendezvous) join a process group
+and take one step of ``cli.train``'s own step on a seeded synthetic batch,
+the gates forced on (every collective a step can pay), under
+``parallel/audit.py``'s count. That step runs at ``AUDIT_CROP`` (64 px): no
+collective of data parallelism depends on the crop
+(``tests/test_torch_plan.py`` holds the rollups at two crops equal). By
+default the ranks run on the card, through NCCL with a card each, else
+sharing it through gloo; ``--device cpu`` runs gloo ranks on the CPU, the
+counterpart of the JAX planner's simulated CPU slice.
+
+The work is counted over one rank's step at ``--crop-size`` in this
+process (no group, so the statistics take torch's own BatchNorm) and
+scaled to the global batch. FLOPs come from ``torch.utils.flop_counter``:
+the convolutions and products, forward and backward, every tap counted.
+XLA's cost analysis counts only the taps that land inside the input, and
+elementwise work too, so the JAX planner's figure lies a few percent
+under this one at a small crop. Bytes are the sum of each aten op's tensor
+inputs and outputs (views excluded), with each resize, kernel or plain
+version, taken as one op: its map in and its map out. So the figure does
+not depend on the device the pass runs on. It is an upper bound that
+assumes no fusion; XLA's ``bytes accessed`` is counted after fusion, so
+the two bytes figures do not compare.
+
+Spatial and tensor parallelism (``--spatial-parallel``,
+``--model-parallel`` > 1) are not ported (ROADMAP A14), nor is the JAX
+planner's ``--live``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+from typing import Optional, Sequence
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
+from torch.utils._pytree import tree_leaves
+
+from mrfp_tpu_torch.ops import resize
+
+AUDIT_CROP = 64  # the ranks' counted step's crop: the collectives do not depend on it
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        description="preflight plan: run one step of a data-parallel cli.train launch and "
+                    "report its per-step collectives, per-rank state and work")
+    p.add_argument("--trunk", default="resnet-50")
+    p.add_argument("--variant", default="D16")
+    p.add_argument("--mode", default="mrfp+", choices=["mrfp+", "mrfp", "baseline"])
+    p.add_argument("--batch-size", type=int, default=16, help="GLOBAL batch size")
+    p.add_argument("--crop-size", type=int, default=768)
+    p.add_argument("--accum-steps", type=int, default=1)
+    p.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True)
+    p.add_argument("--data-parallel", type=int, default=-1,
+                   help="ranks of the data axis; -1 takes --devices")
+    p.add_argument("--model-parallel", type=int, default=1, help="not ported: ROADMAP A14")
+    p.add_argument("--spatial-parallel", type=int, default=1, help="not ported: ROADMAP A14")
+    p.add_argument("--devices", type=int, default=None,
+                   help="devices of the planned launch (default: --data-parallel)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the ranks and the work pass run")
+    p.add_argument("--json-out", default=None)
+    return p.parse_args(argv)
+
+
+def ranks(args) -> int:
+    """The data axis's size; raises on a mesh the port cannot run."""
+    bad = [flag for flag, v in (("--model-parallel", args.model_parallel),
+                                ("--spatial-parallel", args.spatial_parallel)) if v != 1]
+    if bad:
+        raise NotImplementedError(f"not ported yet: {', '.join(bad)} (ROADMAP A14: spatial "
+                                  f"and tensor parallelism across processes)")
+    n = args.data_parallel if args.data_parallel > 0 else args.devices
+    if n is None:
+        raise SystemExit("--data-parallel is -1 (fill): pass --devices N or an explicit "
+                         "--data-parallel")
+    if args.devices is not None and args.devices != n:
+        raise ValueError(f"--devices {args.devices} with --data-parallel {n}: the data axis "
+                         f"takes every device")
+    if n < 1 or args.batch_size % n:
+        raise ValueError(f"--batch-size {args.batch_size} (the global batch) not divisible "
+                         f"by {n} ranks")
+    if (args.batch_size // n) % args.accum_steps:
+        raise ValueError(f"the local batch {args.batch_size // n} not divisible by "
+                         f"--accum-steps {args.accum_steps}")
+    return n
+
+
+def train_config(args, crop: int):
+    """``cli.train``'s config of this launch at ``crop``, every gate's
+    probability 1 (``u < 1`` always holds: the step's own draw turns every
+    gate on)."""
+    import dataclasses
+
+    from mrfp_tpu_torch.cli import train as cli_train
+    argv = ["--trunk", args.trunk, "--variant", args.variant, "--mode", args.mode,
+            "--batch-size", str(args.batch_size), "--crop-size", str(crop),
+            "--accum-steps", str(args.accum_steps)] + ([] if args.bf16 else ["--no-bf16"])
+    cfg = cli_train.build_config(cli_train.parse_args(argv))
+    return cfg.replace(perturb=dataclasses.replace(cfg.perturb, p_oc=1.0, p_np=1.0,
+                                                   p_dec=1.0))
+
+
+def step_batch(n_ranks: int, rank: int, global_batch: int, crop: int, device):
+    """This rank's rows of a seeded synthetic global batch: uint8 NHWC
+    images and int64 labels (a strip ignored)."""
+    gen = torch.Generator().manual_seed(0)
+    img = torch.randint(0, 256, (global_batch, crop, crop, 3), generator=gen,
+                        dtype=torch.uint8)
+    lbl = torch.randint(0, 19, (global_batch, crop, crop), generator=gen)
+    lbl[:, :crop // 8] = 255
+    b = global_batch // n_ranks
+    rows = slice(rank * b, (rank + 1) * b)
+    return img[rows].to(device), lbl[rows].to(device)
+
+
+def _rank(rank: int, args, n: int, tmp: str) -> None:
+    """One rank (a process of its own): join the group, take one counted
+    step, write its collectives to ``tmp/rank<rank>.json``."""
+    from mrfp_tpu_torch.cli.train import build_state
+    from mrfp_tpu_torch.parallel import dist
+    from mrfp_tpu_torch.parallel.audit import count_collectives
+    from mrfp_tpu_torch.train.step import train_step
+    shared = args.device == "cpu" or torch.cuda.device_count() < n
+    dist.initialize_distributed(f"file://{tmp}/rendezvous", n, rank, args.device,
+                                backend="gloo" if shared else None, timeout_s=600)
+    try:
+        device = dist.local_device(args.device)
+        cfg = train_config(args, AUDIT_CROP)
+        state = build_state(cfg, device)
+        img, lbl = step_batch(n, rank, args.batch_size, AUDIT_CROP, device)
+        with count_collectives() as log:
+            float(train_step(state, img, lbl, cfg)["loss"])  # the step has finished
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump([vars(c) for c in log], f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_ranks(args, n: int) -> list:
+    """Run the ``n`` ranks of this plan and return each one's collectives
+    (``parallel.audit.Collective``), in rank order."""
+    import torch.multiprocessing as mp
+
+    from mrfp_tpu_torch.parallel.audit import Collective
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_rank, args=(args, n, tmp), nprocs=n, start_method="spawn")
+        got = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                got.append([Collective(**{**c, "shape": tuple(c["shape"])})
+                            for c in json.load(f)])
+    if any(g != got[0] for g in got):
+        raise RuntimeError("plan: the ranks issued different collectives")
+    return got
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+class OpBytes(TorchDispatchMode):
+    """Adds up the bytes of every aten op's tensor inputs and outputs,
+    views excluded, in ``total``; each resize (``ops/resize.py``) counts
+    as one op, its map in and its map out, whichever version runs."""
+
+    total = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not func.is_view:
+            self.total += _nbytes((args, kwargs, out))
+        return out
+
+    def unit(self, fn, x, *args):
+        with _disable_current_modes():
+            out = fn(x, *args)
+        self.total += _nbytes((x, out))
+        return out
+
+    def __enter__(self):
+        resize._BYTES = self
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        resize._BYTES = None
+        return super().__exit__(*exc)
+
+
+def work(args, n: int) -> dict:
+    """One rank's step at ``--crop-size`` in this process, counted: its
+    FLOPs and bytes times ``n``, and a rank's state bytes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mrfp_tpu_torch.cli.train import build_state
+    from mrfp_tpu_torch.train.step import train_step
+    device = torch.device("cuda", torch.cuda.current_device()) if args.device == "cuda" \
+        else torch.device("cpu")
+    cfg = train_config(args, args.crop_size)
+    state = build_state(cfg, device)
+    img, lbl = step_batch(n, 0, args.batch_size, args.crop_size, device)
+    flops, moved = FlopCounterMode(display=False), OpBytes()
+    with flops, moved:
+        float(train_step(state, img, lbl, cfg)["loss"])
+    model = state.model
+    return {"params": _nbytes(list(model.parameters())),
+            "momentum": _nbytes(list(state.optimizer.state.values())),
+            "batch_stats": _nbytes([b for k, b in model.named_buffers() if "running" in k]),
+            "fp32_grad_set_bytes": sum(p.numel() * 4 for p in model.parameters()
+                                       if p.requires_grad),
+            "flops": float(flops.get_total_flops() * n), "bytes": float(moved.total * n)}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = parse_args(argv)
+    n = ranks(args)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: torch.cuda.is_available() is False "
+                         "(use --device cpu to plan on the CPU)")
+    from mrfp_tpu_torch.parallel.audit import summarize, summarize_by_dtype
+    log = run_ranks(args, n)[0]
+    colls, by_dtype = summarize(log), summarize_by_dtype(log)
+    w = work(args, n)
+    platform = "gpu" if args.device == "cuda" else "cpu"
+    report = {
+        "mesh": {"data": n, "model": 1, "spatial": 1},
+        "devices": n,
+        "platform": platform,
+        "global_batch": args.batch_size,
+        "crop": args.crop_size,
+        "accum_steps": args.accum_steps,
+        "per_chip_bytes": {k: w[k] for k in ("params", "momentum", "batch_stats")},
+        "fp32_grad_set_bytes": w["fp32_grad_set_bytes"],
+        "collectives_per_step": {k: {"count": v["count"], "mbytes": round(v["bytes"] / 1e6, 2)}
+                                 for k, v in sorted(colls.items())},
+        "collectives_by_dtype": {op: {dt: {"count": v["count"], "bytes": v["bytes"]}
+                                      for dt, v in sorted(d.items())}
+                                 for op, d in sorted(by_dtype.items())},
+        "flops_per_step": w["flops"],
+        "hbm_bytes_per_step": w["bytes"],
+    }
+
+    def mb(b: float) -> str:
+        return f"{b / 1e6:,.1f} MB"
+
+    print(f"mesh {report['mesh']} over {n} {platform} devices; global batch "
+          f"{args.batch_size} @ {args.crop_size}x{args.crop_size}"
+          + (f", {args.accum_steps} microbatches" if args.accum_steps > 1 else ""))
+    print(f"per-chip state: params {mb(w['params'])}, momentum {mb(w['momentum'])}, "
+          f"BN stats {mb(w['batch_stats'])}")
+    if not colls:
+        print("collectives/step: none (single-device program)")
+    for op, v in sorted(colls.items()):
+        hint = {"all-reduce": "grad + norm-stat sync",
+                "broadcast": "rank 0's values to every rank"}.get(op, "")
+        split = ", ".join(f"{dt} x{d['count']} {mb(d['bytes'])}"
+                          for dt, d in sorted(by_dtype[op].items()))
+        print(f"collectives/step: {op:19s} x{v['count']:<4d} {mb(v['bytes']):>12s}  {hint} "
+              f"({split})")
+    ar = colls.get("all-reduce", {"bytes": 0})
+    if ar["bytes"]:
+        print(f"grad-sync check: all-reduce total {mb(ar['bytes'])} vs fp32 grad set "
+              f"{mb(w['fp32_grad_set_bytes'])}")
+    print(f"counted/step: {w['flops'] / 1e12:.2f} TFLOP, {w['bytes'] / 1e9:.2f} GB of op "
+          f"inputs and outputs, unfused (arithmetic intensity "
+          f"{w['flops'] / max(w['bytes'], 1):.0f} flop/byte)")
+    line = json.dumps(report)
+    print(line)
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

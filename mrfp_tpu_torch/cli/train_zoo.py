@@ -28,7 +28,23 @@ Every trunk of the JAX zoo trains (``--trunk`` or ``--arch``, the 23
 factory names) with every iw code 0-5. Refused: an IRW slot (iw code 1)
 with ``--use-wtloss``, which the JAX trainer cannot run either (ROADMAP C6),
 and ``--use-wtloss`` with an ISW slot that the trunk does not read (C11);
-more than one process (A12.5); other meshes (A14).
+meshes other than one data axis (A14).
+
+Data parallelism, one process per card, as ``cli.train`` runs it:
+
+    torchrun --nproc-per-node 8 -m mrfp_tpu_torch.cli.train_zoo --batch-size 16 ...
+
+    python -m mrfp_tpu_torch.cli.train_zoo --num-processes 2 --process-id 0 \
+        --coordinator-address 10.0.0.1:29500 ...   # and --process-id 1
+
+``--batch-size`` is the global batch and must divide by the number of
+processes. The step is the global batch's (``train/zoo_step.py``: global
+BatchNorm and SwitchWhiten statistics, loss and whitening-loss means,
+summed gradients). As in the JAX trainer, every process runs the
+statistics phase over the same first ``--covstat-batches`` x (batch /
+processes) images, in batches of its local size, and then takes rank 0's
+masks. Only rank 0 writes the checkpoints, the logs and ``--json-out``;
+every rank resumes; validation splits the images across the processes.
 ``--device cuda`` runs the hand-written kernels and exits non-zero when no
 CUDA device is present; it never falls back to the CPU. Exit 75 means the
 run was stopped by a signal and can resume.
@@ -107,10 +123,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "run_dir, covstat}) here")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="more than one is not ported: ROADMAP A12.5")
-    p.add_argument("--process-id", type=int, default=None)
-    p.add_argument("--coordinator-address", default=None)
-    p.add_argument("--data-parallel", type=int, default=-1)
+                   help="processes of a data-parallel run, one per card (default: "
+                        "torchrun's WORLD_SIZE, else 1)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (default: torchrun's RANK)")
+    p.add_argument("--coordinator-address", default=None,
+                   help="host:port of rank 0's rendezvous, or a file:// path "
+                        "(default: torchrun's MASTER_ADDR and MASTER_PORT)")
+    p.add_argument("--data-parallel", type=int, default=-1,
+                   help="the data axis: -1 or the number of processes (other "
+                        "meshes are ROADMAP A14)")
     for flag in ("--model-parallel", "--spatial-parallel"):
         p.add_argument(flag, type=int, default=1, help="not ported: ROADMAP A14")
     return p.parse_args(argv)
@@ -118,8 +140,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def check_args(args) -> None:
     """Resolve ``--arch`` into ``--trunk``/``--variant`` and raise on what
-    the port cannot run: several processes (A12.5), a mesh (A14), an
-    unknown trunk, and under ``--use-wtloss`` an IRW slot (ROADMAP C6: the
+    the port cannot run: a global batch the processes cannot share, a mesh
+    (A14), an unknown trunk, and under ``--use-wtloss`` an IRW slot (ROADMAP C6: the
     JAX trainer fails there with an AttributeError) or an ISW slot the
     trunk does not read (C11: the statistics pass gets no map for it, and
     the JAX trainer fails freezing its mask)."""
@@ -128,11 +150,12 @@ def check_args(args) -> None:
         args.trunk, args.variant = arch_trunk(args.arch)
     nproc = args.num_processes if args.num_processes is not None else \
         int(os.environ.get("WORLD_SIZE", 1))
-    if nproc != 1:
-        raise NotImplementedError(f"--num-processes {nproc}: the zoo trains in one process; "
-                                  f"its statistics pass and masks across ranks are ROADMAP "
-                                  f"A12.5")
-    bad = [flag for flag, on in (("--data-parallel", args.data_parallel not in (-1, 1)),
+    if nproc < 1:
+        raise ValueError(f"--num-processes {nproc}: need at least 1")
+    if args.batch_size % nproc:
+        raise ValueError(f"--batch-size {args.batch_size} (the global batch) not divisible "
+                         f"by {nproc} processes")
+    bad = [flag for flag, on in (("--data-parallel", args.data_parallel not in (-1, nproc)),
                                  ("--model-parallel", args.model_parallel != 1),
                                  ("--spatial-parallel", args.spatial_parallel != 1)) if on]
     if bad:
@@ -241,7 +264,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from mrfp_tpu_torch.utils.watchdog import watchdog_from_arg
     watchdog = watchdog_from_arg(args.step_timeout, args.first_beat_timeout,
                                  accelerator=args.device == "cuda")
-    return _train(args, torch.device(args.device), watchdog)
+    from mrfp_tpu_torch.parallel import dist
+    # before any other device contact: it picks this process's card
+    dist.initialize_distributed(args.coordinator_address, args.num_processes,
+                                args.process_id, args.device)
+    try:
+        return _train(args, dist.local_device(args.device), watchdog)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 def _train(args, device: torch.device, watchdog) -> int:
@@ -252,14 +283,18 @@ def _train(args, device: torch.device, watchdog) -> int:
     from mrfp_tpu_torch.cli.train import build_dataset
     from mrfp_tpu_torch.data.loader import TrainLoader
     from mrfp_tpu_torch.models.deepv3_zoo import build_cov_layers
+    from mrfp_tpu_torch.parallel import dist
     from mrfp_tpu_torch.train.checkpoint import CheckpointManager
     from mrfp_tpu_torch.train.loop import run_training_loop
     from mrfp_tpu_torch.train.zoo_step import covstat_pass, zoo_train_step
     from mrfp_tpu_torch.utils.experiment import prep_experiment
 
     cfg = build_config(args)
-    exp = prep_experiment(cfg, root=args.runs_dir)
-    logging.info("zoo experiment %s on %s", exp["name"], device)
+    rank, nproc = dist.rank(), dist.world()
+    local_bs = cfg.data.batch_size // nproc
+    exp = prep_experiment(cfg, root=args.runs_dir, coordinator=dist.is_coordinator())
+    logging.info("zoo experiment %s on %s (process %d of %d)", exp["name"], device, rank,
+                 nproc)
     state = build_state(cfg, device)
     ckpt = CheckpointManager(exp["ckpt_dir"], keep=cfg.train.keep_checkpoints,
                              recipe=run_recipe(args))
@@ -274,7 +309,9 @@ def _train(args, device: torch.device, watchdog) -> int:
         cov_layers = build_cov_layers(cfg.model.trunk, cfg.model.wt_layer,
                                       relax_denom=cfg.model.relax_denom,
                                       clusters=cfg.model.clusters)
-        pairs = build_view_pairs(dataset, args.covstat_batches, cfg.data.batch_size, args.seed)
+        # every rank: the same images in batches of the local size, as the
+        # JAX trainer takes them (its masks depend on the process count)
+        pairs = build_view_pairs(dataset, args.covstat_batches, local_bs, args.seed)
         t0 = time.perf_counter()
         wt_masks, wt_nrc = covstat_pass(state.model, cov_layers, pairs, cfg, device)
         if device.type == "cuda":
@@ -285,8 +322,8 @@ def _train(args, device: torch.device, watchdog) -> int:
         logging.info("covstat phase: %d masks from %d view pairs in %.3f s: %s",
                      len(wt_masks), len(pairs), covstat["seconds"], covstat["masks"])
     workers = cfg.data.num_workers if device.type == "cuda" else 0
-    loader = TrainLoader(dataset, cfg.data.batch_size, seed=args.seed, num_workers=workers,
-                         pin_memory=device.type == "cuda")
+    loader = TrainLoader(dataset, local_bs, seed=args.seed, num_workers=workers,
+                         pin_memory=device.type == "cuda", shard_rank=rank, shard_count=nproc)
     writer = exp["writer"]
 
     def step_fn(st, images, labels):
@@ -302,9 +339,12 @@ def _train(args, device: torch.device, watchdog) -> int:
 
         def run_validation(st, step):
             st.model.eval()
+            # every process scores its stride of the images; the merged
+            # histogram gives every rank the same mIoU
             res = evaluator.run(val_dataset, max_images=args.eval_max_images,
                                 log=lambda *a, **k: None,
-                                heartbeat=watchdog.beat if watchdog else None)
+                                heartbeat=watchdog.beat if watchdog else None,
+                                shard_rank=rank, shard_count=nproc)
             logging.info("iter %d val mean_iu %.5f acc %.5f", step, res["mean_iu"],
                          res["acc"])
             writer.add_scalar("val/mean_iu", res["mean_iu"], step)
@@ -324,7 +364,7 @@ def _train(args, device: torch.device, watchdog) -> int:
     result = {"step": step, "preempted": preempted, "run_dir": exp["exp_dir"],
               "losses": losses, "covstat": covstat}
     print(json.dumps(result))
-    if args.json_out:
+    if args.json_out and dist.is_coordinator():
         with open(args.json_out, "w") as f:
             json.dump(result, f)
     if preempted and step < cfg.train.max_iter:

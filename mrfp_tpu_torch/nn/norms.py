@@ -22,9 +22,10 @@ package's does under a sharded batch: with more than one process
 ``_GlobalBatchNorm``, whose forward combines the ranks' exact moments and
 whose backward sums ``(sum dy, sum dy * x_hat)`` over the ranks. In a single
 process both are torch's own BatchNorm, call for call. InstanceNorm is per
-sample and stays local. SwitchWhiten's batch mean and covariance over the
-ranks (the reference's ``SyncMeanCov``) are ROADMAP A12.5: with more than
-one process its train forward raises.
+sample and stays local. ``SwitchWhiten2d``'s batch (BW) mean and
+covariance are the global batch's in the same way (``_GlobalMeanCov``, the
+reference's ``SyncMeanCov``), and its instance and layer statistics stay
+local.
 """
 
 from __future__ import annotations
@@ -217,6 +218,63 @@ def collects_map(module: Optional[nn.Module]) -> bool:
 SW_PERGROUP, SW_T, SW_EPS, SW_MOMENTUM = 16, 5, 1e-5, 0.99
 
 
+class _GlobalMeanCov(torch.autograd.Function):
+    """SwitchWhiten's BW statistics of the grouped fp32 map ``xg`` (n, g,
+    c, L) over the batches of every process, the reference's
+    ``SyncMeanCov``: the mean (g, c, 1) and the covariance (g, c, c) over
+    the N*L positions of every rank, divided by their count.
+
+    Forward: each rank takes its local ``(n, mean, M2)`` per group in the
+    corrected two passes (``M2`` the centred sum of ``d d^T``), writes them
+    into its row of a zero ``(world, 1 + g*c + g*c*c)`` buffer, and one
+    ``all_reduce`` gives every rank every row; Chan's combination, as
+    ``_GlobalBatchNorm``'s, extended to the cross term, gives the global
+    mean and ``M2 = sum M2_k + sum n_k (mean_k - mean)(mean_k - mean)^T``.
+    No ``E[x x^T] - E[x] E[x]^T`` is taken, so a map whose spread is small
+    beside its mean keeps its covariance.
+
+    Backward: every rank's loss reads the global statistics, so their
+    gradients are summed over the ranks (one ``all_reduce``), and then
+    ``dx = ((G + G^T)(x - mean) + g_mean) / n``."""
+
+    @staticmethod
+    def forward(ctx, xg):
+        b, g, c, positions = xg.shape
+        n_l = b * positions
+        mean_l = xg.mean(dim=(0, 3))                                        # (g,c)
+        d = xg - mean_l[..., None]
+        s_d = d.sum(dim=(0, 3))
+        mean_l = mean_l + s_d / n_l
+        m2_l = (torch.matmul(d, d.transpose(-1, -2)).sum(0)
+                - s_d[..., :, None] * s_d[..., None, :] / n_l)              # (g,c,c)
+        gc = g * c
+        buf = xg.new_zeros((world(), 1 + gc + gc * c))
+        buf[rank(), 0] = n_l
+        buf[rank(), 1:1 + gc] = mean_l.reshape(-1)
+        buf[rank(), 1 + gc:] = m2_l.reshape(-1)
+        all_reduce_sum(buf)
+        n_k = buf[:, 0]
+        mean_k = buf[:, 1:1 + gc].reshape(-1, g, c)
+        m2_k = buf[:, 1 + gc:].reshape(-1, g, c, c)
+        n = n_k.sum()
+        # the ranks' means as offsets from rank 0's, as _GlobalBatchNorm's
+        mean = mean_k[0] + (n_k[:, None, None] * (mean_k - mean_k[0])).sum(0) / n
+        dev = mean_k - mean
+        m2 = m2_k.sum(0) + (n_k[:, None, None, None] * dev[..., :, None]
+                            * dev[..., None, :]).sum(0)
+        mean = mean[..., None]
+        ctx.save_for_backward(xg, mean, n)
+        return mean, m2 / n
+
+    @staticmethod
+    def backward(ctx, g_mean, g_cov):
+        xg, mean, n = ctx.saved_tensors
+        grads = all_reduce_sum(torch.cat([g_mean.reshape(-1), g_cov.reshape(-1)]))
+        gm = grads[:g_mean.numel()].view_as(g_mean)
+        gcov = grads[g_mean.numel():].view_as(g_cov)
+        return (torch.matmul(gcov + gcov.transpose(-1, -2), xg - mean) + gm) / n
+
+
 class SwitchWhiten2d(nn.Module):
     """(Sync)SwitchWhiten2d, grouped switchable whitening through
     Newton-Schulz (network/sync_switchwhiten.py:59-223;
@@ -229,7 +287,9 @@ class SwitchWhiten2d(nn.Module):
 
     As in JAX, everything runs in fp32, autocast off, and the output is
     cast back to the input's dtype. The BW statistics divide by N*H*W, the
-    IW ones by H*W, the LN variance is unbiased. In train mode the running
+    IW ones by H*W, the LN variance is unbiased. With more than one process
+    the BW statistics are the global batch's (``_GlobalMeanCov``), as the
+    JAX package's are under a sharded batch. In train mode the running
     statistics move as ``running = m * running + (1 - m) * batch`` (m =
     ``SW_MOMENTUM``, 0.99: the opposite of BatchNorm's convention), without
     gradient; in eval mode they stand in for the batch's. The state_dict
@@ -255,9 +315,6 @@ class SwitchWhiten2d(nn.Module):
         self.register_buffer("running_cov", torch.eye(c).repeat(g, 1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and world() > 1:
-            raise NotImplementedError("SwitchWhiten2d's batch statistics across processes "
-                                      "(the reference's SyncMeanCov) are ROADMAP A12.5")
         with torch.autocast(x.device.type, enabled=False):
             return self._whiten(x.float()).to(x.dtype)
 
@@ -269,9 +326,12 @@ class SwitchWhiten2d(nn.Module):
         xg = xf.reshape(n, g, c, h * w)
         eye = torch.eye(c, dtype=xf.dtype, device=xf.device)
         if self.training:
-            mean_bn = xg.mean(dim=(0, 3))[..., None]                       # (g,c,1)
-            xc = xg - mean_bn
-            cov_bn = torch.matmul(xc, xc.transpose(-1, -2)).sum(0) / (n * h * w)  # (g,c,c)
+            if world() > 1:
+                mean_bn, cov_bn = _GlobalMeanCov.apply(xg)
+            else:
+                mean_bn = xg.mean(dim=(0, 3))[..., None]                   # (g,c,1)
+                xc = xg - mean_bn
+                cov_bn = torch.matmul(xc, xc.transpose(-1, -2)).sum(0) / (n * h * w)
             with torch.no_grad():
                 self.running_mean.mul_(SW_MOMENTUM).add_(mean_bn.detach(), alpha=1 - SW_MOMENTUM)
                 self.running_cov.mul_(SW_MOMENTUM).add_(cov_bn.detach(), alpha=1 - SW_MOMENTUM)

@@ -20,7 +20,9 @@ CPU tensor, their plain PyTorch versions. A resize to the input's own size
 returns the input itself, with no Function and no launch. The bilinear
 forward goes through the registered op ``mrfp::resize_bilinear``
 (``ops/library.py``) on every device, so a live forward and an exported
-one take the same route; the op builds its tables itself.
+one take the same route; the op builds its tables itself. A byte count of
+a step (``cli.plan``) takes each resize as one op, its map in and its map
+out, whichever version runs (``_resize``).
 
 No table is built under a fake mode (``torch.export``'s tracing): a fake
 table cached here would be handed to every later live call at its shape.
@@ -42,6 +44,10 @@ import numpy as np
 import torch
 
 from mrfp_tpu_torch.ops import cuda_resize, cuda_row_mix
+
+# the open byte count (``cli.plan``'s ``OpBytes``), if any: ``_resize``
+# hands it each kernel or plain resize whole
+_BYTES = None
 
 
 class BilinearTaps(NamedTuple):
@@ -184,6 +190,15 @@ def _use_kernel(x: torch.Tensor, impl: Optional[str]) -> bool:
     return impl is None and x.device.type != "cpu"
 
 
+def _resize(fn, x: torch.Tensor, *args) -> torch.Tensor:
+    """``fn(x, *args)``: a resize's kernel or its plain version. An open
+    byte count takes the call as one op (the plain version's gathers are
+    not the kernel's traffic)."""
+    if _BYTES is None:
+        return fn(x, *args)
+    return _BYTES.unit(fn, x, *args)
+
+
 class ResizeBilinear(torch.autograd.Function):
     """Bilinear resize: the forward is the registered op (the kernel on the
     card, the plain version on the CPU) or, for ``impl="plain"``, the plain
@@ -204,11 +219,9 @@ class ResizeBilinear(torch.autograd.Function):
         kernel, h, w, oh, ow = ctx.args
         ty, tx = bilinear_taps(h, oh, g.device), bilinear_taps(w, ow, g.device)
         g = g.contiguous()  # the ASPP broadcast's gradient arrives through torch.cat
-        if kernel:
-            gx = cuda_resize.resize_bilinear_bwd_cuda(g, ty, tx, h, w)
-        else:
-            gx = cuda_resize.resize_bilinear_bwd_plain(g, ty, tx, h, w)
-        return gx, None, None, None
+        fn = (cuda_resize.resize_bilinear_bwd_cuda if kernel
+              else cuda_resize.resize_bilinear_bwd_plain)
+        return _resize(fn, g, ty, tx, h, w), None, None, None
 
 
 class ResizeNearest(torch.autograd.Function):
@@ -217,19 +230,15 @@ class ResizeNearest(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ty: NearestTable, tx: NearestTable, kernel: bool):
         ctx.tables = (ty, tx, kernel, x.shape[2], x.shape[3])
-        if kernel:
-            return cuda_resize.resize_nearest_cuda(x, ty, tx)
-        return cuda_resize.resize_nearest_plain(x, ty, tx)
+        fn = cuda_resize.resize_nearest_cuda if kernel else cuda_resize.resize_nearest_plain
+        return _resize(fn, x, ty, tx)
 
     @staticmethod
     def backward(ctx, g):
         ty, tx, kernel, h, w = ctx.tables
-        g = g.contiguous()
-        if kernel:
-            gx = cuda_resize.resize_nearest_bwd_cuda(g, ty, tx, h, w)
-        else:
-            gx = cuda_resize.resize_nearest_bwd_plain(g, ty, tx, h, w)
-        return gx, None, None, None
+        fn = (cuda_resize.resize_nearest_bwd_cuda if kernel
+              else cuda_resize.resize_nearest_bwd_plain)
+        return _resize(fn, g.contiguous(), ty, tx, h, w), None, None, None
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, size: Tuple[int, int],

@@ -1,10 +1,10 @@
 """Data parallelism across processes, one per card (mrfp_tpu/parallel)."""
 
 from mrfp_tpu_torch.parallel.dist import (all_gather_rows, all_reduce_grads, all_reduce_sum,
-                                          all_reduce_sum_grad, barrier,
+                                          all_reduce_sum_grad, barrier, broadcast,
                                           initialize_distributed, is_coordinator,
                                           local_device, rank, world)
 
 __all__ = ["all_gather_rows", "all_reduce_grads", "all_reduce_sum", "all_reduce_sum_grad",
-           "barrier", "initialize_distributed", "is_coordinator", "local_device", "rank",
-           "world"]
+           "barrier", "broadcast", "initialize_distributed", "is_coordinator", "local_device",
+           "rank", "world"]

@@ -15,6 +15,10 @@ can share one card through gloo, where NCCL refuses two ranks on one
 device. With no process group, or a group of one, every helper returns its
 input as it is: a single-process run computes what it computed before this
 module existed.
+
+Every collective goes through ``_issue``, which also reports it (its op,
+dtype and bytes) to the count that ``parallel/audit.py`` opens; with no
+count open that is one ``is None`` test a call.
 """
 
 from __future__ import annotations
@@ -22,12 +26,14 @@ from __future__ import annotations
 import datetime
 import logging
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
 
 _COLLECTIVE_DTYPES = (torch.float32, torch.float64, torch.int64)
+# the open count's recorder, ``(op, tensor) -> None`` (parallel/audit.py)
+_audit: Optional[Callable[[str, torch.Tensor], None]] = None
 
 
 def world() -> int:
@@ -107,11 +113,26 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     """The sum of ``t`` over the processes, in place (and returned); ``t``
     itself at world size 1. Not differentiable: for statistics that carry
     no gradient (counts, detached denominators, the gradient itself)."""
-    if world() == 1:
-        return t
+    return t if world() == 1 else _issue("all-reduce", t)
+
+
+def broadcast(t: torch.Tensor) -> torch.Tensor:
+    """Rank 0's ``t`` on every process, in place (and returned); ``t``
+    itself at world size 1. Not differentiable."""
+    return t if world() == 1 else _issue("broadcast", t)
+
+
+def _issue(op: str, t: torch.Tensor) -> torch.Tensor:
+    """Run the collective ``op`` ("all-reduce", a sum, or "broadcast" from
+    rank 0) on ``t`` in place, reported to the open count."""
     if t.dtype not in _COLLECTIVE_DTYPES:
-        raise TypeError(f"all_reduce_sum takes {_COLLECTIVE_DTYPES}, got {t.dtype}")
-    dist.all_reduce(t)
+        raise TypeError(f"{op} takes {_COLLECTIVE_DTYPES}, got {t.dtype}")
+    if _audit is not None:
+        _audit(op, t)
+    if op == "all-reduce":
+        dist.all_reduce(t)
+    else:
+        dist.broadcast(t, src=0)
     return t
 
 

@@ -18,7 +18,8 @@ weights' sum, the relaxed CE's weight sum, the class histogram) is summed
 over the processes first (``parallel/dist.py``), detached, as the JAX
 package takes it over the global batch: each rank's loss is then its local
 sum over the global denominator, and the ranks' losses add up to the
-global batch's. With one process nothing changes.
+global batch's. The whitening loss's batch mean is taken the same way,
+over the global sample count. With one process nothing changes.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from mrfp_tpu_torch.parallel.dist import all_reduce_sum
+from mrfp_tpu_torch.parallel.dist import all_reduce_sum, world
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 255,
@@ -136,13 +137,15 @@ def instance_whitening_loss(w_arr: Sequence[torch.Tensor],
     maps (mrfp_tpu/train/losses.py:67-97): per map and sample,
     ``f_cor = f f^T / (HW - 1) + 1e-5 I`` over its (C, HW) view, the masked
     entries' absolute sum less the margin over the count of removed
-    entries, clamped at 0, averaged over the batch; summed over the maps.
+    entries, clamped at 0, averaged over the batch (the global batch: with
+    more than one process each rank's sum over the ranks' sample count);
+    summed over the maps.
     ``mask_matrices`` (C x C arrays or tensors; None: the upper triangle),
     ``num_remove_cov`` (None: the mask's sum) and ``margin`` (a scalar, or
     one per map: with ``relax_denom`` > 0 each layer has its own) are per
     map. The per-sample product is ``torch.bmm`` in fp32 with autocast off;
     TF32 stays off as torch's matmul default leaves it."""
-    total = None
+    total = count = None
     for i, w in enumerate(w_arr):
         n, c, h, wd = w.shape
         with torch.autocast(w.device.type, enabled=False):
@@ -156,7 +159,13 @@ def instance_whitening_loss(w_arr: Sequence[torch.Tensor],
         nrc = num_remove_cov[i] if num_remove_cov is not None else mask.sum()
         m = margin[i] if isinstance(margin, (list, tuple)) else margin
         off = (cov * mask).abs().sum(dim=(1, 2)) - m
-        term = (off / nrc).clamp_min(0.0).mean()
+        term = (off / nrc).clamp_min(0.0)
+        if world() == 1:
+            term = term.mean()
+        else:
+            if count is None:  # every map has the batch's samples
+                count = all_reduce_sum(torch.full((), n, dtype=torch.int64, device=w.device))
+            term = term.sum() / count
         total = term if total is None else total + term
     if total is None:
         return torch.zeros((), dtype=torch.float32)

@@ -9,6 +9,16 @@ of the same images run through the eval-mode model, the variance of
 covariance accumulates per instrumented layer (deepv3.py:478-545), and the
 masks are frozen on the host and handed to the step as device tensors.
 
+With more than one process (``parallel/dist.py``) the step is the global
+batch's, as the JAX package's is under a sharded batch, and as
+``train/step.py``'s: BatchNorm and SwitchWhiten's batch statistics, the
+loss denominators and the whitening loss's batch mean reduce over every
+rank, the DSN dropout mask is the global batch's rows, one flat
+``all_reduce`` per dtype sums the gradients, and the returned losses are
+the global batch's on every rank. The statistics pass runs on every rank
+over the same view pairs in eval mode (no collective), and rank 0's masks
+and counts then go to every rank, so no rank can freeze other masks.
+
 As in the JAX step, the whitening loss takes margin 0 for every map, where
 ``models.deepv3_zoo.whitening_loss_from_cov`` passes each layer's own
 margin; the two differ only with ``relax_denom`` > 0 (ROADMAP C7). The step
@@ -26,6 +36,7 @@ import torch
 from mrfp_tpu_torch.core.config import Config
 from mrfp_tpu_torch.core.rng import device_generator
 from mrfp_tpu_torch.models.deepv3_zoo import covstat_update
+from mrfp_tpu_torch.parallel.dist import all_reduce_grads, all_reduce_sum, broadcast, world
 from mrfp_tpu_torch.train.losses import cross_entropy, instance_whitening_loss
 from mrfp_tpu_torch.train.state import TrainState
 from mrfp_tpu_torch.train.step import DSN_WEIGHT, autocast_for, dsn_cross_entropy
@@ -40,7 +51,8 @@ def zoo_train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor
     """One SGD step of the zoo objective on ``state`` in place. ``images``
     NHWC uint8 or float, ``labels`` NHW integer, on the model's device.
     Returns ``{"loss", "loss_main", ["loss_aux"], ["loss_wt"]}`` as device
-    tensors, and the three gates of the loop's log, always off.
+    tensors (the global batch's on every rank), and the three gates of the
+    loop's log, always off.
     ``dropout`` injects the DSN head's keep mask (the parity tests give
     JAX's); by default it comes from the step's ``dropout`` stream.
     ``impl="plain"`` runs every resize through its plain version."""
@@ -66,10 +78,17 @@ def zoo_train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor
         metrics["loss_wt"] = wl.detach()
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    all_reduce_grads(model.parameters())
+    metrics["loss"] = loss.detach()
+    if world() > 1:
+        # each rank's losses are its sums over the global denominators
+        names = [k for k in ("loss", "loss_main", "loss_aux", "loss_wt") if k in metrics]
+        summed = all_reduce_sum(torch.stack([metrics[k] for k in names]))
+        metrics.update(zip(names, summed.unbind()))
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
-    metrics.update(loss=loss.detach(), gate_oc=False, gate_np=False, gate_dec=False)
+    metrics.update(gate_oc=False, gate_np=False, gate_dec=False)
     return metrics
 
 
@@ -82,7 +101,7 @@ def covstat_pass(model, cov_layers: List, view_pairs: Sequence[Tuple[np.ndarray,
     autocast), each map's variance of covariance into its layer
     (``covstat_update``), then the masks frozen. Returns ``(wt_masks,
     wt_nrc)`` for ``zoo_train_step``: fp32 masks on ``device`` and the
-    counts of removed entries."""
+    counts of removed entries, rank 0's on every rank (two broadcasts)."""
     was_training = model.training
     model.eval()
     try:
@@ -101,4 +120,9 @@ def covstat_pass(model, cov_layers: List, view_pairs: Sequence[Tuple[np.ndarray,
         _eye, mask, _margin, n = layer.get_mask_matrix()
         masks.append(torch.as_tensor(mask, dtype=torch.float32, device=device))
         nrc.append(float(n))
+    if world() > 1 and masks:
+        sizes = [m.numel() for m in masks]
+        flat = broadcast(torch.cat([m.reshape(-1) for m in masks]))
+        masks = [part.view_as(m) for m, part in zip(masks, flat.split(sizes))]
+        nrc = broadcast(torch.tensor(nrc, dtype=torch.float64, device=device)).tolist()
     return masks, nrc

@@ -150,13 +150,14 @@ def test_irw_with_the_whitening_loss_fails_in_jax_and_is_refused_here(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--num-processes", "2"], "A12.5"), (["--model-parallel", "2"], "A14"),
+    (["--spatial-parallel", "2"], "A14"), (["--model-parallel", "2"], "A14"),
     (["--wt-layer", "0", "0", "5", "0", "0", "0", "0"], None),
     (["--trunk", "mobilenetv2"], None), (["--arch", "DeepShuffleNetV3PlusD"], None)])
 def test_unported_zoo_flags_raise(tmp_path, capsys, flags, item):
-    """Several processes (A12.5) and a mesh (A14) stay refused. iw code 5,
-    the MobileNetV2 trunk and a ShuffleNetV2 factory (refused until they
-    were ported) train: one step each on the CPU, 48 px, a finite loss."""
+    """Spatial and tensor parallelism (A14) stay refused (several processes
+    train: tests/test_torch_zoo_dist.py). iw code 5, the MobileNetV2 trunk
+    and a ShuffleNetV2 factory (refused until they were ported) train: one
+    step each on the CPU, 48 px, a finite loss."""
     argv = ZOO + ["--crop-size", "48"] + flags + ["--max-iter", "1", "--runs-dir", str(tmp_path)]
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):

@@ -33,7 +33,6 @@ import os
 import shutil
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import jax
@@ -55,21 +54,14 @@ from mrfp_tpu_torch.models import MRFP
 from mrfp_tpu_torch.weights import state_dict_from_jax
 
 import torch_dist_cases as cases
+from torch_dist_group import Group
+from torch_dist_group import env as _env
 from torch_port_fixture import np_draws, port_model, reference
 
 torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parent.parent
-WORKER = Path(__file__).resolve().parent / "torch_dist_worker.py"
 HW, N, WORLD = 48, 4, 2
-TIMEOUT = 900  # seconds the group's ranks may take
-
-
-def _env():
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    return env
 
 
 def _all_gates_key():
@@ -89,61 +81,6 @@ def _bn_inputs(gen, n, c, h, w, dtype, mean=0.0, spread=1.0):
                 bias=(0.1 * torch.randn(c, generator=gen)).to(dtype),
                 running_mean=(0.1 * torch.randn(c, generator=gen)).to(dtype),
                 running_var=(1 + 0.1 * torch.rand(c, generator=gen)).to(dtype))
-
-
-class Group:
-    """The module's process group: its ranks start at once and write each
-    case's result as they finish it; ``result`` waits for one (the whole
-    group within ``TIMEOUT`` s), ``take`` reads a case and removes its
-    files, so the ranks can write the next large one."""
-
-    def __init__(self, job: dict, directory: Path):
-        self.job, self.dir = job, directory
-        torch.save(job, directory / "job.pt")
-        self.logs = [directory / f"rank{r}.log" for r in range(WORLD)]
-        self.procs = []
-        for r, log in enumerate(self.logs):
-            with open(log, "w") as f:
-                self.procs.append(subprocess.Popen(
-                    [sys.executable, str(WORKER), str(directory / "job.pt"), str(r),
-                     str(WORLD), f"file://{directory / 'rendezvous'}", str(directory)],
-                    cwd=REPO, env=_env(), stdout=f, stderr=subprocess.STDOUT))
-        self.deadline = time.monotonic() + TIMEOUT
-
-    def result(self, name: str, rank: int):
-        # the tests read the cases in the job's order: a large result before
-        # this one that is still here was deselected, and would hold the ranks
-        for earlier in list(self.job)[:list(self.job).index(name)]:
-            if (self.dir / f"{earlier}.rank0.pt.large").exists() and \
-                    (self.dir / f"{earlier}.rank0.pt").exists():
-                self.take(earlier)
-        path = self.dir / f"{name}.rank{rank}.pt"
-        while not path.exists():
-            failed = [p.returncode for p in self.procs if p.poll() not in (None, 0)]
-            if failed or time.monotonic() > self.deadline or \
-                    all(p.poll() is not None for p in self.procs):
-                self.close(keep_logs=True)
-                raise AssertionError(f"{name}: no result from rank {rank} (exit codes "
-                                     f"{[p.poll() for p in self.procs]}):\n" + "\n".join(
-                                         log.read_text()[-3000:] for log in self.logs))
-            time.sleep(0.2)
-        return torch.load(path, weights_only=True)
-
-    def take(self, name: str) -> list:
-        """Every rank's result of ``name``; its files removed."""
-        got = [self.result(name, r) for r in range(WORLD)]
-        for r in range(WORLD):
-            for suffix in ("", ".large"):
-                (self.dir / f"{name}.rank{r}.pt{suffix}").unlink(missing_ok=True)
-        return got
-
-    def close(self, keep_logs: bool = False) -> None:
-        for p in self.procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-        if not keep_logs:
-            shutil.rmtree(self.dir, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -1,11 +1,13 @@
-"""One rank of a CPU process group of tests/test_torch_dist.py:
+"""One rank of a CPU process group of the data-parallel tests
+(``torch_dist_group.Group``):
 
-    python tests/torch_dist_worker.py JOB RANK WORLD RENDEZVOUS OUT
+    python tests/torch_dist_worker.py JOB RANK WORLD RENDEZVOUS OUT [CASES]
 
 joins the gloo group at RENDEZVOUS (a ``file://`` path), runs each case of
-the JOB file (``{name: (case function of torch_dist_cases, kwargs)}``) in
-order, and writes ``OUT/<name>.rank<RANK>.pt`` (whole, by a rename). Rank 0
-writes the whole result; the other ranks write their rows, and for the
+the JOB file (``{name: (case function of the module CASES, by default
+torch_dist_cases, kwargs)}``) in order, and writes
+``OUT/<name>.rank<RANK>.pt`` (whole, by a rename). Rank 0 writes the
+whole result; the other ranks write their rows, and for the
 steps' gradients and states a SHA-256 of every tensor instead, which must
 equal rank 0's. A step's result takes ~330 MB, so rank 0 writes the next
 one only once the test has read and removed the last: one is on disk at a
@@ -14,6 +16,7 @@ time.
 
 from __future__ import annotations
 
+import importlib
 import os
 import sys
 import time
@@ -24,13 +27,13 @@ import torch
 TESTS = Path(__file__).resolve().parent
 sys.path[:0] = [str(TESTS.parent), str(TESTS)]
 
-import torch_dist_cases as cases  # noqa: E402
 from mrfp_tpu_torch.parallel.dist import initialize_distributed  # noqa: E402
+from torch_dist_cases import digest  # noqa: E402
 
 
 def _digested(res):
     """``res`` with the tensors under ``grads`` and ``state`` hashed."""
-    return {k: ({name: cases.digest(t) for name, t in v.items()}
+    return {k: ({name: digest(t) for name, t in v.items()}
                 if k in ("grads", "state") else v) for k, v in res.items()}
 
 
@@ -50,7 +53,9 @@ def _write(res, path: str, large: bool, wait_s: float = 900.0) -> None:
     os.replace(path + ".tmp", path)
 
 
-def main(job: str, rank: str, world: str, rendezvous: str, out: str) -> None:
+def main(job: str, rank: str, world: str, rendezvous: str, out: str,
+         cases: str = "torch_dist_cases") -> None:
+    cases = importlib.import_module(cases)
     torch.set_num_threads(1)
     initialize_distributed(rendezvous, int(world), int(rank), "cpu", timeout_s=600)
     try:
