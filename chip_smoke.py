@@ -120,6 +120,17 @@ of global batch 8 on 2 ranks, whose all-reduce bill must be the one
 ``phase_data_parallel`` counted, and ``cli.train_zoo --num-processes 1``
 trains two steps through NCCL.
 
+Spatial parallelism (``phase_spatial_parallel``): two ranks share the card
+through gloo as above, and each takes its band of every image's rows: the
+MRFP+ step (R50-D16, 768x768) in fp32 (TF32 off, the damped fixture, batch
+2: the loss and every gradient) and in bf16 (batch 8: the loss, the
+statistics' moves, each rank's peak memory and its collectives a step,
+halo rows apart from statistics), and the fp32 eval forward at
+1x3x1024x2048 and ``SegEvaluator`` over two synthetic images, against one
+process on whole images; every band resize table of those runs is held
+against its plain version first. Then ``cli.eval --spatial-parallel 2``
+against ``cli.eval``.
+
 Any failure raises and exits non-zero; the last line of stdout is the JSON
 verdict, printed only when every phase passed. With ``--profile DIR`` it
 also writes torch.profiler kernel tables of one fp32 eval forward, of
@@ -312,12 +323,34 @@ def nbytes(*tensors) -> int:
 CHECKED = set()
 
 
-def _key(kernel: str, inp, out) -> tuple:
-    return (kernel, inp.dtype, tuple(inp.shape), tuple(out.shape))
+def _key(kernel: str, inp, out, band=None) -> tuple:
+    """A resize-kernel call's key: kernel, dtype and shapes, and for a band
+    table (spatial parallelism) the table's spec (``_table_spec``)."""
+    key = (kernel, inp.dtype, tuple(inp.shape), tuple(out.shape))
+    return key if band is None else key + (band,)
 
 
-def _held(kernel: str, inp, out) -> None:
-    CHECKED.add(_key(kernel, inp, out))
+def _held(kernel: str, inp, out, band=None) -> None:
+    CHECKED.add(_key(kernel, inp, out, band))
+
+
+def _table_spec(table) -> tuple:
+    """An H or W table's spec: ("nearest", in, rule, arg[, band]) from the
+    table itself, ("bilinear", in, out, band) from its cache key."""
+    from mrfp_tpu_torch.ops import resize
+    if isinstance(table, resize.NearestTable):
+        return ("nearest",) + tuple(table.spec)
+    for key, taps in resize._TAPS.items():
+        if taps is table:
+            return ("bilinear",) + tuple(key[:3])
+    raise AssertionError("a bilinear table that is not in the cache")
+
+
+def _band_of(table):
+    """The spec of a band table, None for a whole axis."""
+    spec = _table_spec(table)
+    band = spec[3] if spec[0] == "bilinear" else (spec[4] if len(spec) > 4 else None)
+    return spec if band is not None else None
 
 
 @contextlib.contextmanager
@@ -331,7 +364,7 @@ def _recording():
     def spy(kernel, fn):
         def call(t, *args):
             out = fn(t, *args)
-            calls.append(_key(kernel, t, out))
+            calls.append(_key(kernel, t, out, _band_of(args[0])))
             return out
         return call
 
@@ -339,6 +372,30 @@ def _recording():
         setattr(cuda_resize, k + "_cuda", spy(k, fn))
     try:
         yield calls
+    finally:
+        for k, fn in saved.items():
+            setattr(cuda_resize, k + "_cuda", fn)
+
+
+@contextlib.contextmanager
+def _resizes_run():
+    """Yields a set that collects every forward resize-kernel call made
+    inside the block as ``(kind, dtype, n, c, H spec, W spec)``, the whole
+    axes' specs (``_table_spec``)."""
+    from mrfp_tpu_torch.ops import cuda_resize
+    seen = set()
+    saved = {k: getattr(cuda_resize, k + "_cuda") for k in ("resize_bilinear", "resize_nearest")}
+
+    def spy(kind, fn):
+        def call(t, ty, tx, *args):
+            seen.add((kind, t.dtype, t.shape[0], t.shape[1], _table_spec(ty), _table_spec(tx)))
+            return fn(t, ty, tx, *args)
+        return call
+
+    for k, fn in saved.items():
+        setattr(cuda_resize, k + "_cuda", spy(k[len("resize_"):], fn))
+    try:
+        yield seen
     finally:
         for k, fn in saved.items():
             setattr(cuda_resize, k + "_cuda", fn)
@@ -3232,11 +3289,17 @@ def phase_data_parallel(cuda_gen) -> dict:
         _, ctrl32_loss, _, ctrl32, _ = _dp_step(DP_FP32_N, "float32", every, 1e-7)
     torch.cuda.empty_cache()
     fp32_loss_err = abs(ranks[0]["fp32_loss"] - one32_loss) / abs(one32_loss)
-    fp32_ratio = {}
+    fp32_ratio, grounded = {}, []
     for k, g in one32.items():
-        err = float((ranks[0]["fp32_grads"][k] - g).norm())
+        got = ranks[0]["fp32_grads"][k]
+        err = float((got - g).norm())
         fp32_ratio[k] = err / (3 * float((ctrl32[k] - g).norm()) + 1e-4 * float(g.norm())
                                + 1e-12)
+        if fp32_ratio[k] > 1:  # the fp64-grounded rule
+            ref = ref64[k].double()
+            fp32_ratio[k] = float((got.double() - ref).norm()) / (
+                3 * float((g.double() - ref).norm()) + 1e-4 * float(ref.norm()) + 1e-12)
+            grounded.append((k, round(fp32_ratio[k], 3)))
     fp32_worst = sorted(fp32_ratio.items(), key=lambda kv: -kv[1])[:3]
     fp32_keys = {k: (_rel(ranks[0]["fp32_grads"][k], one32[k]), _rel(ctrl32[k], one32[k]))
                  for k in GRAD_KEYS}
@@ -3338,6 +3401,393 @@ def phase_data_parallel(cuda_gen) -> dict:
             raise AssertionError(f"cli.train on NCCL: rc {proc.returncode}, result {result}, "
                                  f"stderr {proc.stderr[-3000:]}")
     return launched, (len(sizes), sum(sizes))
+
+
+SP_WORLD = 2     # ranks of the spatial phase: one spatial group, all on the one card
+SP_FP32_N = 2    # the fp32 step's batch (every rank holds every sample)
+SP_EVAL_IMAGES = 2  # SegEvaluator's synthetic images at H x W
+
+
+def _hold_band_resizes(resizes, backward: bool, cuda_gen, sp: int = SP_WORLD) -> int:
+    """Holds every band table that ``sp`` ranks make of each whole-map
+    resize in ``resizes`` (``_resizes_run``'s records) against the plain
+    versions, on the card: the forward exactly equal, and with
+    ``backward`` the bilinear backward within ``_bilinear_bwd_close``'s
+    bound and the nearest one exactly equal. Returns the band calls
+    held."""
+    from mrfp_tpu_torch.ops import cuda_resize
+    from mrfp_tpu_torch.ops.resize import (bilinear_band_rows, bilinear_taps,
+                                           nearest_band_rows, nearest_index, nearest_table)
+    from mrfp_tpu_torch.parallel.dist import band
+    held = 0
+    for kind, dtype, n, c, sy, sx in sorted(resizes, key=str):
+        h, w = sy[1], sx[1]
+        if kind == "bilinear":
+            oh = sy[2]
+            tx = bilinear_taps(w, sx[2], DEV)
+            fwd, bwd = cuda_resize.resize_bilinear_cuda, cuda_resize.resize_bilinear_bwd_cuda
+            fwd_p, bwd_p = cuda_resize.resize_bilinear_plain, cuda_resize.resize_bilinear_bwd_plain
+            ow = tx.idx0.numel()
+        else:
+            oh = len(nearest_index(*sy[1:4]))
+            tx = nearest_table(w, sx[2], sx[3], DEV)
+            fwd, bwd = cuda_resize.resize_nearest_cuda, cuda_resize.resize_nearest_bwd_cuda
+            fwd_p, bwd_p = cuda_resize.resize_nearest_plain, cuda_resize.resize_nearest_bwd_plain
+            ow = tx.idx.numel()
+        for r in range(sp):
+            o0, o1 = band(oh, sp, r)
+            if kind == "bilinear":
+                lo, hi = bilinear_band_rows(h, oh, o0, o1)
+                ty = bilinear_taps(h, oh, DEV, (o0, o1))
+                extra = ((h, oh, (o0, o1)),)
+            else:
+                lo, hi = nearest_band_rows(h, sy[2], sy[3], o0, o1)
+                ty = nearest_table(h, sy[2], sy[3], DEV, (o0, o1))
+                extra = ()
+            x = torch.randn((n, c, hi - lo, w), device=DEV, generator=cuda_gen).to(dtype)
+            y = fwd(x, ty, tx, *extra)
+            what = f"band {r} of {sp}: {kind} {_dtype_name(dtype)} ({n},{c},{h},{w})->({oh},{ow})"
+            if y.shape != (n, c, o1 - o0, ow) or not torch.equal(y, fwd_p(x, ty, tx)):
+                raise AssertionError(f"{what}: the band forward is not the plain version's")
+            band_spec = _table_spec(ty)
+            _held(f"resize_{kind}", x, y, band_spec)
+            held += 1
+            if backward:
+                g = torch.randn(y.shape, device=DEV, generator=cuda_gen).to(dtype)
+                gx = bwd(g, ty, tx, hi - lo, w)
+                if kind == "bilinear":
+                    _bilinear_bwd_close(gx, g, ty, tx, hi - lo, w, what)
+                elif not torch.equal(gx, bwd_p(g, ty, tx, hi - lo, w)):
+                    raise AssertionError(f"{what}: the band backward is not the plain version's")
+                _held(f"resize_{kind}_bwd", g, gx, band_spec)
+                held += 1
+    torch.cuda.synchronize()
+    return held
+
+
+def _sp_step(batch: int, dtype: str, mesh=None, noise: float = 0.0, damped=None):
+    """One step of ``_dp_setup(batch, dtype, damped)`` (by default damped in
+    fp32): on the whole batch, or with a spatial ``mesh`` on this rank's
+    band of every image's rows; the images x (1 + ``noise`` x N(0, 1)).
+    Every resize call recorded: ``(state before, loss, state after,
+    gradients, calls)``, the tensors on the host."""
+    from mrfp_tpu_torch.core.mesh import spatial_sharding
+    from mrfp_tpu_torch.train.step import train_step
+    damped = dtype == "float32" if damped is None else damped
+    cfg, state, perturb, img, lbl = _dp_setup(batch, dtype, damped)
+    eps = torch.randn(img.shape, generator=torch.Generator().manual_seed(2)).to(img.device)
+    img = img.float() * (1 + noise * eps)
+    hw = None
+    if mesh is not None:
+        img, lbl, hw = spatial_sharding(mesh, img), spatial_sharding(mesh, lbl), (CROP, CROP)
+    host = lambda d: {k: v.detach().to("cpu", copy=True) for k, v in d.items()}  # noqa: E731
+    before = host(state.model.state_dict())
+    with _recording() as calls:
+        loss = train_step(state, img.contiguous(), lbl.contiguous(), cfg, perturb=perturb,
+                          hw=hw)["loss"]
+    grads = host({k: p.grad for k, p in state.model.named_parameters()})
+    return before, loss.item(), host(state.model.state_dict()), grads, calls
+
+
+def _sp_fp64_grads(batch: int) -> dict:
+    """The gradients of ``_sp_step(batch, "float32")``'s one-process step
+    taken in fp64 (the model, the images and every op but the bilinear
+    resizes' plain versions, which interpolate in fp32), on the host in
+    fp32: the reference from which the fp32 steps' distances are read
+    where a 1e-7-input control understates their rounding (the ASPP image
+    pool's BatchNorm over the batch's 1x1 maps amplifies a pooled mean's
+    last-bit differences; the control moves that mean far less than a
+    rounding at every layer does)."""
+    import torch.nn.functional as F
+    cfg, state, perturb, img, lbl = _dp_setup(batch, "float32", True)
+    model = state.model.double().train()
+    logits = model(img.permute(0, 3, 1, 2).double(), impl="plain", perturb=perturb)
+    labels = lbl.long()
+    loss = F.cross_entropy(logits, labels, ignore_index=255, reduction="sum") \
+        / (labels != 255).sum().clamp_min(1)
+    loss.backward()
+    return {k: p.grad.float().to("cpu") for k, p in model.named_parameters()}
+
+
+def _sp_logits_fp64() -> torch.Tensor:
+    """``_sp_eval``'s one-process logits in fp64 (the model and the image;
+    the bilinear resizes' plain versions interpolate in fp32): the
+    reference from which the fp32 logits' distances are read."""
+    from mrfp_tpu_torch.models import build_mrfp
+    model = build_mrfp(DEV, generator=torch.Generator().manual_seed(0)).double()
+    x = (torch.rand((1, 3, H, W), generator=torch.Generator().manual_seed(21)) * 255).to(DEV)
+    with torch.inference_mode():
+        return model(x.double(), impl="plain").to("cpu")
+
+
+def _sp_eval(mesh=None):
+    """The fp32 eval forward of the seeded R50-D16 model at 1x3xHxW (TF32 off,
+    cuDNN deterministic), on the whole image or this rank's band, and
+    ``SegEvaluator``'s histogram over ``SP_EVAL_IMAGES`` synthetic images;
+    every resize call recorded, and the kernels' launches of the
+    evaluator's run: ``(logits on the host, hist, calls, launches)``."""
+    from mrfp_tpu_torch.data import SyntheticDataset
+    from mrfp_tpu_torch.models import build_mrfp
+    from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
+    from mrfp_tpu_torch.parallel.dist import band
+    from mrfp_tpu_torch.train.evaluator import SegEvaluator
+    model = build_mrfp(DEV, generator=torch.Generator().manual_seed(0))
+    x = (torch.rand((1, 3, H, W), generator=torch.Generator().manual_seed(21)) * 255).to(DEV)
+    with _strict_fp32(), torch.inference_mode(), _recording() as calls:
+        if mesh is None:
+            logits = model(x)
+        else:
+            lo, hi = band(H, mesh.sp, mesh.spatial_index)
+            logits = model(x[:, :, lo:hi].contiguous(), hw=(H, W))
+        logits = logits.to("cpu")
+        torch.cuda.synchronize()
+        reset_launches()
+        res = SegEvaluator(model, device=DEV, mesh=mesh).run(
+            SyntheticDataset(length=SP_EVAL_IMAGES, hw=(H, W)), log=lambda *a, **k: None)
+        launched = dict(LAUNCHES)
+    return logits, torch.as_tensor(res["hist"]), calls, launched
+
+
+def sp_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
+    """One rank of ``phase_spatial_parallel`` (its own process): joins the
+    gloo group, lays out one spatial group, takes the fp32 step on its band
+    of the batch's rows, then the counted, recorded bf16 step and three
+    timed ones, then the fp32 eval forward and the evaluator on its bands,
+    and writes what it saw to ``out/rank<rank>.pt``."""
+    from mrfp_tpu_torch.core.config import MeshConfig
+    from mrfp_tpu_torch.core.mesh import create_mesh, spatial_sharding
+    from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
+    from mrfp_tpu_torch.parallel import dist
+    from mrfp_tpu_torch.parallel.audit import count_collectives, summarize_by_group
+    from mrfp_tpu_torch.train.step import train_step
+    dist.initialize_distributed(rendezvous, world, rank, DEV, backend="gloo", timeout_s=600)
+    try:
+        mesh = create_mesh(MeshConfig(data_parallel=1, spatial_parallel=world))
+        with _strict_fp32():
+            _, fp32_loss, _, fp32_grads, fp32_calls = _sp_step(SP_FP32_N, "float32", mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with count_collectives() as log:
+            _, loss, after, _, calls = _sp_step(TRAIN_N, "bfloat16", mesh)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        launched = dict(LAUNCHES)
+        cfg, state, perturb, img, lbl = _dp_setup(TRAIN_N, "bfloat16", False)
+        img, lbl = spatial_sharding(mesh, img), spatial_sharding(mesh, lbl)
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(state, img, lbl, cfg, perturb=perturb, hw=(CROP, CROP))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        del state, img, lbl
+        torch.cuda.empty_cache()
+        logits, hist, eval_calls, eval_launched = _sp_eval(mesh)
+        for k, v in eval_launched.items():
+            launched[k] += v
+        torch.save({"fp32_loss": fp32_loss, "fp32_grads": fp32_grads, "loss": loss,
+                    "state": after, "collectives": summarize_by_group(log),
+                    "launched": launched, "ms": times[1:], "peak_gib": peak,
+                    "logits": logits, "hist": hist,
+                    "calls": [(c[0], _dtype_name(c[1])) + c[2:]
+                              for c in calls + fp32_calls + eval_calls]},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _cli_eval_json(extra: list) -> dict:
+    """``cli.eval --synthetic`` at H x W on one image, fp32, in a process of
+    its own: its results."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "results.json")
+        cmd = [sys.executable, "-m", "mrfp_tpu_torch.cli.eval", "--device", DEV, "--synthetic",
+               "--synthetic-hw", str(H), str(W), "--domains", "cityscapes", "--max-images",
+               "1", "--json-out", out, *extra]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd[2:])}: rc {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        return json.load(open(out))["cityscapes"]
+
+
+def phase_spatial_parallel(cuda_gen) -> dict:
+    """Spatial parallelism on the one card there is: ``SP_WORLD`` ranks, each
+    a process of its own, share the card through gloo (as
+    ``phase_data_parallel``'s) and split every image's rows, each taking
+    its band of every map and fetching the halo rows from the other.
+
+    One process first takes the same runs on whole images, recording every
+    resize it launches; each band table the ranks will make of those
+    resizes is then held against the plain version (``_hold_band_resizes``),
+    and every resize call of the ranks must be at a held band.
+
+    - fp32 (TF32 off, cuDNN deterministic), the damped fixture, batch
+      ``SP_FP32_N`` at 768x768, all gates on: the loss within 1e-5
+      relative of one process's; every gradient within 3x a 1e-7-input
+      control + 1e-4 of its norm, or, where the control understates the
+      rounding of every layer, no further from the same step in fp64
+      (``_sp_fp64_grads``) than 3x the one-process step's distance + 1e-4
+      of its norm: as accurate as one process.
+    - bf16, the recipe at batch ``TRAIN_N``: the ranks end bit-identical;
+      the loss within 2^-9 or 3x the half-ulp-input control; each BN
+      statistic's move within 3x the control + 1e-2, each parameter's
+      within 3x + 2e-2 (``phase_data_parallel``'s rules). Each rank's peak
+      memory above what it held before the step's set-up, beside one
+      process's; each rank's collectives a step by group, halo rows apart
+      from statistics; the ranks' step ms (gloo through the host: a
+      correctness time).
+    - Eval: the fp32 forward at 1x3xHxW, the ranks' bands against one
+      process's logits within atol 2e-4, rtol 1e-4 (JAX's
+      test_spatial_eval_logits_match_unsharded bound; a rounding at every
+      layer moves logits of up to ~32 by ~2e-4), and no further from the
+      same forward in fp64 than 3x one process's distance (norm);
+      ``SegEvaluator`` over
+      ``SP_EVAL_IMAGES`` synthetic images, the histograms equal or apart in
+      at most 0.01% of the pixels (cuDNN's band algorithms may flip an
+      argmax tie); then ``cli.eval --spatial-parallel 2`` against
+      ``cli.eval`` on one image: the pixels equal and the accuracy within
+      1e-4 (at most 0.01% of the pixels moved).
+
+    Returns the ranks' summed kernel launches in the bf16 step and the
+    evaluator's run."""
+    t0 = time.perf_counter()
+    every = None
+    with _strict_fp32(), _resizes_run() as fp32_resizes:
+        _, one32_loss, _, one32, _ = _sp_step(SP_FP32_N, "float32", every)
+        _, ctrl32_loss, _, ctrl32, _ = _sp_step(SP_FP32_N, "float32", every, 1e-7)
+    with _strict_fp32():
+        ref64 = _sp_fp64_grads(SP_FP32_N)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with _resizes_run() as bf16_resizes:
+        before, one_loss, one, _, _ = _sp_step(TRAIN_N, "bfloat16", every)
+    torch.cuda.synchronize()
+    one_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    before_ctrl, ctrl_loss, ctrl, _, _ = _sp_step(TRAIN_N, "bfloat16", every, 2.0 ** -9)
+    torch.cuda.empty_cache()
+    with _resizes_run() as eval_resizes:
+        one_logits, one_hist, _, _ = _sp_eval()
+    logits64 = _sp_logits_fp64()
+    torch.cuda.empty_cache()
+    held = (_hold_band_resizes(fp32_resizes | bf16_resizes, True, cuda_gen)
+            + _hold_band_resizes(eval_resizes, False, cuda_gen))
+    torch.cuda.empty_cache()
+    print(f"spatial parallel: {held} band resize calls of {SP_WORLD} ranks held against the "
+          f"plain versions ({len(fp32_resizes | bf16_resizes)} train resizes fp32 and bf16, "
+          f"forward exactly equal, backward within the bound; {len(eval_resizes)} eval "
+          f"resizes, forward exactly equal); one process's runs {time.perf_counter() - t0:.1f} s")
+
+    ranks, seconds = _run_ranks("sp_rank")
+    for r in ranks:
+        _all_held([(c[0], getattr(torch, c[1])) + tuple(c[2:]) for c in r["calls"]],
+                  "spatial parallel: a rank's runs")
+    fp32_loss_err = abs(ranks[0]["fp32_loss"] - one32_loss) / abs(one32_loss)
+    fp32_ratio, grounded = {}, []
+    for k, g in one32.items():
+        got = ranks[0]["fp32_grads"][k]
+        err = float((got - g).norm())
+        fp32_ratio[k] = err / (3 * float((ctrl32[k] - g).norm()) + 1e-4 * float(g.norm())
+                               + 1e-12)
+        if fp32_ratio[k] > 1:  # the fp64-grounded rule
+            ref = ref64[k].double()
+            fp32_ratio[k] = float((got.double() - ref).norm()) / (
+                3 * float((g.double() - ref).norm()) + 1e-4 * float(ref.norm()) + 1e-12)
+            grounded.append((k, round(fp32_ratio[k], 3)))
+    fp32_worst = sorted(fp32_ratio.items(), key=lambda kv: -kv[1])[:3]
+    if any(not torch.equal(v, before_ctrl[k]) for k, v in before.items()):
+        raise AssertionError("spatial parallel: the control started from another state")
+    same = [k for k, v in ranks[0]["state"].items() if not torch.equal(v, ranks[1]["state"][k])]
+    loss = ranks[0]["loss"]
+    loss_err = abs(loss - one_loss) / abs(one_loss)
+    loss_ctrl = abs(ctrl_loss - one_loss) / abs(one_loss)
+
+    def moved(a: dict, k: str) -> torch.Tensor:
+        return a[k].double() - before[k].double()
+
+    err, control = {}, {}
+    for k, v in one.items():
+        if v.is_floating_point() and moved(one, k).norm() > 0:
+            err[k] = _rel(moved(ranks[0]["state"], k), moved(one, k))
+            control[k] = _rel(moved(ctrl, k), moved(one, k))
+    stats = [k for k in err if "running" in k]
+    over = {k: (v, control[k]) for k, v in err.items()
+            if v > 3 * control[k] + (1e-2 if k in stats else 2e-2)}
+    counters = [k for k, v in one.items() if not v.is_floating_point()
+                and not torch.equal(ranks[0]["state"][k], v)]
+    launched = {k: sum(r["launched"][k] for r in ranks) for k in ranks[0]["launched"]}
+    ms = [statistics.median(r["ms"]) for r in ranks]
+    logits = torch.cat([r["logits"] for r in ranks], dim=2)
+    logit_err = (logits - one_logits).abs().max().item()
+    d64 = {k: float((v.double() - logits64).norm() / logits64.norm())
+           for k, v in (("ranks", logits), ("one", one_logits))}
+    hist_moved = [int((r["hist"].long() - one_hist.long()).abs().sum()) // 2 for r in ranks]
+    pixels = int(one_hist.sum())
+    one_eval, two_eval = _cli_eval_json([]), _cli_eval_json(["--spatial-parallel", "2"])
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(f"spatial parallel fp32 (TF32 off, deterministic), damped fixture: {SP_WORLD} ranks "
+          f"x a band of {SP_FP32_N} images against one process, {CROP}x{CROP}, all gates on: "
+          f"loss {ranks[0]['fp32_loss']:.7f} vs {one32_loss:.7f} (rel {fp32_loss_err:.3e}; "
+          f"1e-7-input control {abs(ctrl32_loss - one32_loss) / abs(one32_loss):.3e}); "
+          f"gradients of {len(one32)} tensors, worst error / bound "
+          f"{[(k, round(v, 3)) for k, v in fp32_worst]}, median "
+          f"{statistics.median(fp32_ratio.values()):.3f}; held to the fp64 step instead "
+          f"(over 3x the control): {len(grounded)} {grounded[:8]}")
+    print(f"spatial parallel bf16: {SP_WORLD} ranks x a band of {TRAIN_N} images over gloo, "
+          f"{CROP}x{CROP}, all gates on, against one process: loss {loss:.6f} vs "
+          f"{one_loss:.6f}, rel {loss_err:.3e} (bound {max(2.0 ** -9, 3 * loss_ctrl):.3e}); "
+          f"BN statistics' moves off one process's, median "
+          f"{statistics.median(err[k] for k in stats):.3e} (control "
+          f"{statistics.median(control[k] for k in stats):.3e}); ranks identical: {not same}")
+    for r, res in enumerate(ranks):
+        print(f"spatial parallel rank {r}: peak {res['peak_gib']:.3f} GiB above its set-up "
+              f"(one process {one_peak:.3f} GiB); collectives a bf16 step "
+              f"{json.dumps(res['collectives'], sort_keys=True)}; step median {ms[r]:.1f} ms "
+              f"(gloo through the host: a correctness time); card {card.strip()}")
+    print(f"spatial parallel eval fp32 1x3x{H}x{W}: the ranks' bands against one process's "
+          f"logits max_abs_err {logit_err:.3e} (|logits| max {one_logits.abs().max().item():.3e});"
+          f" relative distance from the fp64 forward: ranks {d64['ranks']:.3e}, one process "
+          f"{d64['one']:.3e}; SegEvaluator over {SP_EVAL_IMAGES} images: "
+          f"pixels moved {hist_moved} of {pixels}; cli.eval --spatial-parallel 2 {two_eval} "
+          f"vs cli.eval {one_eval}; launches (both ranks: bf16 step and evaluator) {launched}; "
+          f"{seconds:.1f} s for the ranks end to end")
+    if not math.isfinite(fp32_loss_err) or fp32_loss_err > 1e-5 or fp32_worst[0][1] > 1:
+        raise AssertionError(f"spatial parallel fp32: loss rel {fp32_loss_err}, gradients over "
+                             f"their bounds {[kv for kv in fp32_worst if kv[1] > 1]}")
+    if same or counters:
+        raise AssertionError(f"spatial parallel: ranks differ at {same}; counters differ from "
+                             f"one process at {counters}")
+    if not math.isfinite(loss) or loss_err > max(2.0 ** -9, 3 * loss_ctrl):
+        raise AssertionError(f"spatial parallel: loss {loss} against one process's {one_loss}")
+    if over:
+        raise AssertionError(f"spatial parallel: moves off the one-process step's beyond 3x "
+                             f"the control's + 1e-2 (statistics) / 2e-2: {over}")
+    if not all(r["collectives"].get("spatial", {}).get("halo", {}).get("count", 0) > 0
+               for r in ranks):
+        raise AssertionError(f"spatial parallel: a rank fetched no halo rows: "
+                             f"{[r['collectives'] for r in ranks]}")
+    if logits.shape != one_logits.shape:
+        raise AssertionError(f"spatial parallel eval: logits {tuple(logits.shape)}")
+    torch.testing.assert_close(logits, one_logits, atol=2e-4, rtol=1e-4,
+                               msg=lambda m: f"spatial parallel eval logits: {m}")
+    if not d64["ranks"] <= 3 * d64["one"]:
+        raise AssertionError(f"spatial parallel eval: the bands' logits lie {d64['ranks']} from "
+                             f"the fp64 forward, one process's {d64['one']}")
+    if max(hist_moved) > 1e-4 * pixels:
+        raise AssertionError(f"spatial parallel eval: {hist_moved} of {pixels} pixels moved")
+    if two_eval["pixels"] != one_eval["pixels"] or \
+            not abs(two_eval["acc"] - one_eval["acc"]) <= 1e-4:
+        raise AssertionError(f"cli.eval --spatial-parallel 2: {two_eval} against {one_eval}")
+    if min(launched[k] for k in RESIZE_KERNELS + ("confusion_matrix",)) <= 0:
+        raise AssertionError(f"spatial parallel: a kernel was not launched: {launched}")
+    return launched
 
 
 # the zoo's data-parallel phase: DeepR50V3PlusD (resnet-50 D16, full width
@@ -3730,13 +4180,15 @@ def main(argv=None) -> None:
     dp_launches, dp_bill = _phase(phase_data_parallel, cuda_gen)
     torch.cuda.empty_cache()
     zoo_dp_launches = _phase(phase_zoo_data_parallel, cuda_gen, dp_bill)
+    torch.cuda.empty_cache()
+    sp_launches = _phase(phase_spatial_parallel, cuda_gen)
 
     def launches(name, *counted):
         """The kernel's count over the counted drives of its paths."""
         return sum(c[name] for c in counted)
 
     later_paths = (serving_launches, extras_launches, accum_launches, sliding_launches,
-                   zoo_launches, zoo_trunk_launches, dp_launches, zoo_dp_launches)
+                   zoo_launches, zoo_trunk_launches, dp_launches, zoo_dp_launches, sp_launches)
     src = "mrfp_tpu_torch/csrc/"
     kernels = [
         dict(name="resize_bilinear", route="cuda", source=src + "resize_bilinear.cu",
@@ -3758,7 +4210,7 @@ def main(argv=None) -> None:
         dict(name="confusion_matrix", route="cuda", source=src + "confusion_matrix.cu",
              replaces="mrfp_tpu/ops/pallas_hist.py:50",
              launches=launches("confusion_matrix", eval_launches, sliding_launches,
-                               zoo_launches),
+                               zoo_launches, sp_launches),
              **hist),
         dict(name="dot_with_stats", route="cuda", source=src + "dot_stats.cu",
              replaces="mrfp_tpu/ops/pallas_dot_stats.py:112",

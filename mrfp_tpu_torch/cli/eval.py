@@ -19,6 +19,17 @@ default, as its trainer). Without
 ``--ckpt`` the model has seeded random weights. ``--device cuda`` runs the
 hand-written kernels and exits non-zero when no CUDA device is present; it
 never falls back to the CPU.
+
+``--spatial-parallel S`` splits every image's rows over S processes
+(mrfp_tpu/cli/eval.py:70,218-222; ``core/mesh.py``), the batch-1 serving
+case for an image whose activations exceed one card: each process runs the
+MRFP forward on its band, fetching the conv halos from its neighbours, and
+the histograms are summed. The processes come from torchrun or the flags
+``--num-processes S --process-id R --coordinator-address``; without either,
+``cli.eval`` starts the S ranks itself (``torch.multiprocessing``, a file
+rendezvous): on the cards through NCCL when there is one each, else
+sharing the card (or the CPU) through gloo. Rank 0 prints and writes the
+results. The zoo models refuse it (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -26,6 +37,8 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
+import sys
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -80,6 +93,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "parity protocol; bfloat16 runs the forward under "
                         "autocast, logits stay float32")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--spatial-parallel", type=int, default=1,
+                   help="split every image's rows over this many processes (the "
+                        "batch-1 case of an image beyond one card's memory)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="processes of a --spatial-parallel run (default: torchrun's "
+                        "WORLD_SIZE, else cli.eval starts them itself)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (default: torchrun's RANK)")
+    p.add_argument("--coordinator-address", default=None,
+                   help="host:port of rank 0's rendezvous, or a file:// path")
     return p.parse_args(argv)
 
 
@@ -165,15 +188,80 @@ def _dataset(args, domain: str):
     return ds
 
 
+def check_spatial(args) -> None:
+    """Raise where ``--spatial-parallel`` cannot run: a zoo model, or a
+    process count other than S."""
+    sp = args.spatial_parallel
+    if sp < 1:
+        raise ValueError(f"--spatial-parallel {sp}: need at least 1")
+    if sp == 1:
+        return
+    if getattr(args, "arch", None) or getattr(args, "wt_layer", None):
+        raise NotImplementedError("--spatial-parallel with a zoo model is not ported "
+                                  "(ROADMAP A14: spatial parallelism for the zoo)")
+    nproc = args.num_processes if args.num_processes is not None else \
+        int(os.environ.get("WORLD_SIZE", sp))
+    if nproc != sp:
+        raise ValueError(f"--spatial-parallel {sp} with {nproc} processes: the eval splits "
+                         f"one image over all of them")
+
+
+def _spawned_rank(rank: int, argv: list, sp: int, tmp: str) -> None:
+    """One rank that ``cli.eval`` started itself."""
+    main(list(argv) + ["--num-processes", str(sp), "--process-id", str(rank),
+                       "--coordinator-address", f"file://{tmp}/rendezvous",
+                       "--json-out", os.path.join(tmp, "results.json")])
+
+
+def _spawn(argv: list, args) -> Dict[str, dict]:
+    """Run the ``--spatial-parallel`` ranks as processes of this one's and
+    return rank 0's results."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_spawned_rank, args=(argv, args.spatial_parallel, tmp),
+                           nprocs=args.spatial_parallel, start_method="spawn")
+        with open(os.path.join(tmp, "results.json")) as f:
+            results = json.load(f)
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(results, f)
+    return results
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, dict]:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     if args.parity:
         check_parity_protocol(args)
+    check_spatial(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: torch.cuda.is_available() is False "
                          "(use --device cpu to run the plain versions on the CPU)")
-    device = torch.device(args.device)
+    if args.spatial_parallel == 1:
+        return _evaluate(args, torch.device(args.device), None)
+    if args.num_processes is None and "WORLD_SIZE" not in os.environ:
+        return _spawn(list(sys.argv[1:] if argv is None else argv), args)
+    from mrfp_tpu_torch.core.config import MeshConfig
+    from mrfp_tpu_torch.core.mesh import create_mesh, reset_mesh
+    from mrfp_tpu_torch.parallel import dist
+    shared = args.device == "cpu" or torch.cuda.device_count() < args.spatial_parallel
+    dist.initialize_distributed(args.coordinator_address, args.num_processes,
+                                args.process_id, args.device,
+                                backend="gloo" if shared else None)
+    try:
+        mesh = create_mesh(MeshConfig(data_parallel=1, spatial_parallel=args.spatial_parallel))
+        return _evaluate(args, dist.local_device(args.device), mesh)
+    finally:
+        reset_mesh()
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _evaluate(args, device: torch.device, mesh) -> Dict[str, dict]:
+    from mrfp_tpu_torch.parallel import dist
+    speak = dist.is_coordinator()
     if args.dtype == "float32" and device.type == "cuda":
         # fp32 parity means full fp32: cuDNN convs default to TF32
         torch.backends.cudnn.allow_tf32 = False
@@ -189,15 +277,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, dict]:
     evaluator = SegEvaluator(
         model, strict_pairs=args.strict_pairs, bucket=args.bucket,
         eval_batch=args.eval_batch, device=device,
-        autocast_dtype=torch.bfloat16 if args.dtype == "bfloat16" else None)
+        autocast_dtype=torch.bfloat16 if args.dtype == "bfloat16" else None, mesh=mesh)
     domains = args.domains
     if domains == ["all"]:
         domains = ["bdd100k", "cityscapes", "synthia", "mapillary", "gtav"]
     results = {}
     for domain in domains:
         res = evaluator.run(_dataset(args, domain), max_images=args.max_images,
-                            heartbeat=watchdog.beat if watchdog else None)
-        print(f"Number of images dropped: {res['dropped']}")
+                            heartbeat=watchdog.beat if watchdog else None,
+                            log=print if speak else (lambda *a, **k: None))
+        if speak:
+            print(f"Number of images dropped: {res['dropped']}")
         results[domain] = {
             "mean_iu": res["mean_iu"], "acc": res["acc"], "fwavacc": res["fwavacc"],
             "images": res["scored"], "pixels": int(res["hist"].sum()),
@@ -206,10 +296,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, dict]:
                        else "cpu")}
     if watchdog is not None:
         watchdog.stop()
-    print(json.dumps(results, indent=2))
-    if args.json_out:
-        with open(args.json_out, "w") as f:
-            json.dump(results, f)
+    if speak:
+        print(json.dumps(results, indent=2))
+        if args.json_out:
+            with open(args.json_out, "w") as f:
+                json.dump(results, f)
     return results
 
 

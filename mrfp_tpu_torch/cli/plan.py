@@ -1,5 +1,6 @@
 """Preflight launch planner, PyTorch port (mrfp_tpu/cli/plan.py): what one
-step of a data-parallel ``cli.train`` launch pays, before the launch.
+step of a data- or spatial-parallel ``cli.train`` launch pays, before the
+launch.
 
     python -m mrfp_tpu_torch.cli.plan --trunk resnet-50 --variant D16 \
         --batch-size 8 --data-parallel 2            # on the card(s)
@@ -7,34 +8,43 @@ step of a data-parallel ``cli.train`` launch pays, before the launch.
     python -m mrfp_tpu_torch.cli.plan --device cpu --trunk resnet-18 \
         --variant D32 --batch-size 4 --crop-size 64 --data-parallel 2
 
+    python -m mrfp_tpu_torch.cli.plan --device cpu --batch-size 4 \
+        --crop-size 64 --data-parallel 1 --spatial-parallel 2
+
 It builds what ``cli.train`` would run (its config factories, ``build_state``
 and ``train_step``) and reports
 
   - the mesh and each rank's bytes of parameters, momentum and running
-    statistics (every rank holds all of them: data parallelism);
+    statistics (every rank holds all of them: data and spatial parallelism
+    replicate the state);
   - every collective of one step, rolled up by op with its bytes, and by
     dtype: the gradient's flat ``all_reduce``, the BatchNorm statistics
-    forward and backward, NP+'s gathered means, the loss denominators;
+    forward and backward, NP+'s gathered means, the loss denominators; and
+    by process group, the halo rows of spatial parallelism apart from the
+    statistics;
   - the step's FLOPs and bytes (roofline inputs),
 
 plus one JSON line with the JAX report's keys (``--json-out`` writes it to
 a file too).
 
 The collectives are counted, not parsed: the port issues each of them
-explicitly through ``parallel/dist.py``, so N rank processes (N the data
-axis; ``torch.multiprocessing``, a file rendezvous) join a process group
-and take one step of ``cli.train``'s own step on a seeded synthetic batch,
-the gates forced on (every collective a step can pay), under
-``parallel/audit.py``'s count. That step runs at ``AUDIT_CROP`` (64 px): no
-collective of data parallelism depends on the crop
-(``tests/test_torch_plan.py`` holds the rollups at two crops equal). By
+explicitly through ``parallel/dist.py``, so N = dp x S rank processes
+(``torch.multiprocessing``, a file rendezvous) join a process group, lay
+out the mesh and take one step of ``cli.train``'s own step on a seeded
+synthetic batch, the gates forced on (every collective a step can pay),
+under ``parallel/audit.py``'s count. Under data parallelism alone that
+step runs at ``AUDIT_CROP`` (64 px): no collective of data parallelism
+depends on the crop (``tests/test_torch_plan.py`` holds the rollups at two
+crops equal). The halo rows of spatial parallelism are as wide as the
+maps, so with S > 1 the ranks' step runs at ``--crop-size``. By
 default the ranks run on the card, through NCCL with a card each, else
 sharing it through gloo; ``--device cpu`` runs gloo ranks on the CPU, the
 counterpart of the JAX planner's simulated CPU slice.
 
-The work is counted over one rank's step at ``--crop-size`` in this
-process (no group, so the statistics take torch's own BatchNorm) and
-scaled to the global batch. FLOPs come from ``torch.utils.flop_counter``:
+The work is counted over one data rank's step at ``--crop-size`` in this
+process (no group, so the statistics take torch's own BatchNorm; whole
+images, the halo rows' recomputation not counted) and scaled to the
+global batch. FLOPs come from ``torch.utils.flop_counter``:
 the convolutions and products, forward and backward, every tap counted.
 XLA's cost analysis counts only the taps that land inside the input, and
 elementwise work too, so the JAX planner's figure lies a few percent
@@ -45,9 +55,8 @@ not depend on the device the pass runs on. It is an upper bound that
 assumes no fusion; XLA's ``bytes accessed`` is counted after fusion, so
 the two bytes figures do not compare.
 
-Spatial and tensor parallelism (``--spatial-parallel``,
-``--model-parallel`` > 1) are not ported (ROADMAP A14), nor is the JAX
-planner's ``--live``.
+Tensor parallelism (``--model-parallel`` > 1) is not ported (ROADMAP
+A14), nor is the JAX planner's ``--live``.
 """
 
 from __future__ import annotations
@@ -82,7 +91,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--data-parallel", type=int, default=-1,
                    help="ranks of the data axis; -1 takes --devices")
     p.add_argument("--model-parallel", type=int, default=1, help="not ported: ROADMAP A14")
-    p.add_argument("--spatial-parallel", type=int, default=1, help="not ported: ROADMAP A14")
+    p.add_argument("--spatial-parallel", type=int, default=1,
+                   help="ranks that split each image's rows (cli.train's flag)")
     p.add_argument("--devices", type=int, default=None,
                    help="devices of the planned launch (default: --data-parallel)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -93,24 +103,34 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def ranks(args) -> int:
     """The data axis's size; raises on a mesh the port cannot run."""
-    bad = [flag for flag, v in (("--model-parallel", args.model_parallel),
-                                ("--spatial-parallel", args.spatial_parallel)) if v != 1]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)} (ROADMAP A14: spatial "
-                                  f"and tensor parallelism across processes)")
-    n = args.data_parallel if args.data_parallel > 0 else args.devices
-    if n is None:
+    if args.model_parallel != 1:
+        raise NotImplementedError("not ported yet: --model-parallel (ROADMAP A14: tensor "
+                                  "parallelism across processes)")
+    sp = args.spatial_parallel
+    if sp < 1:
+        raise ValueError(f"--spatial-parallel {sp}: need at least 1")
+    if args.data_parallel > 0:
+        n = args.data_parallel
+    elif args.devices is not None:
+        n = args.devices // sp
+    else:
         raise SystemExit("--data-parallel is -1 (fill): pass --devices N or an explicit "
                          "--data-parallel")
-    if args.devices is not None and args.devices != n:
-        raise ValueError(f"--devices {args.devices} with --data-parallel {n}: the data axis "
-                         f"takes every device")
+    if args.devices is not None and args.devices != n * sp:
+        raise ValueError(f"--devices {args.devices} with --data-parallel {n} x "
+                         f"--spatial-parallel {sp}: the mesh takes every device")
     if n < 1 or args.batch_size % n:
         raise ValueError(f"--batch-size {args.batch_size} (the global batch) not divisible "
                          f"by {n} ranks")
     if (args.batch_size // n) % args.accum_steps:
         raise ValueError(f"the local batch {args.batch_size // n} not divisible by "
                          f"--accum-steps {args.accum_steps}")
+    if sp > 1:
+        from mrfp_tpu_torch.nn.resnet import deepest_rows
+        rows = deepest_rows(args.crop_size, args.variant)
+        if sp > rows:
+            raise ValueError(f"--spatial-parallel {sp} exceeds the {rows} rows of the smallest "
+                             f"map ({args.variant} at crop {args.crop_size})")
     return n
 
 
@@ -123,14 +143,16 @@ def train_config(args, crop: int):
     from mrfp_tpu_torch.cli import train as cli_train
     argv = ["--trunk", args.trunk, "--variant", args.variant, "--mode", args.mode,
             "--batch-size", str(args.batch_size), "--crop-size", str(crop),
-            "--accum-steps", str(args.accum_steps)] + ([] if args.bf16 else ["--no-bf16"])
+            "--accum-steps", str(args.accum_steps),
+            "--spatial-parallel", str(args.spatial_parallel)] + ([] if args.bf16 else
+                                                                 ["--no-bf16"])
     cfg = cli_train.build_config(cli_train.parse_args(argv))
     return cfg.replace(perturb=dataclasses.replace(cfg.perturb, p_oc=1.0, p_np=1.0,
                                                    p_dec=1.0))
 
 
 def step_batch(n_ranks: int, rank: int, global_batch: int, crop: int, device):
-    """This rank's rows of a seeded synthetic global batch: uint8 NHWC
+    """This data rank's rows of a seeded synthetic global batch: uint8 NHWC
     images and int64 labels (a strip ignored)."""
     gen = torch.Generator().manual_seed(0)
     img = torch.randint(0, 256, (global_batch, crop, crop, 3), generator=gen,
@@ -143,42 +165,59 @@ def step_batch(n_ranks: int, rank: int, global_batch: int, crop: int, device):
 
 
 def _rank(rank: int, args, n: int, tmp: str) -> None:
-    """One rank (a process of its own): join the group, take one counted
-    step, write its collectives to ``tmp/rank<rank>.json``."""
+    """One rank (a process of its own): join the group, lay out the mesh,
+    take one counted step on its samples (and its band of their rows),
+    write its collectives to ``tmp/rank<rank>.json``."""
     from mrfp_tpu_torch.cli.train import build_state
+    from mrfp_tpu_torch.core.mesh import create_mesh, reset_mesh, spatial_sharding
     from mrfp_tpu_torch.parallel import dist
     from mrfp_tpu_torch.parallel.audit import count_collectives
     from mrfp_tpu_torch.train.step import train_step
-    shared = args.device == "cpu" or torch.cuda.device_count() < n
-    dist.initialize_distributed(f"file://{tmp}/rendezvous", n, rank, args.device,
+    sp = args.spatial_parallel
+    world = n * sp
+    shared = args.device == "cpu" or torch.cuda.device_count() < world
+    dist.initialize_distributed(f"file://{tmp}/rendezvous", world, rank, args.device,
                                 backend="gloo" if shared else None, timeout_s=600)
     try:
         device = dist.local_device(args.device)
-        cfg = train_config(args, AUDIT_CROP)
+        crop = AUDIT_CROP if sp == 1 else args.crop_size
+        cfg = train_config(args, crop)
+        mesh = create_mesh(cfg.mesh)
         state = build_state(cfg, device)
-        img, lbl = step_batch(n, rank, args.batch_size, AUDIT_CROP, device)
+        img, lbl = step_batch(n, mesh.data_index, args.batch_size, crop, device)
+        hw = None if sp == 1 else (crop, crop)
+        img, lbl = spatial_sharding(mesh, img), spatial_sharding(mesh, lbl)
         with count_collectives() as log:
-            float(train_step(state, img, lbl, cfg)["loss"])  # the step has finished
+            float(train_step(state, img, lbl, cfg, hw=hw)["loss"])  # the step has finished
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump([vars(c) for c in log], f)
     finally:
+        reset_mesh()
         torch.distributed.destroy_process_group()
 
 
 def run_ranks(args, n: int) -> list:
-    """Run the ``n`` ranks of this plan and return each one's collectives
-    (``parallel.audit.Collective``), in rank order."""
+    """Run the ``n`` x ``--spatial-parallel`` ranks of this plan and return
+    each one's collectives (``parallel.audit.Collective``), in rank order.
+    The ranks of a data group issue the same collectives; those of a
+    spatial group the same calls, their halos as large as their bands
+    read."""
     import torch.multiprocessing as mp
 
     from mrfp_tpu_torch.parallel.audit import Collective
+    world = n * args.spatial_parallel
     with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(_rank, args=(args, n, tmp), nprocs=n, start_method="spawn")
+        mp.start_processes(_rank, args=(args, n, tmp), nprocs=world, start_method="spawn")
         got = []
-        for r in range(n):
+        for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 got.append([Collective(**{**c, "shape": tuple(c["shape"])})
                             for c in json.load(f)])
-    if any(g != got[0] for g in got):
+    def calls(log):  # a halo is as large as the rows its rank's band reads
+        return [(c.op, c.group, c.kind, c.dtype, None if c.kind == "halo" else c.shape)
+                for c in log]
+
+    if any(calls(g) != calls(got[0]) for g in got):
         raise RuntimeError("plan: the ranks issued different collectives")
     return got
 
@@ -246,14 +285,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: torch.cuda.is_available() is False "
                          "(use --device cpu to plan on the CPU)")
-    from mrfp_tpu_torch.parallel.audit import summarize, summarize_by_dtype
+    from mrfp_tpu_torch.parallel.audit import (summarize, summarize_by_dtype,
+                                                summarize_by_group)
+    sp = args.spatial_parallel
     log = run_ranks(args, n)[0]
-    colls, by_dtype = summarize(log), summarize_by_dtype(log)
+    colls, by_dtype, by_group = summarize(log), summarize_by_dtype(log), summarize_by_group(log)
     w = work(args, n)
     platform = "gpu" if args.device == "cuda" else "cpu"
     report = {
-        "mesh": {"data": n, "model": 1, "spatial": 1},
-        "devices": n,
+        "mesh": {"data": n, "model": 1, "spatial": sp},
+        "devices": n * sp,
         "platform": platform,
         "global_batch": args.batch_size,
         "crop": args.crop_size,
@@ -265,6 +306,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "collectives_by_dtype": {op: {dt: {"count": v["count"], "bytes": v["bytes"]}
                                       for dt, v in sorted(d.items())}
                                  for op, d in sorted(by_dtype.items())},
+        "collectives_by_group": {g: {k: {"count": v["count"], "bytes": v["bytes"]}
+                                     for k, v in sorted(d.items())}
+                                 for g, d in sorted(by_group.items())},
         "flops_per_step": w["flops"],
         "hbm_bytes_per_step": w["bytes"],
     }
@@ -272,7 +316,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     def mb(b: float) -> str:
         return f"{b / 1e6:,.1f} MB"
 
-    print(f"mesh {report['mesh']} over {n} {platform} devices; global batch "
+    print(f"mesh {report['mesh']} over {n * sp} {platform} devices; global batch "
           f"{args.batch_size} @ {args.crop_size}x{args.crop_size}"
           + (f", {args.accum_steps} microbatches" if args.accum_steps > 1 else ""))
     print(f"per-chip state: params {mb(w['params'])}, momentum {mb(w['momentum'])}, "
@@ -286,6 +330,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                           for dt, d in sorted(by_dtype[op].items()))
         print(f"collectives/step: {op:19s} x{v['count']:<4d} {mb(v['bytes']):>12s}  {hint} "
               f"({split})")
+    for g, d in sorted(by_group.items()):
+        print(f"collectives/step over the {g} group: " + ", ".join(
+            f"{kind} x{v['count']} {mb(v['bytes'])}" for kind, v in sorted(d.items())))
     ar = colls.get("all-reduce", {"bytes": 0})
     if ar["bytes"]:
         print(f"grad-sync check: all-reduce total {mb(ar['bytes'])} vs fp32 grad set "

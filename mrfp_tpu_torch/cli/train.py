@@ -39,6 +39,16 @@ gradients), so N processes train what one does on the same batch.
 ``--device cpu`` runs the processes on gloo. Only rank 0 writes the
 checkpoints, the best record and the logs; every rank resumes. Validation
 splits the images across the processes and merges their histograms.
+
+Spatial parallelism (``core/mesh.py``): ``--spatial-parallel S`` with N
+processes lays them out as a (N/S) x S mesh. The S ranks of a spatial group
+load the same samples (the data loader is sharded over the N/S data
+ranks), and each keeps its band of every image's rows; every map of the
+step is split in bands of rows, the convs, pools and resizes fetching
+their halo rows from the neighbours. ``--data-parallel`` may name N/S.
+Refused under S > 1: ``--model-parallel`` > 1 (tensor parallelism), the
+extras whose windows cross rows (``--jointwtborder``, ``--freq-transform``)
+and an S above the rows of the trunk's deepest map (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -140,16 +150,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="host:port of rank 0's rendezvous, or a file:// path "
                         "(default: torchrun's MASTER_ADDR and MASTER_PORT)")
     p.add_argument("--data-parallel", type=int, default=None,
-                   help="the data axis: -1 or the number of processes (other "
-                        "meshes are ROADMAP A14)")
+                   help="the data axis: -1 or the number of processes over "
+                        "--spatial-parallel")
+    p.add_argument("--spatial-parallel", type=int, default=None,
+                   help="split every image's rows over this many processes (a band "
+                        "each, the conv halos fetched from the neighbours): for "
+                        "resolutions whose activations exceed one card's memory")
     p.add_argument("--snapshot-every", type=int, default=0,
                    help="every N steps, at a sync point, copy the state to host memory "
                         "for the watchdog to persist if the device wedges (a relaunch "
                         "then loses at most N steps); needs the watchdog "
                         "(--step-timeout) and one process, else ignored with a warning")
-    # flags of the JAX trainer whose code paths are not ported yet
-    for flag in ("--model-parallel", "--spatial-parallel"):
-        p.add_argument(flag, type=int, default=None, help="not ported: ROADMAP A14")
+    # a flag of the JAX trainer whose code path is not ported yet
+    p.add_argument("--model-parallel", type=int, default=None, help="not ported: ROADMAP A14")
     return p.parse_args(argv)
 
 
@@ -161,25 +174,42 @@ def check_args(args) -> None:
         int(os.environ.get("WORLD_SIZE", 1))
     if nproc < 1:
         raise ValueError(f"--num-processes {nproc}: need at least 1")
-    if args.batch_size % nproc:
+    sp = args.spatial_parallel or 1
+    if sp < 1 or nproc % sp:
+        raise ValueError(f"--spatial-parallel {sp} does not divide {nproc} processes")
+    dp = nproc // sp
+    if args.batch_size % dp:
         raise ValueError(f"--batch-size {args.batch_size} (the global batch) not divisible "
-                         f"by {nproc} processes")
-    unported = {"--data-parallel": ("A14: a mesh other than one data axis over the "
-                                    "processes", args.data_parallel not in (None, -1, nproc)),
-                "--model-parallel": ("A14", args.model_parallel not in (None, 1)),
-                "--spatial-parallel": ("A14", args.spatial_parallel not in (None, 1))}
+                         f"by the {dp} ranks of the data axis")
+    unported = {"--data-parallel": ("A14: a mesh other than the data axis over the "
+                                    "processes left by --spatial-parallel",
+                                    args.data_parallel not in (None, -1, dp)),
+                "--model-parallel": ("A14: tensor parallelism",
+                                     args.model_parallel not in (None, 1)),
+                "--jointwtborder with --spatial-parallel": (
+                    "A14: spatial parallelism for the extras", sp > 1 and args.jointwtborder),
+                "--freq-transform with --spatial-parallel": (
+                    "A14: spatial parallelism for the extras",
+                    sp > 1 and bool(args.freq_transform))}
     bad = [f"{flag} (ROADMAP {item})" for flag, (item, on) in unported.items() if on]
     if bad:
         raise NotImplementedError("not ported yet: " + ", ".join(bad))
-    from mrfp_tpu_torch.nn.resnet import check_trunk
+    from mrfp_tpu_torch.nn.resnet import check_trunk, deepest_rows
     check_trunk(args.trunk)  # the nine ResNets; the zoo's others raise JAX's ValueError
+    rows = deepest_rows(args.crop_size, args.variant)
+    if sp > rows:
+        raise ValueError(f"--spatial-parallel {sp} exceeds the {rows} rows of the smallest "
+                         f"map ({args.variant} at crop {args.crop_size}): a rank would hold "
+                         f"no row of it")
 
 
 def build_config(args):
-    from mrfp_tpu_torch.core.config import baseline_config, mrfp_config, mrfp_plus_config
+    from mrfp_tpu_torch.core.config import (MeshConfig, baseline_config, mrfp_config,
+                                            mrfp_plus_config)
     cfg = {"mrfp+": mrfp_plus_config, "mrfp": mrfp_config,
            "baseline": baseline_config}[args.mode]()
     return cfg.replace(
+        mesh=MeshConfig(data_parallel=-1, spatial_parallel=args.spatial_parallel or 1),
         model=dataclasses.replace(cfg.model, trunk=args.trunk, variant=args.variant,
                                   use_dsn_aux=args.use_dsn),
         data=dataclasses.replace(
@@ -280,6 +310,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     try:
         return _train(args, dist.local_device(args.device), watchdog)
     finally:
+        from mrfp_tpu_torch.core.mesh import reset_mesh
+        reset_mesh()
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
 
@@ -297,9 +329,12 @@ def _train(args, device: torch.device, watchdog) -> int:
     from mrfp_tpu_torch.train.checkpoint import CheckpointManager
     from mrfp_tpu_torch.utils.experiment import prep_experiment
 
+    from mrfp_tpu_torch.core.mesh import create_mesh, spatial_sharding
     rank, nproc = dist.rank(), dist.world()
+    mesh = create_mesh(cfg.mesh)
     exp = prep_experiment(cfg, root=args.runs_dir, coordinator=dist.is_coordinator())
-    logging.info("experiment %s on %s (process %d of %d)", exp["name"], device, rank, nproc)
+    logging.info("experiment %s on %s (process %d of %d, mesh %dx%d)", exp["name"], device,
+                 rank, nproc, mesh.dp, mesh.sp)
     state = build_state(cfg, device)
     ckpt = CheckpointManager(exp["ckpt_dir"], keep=cfg.train.keep_checkpoints,
                              recipe=run_recipe(args))
@@ -308,13 +343,19 @@ def _train(args, device: torch.device, watchdog) -> int:
     # the host makes the batches; on the CPU the workers would only take
     # cores from the step itself
     workers = cfg.data.num_workers if device.type == "cuda" else 0
-    loader = TrainLoader(build_dataset(args, cfg), cfg.data.batch_size // nproc,
+    # the ranks of a spatial group load the same samples (the data index's
+    # shard) and keep their bands: the host work is repeated sp times
+    loader = TrainLoader(build_dataset(args, cfg), cfg.data.batch_size // mesh.dp,
                          seed=args.seed, num_workers=workers,
-                         pin_memory=device.type == "cuda", shard_rank=rank, shard_count=nproc)
+                         pin_memory=device.type == "cuda", shard_rank=mesh.data_index,
+                         shard_count=mesh.dp)
     writer = exp["writer"]
 
     def step_fn(st, images, labels):
-        return train_step(st, images, labels, cfg)
+        if mesh.sp == 1:
+            return train_step(st, images, labels, cfg)
+        return train_step(st, spatial_sharding(mesh, images), spatial_sharding(mesh, labels),
+                          cfg, hw=tuple(images.shape[1:3]))
 
     run_validation = None
     if args.eval_every:
@@ -322,16 +363,17 @@ def _train(args, device: torch.device, watchdog) -> int:
         val_dataset = build_dataset(args, cfg, train=False)
         evaluator = SegEvaluator(
             state.model, num_classes=cfg.model.num_classes, device=device,
-            autocast_dtype=torch.bfloat16 if args.bf16 else None)
+            autocast_dtype=torch.bfloat16 if args.bf16 else None, mesh=mesh)
 
         def run_validation(st, step):
             st.model.eval()
-            # every process scores its stride of the images; the merged
-            # histogram gives every rank the same mIoU
+            # every data rank scores its stride of the images (its spatial
+            # group the bands of each); the merged histogram gives every
+            # rank the same mIoU
             res = evaluator.run(val_dataset, max_images=args.eval_max_images,
                                 log=lambda *a, **k: None,
                                 heartbeat=watchdog.beat if watchdog else None,
-                                shard_rank=rank, shard_count=nproc)
+                                shard_rank=mesh.data_index, shard_count=mesh.dp)
             logging.info("iter %d val mean_iu %.5f acc %.5f", step, res["mean_iu"],
                          res["acc"])
             writer.add_scalar("val/mean_iu", res["mean_iu"], step)

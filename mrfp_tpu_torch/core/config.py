@@ -2,9 +2,10 @@
 
 It is a copy because ``mrfp_tpu.core``'s ``__init__`` imports jax. The
 knobs and their defaults are the JAX package's, so one recipe names the
-same run in both packages. ``MeshConfig`` is not copied: data parallelism
-runs one process per card (``parallel/dist.py``), whose count the launch
-gives, and the other mesh axes wait for ROADMAP item A14. ``trunk`` takes
+same run in both packages. ``MeshConfig`` lays the processes out as the
+JAX mesh lays out devices (``core/mesh.py``): data parallelism and
+spatial parallelism run one process per card (``parallel/dist.py``), and
+the model axis waits for ROADMAP item A14. ``trunk`` takes
 the nine ResNet trunks for MRFP and the zoo's 15 for ``DeepV3Plus``
 (``models/deepv3_zoo.py``), and ``wt_layer`` iw codes 0-5; MRFP raises the
 JAX package's ValueError for a zoo-only trunk (``nn/resnet.py``). The zoo's knobs
@@ -140,11 +141,30 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Process mesh (mrfp_tpu/core/config.py:135-151). Data parallelism is
+    the parity strategy; the 'spatial' axis splits image H across processes,
+    each computing its band of rows of every map and fetching the halo rows
+    it reads (``core/mesh.py``): for resolutions whose activations exceed
+    one card's memory. The 'model' axis (tensor parallelism) is not ported
+    (ROADMAP A14)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    spatial_axis: str = "spatial"
+    # -1 = all processes left over for the data axis
+    data_parallel: int = -1
+    model_parallel: int = 1
+    spatial_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     perturb: PerturbConfig = dataclasses.field(default_factory=PerturbConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -70,7 +70,10 @@ class EpochSampler(Sampler):
 class TrainLoader:
     """Batches of a dataset in a seeded per-epoch order, ``drop_last``;
     ``batch_size`` images a process, the ``shard_rank`` slice of each
-    global batch."""
+    global batch. Under spatial parallelism the shards are the data
+    ranks (``core/mesh.py``): every rank of a spatial group loads and
+    augments the same samples and keeps its band of their rows, so the
+    host work is repeated ``sp`` times (a cost, not yet removed)."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0, num_workers: int = 0,
                  pin_memory: bool = False, shard_rank: int = 0, shard_count: int = 1):

@@ -38,6 +38,13 @@ Module names follow the reference's state_dict (``layer0.0``,
 ``dsn.1``, ``dsn.4``; with ``oc_branch=True`` also the OC buffers
 ``OClayer1``..``OC4_decbn``), so the paper's ``.pth`` loads with
 ``load_state_dict(strict=True)`` (``mrfp_tpu_torch.weights``).
+
+Under spatial parallelism (``core/mesh.py``) ``forward`` takes this rank's
+band of the image's rows and the image's global ``hw``, and returns its
+band of the logits: every module on the path computes its band of rows
+(``nn/layers.py``, ``nn/norms.py``, ``nn/deeplab.py``, ``ops/resize.py``,
+``perturb/``), and every size the forward names (``int(h / 2)``,
+``ceil(h / 4)``, the logits') comes from the global ``hw``.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
+from mrfp_tpu_torch.core.mesh import bands
 from mrfp_tpu_torch.nn.deeplab import ASPP, DSNHead, DeepLabDecoder
 from mrfp_tpu_torch.nn.layers import conv2d, init_random_
 from mrfp_tpu_torch.nn.resnet import build_trunk, variant_output_stride
@@ -132,15 +140,28 @@ class MRFP(DeepLabDecoder):
     def forward(self, x: torch.Tensor, valid_hw: Optional[Tuple[int, int]] = None,
                 impl: Optional[str] = None,
                 perturb: Optional[PerturbArgs] = None,
-                dropout: Union[torch.Generator, torch.Tensor, None] = None):
+                dropout: Union[torch.Generator, torch.Tensor, None] = None,
+                hw: Optional[Tuple[int, int]] = None):
         """``valid_hw`` = (vh, vw) in input pixels: the valid extent when
         ``x`` was bottom/right zero-padded to a shape bucket; restricts
         ASPP's image pooling to real pixels. ``impl="plain"`` routes every
         resize through its plain version (kernel-vs-plain checks only).
         ``perturb`` is read in train mode only, and ``dropout`` (the DSN
         head's keep mask or its generator, ``nn.deeplab.dropout``) in train
-        mode with ``use_dsn`` only."""
-        h, w = x.shape[2], x.shape[3]
+        mode with ``use_dsn`` only. ``hw``: the global (h, w) of the image
+        whose band of rows ``x`` is, under spatial parallelism (None: ``x``
+        is the whole image)."""
+        if hw is None:
+            return self._forward(x, (x.shape[2], x.shape[3]), valid_hw, impl, perturb,
+                                 dropout)
+        with bands(*hw) as scope:
+            if scope is None and tuple(x.shape[2:]) != tuple(hw):
+                raise ValueError(f"hw {tuple(hw)} for an input of {tuple(x.shape[2:])} "
+                                 f"without spatial parallelism")
+            return self._forward(x, tuple(hw), valid_hw, impl, perturb, dropout)
+
+    def _forward(self, x, hw, valid_hw, impl, perturb, dropout):
+        h, w = hw
         perturbing = self.training and perturb is not None
         if perturbing and not self.oc_branch:
             raise ValueError("a perturbed forward needs the OC buffers: build "

@@ -6,19 +6,28 @@ Concat order is load-bearing for checkpoint parity: ASPP output channels are
 bot_aspp(256)] -> 304 (deepv3.py:350-353). Module names follow the
 reference's state_dict (``aspp.features.0.0``, ``aspp.img_conv.1``,
 ``bot_fine.0``, ``final1.3``, ``dsn.4``, ...).
+
+Under spatial parallelism (``core/mesh.py``) every map is this rank's band
+of rows: the ASPP image pool is a mean over the spatial group (its valid
+rows intersected with the band), its 1x1 branch runs on the whole pooled
+map on every rank (its BatchNorm over the data group), and its broadcast is
+the band's slice of the bilinear resize from 1x1; the dilated convs fetch
+their halos; the decoder upsample and the DSN dropout's keep mask are the
+band's rows of the global ones.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
 
+from mrfp_tpu_torch.core.mesh import active_bands, current_mesh
 from mrfp_tpu_torch.nn.layers import avg_pool_global, conv2d
 from mrfp_tpu_torch.nn.norms import batch_norm
 from mrfp_tpu_torch.ops.resize import resize_bilinear_align_corners
-from mrfp_tpu_torch.parallel.dist import rank, world
 
 
 def aspp_rates(output_stride: int, rates: Tuple[int, ...] = (6, 12, 18)) -> Tuple[int, ...]:
@@ -64,13 +73,12 @@ class ASPP(nn.Module):
     def forward(self, x: torch.Tensor, valid_hw: Optional[Tuple[int, int]] = None,
                 impl: Optional[str] = None) -> torch.Tensor:
         # image-level features first (deepv3.py:117-122)
-        if valid_hw is None:
-            img = avg_pool_global(x)
-        else:
-            vh, vw = (int(v) for v in valid_hw)
-            img = avg_pool_global(x[:, :, :vh, :vw])
-        img = self.img_conv(img)
-        img = resize_bilinear_align_corners(img, x.shape[2:], impl)
+        bands = active_bands()
+        img = avg_pool_global(x, valid_hw)
+        with bands.replicated_maps() if bands is not None else contextlib.nullcontext():
+            img = self.img_conv(img)
+        size = x.shape[2:] if bands is None else bands.global_hw(x)
+        img = resize_bilinear_align_corners(img, size, impl, replicated=bands is not None)
         return torch.cat([img] + [f(x) for f in self.features], dim=1)
 
 
@@ -94,7 +102,9 @@ class DeepLabDecoder(nn.Module):
                impl: Optional[str] = None) -> torch.Tensor:
         dec0_up = self.bot_aspp(aspp_out)
         dec0_fine = self.bot_fine(low_level)
-        dec0_up = resize_bilinear_align_corners(dec0_up, low_level.shape[2:], impl)
+        bands = active_bands()
+        size = low_level.shape[2:] if bands is None else bands.global_hw(low_level)
+        dec0_up = resize_bilinear_align_corners(dec0_up, size, impl)
         return self.final1(torch.cat([dec0_fine, dec0_up], dim=1))
 
 
@@ -105,15 +115,21 @@ def dropout(x: torch.Tensor, rate: float,
     mask itself (bool, ``x``'s shape; the parity tests inject JAX's), or a
     generator on ``x``'s device to draw it from (None: torch's default
     generator). The generator draws the mask of the global batch (``x``'s
-    batch times the processes, ``parallel/dist.py``) and this rank keeps its
-    own rows, so N ranks drop what one process drops on the same batch."""
+    batch times the data axis, ``core/mesh.py``) and of the whole map, and
+    this rank keeps its own samples and, under spatial parallelism, its
+    band of rows, so N ranks drop what one process drops on the same
+    batch."""
     keep_prob = 1.0 - rate
     if isinstance(noise, torch.Tensor):
         keep = noise
     else:
-        b = x.shape[0]
-        u = torch.rand((b * world(),) + tuple(x.shape[1:]), generator=noise, device=x.device)
-        keep = u[rank() * b:(rank() + 1) * b] < keep_prob
+        mesh, bands = current_mesh(), active_bands()
+        b, d = x.shape[0], mesh.data_index
+        h = x.shape[2] if bands is None else bands.global_hw(x)[0]
+        lo, hi = (0, h) if bands is None else bands.rows(h)
+        u = torch.rand((b * mesh.dp, x.shape[1], h, x.shape[3]), generator=noise,
+                       device=x.device)
+        keep = u[d * b:(d + 1) * b, :, lo:hi] < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
 
 

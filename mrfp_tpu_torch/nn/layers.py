@@ -6,28 +6,116 @@ striding, which is the semantics the JAX package rebuilds by hand
 mirrors the reference and takes an explicit ``torch.Generator``:
 backbone convs kaiming-normal fan_out (network/Resnet.py:561-563), head convs
 kaiming-normal fan_in (network/mynn.py:38-55), norms at weight 1, bias 0.
+
+Under spatial parallelism (``core/mesh.py::bands``) a conv or a max pool
+gets this rank's band of its input's rows and returns its band of the
+output's: it fetches the rows the band's windows read, whatever the
+stride, padding and dilation (``conv_rows``), pads only at the global top
+and bottom (zeros for a conv, -inf for a pool), and runs the plain op on
+them with no H padding. A 1x1 conv of stride 1 reads its own rows and runs
+as it is. ``avg_pool_global`` sums over the group and divides by the
+global count.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mrfp_tpu_torch.core.mesh import Bands, active_bands
 from mrfp_tpu_torch.nn.norms import batch_norm
 from mrfp_tpu_torch.ops.dot_stats import dot_with_stats
+from mrfp_tpu_torch.parallel.dist import all_reduce_sum_grad, rows_from_group
+
+
+def conv_rows(bands: Bands, h: int, k: int, stride: int, pad: int,
+              dilation: int) -> Tuple[int, List[int], List[int]]:
+    """The output height of a window op (kernel ``k``, ``stride``, ``pad``,
+    ``dilation``) over ``h`` rows, and for each rank the global input rows
+    ``[lo, hi)`` that its band of the output reads (outside ``[0, h)``:
+    padding)."""
+    oh = (h + 2 * pad - dilation * (k - 1) - 1) // stride + 1
+    lo, hi = [], []
+    for o0, o1 in bands.every(oh):
+        lo.append(o0 * stride - pad)
+        hi.append((o1 - 1) * stride - pad + dilation * (k - 1) + 1)
+    return oh, lo, hi
+
+
+def _band_window(x: torch.Tensor, bands: Bands, k: int, stride: int, pad: int,
+                 dilation: int, fill: float) -> Tuple[torch.Tensor, int]:
+    """The rows this rank's band of a window op's output reads, fetched,
+    the global top and bottom padded with ``fill``, and the output's
+    global height."""
+    h, w = bands.global_hw(x)
+    oh, lo, hi = conv_rows(bands, h, k, stride, pad, dilation)
+    xr = rows_from_group(x, h, lo, hi, bands.group, fill)
+    return xr, oh
+
+
+def conv2d_rows(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                stride=1, padding=0, dilation=1, groups: int = 1) -> torch.Tensor:
+    """``F.conv2d``, on this rank's band in a spatial scope: the output
+    band from the fetched rows, the H padding only at the global edges."""
+    bands = active_bands()
+    sh, sw = _pair(stride)
+    ph, pw = _pair(padding)
+    dh, dw = _pair(dilation)
+    k = weight.shape[2]
+    if bands is None or (k == 1 and sh == 1 and ph == 0):
+        return F.conv2d(x, weight, bias, (sh, sw), (ph, pw), (dh, dw), groups)
+    xr, oh = _band_window(x, bands, k, sh, ph, dh, 0.0)
+    out = F.conv2d(xr, weight, bias, (sh, sw), (0, pw), (dh, dw), groups)
+    bands.add(oh, out.shape[3])
+    return out
+
+
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (its parameters and state_dict keys) that computes its
+    band of rows in a spatial scope (``conv2d_rows``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if active_bands() is None:
+            return super().forward(x)
+        return conv2d_rows(x, self.weight, self.bias, self.stride, self.padding,
+                           self.dilation, self.groups)
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """``nn.MaxPool2d`` (floor mode) that computes its band of rows in a
+    spatial scope, the fetched rows padded with -inf at the global edges."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bands = active_bands()
+        if bands is None:
+            return super().forward(x)
+        if self.ceil_mode or self.dilation != 1:
+            raise NotImplementedError("spatial bands take floor-mode max pools of dilation 1 "
+                                      "(ROADMAP A14)")
+        k, s, p = (_pair(v)[0] for v in (self.kernel_size, self.stride, self.padding))
+        xr, oh = _band_window(x, bands, k, s, p, 1, float("-inf"))
+        out = F.max_pool2d(xr, self.kernel_size, self.stride, (0, _pair(self.padding)[1]))
+        bands.add(oh, out.shape[3])
+        return out
 
 
 def conv2d(cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
            padding: int = 0, dilation: int = 1, bias: bool = False,
            groups: int = 1) -> nn.Conv2d:
     """``groups`` splits the channels as ``nn.Conv2d``'s does (ResNeXt's
-    grouped 3x3; mrfp_tpu/nn/layers.py::conv2d ``feature_group_count``)."""
-    return nn.Conv2d(cin, cout, kernel_size, stride=stride, padding=padding,
-                     dilation=dilation, bias=bias, groups=groups)
+    grouped 3x3; mrfp_tpu/nn/layers.py::conv2d ``feature_group_count``).
+    The conv computes its band of rows under spatial parallelism
+    (``Conv2d``)."""
+    return Conv2d(cin, cout, kernel_size, stride=stride, padding=padding,
+                  dilation=dilation, bias=bias, groups=groups)
 
 
 def conv1x1_with_stats(conv: nn.Conv2d, x: torch.Tensor, impl: Optional[str] = None):
@@ -56,8 +144,9 @@ def conv1x1_with_stats(conv: nn.Conv2d, x: torch.Tensor, impl: Optional[str] = N
 
 
 def max_pool_3x3_s2() -> nn.MaxPool2d:
-    """torch nn.MaxPool2d(kernel_size=3, stride=2, padding=1)."""
-    return nn.MaxPool2d(kernel_size=3, stride=2, padding=1)
+    """torch nn.MaxPool2d(kernel_size=3, stride=2, padding=1), computing its
+    band of rows under spatial parallelism."""
+    return MaxPool2d(kernel_size=3, stride=2, padding=1)
 
 
 def max_pool_ceil() -> nn.MaxPool2d:
@@ -67,9 +156,25 @@ def max_pool_ceil() -> nn.MaxPool2d:
     return nn.MaxPool2d(kernel_size=3, stride=2, ceil_mode=True)
 
 
-def avg_pool_global(x: torch.Tensor) -> torch.Tensor:
-    """AdaptiveAvgPool2d(1): NCHW -> NC11."""
-    return x.mean(dim=(2, 3), keepdim=True)
+def avg_pool_global(x: torch.Tensor, valid_hw: Optional[Tuple[int, int]] = None
+                    ) -> torch.Tensor:
+    """AdaptiveAvgPool2d(1): NCHW -> NC11; with ``valid_hw`` = (vh, vw), the
+    mean over the top-left ``vh`` x ``vw`` pixels. In a spatial scope ``x``
+    is this rank's band: the sum over its rows of the region, summed over
+    the spatial group (differentiable), over the global count. Every rank
+    gets the whole pooled map."""
+    bands = active_bands()
+    if bands is None:
+        if valid_hw is not None:
+            x = x[:, :, :int(valid_hw[0]), :int(valid_hw[1])]
+        return x.mean(dim=(2, 3), keepdim=True)
+    h, w = bands.global_hw(x)
+    vh, vw = (h, w) if valid_hw is None else (int(valid_hw[0]), int(valid_hw[1]))
+    lo, hi = bands.rows(h)
+    part = x[:, :, :max(0, min(hi, vh) - lo), :vw]
+    f = torch.promote_types(x.dtype, torch.float32)
+    total = all_reduce_sum_grad(part.to(f).sum(dim=(2, 3), keepdim=True), bands.group)
+    return (total / (vh * vw)).to(x.dtype)
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,15 @@ sample and stays local. ``SwitchWhiten2d``'s batch (BW) mean and
 covariance are the global batch's in the same way (``_GlobalMeanCov``, the
 reference's ``SyncMeanCov``), and its instance and layer statistics stay
 local.
+
+Under spatial parallelism (``core/mesh.py``) a map is split into bands of
+rows over the spatial group. BatchNorm's moments over the world are then
+still the global batch's. A map that every rank of the spatial group holds
+whole (the ASPP image pool's 1x1 map, inside ``Bands.replicated_maps``)
+reduces over the data group only (``norm_group``). InstanceNorm's
+per-sample statistics span the bands: ``InstanceNorm2d`` combines the
+ranks' ``(n, mean, M2)`` over the spatial group, forward and backward, in
+train and in eval mode. ``SwitchWhiten2d`` refuses bands (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -36,13 +45,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mrfp_tpu_torch.parallel.dist import all_reduce_sum, all_reduce_sum_grad, rank, world
+from mrfp_tpu_torch.core.mesh import active_bands
+from mrfp_tpu_torch.parallel.dist import (Group, all_gather_rows, all_reduce_sum,
+                                          all_reduce_sum_grad, rank, world, world_group)
 
 IW_NONE, IW_W1, IW_W2, IW_IN, IW_IN_AFFINE, IW_SW = 0, 1, 2, 3, 4, 5
 
 
 def _channels(t: torch.Tensor) -> torch.Tensor:
     return t[None, :, None, None]
+
+
+def norm_group() -> Group:
+    """The processes a train-mode BatchNorm reduces over: the world, or the
+    data group for a map that every rank of the spatial group holds whole
+    (``Bands.replicated_maps``)."""
+    bands = active_bands()
+    if bands is not None and bands.replicated:
+        return bands.mesh.data
+    return world_group()
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
@@ -66,7 +87,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
     the running statistics."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps: float):
+    def forward(ctx, x, weight, bias, eps: float, group: Group):
         f = torch.promote_types(x.dtype, torch.float32)
         xf = x.to(f)
         c = x.shape[1]
@@ -78,11 +99,11 @@ class _GlobalBatchNorm(torch.autograd.Function):
         s_d = d.sum(dim=(0, 2, 3))
         mean_l = mean_l + s_d / n_l
         m2_l = d.square().sum(dim=(0, 2, 3)) - s_d.square() / n_l
-        buf = xf.new_zeros((world(), 3, c))
-        buf[rank(), 0] = n_l
-        buf[rank(), 1] = mean_l
-        buf[rank(), 2] = m2_l
-        n_k, mean_k, m2_k = all_reduce_sum(buf).unbind(1)
+        buf = xf.new_zeros((group.size, 3, c))
+        buf[group.rank, 0] = n_l
+        buf[group.rank, 1] = mean_l
+        buf[group.rank, 2] = m2_l
+        n_k, mean_k, m2_k = all_reduce_sum(buf, group).unbind(1)
         n = n_k.sum(0)
         # the ranks' means as offsets from rank 0's: small terms, no
         # rounding at the mean's own magnitude
@@ -93,6 +114,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         out = (xf - _channels(mean)) * _channels(scale)  # centred first, as torch's
         out = (out if bias is None else out + _channels(bias.to(f))).to(x.dtype)
         ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.group = group
         unbiased = m2 / (n - 1).clamp_min(1)
         ctx.mark_non_differentiable(mean, unbiased)
         return out, mean, unbiased
@@ -104,7 +126,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         xhat = (x.to(f) - _channels(mean)) * _channels(invstd)
         dyf = dy.to(f)
         local = torch.stack([dyf.sum(dim=(0, 2, 3)), (dyf * xhat).sum(dim=(0, 2, 3))])
-        sum_dy, sum_dy_xhat = all_reduce_sum(local.clone())
+        sum_dy, sum_dy_xhat = all_reduce_sum(local.clone(), ctx.group)
         scale = invstd if weight is None else invstd * weight.to(f)
         dx = None
         if ctx.needs_input_grad[0]:
@@ -113,21 +135,22 @@ class _GlobalBatchNorm(torch.autograd.Function):
             dx = dx.to(x.dtype)
         dw = local[1].to(weight.dtype) if ctx.needs_input_grad[1] else None
         db = local[0].to(weight.dtype) if ctx.needs_input_grad[2] else None
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
 def batch_norm_train(x: torch.Tensor, weight: Optional[torch.Tensor],
                      bias: Optional[torch.Tensor], running_mean: Optional[torch.Tensor] = None,
                      running_var: Optional[torch.Tensor] = None, momentum: float = 0.1,
                      eps: float = 1e-5) -> torch.Tensor:
-    """Train-mode BatchNorm of NCHW ``x`` with the global batch's moments;
-    the running buffers, when given, move by ``momentum`` toward the global
-    mean and unbiased variance, as torch's do. In a single process this is
-    ``F.batch_norm(..., training=True)``."""
-    if world() == 1:
+    """Train-mode BatchNorm of NCHW ``x`` with the global batch's moments
+    (over ``norm_group()``); the running buffers, when given, move by
+    ``momentum`` toward the global mean and unbiased variance, as torch's
+    do. In a single process this is ``F.batch_norm(..., training=True)``."""
+    group = norm_group()
+    if group.size == 1:
         return F.batch_norm(x, running_mean, running_var, weight, bias, training=True,
                             momentum=momentum, eps=eps)
-    out, mean, var = _GlobalBatchNorm.apply(x, weight, bias, eps)
+    out, mean, var = _GlobalBatchNorm.apply(x, weight, bias, eps, group)
     if running_mean is not None:
         with torch.no_grad():
             running_mean.mul_(1 - momentum).add_(mean.to(running_mean.dtype), alpha=momentum)
@@ -141,7 +164,7 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
     ``nn.BatchNorm2d`` itself. Its state_dict is ``nn.BatchNorm2d``'s."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or world() == 1:
+        if not self.training or norm_group().size == 1:
             return super().forward(x)
         if self.num_batches_tracked is not None:
             self.num_batches_tracked.add_(1)
@@ -193,11 +216,47 @@ def batch_norm_from_stats(bn: nn.BatchNorm2d, y: torch.Tensor, s1: torch.Tensor,
     return out.to(y.dtype)
 
 
+class InstanceNorm2d(nn.InstanceNorm2d):
+    """``nn.InstanceNorm2d`` (no running statistics; its state_dict) whose
+    statistics, in a spatial scope (``core/mesh.py``), are the whole
+    image's: each rank takes its band's per-sample, per-channel ``(n,
+    mean, M2)`` in the corrected two passes, in fp32 (fp64 for fp64
+    input), one differentiable ``all_reduce`` over the spatial group gathers
+    every rank's, and Chan's combination gives the mean and biased
+    variance. The gradient reaches every rank's band through the gathered
+    statistics. In train and in eval mode alike; the output is in ``x``'s
+    dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bands = active_bands()
+        if bands is None:
+            return super().forward(x)
+        f = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(f)
+        h, w = bands.global_hw(x)
+        n_l = x.shape[2] * w
+        mean_l = xf.mean(dim=(2, 3))
+        d = xf - mean_l[..., None, None]
+        s_d = d.sum(dim=(2, 3))
+        mean_l = mean_l + s_d / n_l
+        m2_l = d.square().sum(dim=(2, 3)) - s_d.square() / n_l
+        mean_k, m2_k = all_gather_rows(torch.stack([mean_l, m2_l])[None],
+                                       bands.group).unbind(1)          # (sp, N, C)
+        n_k = torch.tensor([(hi - lo) * w for lo, hi in bands.every(h)], dtype=f,
+                           device=x.device)[:, None, None]
+        mean = mean_k[0] + (n_k * (mean_k - mean_k[0])).sum(0) / (h * w)
+        var = (m2_k.sum(0) + (n_k * (mean_k - mean).square()).sum(0)) / (h * w)
+        out = (xf - mean[..., None, None]) * torch.rsqrt(var + self.eps)[..., None, None]
+        if self.affine:
+            out = out * _channels(self.weight.to(f)) + _channels(self.bias.to(f))
+        return out.to(x.dtype)
+
+
 def instance_norm_affine(features: int) -> nn.InstanceNorm2d:
-    return nn.InstanceNorm2d(features, eps=1e-5, affine=True)
+    return InstanceNorm2d(features, eps=1e-5, affine=True)
 
 
-class InstanceWhitening(nn.InstanceNorm2d):
+class InstanceWhitening(InstanceNorm2d):
     """iw codes 1 and 2 (network/instance_whitening.py:5-16;
     mrfp_tpu/nn/norms.py:107-118): instance standardisation, non-affine,
     no running statistics. The block that owns it appends its output, the
@@ -315,6 +374,9 @@ class SwitchWhiten2d(nn.Module):
         self.register_buffer("running_cov", torch.eye(c).repeat(g, 1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if active_bands() is not None:
+            raise NotImplementedError("SwitchWhiten2d on spatial bands is not ported (ROADMAP "
+                                      "A14: spatial parallelism for the zoo)")
         with torch.autocast(x.device.type, enabled=False):
             return self._whiten(x.float()).to(x.dtype)
 
@@ -395,7 +457,7 @@ def make_iw_layer(iw: int, features: int) -> Optional[nn.Module]:
     if iw in (IW_W1, IW_W2):
         return InstanceWhitening(features)
     if iw == IW_IN:
-        return nn.InstanceNorm2d(features, eps=1e-5, affine=False)
+        return InstanceNorm2d(features, eps=1e-5, affine=False)
     if iw == IW_IN_AFFINE:
         return instance_norm_affine(features)
     if iw == IW_SW:

@@ -45,6 +45,15 @@ def variant_output_stride(variant: str) -> int:
     return {"D": 8, "D4": 4, "D16": 16, "D32": 32}.get(variant, 32)
 
 
+def deepest_rows(h: int, variant: str) -> int:
+    """The rows of the trunk's deepest map for an input of ``h`` rows: one
+    stride-2 window op, ``(h - 1) // 2 + 1``, per halving of the output
+    stride. It is the smallest map of the MRFP forward."""
+    for _ in range(variant_output_stride(variant).bit_length() - 1):
+        h = (h - 1) // 2 + 1
+    return h
+
+
 def stage_plan(variant: str) -> List[Tuple[int, int]]:
     """Per-stage (stride, dilation), resolving the variant overrides."""
     over = _VARIANT_PLAN.get(variant, {})

@@ -11,7 +11,10 @@ wrappers and their plain PyTorch versions.
   custom VJP ``_rn_bwd``: every OC-branch stage.
 
 Each function takes the per-axis tables of ``ops.resize`` (``BilinearTaps``
-or ``NearestTable``) on the tensor's device. A CUDA wrapper launches its
+or ``NearestTable``) on the tensor's device: a whole axis, or the band
+table of a band of output rows (spatial parallelism), which the kernels
+take as any other table; the forward plans are made from the global axis
+and the band (``NearestTable.spec``, the bilinear forward's ``spec_y``). A CUDA wrapper launches its
 kernel or raises; the plain versions are the reference the tests and
 ``chip_smoke.py`` hold the kernels against. Every version sums in fp32 and
 rounds once to the tensor's dtype.
@@ -20,7 +23,7 @@ rounds once to the tensor's dtype.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -117,16 +120,22 @@ def bilinear_fwd_smem_bytes(stage_rows: int, cols: int, raw_pitch: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def bilinear_fwd_plan(h: int, w: int, oh: int, ow: int, itemsize: int,
-                      aligned: bool) -> BilinearFwdPlan:
+                      aligned: bool, band_y: Optional[Tuple[int, int]] = None
+                      ) -> BilinearFwdPlan:
     """Plan the banded forward of an (h, w) -> (oh, ow) resize: the vector
     route for an ``aligned`` output whose rows are whole 16-byte vectors,
     else the scalar route; about ``BILINEAR_FWD_ELEMS`` outputs a band, as
     many rows as keep its shared memory within the budget; column tiles
     (halved until they fit) only where a one-row band of whole rows does
-    not fit."""
+    not fit. With ``band_y = (o0, o1)`` the launch computes those output
+    rows of the global (h -> oh) resize, from their band table."""
     # the tables' own rule; resize imports this module, so not at load
-    from mrfp_tpu_torch.ops.resize import bilinear_ac_weights
-    iy0, iy1, _ = bilinear_ac_weights(h, oh)
+    from mrfp_tpu_torch.ops.resize import bilinear_ac_weights, bilinear_band_weights
+    if band_y is None:
+        iy0, iy1, _ = bilinear_ac_weights(h, oh)
+    else:
+        iy0, iy1, _ = bilinear_band_weights(h, oh, band_y)
+        oh = iy0.size
     ix0, ix1, _ = bilinear_ac_weights(w, ow)
 
     def layout(band, cols):
@@ -155,8 +164,11 @@ def bilinear_fwd_plan(h: int, w: int, oh: int, ow: int, itemsize: int,
     return BilinearFwdPlan(vec, band, rows, cols, in_cols, pitch, (tx, ty), smem)
 
 
-def resize_bilinear_cuda(x: torch.Tensor, ty, tx) -> torch.Tensor:
-    """Launch the forward kernel on a CUDA tensor; raises if it cannot."""
+def resize_bilinear_cuda(x: torch.Tensor, ty, tx, spec_y=None) -> torch.Tensor:
+    """Launch the forward kernel on a CUDA tensor; raises if it cannot.
+    ``spec_y``: None, or ``(in_full, out_full, (o0, o1))`` when ``ty`` is
+    the band table of output rows ``[o0, o1)`` of an ``in_full ->
+    out_full`` resize (the plan is made from it)."""
     lib = _build.load_library()
     _check(x, "resize_bilinear_cuda")
     n, c, h, w = x.shape
@@ -165,7 +177,9 @@ def resize_bilinear_cuda(x: torch.Tensor, ty, tx) -> torch.Tensor:
                          f"({ty.lo0.numel()}, {tx.lo0.numel()})")
     oh, ow = ty.idx0.numel(), tx.idx0.numel()
     out = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
-    plan = bilinear_fwd_plan(h, w, oh, ow, x.element_size(), out.data_ptr() % 16 == 0)
+    in_full, out_full, band_y = (h, oh, None) if spec_y is None else spec_y
+    plan = bilinear_fwd_plan(in_full, w, out_full, ow, x.element_size(),
+                             out.data_ptr() % 16 == 0, band_y)
     with torch.cuda.device(x.device):
         err = lib.mrfp_resize_bilinear(
             x.data_ptr(), out.data_ptr(), ty.idx0.data_ptr(), ty.idx1.data_ptr(),

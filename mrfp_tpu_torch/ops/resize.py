@@ -28,6 +28,16 @@ No table is built under a fake mode (``torch.export``'s tracing): a fake
 table cached here would be handed to every later live call at its shape.
 Building one there raises.
 
+Under spatial parallelism (``core/mesh.py::bands``) a resize computes this
+rank's band of the output rows of the global resize. Its H table is the
+global table's rows ``[o0, o1)`` of that band, rebased to the first input
+row they read; that many input rows are fetched from their owners
+(``parallel/dist.py::rows_from_group``), and the kernels run on the band
+as on any map. The band table is never the table of a resize of the band
+to its share: a scale or ``align_corners``' ``(in-1)/(out-1)`` applied to
+a band reads other rows. The ``[lo, hi)`` ranges the backward kernels walk
+are those of the band table.
+
 ``row_mix`` and ``take_rows`` are the counterparts of the JAX package's
 layout-preserving row mix (``ops/cuda_row_mix.py``). ``take_rows`` reads
 its one-hot P as a table built on the host and cached like the index
@@ -43,7 +53,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from mrfp_tpu_torch.core.mesh import Bands, active_bands
 from mrfp_tpu_torch.ops import cuda_resize, cuda_row_mix
+from mrfp_tpu_torch.parallel.dist import rows_from_group
 
 # the open byte count (``cli.plan``'s ``OpBytes``), if any: ``_resize``
 # hands it each kernel or plain resize whole
@@ -109,6 +121,31 @@ def _nearest_idx_from_size(in_size: int, out_size: int) -> np.ndarray:
     return np.clip(idx.astype(np.int64), 0, in_size - 1)
 
 
+def bilinear_band_rows(in_size: int, out_size: int, o0: int, o1: int) -> Tuple[int, int]:
+    """The input rows ``[lo, hi)`` that the output rows ``[o0, o1)`` of an
+    align_corners resize read (both taps; the tables are monotone)."""
+    i0, i1, _ = bilinear_ac_weights(in_size, out_size)
+    return int(i0[o0]), int(i1[o1 - 1]) + 1
+
+
+@functools.lru_cache(maxsize=None)
+def bilinear_band_weights(in_size: int, out_size: int, band: Tuple[int, int]):
+    """(idx0, idx1, frac) of the output rows ``band = (o0, o1)`` of the
+    global (in_size -> out_size) axis, the indices rebased to the first
+    input row they read."""
+    o0, o1 = band
+    i0, i1, f = bilinear_ac_weights(in_size, out_size)
+    lo = int(i0[o0])
+    return i0[o0:o1] - lo, i1[o0:o1] - lo, f[o0:o1]
+
+
+def nearest_band_rows(in_size: int, rule: str, arg, o0: int, o1: int) -> Tuple[int, int]:
+    """The input rows ``[lo, hi)`` that the output rows ``[o0, o1)`` of a
+    nearest resize read."""
+    idx = nearest_index(in_size, rule, arg)
+    return int(idx[o0]), int(idx[o1 - 1]) + 1
+
+
 def inverse_ranges(idx: np.ndarray, in_size: int) -> Tuple[np.ndarray, np.ndarray]:
     """For a monotone source-index table: ``lo[i], hi[i]`` such that
     ``idx[o] == i`` exactly for ``lo[i] <= o < hi[i]`` (empty when no output
@@ -136,15 +173,23 @@ _TAPS: Dict[tuple, BilinearTaps] = {}
 _NEAREST: Dict[tuple, NearestTable] = {}
 
 
-def bilinear_taps(in_size: int, out_size: int, device: torch.device) -> BilinearTaps:
-    """The device tables of one bilinear axis, cached per (in, out, device)."""
-    key = (in_size, out_size, str(device))
+def bilinear_taps(in_size: int, out_size: int, device: torch.device,
+                  band: Optional[Tuple[int, int]] = None) -> BilinearTaps:
+    """The device tables of one bilinear axis, cached per (in, out, band,
+    device); with ``band = (o0, o1)``, the band table of those output rows
+    (``bilinear_band_weights``), whose input is the rows it reads."""
+    key = (in_size, out_size, band, str(device))
     taps = _TAPS.get(key)
     if taps is None:
         _refuse_fake_mode("bilinear_taps")
-        i0, i1, f = bilinear_ac_weights(in_size, out_size)
-        lo0, hi0 = inverse_ranges(i0, in_size)
-        lo1, hi1 = inverse_ranges(i1, in_size)
+        if band is None:
+            i0, i1, f = bilinear_ac_weights(in_size, out_size)
+            rows = in_size
+        else:
+            i0, i1, f = bilinear_band_weights(in_size, out_size, band)
+            rows = int(i1[-1]) + 1
+        lo0, hi0 = inverse_ranges(i0, rows)
+        lo1, hi1 = inverse_ranges(i1, rows)
         taps = BilinearTaps(_i32(i0, device), _i32(i1, device),
                             torch.as_tensor(f, device=device),
                             _i32(lo0, device), _i32(hi0, device),
@@ -153,27 +198,39 @@ def bilinear_taps(in_size: int, out_size: int, device: torch.device) -> Bilinear
     return taps
 
 
-def nearest_index(in_size: int, rule: str, arg) -> np.ndarray:
+def nearest_index(in_size: int, rule: str, arg,
+                  band: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """The source index per output of one nearest axis; ``rule`` is "scale"
-    (``arg`` = the scale factor) or "size" (``arg`` = the output size)."""
+    (``arg`` = the scale factor) or "size" (``arg`` = the output size). With
+    ``band = (o0, o1)``: those outputs' indices, rebased to the first input
+    row they read."""
     if rule == "scale":
-        return _nearest_idx_from_scale(in_size, float(arg))
-    if rule == "size":
-        return _nearest_idx_from_size(in_size, int(arg))
-    raise ValueError(f"rule must be 'scale' or 'size', got {rule!r}")
+        idx = _nearest_idx_from_scale(in_size, float(arg))
+    elif rule == "size":
+        idx = _nearest_idx_from_size(in_size, int(arg))
+    else:
+        raise ValueError(f"rule must be 'scale' or 'size', got {rule!r}")
+    if band is None:
+        return idx
+    idx = idx[band[0]:band[1]]
+    return idx - idx[0]
 
 
-def nearest_table(in_size: int, rule: str, arg, device: torch.device) -> NearestTable:
+def nearest_table(in_size: int, rule: str, arg, device: torch.device,
+                  band: Optional[Tuple[int, int]] = None) -> NearestTable:
     """The device tables of one nearest axis (rules as ``nearest_index``),
-    cached per (in, arg, rule, device)."""
-    key = (in_size, rule, arg, str(device))
+    cached per (in, arg, rule, band, device); with ``band``, the band table
+    of those output rows, whose input is the rows they read."""
+    key = (in_size, rule, arg, band, str(device))
     table = _NEAREST.get(key)
     if table is None:
         _refuse_fake_mode("nearest_table")
-        idx = nearest_index(in_size, rule, arg)
-        lo, hi = inverse_ranges(idx, in_size)
+        spec = (in_size, rule, arg) + ((band,) if band is not None else ())
+        idx = nearest_index(*spec)
+        rows = in_size if band is None else int(idx[-1]) + 1
+        lo, hi = inverse_ranges(idx, rows)
         table = NearestTable(_i32(idx, device), _i32(lo, device), _i32(hi, device),
-                             int((hi - lo).max(initial=0)), (in_size, rule, arg))
+                             int((hi - lo).max(initial=0)), spec)
         _NEAREST[key] = table
     return table
 
@@ -199,29 +256,44 @@ def _resize(fn, x: torch.Tensor, *args) -> torch.Tensor:
     return _BYTES.unit(fn, x, *args)
 
 
+def _h_taps(h: int, out_h: int, band: Optional[Tuple[int, int, int]], device) -> BilinearTaps:
+    """The H table of a resize to ``out_h`` rows: the global one, or with
+    ``band = (in_full, out_full, o0)`` the band table of output rows
+    ``[o0, o0 + out_h)``."""
+    if band is None:
+        return bilinear_taps(h, out_h, device)
+    in_full, out_full, o0 = band
+    return bilinear_taps(in_full, out_full, device, (o0, o0 + out_h))
+
+
 class ResizeBilinear(torch.autograd.Function):
     """Bilinear resize: the forward is the registered op (the kernel on the
     card, the plain version on the CPU) or, for ``impl="plain"``, the plain
     version; the backward is the kernel or the plain version by the same
-    rule. The gradient comes back in the input's dtype."""
+    rule. The gradient comes back in the input's dtype. ``band``: None, or
+    ``(in_full, out_full, o0)``: ``x`` is the input rows that the output
+    rows ``[o0, o0 + out_h)`` of the global resize read."""
 
     @staticmethod
-    def forward(ctx, x, out_h: int, out_w: int, impl: Optional[str]):
-        ctx.args = (_use_kernel(x, impl), x.shape[2], x.shape[3], out_h, out_w)
+    def forward(ctx, x, out_h: int, out_w: int, impl: Optional[str],
+                band: Optional[Tuple[int, int, int]] = None):
+        ctx.args = (_use_kernel(x, impl), x.shape[2], x.shape[3], out_h, out_w, band)
         if impl == "plain":
             return cuda_resize.resize_bilinear_plain(
-                x, bilinear_taps(x.shape[2], out_h, x.device),
+                x, _h_taps(x.shape[2], out_h, band, x.device),
                 bilinear_taps(x.shape[3], out_w, x.device))
-        return torch.ops.mrfp.resize_bilinear(x, out_h, out_w)
+        if band is None:
+            return torch.ops.mrfp.resize_bilinear(x, out_h, out_w)
+        return torch.ops.mrfp.resize_bilinear(x, out_h, out_w, *band)
 
     @staticmethod
     def backward(ctx, g):
-        kernel, h, w, oh, ow = ctx.args
-        ty, tx = bilinear_taps(h, oh, g.device), bilinear_taps(w, ow, g.device)
+        kernel, h, w, oh, ow, band = ctx.args
+        ty, tx = _h_taps(h, oh, band, g.device), bilinear_taps(w, ow, g.device)
         g = g.contiguous()  # the ASPP broadcast's gradient arrives through torch.cat
         fn = (cuda_resize.resize_bilinear_bwd_cuda if kernel
               else cuda_resize.resize_bilinear_bwd_plain)
-        return _resize(fn, g, ty, tx, h, w), None, None, None
+        return _resize(fn, g, ty, tx, h, w), None, None, None, None
 
 
 class ResizeNearest(torch.autograd.Function):
@@ -241,21 +313,52 @@ class ResizeNearest(torch.autograd.Function):
         return _resize(fn, g.contiguous(), ty, tx, h, w), None, None, None
 
 
+def _band_input(x: torch.Tensor, bands: Bands, h: int, oh: int, reads,
+                whole: bool) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """The input rows that this rank's band of the ``oh`` output rows reads
+    (``reads(o0, o1) -> (lo, hi)``), and that band: sliced from ``x`` where
+    every rank holds the whole input (``whole``), else fetched from the
+    rows' owners."""
+    outs = bands.every(oh)
+    rows = [reads(o0, o1) for o0, o1 in outs]
+    if whole:
+        lo, hi = rows[bands.index]
+        return x[:, :, lo:hi], outs[bands.index]
+    return (rows_from_group(x, h, [r[0] for r in rows], [r[1] for r in rows], bands.group),
+            outs[bands.index])
+
+
 def resize_bilinear_align_corners(x: torch.Tensor, size: Tuple[int, int],
-                                  impl: Optional[str] = None) -> torch.Tensor:
+                                  impl: Optional[str] = None,
+                                  replicated: bool = False) -> torch.Tensor:
     """Resize NCHW ``x`` to ``size`` = (oh, ow); returns ``x`` itself when the
     size is unchanged (as mrfp_tpu/ops/resize.py:195-196 does).
+
+    In a spatial scope (``core/mesh.py``) ``x`` is this rank's band and
+    ``size`` the global size, and the result is this rank's band of the
+    global resize; with ``replicated``, ``x`` is the whole map, held by
+    every rank (the ASPP image pool's 1x1 map).
 
     ``impl="plain"`` forces the plain version on any device. It exists only
     so that tests and ``chip_smoke.py`` can hold the kernel against it.
     """
     if x.dim() != 4:
         raise ValueError(f"expected NCHW, got shape {tuple(x.shape)}")
-    h, w = x.shape[2], x.shape[3]
     oh, ow = int(size[0]), int(size[1])
-    if (h, w) == (oh, ow):
+    bands = active_bands()
+    if bands is None:
+        h, w = x.shape[2], x.shape[3]
+        if (h, w) == (oh, ow):
+            return x
+        return ResizeBilinear.apply(x, oh, ow, impl)
+    w = x.shape[3]
+    h = x.shape[2] if replicated else bands.height(x.shape[2], w)
+    if (h, w) == (oh, ow) and not replicated:
         return x
-    return ResizeBilinear.apply(x, oh, ow, impl)
+    bands.add(oh, ow)
+    xr, (o0, o1) = _band_input(x, bands, h, oh,
+                               lambda a, b: bilinear_band_rows(h, oh, a, b), replicated)
+    return ResizeBilinear.apply(xr, o1 - o0, ow, impl, (h, oh, o0))
 
 
 def row_mix(x: torch.Tensor, p: torch.Tensor, dim: int,
@@ -362,14 +465,23 @@ def resize_nearest(x: torch.Tensor, size: Optional[Tuple[int, int]] = None,
         raise ValueError("pass exactly one of size= or scale=")
     if x.dim() != 4:
         raise ValueError(f"expected NCHW, got shape {tuple(x.shape)}")
-    h, w = x.shape[2], x.shape[3]
+    bands = active_bands()
+    w = x.shape[3]
+    h = x.shape[2] if bands is None else bands.height(x.shape[2], w)
     if size is not None:
         size = (int(size[0]), int(size[1]))
         if (h, w) == size:
             return x
-        ty = nearest_table(h, "size", size[0], x.device)
-        tx = nearest_table(w, "size", size[1], x.device)
+        rule_y, arg_y, rule_x, arg_x = "size", size[0], "size", size[1]
     else:
-        ty = nearest_table(h, "scale", float(scale[0]), x.device)
-        tx = nearest_table(w, "scale", float(scale[1]), x.device)
-    return ResizeNearest.apply(x, ty, tx, _use_kernel(x, impl))
+        rule_y, arg_y, rule_x, arg_x = "scale", float(scale[0]), "scale", float(scale[1])
+    tx = nearest_table(w, rule_x, arg_x, x.device)
+    if bands is None:
+        ty = nearest_table(h, rule_y, arg_y, x.device)
+        return ResizeNearest.apply(x, ty, tx, _use_kernel(x, impl))
+    oh = len(nearest_index(h, rule_y, arg_y))
+    bands.add(oh, tx.idx.numel())
+    xr, band = _band_input(x, bands, h, oh,
+                           lambda a, b: nearest_band_rows(h, rule_y, arg_y, a, b), False)
+    ty = nearest_table(h, rule_y, arg_y, x.device, band)
+    return ResizeNearest.apply(xr, ty, tx, _use_kernel(x, impl))

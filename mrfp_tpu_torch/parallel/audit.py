@@ -3,15 +3,17 @@
 
 The JAX package learns what a sharded step pays on the wire by reading
 the collectives GSPMD inserted into the compiled HLO. The port inserts
-none: every collective of a data-parallel step is an explicit call of
-``parallel/dist.py`` (the BatchNorm and SwitchWhiten statistics, NP+'s
-gathered means, the loss denominators, the gradient, the eval histogram,
-the statistics pass's masks), so it is counted at the call and no parser
-of a program text is needed.
+none: every collective of a data- or spatial-parallel step is an explicit
+call of ``parallel/dist.py`` (the BatchNorm and SwitchWhiten statistics,
+NP+'s gathered means, the loss denominators, the gradient, the eval
+histogram, the statistics pass's masks, and under spatial parallelism the
+halo rows of the convs, pools and resizes), so it is counted at the call
+and no parser of a program text is needed.
 
     with count_collectives() as log:
         train_step(...)
-    summarize(log)   # {"all-reduce": {"count": 145, "bytes": ...}}
+    summarize(log)            # {"all-reduce": {"count": 145, "bytes": ...}}
+    summarize_by_group(log)   # {"world": {"stats": {...}}, "spatial": {"halo": ...}}
 
 A count holds the collectives this process issues while it is open, in
 order; at world size 1 the helpers issue none, so it stays empty. With no
@@ -38,6 +40,8 @@ class Collective:
     dtype: str               # "f32", "f64" or "s64"
     bytes: int               # the tensor's bytes, sent once by each rank
     shape: Tuple[int, ...]
+    group: str = "world"     # "world", "data" or "spatial" (core/mesh.py)
+    kind: str = "stats"      # "halo" (rows_from_group) or "stats" (everything else)
 
 
 @contextlib.contextmanager
@@ -48,9 +52,9 @@ def count_collectives() -> Iterator[List[Collective]]:
         raise RuntimeError("count_collectives: a count is already open")
     log: List[Collective] = []
 
-    def record(op: str, t: torch.Tensor) -> None:
+    def record(op: str, t: torch.Tensor, group: str, kind: str) -> None:
         log.append(Collective(op, _DTYPE_NAMES[t.dtype], t.numel() * t.element_size(),
-                              tuple(t.shape)))
+                              tuple(t.shape), group, kind))
 
     dist._audit = record
     try:
@@ -74,6 +78,17 @@ def summarize_by_dtype(colls: List[Collective]) -> Dict[str, Dict[str, Dict[str,
     out: Dict[str, Dict[str, Dict[str, int]]] = {}
     for c in colls:
         d = out.setdefault(c.op, {}).setdefault(c.dtype, {"count": 0, "bytes": 0})
+        d["count"] += 1
+        d["bytes"] += c.bytes
+    return out
+
+
+def summarize_by_group(colls: List[Collective]) -> Dict[str, Dict[str, Dict[str, int]]]:
+    """``{group: {kind: {"count", "bytes"}}}``: the rollup by process group,
+    the halo rows apart from the statistics."""
+    out: Dict[str, Dict[str, Dict[str, int]]] = {}
+    for c in colls:
+        d = out.setdefault(c.group, {}).setdefault(c.kind, {"count": 0, "bytes": 0})
         d["count"] += 1
         d["bytes"] += c.bytes
     return out

@@ -9,31 +9,52 @@ spread of the channel means (``perturb/np_plus.py``), the loss
 denominators (``train/losses.py``), the gradient (``train/step.py``) and the
 eval histogram (``train/evaluator.py``).
 
+Every collective takes a ``Group``: the world (the default), or the data or
+spatial group of the process mesh (``core/mesh.py``). Under spatial
+parallelism the ranks of a spatial group hold the bands of rows of one
+image's maps, and ``rows_from_group`` fetches the rows an operation reads
+from their owners: the halo of a conv, a pool or a resize.
+
 Only ``all_reduce`` and ``broadcast`` are used, on fp32, fp64 or int64
 tensors: gloo supports those two collectives on CUDA tensors, so two ranks
 can share one card through gloo, where NCCL refuses two ranks on one
-device. With no process group, or a group of one, every helper returns its
-input as it is: a single-process run computes what it computed before this
-module existed.
+device. No send or receive is used, for the same reason. With no process
+group, or a group of one, every helper returns its input as it is: a
+single-process run computes what it computed before this module existed.
 
 Every collective goes through ``_issue``, which also reports it (its op,
-dtype and bytes) to the count that ``parallel/audit.py`` opens; with no
-count open that is one ``is None`` test a call.
+dtype, bytes, group and kind: a halo or statistics) to the count that
+``parallel/audit.py`` opens; with no count open that is one ``is None``
+test a call.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import logging
 import os
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 _COLLECTIVE_DTYPES = (torch.float32, torch.float64, torch.int64)
-# the open count's recorder, ``(op, tensor) -> None`` (parallel/audit.py)
-_audit: Optional[Callable[[str, torch.Tensor], None]] = None
+# the open count's recorder, ``(op, tensor, group name, kind) -> None``
+# (parallel/audit.py)
+_audit: Optional[Callable[[str, torch.Tensor, str, str], None]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """Processes that reduce together: ``name`` ("world", "data" or
+    "spatial"), the torch process group (None: the default group, or no
+    group at all for a group of one), its ``size`` and this process's
+    ``rank`` in it."""
+    name: str
+    pg: Optional[object]
+    size: int
+    rank: int
 
 
 def world() -> int:
@@ -109,67 +130,182 @@ def local_device(device: str) -> torch.device:
     return dev
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the processes, in place (and returned); ``t``
-    itself at world size 1. Not differentiable: for statistics that carry
-    no gradient (counts, detached denominators, the gradient itself)."""
-    return t if world() == 1 else _issue("all-reduce", t)
+def world_group() -> Group:
+    """Every process: the default group."""
+    return Group("world", None, world(), rank())
+
+
+def all_reduce_sum(t: torch.Tensor, group: Optional[Group] = None,
+                   kind: str = "stats") -> torch.Tensor:
+    """The sum of ``t`` over the processes of ``group`` (the world by
+    default), in place (and returned); ``t`` itself in a group of one. Not
+    differentiable: for statistics that carry no gradient (counts,
+    detached denominators, the gradient itself)."""
+    group = group or world_group()
+    return t if group.size == 1 else _issue("all-reduce", t, group, kind)
 
 
 def broadcast(t: torch.Tensor) -> torch.Tensor:
     """Rank 0's ``t`` on every process, in place (and returned); ``t``
     itself at world size 1. Not differentiable."""
-    return t if world() == 1 else _issue("broadcast", t)
+    return t if world() == 1 else _issue("broadcast", t, world_group(), "stats")
 
 
-def _issue(op: str, t: torch.Tensor) -> torch.Tensor:
+def _issue(op: str, t: torch.Tensor, group: Group, kind: str) -> torch.Tensor:
     """Run the collective ``op`` ("all-reduce", a sum, or "broadcast" from
-    rank 0) on ``t`` in place, reported to the open count."""
+    rank 0) on ``t`` in place over ``group``, reported to the open count
+    as ``kind`` ("halo" or "stats")."""
     if t.dtype not in _COLLECTIVE_DTYPES:
         raise TypeError(f"{op} takes {_COLLECTIVE_DTYPES}, got {t.dtype}")
     if _audit is not None:
-        _audit(op, t)
+        _audit(op, t, group.name, kind)
     if op == "all-reduce":
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group.pg)
     else:
         dist.broadcast(t, src=0)
     return t
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """The sum over the processes, whose gradient is the sum over the
-    processes of the gradient: each rank's loss reads the global sum, so
-    the global objective (the sum of the ranks' losses) reaches each
-    rank's input through every rank's loss."""
+    """The sum over a group, whose gradient is the sum over the group of
+    the gradient: each rank's loss reads the group's sum, so the global
+    objective (the sum of the ranks' losses) reaches each rank's input
+    through every rank's loss."""
 
     @staticmethod
-    def forward(ctx, t):
-        return all_reduce_sum(t.clone())
+    def forward(ctx, t, group: Group, kind: str):
+        ctx.group, ctx.kind = group, kind
+        return all_reduce_sum(t.clone(), group, kind)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_sum(g.contiguous().clone())
+        return all_reduce_sum(g.contiguous().clone(), ctx.group, ctx.kind), None, None
 
 
-def all_reduce_sum_grad(t: torch.Tensor) -> torch.Tensor:
-    """``all_reduce_sum`` of a copy of ``t``, differentiable; ``t`` itself
-    at world size 1."""
-    return t if world() == 1 else _AllReduceSum.apply(t)
+def all_reduce_sum_grad(t: torch.Tensor, group: Optional[Group] = None) -> torch.Tensor:
+    """``all_reduce_sum`` of a copy of ``t`` over ``group`` (the world by
+    default), differentiable; ``t`` itself in a group of one."""
+    group = group or world_group()
+    return t if group.size == 1 else _AllReduceSum.apply(t, group, "stats")
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """The ranks' ``t`` (every rank the same shape) stacked along dim 0 in
-    rank order, differentiable: rank r's rows go into a zero buffer at
-    ``r * len(t)``, and one ``all_reduce`` fills in the rest. ``t`` itself
-    at world size 1."""
-    n = world()
+def all_gather_rows(t: torch.Tensor, group: Optional[Group] = None) -> torch.Tensor:
+    """The ranks' ``t`` (every rank of ``group``, the world by default, the
+    same shape) stacked along dim 0 in rank order, differentiable: rank r's
+    rows go into a zero buffer at ``r * len(t)``, and one ``all_reduce``
+    fills in the rest. ``t`` itself in a group of one."""
+    group = group or world_group()
+    n = group.size
     if n == 1:
         return t
     rows = t.shape[0]
     buf = t.new_zeros((rows * n,) + tuple(t.shape[1:]))
-    lo = rank() * rows
+    lo = group.rank * rows
     buf = torch.cat([buf[:lo], t, buf[lo + rows:]])
-    return _AllReduceSum.apply(buf)
+    return _AllReduceSum.apply(buf, group, "stats")
+
+
+def band(h: int, parts: int, index: int) -> Tuple[int, int]:
+    """The rows ``[lo, hi)`` that part ``index`` of ``parts`` owns of a map
+    of ``h`` rows: the even split of that map's own height,
+    ``[floor(index * h / parts), floor((index + 1) * h / parts))``."""
+    return index * h // parts, (index + 1) * h // parts
+
+
+def _halo_segments(h: int, lo: Sequence[int], hi: Sequence[int], n: int):
+    """Every rank's wanted rows outside its own band (at most a segment
+    above it and one below), in rank order: ``(rank, first, end, offset)``,
+    ``offset`` the segment's first row in the exchange buffer; and the
+    buffer's rows."""
+    segments, at = [], 0
+    for r in range(n):
+        a0, a1 = max(lo[r], 0), min(hi[r], h)
+        r0, r1 = band(h, n, r)
+        for a, b in ((a0, min(a1, r0)), (max(a0, r1), a1)):
+            if b > a:
+                segments.append((r, a, b, at))
+                at += b - a
+    return segments, at
+
+
+class _RowsFromGroup(torch.autograd.Function):
+    """``rows_from_group`` as one node of the graph on every rank, so every
+    rank runs its backward exchange, in the same order as the others."""
+
+    @staticmethod
+    def forward(ctx, x, h: int, lo: Tuple[int, ...], hi: Tuple[int, ...], group: Group,
+                fill: float):
+        n, me = group.size, group.rank
+        b0, b1 = band(h, n, me)
+        if x.shape[2] != b1 - b0:
+            raise ValueError(f"rows_from_group: {x.shape[2]} rows, but rank {me} of {n} owns "
+                             f"{b1 - b0} of {h}")
+        segments, total = _halo_segments(h, lo, hi, n)
+        wire = x.dtype if x.dtype in _COLLECTIVE_DTYPES else torch.float32
+        lead, width = tuple(x.shape[:2]), x.shape[3]
+        buf = None
+        if segments:
+            buf = x.new_zeros(lead + (total, width), dtype=wire)
+            for _r, a, b, at in segments:  # the rows this rank owns of every segment
+                o0, o1 = max(a, b0), min(b, b1)
+                if o1 > o0:
+                    buf[:, :, at + o0 - a:at + o1 - a] = x[:, :, o0 - b0:o1 - b0]
+            all_reduce_sum(buf, group, "halo")
+        want0, want1 = lo[me], hi[me]
+        out = torch.full(lead + (want1 - want0, width), fill, dtype=x.dtype, device=x.device)
+        o0, o1 = max(want0, b0), min(want1, b1)
+        if o1 > o0:
+            out[:, :, o0 - want0:o1 - want0] = x[:, :, o0 - b0:o1 - b0]
+        for r, a, b, at in segments:
+            if r == me:
+                out[:, :, a - want0:b - want0] = buf[:, :, at:at + b - a]
+        ctx.args = (h, lo, hi, group, b0, b1, wire)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, lo, hi, group, b0, b1, wire = ctx.args
+        n, me = group.size, group.rank
+        want0, want1 = lo[me], hi[me]
+        segments, total = _halo_segments(h, lo, hi, n)
+        lead, width = tuple(g.shape[:2]), g.shape[3]
+        gx = g.new_zeros(lead + (b1 - b0, width), dtype=wire)
+        o0, o1 = max(want0, b0), min(want1, b1)
+        if o1 > o0:
+            gx[:, :, o0 - b0:o1 - b0] += g[:, :, o0 - want0:o1 - want0]
+        if segments:
+            buf = g.new_zeros(lead + (total, width), dtype=wire)
+            for r, a, b, at in segments:  # this rank's cotangents of its fetched rows
+                if r == me:
+                    buf[:, :, at:at + b - a] = g[:, :, a - want0:b - want0]
+            all_reduce_sum(buf, group, "halo")
+            for _r, a, b, at in segments:  # each owner adds its rows' cotangents
+                o0, o1 = max(a, b0), min(b, b1)
+                if o1 > o0:
+                    gx[:, :, o0 - b0:o1 - b0] += buf[:, :, at + o0 - a:at + o1 - a]
+        return gx.to(g.dtype), None, None, None, None, None
+
+
+def rows_from_group(x: torch.Tensor, h: int, lo: Sequence[int], hi: Sequence[int],
+                    group: Group, fill: float = 0.0) -> torch.Tensor:
+    """The global rows ``[lo[s], hi[s])`` of an NCHW map of ``h`` rows whose
+    rows are split over ``group`` by ``band`` (``x``: this rank's band),
+    ``s`` this rank's index in the group; rows outside ``[0, h)`` are
+    ``fill`` (the caller's padding). Every rank passes the same ``lo`` and
+    ``hi``, one entry per rank of the group. Differentiable.
+
+    Only halo rows cross: each rank's rows outside its own band, at most a
+    segment above it and one below, are laid end to end in one zeroed
+    buffer; every owner writes the rows it holds of every segment, and one
+    ``all_reduce`` over the group fills the buffer in on every rank (the
+    way ``all_gather_rows`` gathers). Its backward is one ``all_reduce`` of
+    the segments' cotangents, from which each owner adds its rows' share:
+    each fetched row's cotangent is summed back to its owner. Where no rank
+    reads a row it does not own, nothing is issued. A dtype that
+    collectives do not take (bf16) crosses as fp32, exactly, and is cast
+    back (its cotangents are summed in fp32 and rounded once)."""
+    return _RowsFromGroup.apply(x, int(h), tuple(int(v) for v in lo),
+                                tuple(int(v) for v in hi), group, float(fill))
 
 
 def barrier() -> None:

@@ -19,6 +19,12 @@ every rank's per-sample means, gathered by one differentiable
 ``all_reduce``, and the per-sample draws are drawn for the global batch
 from the shared stream, each rank taking its own rows, so a run of N ranks
 draws what one process draws on the same global batch.
+
+Under spatial parallelism (``core/mesh.py``) the batch is the data group's
+and each rank holds a band of rows: the per-sample means are a sum over the
+band and the spatial group (differentiable) over the global H x W,
+``mean_diff`` gathers over the data group, and the draws take the data
+rank's rows, so the ranks of a spatial group apply the same alpha and beta.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from typing import Tuple, Union
 
 import torch
 
-from mrfp_tpu_torch.parallel.dist import all_gather_rows, rank, world
+from mrfp_tpu_torch.core.mesh import active_bands, current_mesh
+from mrfp_tpu_torch.parallel.dist import all_gather_rows, all_reduce_sum_grad
 from mrfp_tpu_torch.utils.transfer import to_device
 
 Draws = Tuple[torch.Tensor, torch.Tensor]
@@ -37,12 +44,13 @@ def draw_np_plus(generator: torch.Generator, batch: int, channels: int,
                  device, std: float = 0.75) -> Draws:
     """(alpha, beta_noise), each (B, C, 1, 1) fp32, for this rank's ``batch``
     samples: drawn on the CPU from ``generator`` for the global batch of
-    ``batch * world()`` samples, this rank's rows copied to ``device``
-    without a sync."""
-    shape = (batch * world(), channels, 1, 1)
+    ``batch`` times the data axis's size, this data rank's rows copied to
+    ``device`` without a sync."""
+    mesh = current_mesh()
+    shape = (batch * mesh.dp, channels, 1, 1)
     alpha = 1.0 + std * torch.randn(shape, generator=generator)
     beta_noise = std * torch.randn(shape, generator=generator)
-    rows = slice(rank() * batch, (rank() + 1) * batch)
+    rows = slice(mesh.data_index * batch, (mesh.data_index + 1) * batch)
     return to_device(alpha[rows], device), to_device(beta_noise[rows], device)
 
 
@@ -51,9 +59,15 @@ def np_plus_coefficients(f32: torch.Tensor, noise: Union[torch.Generator, Draws]
     """``(alpha, beta, feat_mean)``, each (B, C, 1, 1), for the float32 (or
     float64) NCHW map ``f32``; ``noise`` as for ``np_plus`` (injected draws
     are this rank's rows)."""
-    feat_mean = f32.mean(dim=(2, 3), keepdim=True)
+    bands = active_bands()
+    if bands is None:
+        feat_mean = f32.mean(dim=(2, 3), keepdim=True)
+    else:
+        h, w = bands.global_hw(f32)
+        feat_mean = all_reduce_sum_grad(f32.sum(dim=(2, 3), keepdim=True),
+                                        bands.group) / (h * w)
     # unbiased, as the reference, over the global batch's means
-    mean_diff = all_gather_rows(feat_mean).std(dim=0, keepdim=True)
+    mean_diff = all_gather_rows(feat_mean, current_mesh().data).std(dim=0, keepdim=True)
     mean_scale = mean_diff / mean_diff.max() * scale_mult
     if isinstance(noise, torch.Generator):
         noise = draw_np_plus(noise, f32.shape[0], f32.shape[1], f32.device, std)

@@ -21,6 +21,12 @@ The tensors are buffers of the model under the reference's names
 ``OC1_bn..OC4_bn``, ``OC1_decbn..OC4_decbn`` with ``weight``/``bias``), so
 checkpoints carry them and the optimizer never sees them; the input of the
 branch still gets its gradient.
+
+Under spatial parallelism every stage works on this rank's band of rows:
+the convs fetch their halo rows (``nn.layers.conv2d_rows``), the nearest
+resizes run on the band tables of the global chain (``ops/resize.py``),
+the BN moments stay world-global, and every size comes from the global
+``(h, w)``.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mrfp_tpu_torch.nn.layers import conv2d_rows
 from mrfp_tpu_torch.nn.norms import batch_norm_train
 from mrfp_tpu_torch.ops.resize import resize_nearest
 
@@ -121,7 +128,7 @@ def _stage(p, x: torch.Tensor, dilation: int, scale=None, size=None,
            impl: Optional[str] = None) -> torch.Tensor:
     """relu(bn(resize(conv(x)))) — the reference's per-layer pattern."""
     weight, bias, bn_weight, bn_bias = p
-    y = F.conv2d(x, weight, bias, padding=dilation, dilation=dilation)
+    y = conv2d_rows(x, weight, bias, padding=dilation, dilation=dilation)
     y = resize_nearest(y, size=size, scale=scale, impl=impl)
     yf = y.to(torch.promote_types(y.dtype, torch.float32))  # bf16 -> fp32 math
     yf = batch_norm_train(yf, bn_weight, bn_bias, eps=1e-5)  # global-batch moments

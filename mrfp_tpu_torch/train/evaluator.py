@@ -29,6 +29,15 @@ process scores only the images ``i % shard_count == shard_rank``, and
 ``merge_shard_hists`` sums the partial histograms (and the image counts)
 with one int64 ``all_reduce``, so every rank returns the same mIoU, equal
 to a one-process sweep's.
+
+``SegEvaluator(..., mesh=)`` with a spatial axis (``core/mesh.py``, ``sp >
+1``) is the counterpart of the JAX evaluator's meshed path
+(mrfp_tpu/train/evaluator.py:103-127): every rank of a spatial group reads
+the same images and feeds the model its band of each image's rows (the
+batch, ``eval_batch`` and ``bucket`` as without a mesh), the confusion
+matrix kernel runs on the band's prediction and labels, and the histogram
+is summed over the spatial group (then over the data shards), so every rank
+returns the same metrics as one process.
 """
 
 from __future__ import annotations
@@ -42,8 +51,9 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from mrfp_tpu_torch.core.mesh import band
 from mrfp_tpu_torch.ops.hist import confusion_matrix_update
-from mrfp_tpu_torch.parallel.dist import all_reduce_sum
+from mrfp_tpu_torch.parallel.dist import Group, all_reduce_sum
 from mrfp_tpu_torch.utils.transfer import to_device
 
 
@@ -62,11 +72,13 @@ def pad_to_bucket(img: np.ndarray, lbl: np.ndarray, bucket: int = 128,
     return pimg, plbl
 
 
-def merge_shard_hists(hist: torch.Tensor, shard_count: int) -> torch.Tensor:
-    """The sum over the processes of the int64 tensor ``hist`` (a partial
-    confusion matrix, or anything counted beside it); ``hist`` itself for
-    an unsplit sweep or a single process. Every rank gets the sum, exact."""
-    return all_reduce_sum(hist) if shard_count > 1 else hist
+def merge_shard_hists(hist: torch.Tensor, shard_count: int,
+                      group: Optional[Group] = None) -> torch.Tensor:
+    """The sum over the processes of ``group`` (the world by default) of the
+    int64 tensor ``hist`` (a partial confusion matrix, or anything counted
+    beside it); ``hist`` itself for an unsplit sweep or a single process.
+    Every rank gets the sum, exact."""
+    return all_reduce_sum(hist, group) if shard_count > 1 else hist
 
 
 class SegEvaluator:
@@ -75,12 +87,13 @@ class SegEvaluator:
     ``model``: an eval-mode module mapping NCHW float images to NCHW logits,
     already on ``device``. ``autocast_dtype``: run the forward under
     ``torch.autocast`` in that dtype (e.g. ``torch.bfloat16``); None keeps
-    float32.
+    float32. ``mesh``: a process mesh with a spatial axis, each image split
+    in bands of rows across its spatial group (the model takes ``hw=``).
     """
 
     def __init__(self, model, num_classes: int = 19, bucket: Optional[int] = None,
                  strict_pairs: bool = True, eval_batch: int = 1,
-                 device="cuda", autocast_dtype: Optional[torch.dtype] = None):
+                 device="cuda", autocast_dtype: Optional[torch.dtype] = None, mesh=None):
         self.model = model
         self.num_classes = num_classes
         self.bucket = bucket
@@ -88,15 +101,29 @@ class SegEvaluator:
         self.eval_batch = max(1, int(eval_batch))
         self.device = torch.device(device)
         self.autocast_dtype = autocast_dtype
+        self.mesh = mesh if mesh is not None and mesh.sp > 1 else None
+
+    def _band(self, img: np.ndarray, lbl: np.ndarray):
+        """This rank's rows of a host batch (NHWC images, NHW labels), and
+        the batch's global (H, W); the batch itself without a spatial mesh."""
+        hw = lbl.shape[1:3]
+        if self.mesh is None:
+            return img, lbl, hw
+        lo, hi = band(hw[0], self.mesh.sp, self.mesh.spatial_index)
+        return img[:, lo:hi], lbl[:, lo:hi], hw
 
     def _step(self, hist: torch.Tensor, image: torch.Tensor, label: torch.Tensor,
-              valid_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+              valid_hw: Optional[Tuple[int, int]] = None,
+              hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         # wire format -> float NCHW on the device
         x = image.permute(0, 3, 1, 2).float().contiguous()
         amp = (contextlib.nullcontext() if self.autocast_dtype is None else
                torch.autocast(self.device.type, dtype=self.autocast_dtype))
         with amp:
-            logits = self.model(x, valid_hw=valid_hw)
+            if self.mesh is None:
+                logits = self.model(x, valid_hw=valid_hw)
+            else:
+                logits = self.model(x, valid_hw=valid_hw, hw=hw)
         pred = logits.argmax(dim=1)
         return confusion_matrix_update(hist, pred, label, self.num_classes)
 
@@ -158,16 +185,17 @@ class SegEvaluator:
         # two batches in flight: batch i+1 is copied while batch i runs
         buf = []
         for img, lbl, real, valid_hw in _groups():
+            img, lbl, hw = self._band(img, lbl)
             buf.append((to_device(img, self.device), to_device(lbl, self.device), real,
-                        valid_hw))
+                        valid_hw, hw))
             if len(buf) >= 2:
-                image, label, real, vhw = buf.pop(0)
-                hist = self._step(hist, image, label, vhw)
+                image, label, real, vhw, hw = buf.pop(0)
+                hist = self._step(hist, image, label, vhw, hw)
                 scored += real
                 _sync_heartbeat()
         while buf:
-            image, label, real, vhw = buf.pop(0)
-            hist = self._step(hist, image, label, vhw)
+            image, label, real, vhw, hw = buf.pop(0)
+            hist = self._step(hist, image, label, vhw, hw)
             scored += real
             _sync_heartbeat()
 
@@ -178,7 +206,8 @@ class SegEvaluator:
                 "%d padded dummy forwards for %d real images — consider "
                 "eval_batch=1 or bucket mode for this domain", eb, n_shapes,
                 pad_total, scored)
-        return self._result(hist, dataset, log, t0, tally["dropped"], scored, shard_count)
+        return self._result(hist, dataset, log, t0, tally["dropped"], scored, shard_count,
+                            self.mesh)
 
     def _host_samples(self, dataset, max_images: Optional[int], tally: Dict[str, int],
                       shard_rank: int = 0, shard_count: int = 1
@@ -209,11 +238,15 @@ class SegEvaluator:
 
     @staticmethod
     def _result(hist: torch.Tensor, dataset, log, t0: float, dropped: int,
-                scored: int, shard_count: int = 1) -> Dict[str, object]:
-        counts = torch.cat([hist.reshape(-1).long(),
-                            torch.tensor([dropped, scored], device=hist.device)])
-        counts = merge_shard_hists(counts, shard_count).cpu()  # syncs the device
-        hist_np = counts[:-2].numpy().reshape(hist.shape)
+                scored: int, shard_count: int = 1, mesh=None) -> Dict[str, object]:
+        shape = hist.shape
+        hist = hist.reshape(-1).long()
+        if mesh is not None:  # the bands' histograms: the images' whole
+            hist = all_reduce_sum(hist, mesh.spatial)
+        counts = torch.cat([hist, torch.tensor([dropped, scored], device=hist.device)])
+        counts = merge_shard_hists(counts, shard_count,
+                                   None if mesh is None else mesh.data).cpu()  # syncs the device
+        hist_np = counts[:-2].numpy().reshape(shape)
         dropped, scored = (int(v) for v in counts[-2:])
         seconds = time.perf_counter() - t0
         result = evaluate_hist(hist_np, dataset_name=getattr(dataset, "name", "?"),

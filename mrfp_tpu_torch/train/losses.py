@@ -114,13 +114,14 @@ def relaxed_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, num_classe
                           strict_classes: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Border-relaxed CE: per valid pixel ``-log P(any allowed class)``, as a
     masked-logsumexp difference in fp32, each pixel scaled by its weight and
-    the sum divided by ``max(sum of weights, 1)``. ``logits`` (N, C, H, W).
-    Equals ``cross_entropy`` at ``border=0``."""
+    the sum divided by ``max(sum of weights, 1)``. ``logits`` (N, C, H, W),
+    taken in fp32 (fp64 logits in fp64). Equals ``cross_entropy`` at
+    ``border=0``."""
     labels = labels.long()
     valid = labels != ignore_index
     allowed, weight = relaxed_multihot(labels, num_classes, ignore_index, border,
                                        reduce_now, strict_classes)
-    lf = logits.float()
+    lf = logits.to(torch.promote_types(logits.dtype, torch.float32))
     lse = torch.logsumexp(lf, dim=1)
     lse_allowed = torch.logsumexp(lf.masked_fill(~allowed[:, :num_classes], float("-inf")),
                                   dim=1)

@@ -43,17 +43,27 @@ ranks skip the same branches and keep identical parameters. The
 microbatch split ``i % accum`` of the local shard is JAX's split of the
 global batch when the local batch divides by ``accum``, which the step
 requires.
+
+Under spatial parallelism (``core/mesh.py``, ``sp > 1``) ``images`` and
+``labels`` are this rank's band of rows of its data rank's samples, and
+``hw`` the images' global size: the forward and the loss run inside one
+band scope, the CE's numerator is the band's and its denominator the
+world's, and the gradient all-reduce over the world sums the bands' and
+the samples' parts alike. The extras whose windows cross rows (the
+border-relaxed CE, the FFT transforms) and the fused BN statistics refuse
+bands (ROADMAP A14).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
 from mrfp_tpu_torch.core.config import Config
+from mrfp_tpu_torch.core.mesh import active_bands, bands, current_mesh
 from mrfp_tpu_torch.core.rng import device_generator, role_seed, step_generators
 from mrfp_tpu_torch.models.mrfp import PerturbArgs
 from mrfp_tpu_torch.ops.dot_stats import bn_stats_fusion
@@ -124,15 +134,32 @@ def _loss(out, labels: torch.Tensor, cfg: Config, class_weights: Optional[torch.
 def dsn_cross_entropy(aux: torch.Tensor, labels: torch.Tensor, ignore_index: int,
                       impl: Optional[str] = None) -> torch.Tensor:
     """CE of the DSN head's logits against the labels nearest-resized to
-    their size (network/deepv3.py:570-576; the nearest kernel on the card)."""
-    small = resize_nearest(labels[:, None].float(), size=aux.shape[2:], impl=impl)
+    their size (network/deepv3.py:570-576; the nearest kernel on the card);
+    in a spatial scope both are bands, and the size the global one."""
+    scope = active_bands()
+    size = aux.shape[2:] if scope is None else scope.global_hw(aux)
+    small = resize_nearest(labels[:, None].float(), size=size, impl=impl)
     return cross_entropy(aux, small[:, 0].long(), ignore_index)
+
+
+def check_spatial(cfg: Config) -> None:
+    """Raise for a knob whose code path does not run on bands of rows."""
+    bad = [name for name, on in (("the border-relaxed CE (--jointwtborder)",
+                                  cfg.data.jointwtborder),
+                                 ("the FFT transforms (--freq-transform)",
+                                  bool(cfg.data.freq_transform)),
+                                 ("the fused BN statistics (fuse_bn_stats)",
+                                  cfg.train.fuse_bn_stats)) if on]
+    if bad:
+        raise NotImplementedError(f"spatial parallelism with {', '.join(bad)} is not ported "
+                                  f"(ROADMAP A14: spatial parallelism for the extras)")
 
 
 def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                cfg: Config, perturb: Optional[PerturbArgs] = None,
                impl: Optional[str] = None,
-               dropout: Union[torch.Tensor, List[torch.Tensor], None] = None
+               dropout: Union[torch.Tensor, List[torch.Tensor], None] = None,
+               hw: Optional[Tuple[int, int]] = None
                ) -> Dict[str, torch.Tensor]:
     """One SGD step on ``state`` in place; returns ``{"loss", "gate_oc",
     "gate_np", "gate_dec"}`` (the loss a device tensor, the gates bools).
@@ -144,10 +171,14 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     keep masks. Under accumulation either may carry a list with one entry
     per microbatch in its ``np0``/``np1`` or in itself. ``impl="plain"``
     runs every resize, and with ``cfg.train.fuse_bn_stats`` every fused
-    1x1, through its plain version.
+    1x1, through its plain version. ``hw``: the images' global (h, w) when
+    they are this rank's band of rows (spatial parallelism).
     """
     model = state.model
     device = images.device
+    spatial = hw is not None and current_mesh().sp > 1
+    if spatial:
+        check_spatial(cfg)
     accum = max(1, cfg.train.accum_steps)
     if images.shape[0] % accum:
         raise ValueError(f"batch {images.shape[0]} (this process's) not divisible by "
@@ -177,9 +208,11 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
         # from the product's own sums (mrfp_tpu/train/step.py:225-238)
         fusion = (bn_stats_fusion(impl) if cfg.train.fuse_bn_stats
                   else contextlib.nullcontext())
-        with autocast_for(cfg, device), fusion:
-            out = model(xi, impl=impl, perturb=mb_perturb, dropout=_pick(dropout, i))
-        loss = _loss(out, li, cfg, class_weights, reduce_now, impl)
+        with bands(*hw) if spatial else contextlib.nullcontext():
+            with autocast_for(cfg, device), fusion:
+                out = model(xi, impl=impl, perturb=mb_perturb, dropout=_pick(dropout, i),
+                            **({} if hw is None else {"hw": hw}))
+            loss = _loss(out, li, cfg, class_weights, reduce_now, impl)
         if i == 0:
             # after the first forward is queued, so the host's pass over
             # every parameter overlaps the device's work

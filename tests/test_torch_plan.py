@@ -187,8 +187,58 @@ def test_the_count_is_what_the_modules_imply(group):
 
 @pytest.mark.parametrize("flag", ["--model-parallel", "--spatial-parallel"])
 def test_other_meshes_are_refused(flag):
-    with pytest.raises(NotImplementedError, match="A14"):
-        plan.main(PLAN + [flag, "2"])
+    """Tensor parallelism stays refused (ROADMAP A14); a spatial axis
+    wider than the rows of the deepest map (2 for r18-D32 at 64 px), where
+    a rank would hold no row of it, too."""
+    if flag == "--model-parallel":
+        with pytest.raises(NotImplementedError, match="A14"):
+            plan.main(PLAN + [flag, "2"])
+    else:
+        with pytest.raises(ValueError, match="exceeds the 2 rows"):
+            plan.main(PLAN + [flag, "4"])
+
+
+def test_plan_of_a_spatial_mesh(tmp_path):
+    """``cli.plan --spatial-parallel 2`` (one data rank, r18-D32, global
+    batch 2 at 64 px) runs the two ranks of the mesh: it reports the mesh
+    and 2 devices, the halo all-reduces over the spatial group apart from
+    the statistics, and the state bytes of the JAX planner's TrainState for
+    the same launch (spatial parallelism replicates the state,
+    mrfp_tpu/cli/plan.py:57-58,74-75), byte for byte."""
+    from mrfp_tpu.core.config import mrfp_plus_config
+    from mrfp_tpu.models import MRFP
+    from mrfp_tpu.perturb import oc_init
+    from mrfp_tpu.train import create_train_state
+    out = tmp_path / "plan.json"
+    argv = ["--device", "cpu", "--trunk", "resnet-18", "--variant", "D32", "--batch-size", "2",
+            "--crop-size", "64", "--data-parallel", "1", "--spatial-parallel", "2"]
+    proc = subprocess.run([sys.executable, "-m", "mrfp_tpu_torch.cli.plan", *argv,
+                           "--json-out", str(out)], cwd=REPO, env=env(), capture_output=True,
+                          text=True, timeout=900)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    rep = json.load(open(out))
+    assert rep["mesh"] == {"data": 1, "model": 1, "spatial": 2} and rep["devices"] == 2
+    groups = rep["collectives_by_group"]
+    assert groups["spatial"]["halo"]["count"] > 0 and groups["spatial"]["stats"]["count"] > 0
+    assert set(groups) == {"spatial", "world"} and set(groups["world"]) == {"stats"}
+    total = sum(v["bytes"] for d in groups.values() for v in d.values())
+    assert total == rep["collectives_by_dtype"]["all-reduce"]["f32"]["bytes"] + \
+        rep["collectives_by_dtype"]["all-reduce"].get("s64", {"bytes": 0})["bytes"]
+    assert "over the spatial group: halo" in proc.stdout
+    cfg = mrfp_plus_config()
+    model = MRFP(num_classes=cfg.model.num_classes, trunk="resnet-18", variant="D32",
+                 wt_layer=cfg.model.wt_layer, hrfp_plus=cfg.model.hrfp_plus,
+                 dtype=jnp.bfloat16)
+    state = jax.eval_shape(lambda: create_train_state(
+        model, cfg.train, (1, 64, 64, 3), oc_params=oc_init(jax.random.PRNGKey(1))))
+
+    def size(tree) -> int:
+        return sum(int(np.prod(x.shape)) * np.dtype(x.dtype).itemsize
+                   for x in jax.tree_util.tree_leaves(tree))
+
+    trace = [t for t in state.opt_state if type(t).__name__ == "TraceState"]
+    assert rep["per_chip_bytes"] == {"params": size(state.params), "momentum": size(trace),
+                                     "batch_stats": size(state.batch_stats)}
 
 
 def test_without_a_group_nothing_is_issued_or_counted():

@@ -360,11 +360,13 @@ def test_cli_train_cpu_runs_and_resumes(tmp_path):
 def test_unported_flags_raise():
     """Flags of the JAX trainer whose code paths stay unported raise and
     name their ROADMAP item (the accumulation, the training extras, the
-    data-parallel flags and ``--snapshot-every``, which this test named
-    before, run since they were ported; a mesh other than the one data axis
-    is A14's)."""
+    data-parallel flags, ``--snapshot-every`` and ``--spatial-parallel``,
+    which this test named before, run since they were ported; a data axis
+    other than the processes left by the spatial one, the model axis and
+    the cross-row extras on bands are A14's)."""
     for extra, item in ((["--data-parallel", "2"], "A14"), (["--model-parallel", "2"], "A14"),
-                        (["--spatial-parallel", "2"], "A14")):
+                        (["--num-processes", "2", "--spatial-parallel", "2", "--jointwtborder"],
+                         "A14")):
         with pytest.raises(NotImplementedError, match=item):
             cli_train.main(["--device", "cpu", "--synthetic", *extra])
 
