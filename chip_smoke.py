@@ -3465,26 +3465,28 @@ def _hold_band_resizes(resizes, backward: bool, cuda_gen, sp: int = SP_WORLD) ->
     return held
 
 
-def _sp_step(batch: int, dtype: str, mesh=None, noise: float = 0.0, damped=None):
+def _sp_step(batch: int, dtype: str, mesh=None, noise: float = 0.0, damped=None, cfg=None):
     """One step of ``_dp_setup(batch, dtype, damped)`` (by default damped in
-    fp32): on the whole batch, or with a spatial ``mesh`` on this rank's
-    band of every image's rows; the images x (1 + ``noise`` x N(0, 1)).
-    Every resize call recorded: ``(state before, loss, state after,
-    gradients, calls)``, the tensors on the host."""
-    from mrfp_tpu_torch.core.mesh import spatial_sharding
-    from mrfp_tpu_torch.train.step import train_step
+    fp32), with ``cfg`` in place of its config where given: on the whole
+    batch, or with a spatial ``mesh`` on this rank's band of every image's
+    rows (``band_batch``: an FFT transform on the whole images first); the
+    images x (1 + ``noise`` x N(0, 1)). Every resize call recorded:
+    ``(state before, loss, state after, gradients, calls)``, the tensors on
+    the host."""
+    from mrfp_tpu_torch.train.step import band_batch, train_step
     damped = dtype == "float32" if damped is None else damped
-    cfg, state, perturb, img, lbl = _dp_setup(batch, dtype, damped)
+    setup_cfg, state, perturb, img, lbl = _dp_setup(batch, dtype, damped)
+    cfg = cfg or setup_cfg
     eps = torch.randn(img.shape, generator=torch.Generator().manual_seed(2)).to(img.device)
     img = img.float() * (1 + noise * eps)
     hw = None
     if mesh is not None:
-        img, lbl, hw = spatial_sharding(mesh, img), spatial_sharding(mesh, lbl), (CROP, CROP)
+        img, lbl, hw = band_batch(mesh, img, lbl, cfg)
     host = lambda d: {k: v.detach().to("cpu", copy=True) for k, v in d.items()}  # noqa: E731
     before = host(state.model.state_dict())
     with _recording() as calls:
         loss = train_step(state, img.contiguous(), lbl.contiguous(), cfg, perturb=perturb,
-                          hw=hw)["loss"]
+                          hw=hw, transformed=hw is not None)["loss"]
     grads = host({k: p.grad for k, p in state.model.named_parameters()})
     return before, loss.item(), host(state.model.state_dict()), grads, calls
 
@@ -3820,13 +3822,15 @@ def _zoo_dp_setup(batch: int, dtype: str):
 
 
 def _zoo_dp_step(rows: slice, noise: float = 0.0, steps=None, batch: int = ZOO_DP_N,
-                 dtype: str = "bfloat16") -> dict:
+                 dtype: str = "bfloat16", mesh=None) -> dict:
     """The statistics pass, then one zoo step of ``_zoo_dp_setup(batch,
-    dtype)`` on ``rows`` of its batch, the images x (1 + ``noise`` x N(0,
-    1)), with every resize call recorded and the step's collectives and
-    launches counted; then ``steps`` more steps timed. The tensors (the
+    dtype)`` on ``rows`` of its batch (with a spatial ``mesh``, this rank's
+    band of every view's and image's rows), the images x (1 + ``noise`` x
+    N(0, 1)), with every resize call recorded and the step's collectives
+    and launches counted; then ``steps`` more steps timed. The tensors (the
     state before and after, the gradients) come back on the host, with the
     names of SwitchWhiten's parameters."""
+    from mrfp_tpu_torch.core.mesh import spatial_sharding
     from mrfp_tpu_torch.models.deepv3_zoo import build_cov_layers
     from mrfp_tpu_torch.nn.norms import SwitchWhiten2d
     from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
@@ -3838,12 +3842,15 @@ def _zoo_dp_step(rows: slice, noise: float = 0.0, steps=None, batch: int = ZOO_D
     eps = torch.randn(img.shape, generator=torch.Generator().manual_seed(2)).to(img.device)
     img = (img.float() * (1 + noise * eps))[rows].contiguous()
     lbl = lbl[rows].contiguous()
+    hw = None
+    if mesh is not None:
+        img, lbl, hw = spatial_sharding(mesh, img), spatial_sharding(mesh, lbl), (CROP, CROP)
     host = lambda d: {k: v.detach().to("cpu", copy=True) for k, v in d.items()}  # noqa: E731
     before = host(state.model.state_dict())
     torch.cuda.synchronize()
     reset_launches()
     with _recording() as calls, count_collectives() as log:
-        m = zoo_train_step(state, img, lbl, cfg, masks, nrc)
+        m = zoo_train_step(state, img, lbl, cfg, masks, nrc, hw=hw)
         losses = {k: float(v) for k, v in m.items() if k.startswith("loss")}
     launched = dict(LAUNCHES)
     after = host(state.model.state_dict())
@@ -3854,13 +3861,13 @@ def _zoo_dp_step(rows: slice, noise: float = 0.0, steps=None, batch: int = ZOO_D
     for _ in range(steps or 0):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        zoo_train_step(state, img, lbl, cfg, masks, nrc)
+        zoo_train_step(state, img, lbl, cfg, masks, nrc, hw=hw)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return {"before": before, "losses": losses, "after": after, "grads": grads, "sw": sw,
             "launched": launched, "masks": [t.cpu() for t in masks], "nrc": nrc, "ms": times,
             "collectives": [vars(c) for c in log],
-            "calls": [(k, _dtype_name(d), i, o) for k, d, i, o in calls]}
+            "calls": [(c[0], _dtype_name(c[1])) + tuple(c[2:]) for c in calls]}
 
 
 def zoo_dp_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
@@ -4096,7 +4103,7 @@ def phase_zoo_data_parallel(cuda_gen, dp_bill=None) -> dict:
                                  "resize_nearest")) <= 0:
         raise AssertionError(f"zoo data parallel: a resize kernel was not launched: {launched}")
     for res in ranks + [one, one32]:
-        _all_held([(k, getattr(torch, d), i, o) for k, d, i, o in res["calls"]],
+        _all_held([(c[0], getattr(torch, c[1])) + tuple(c[2:]) for c in res["calls"]],
                   "zoo data parallel: a step")
 
     if report is None:
@@ -4124,6 +4131,393 @@ def phase_zoo_data_parallel(cuda_gen, dp_bill=None) -> dict:
             or not all(math.isfinite(v) for v in result["losses"].values()):
         raise AssertionError(f"cli.train_zoo on NCCL: rc {procs['nccl'].returncode}, result "
                              f"{result}, stderr {outs['nccl'][1][-3000:]}")
+    return launched
+
+
+# the spatial phase of the zoo and the extras: SP_WORLD ranks on the one card.
+# The zoo leg is phase_zoo_data_parallel's recipe (_zoo_dp_setup) on bands:
+# fp32 on the damped fixture at SPZ_FP32_N, bf16 at TRAIN_N; the extras leg
+# the MRFP+ R50-D16 bf16 step at TRAIN_N with --jointwtborder, phot and
+# fuse_bn_stats (_spx_cfg); the eval leg SPZ_EVAL_ARCH at H x W
+SPZ_FP32_N = 4
+SPZ_EVAL_ARCH = "DeepSEResNext50V3PlusD"
+DOT_CHECKED = set()
+
+
+def _dot_key(dtype, x_shape, w_shape) -> tuple:
+    return ("dot_with_stats", _dtype_name(dtype), tuple(x_shape), tuple(w_shape))
+
+
+@contextlib.contextmanager
+def _dot_recording():
+    """Yields a list that collects the ``_dot_key`` of every
+    ``dot_with_stats`` kernel call made inside the block."""
+    from mrfp_tpu_torch.ops import cuda_dot_stats
+    calls, fn = [], cuda_dot_stats.dot_with_stats_cuda
+
+    def spy(x, w):
+        calls.append(_dot_key(x.dtype, x.shape, w.shape))
+        return fn(x, w)
+
+    cuda_dot_stats.dot_with_stats_cuda = spy
+    try:
+        yield calls
+    finally:
+        cuda_dot_stats.dot_with_stats_cuda = fn
+
+
+def _hold_band_dots(calls, cuda_gen, sp: int = SP_WORLD) -> int:
+    """Holds ``dot_with_stats`` at every band shape that ``sp`` ranks give
+    the whole-map calls ``calls`` (``_dot_recording``'s keys: a band of the
+    product's rows, the fetched rows of a strided 1x1 sliced to them), in
+    bf16 and fp32, against the plain version within ``_dot_stats_check``'s
+    bounds. Returns the band shapes held."""
+    from mrfp_tpu_torch.parallel.dist import band
+    shapes = set()
+    for _kind, _dt, (n, cin, oh, ow), (cout, _cin) in set(calls):
+        for r in range(sp):
+            o0, o1 = band(oh, sp, r)
+            shapes.add((n, cin, o1 - o0, ow, cout))
+    worst = 0.0
+    with _strict_fp32():
+        for n, cin, rows, ow, cout in sorted(shapes):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((n, cin, rows, ow), device=DEV, generator=cuda_gen).to(dtype)
+                w = (torch.randn((cout, cin), device=DEV, generator=cuda_gen)
+                     * cin ** -0.5).to(dtype)
+                worst = max(worst, _dot_stats_check(f"band ({rows} rows)", x, w)[1])
+                DOT_CHECKED.add(_dot_key(dtype, x.shape, w.shape))
+    del x, w
+    torch.cuda.empty_cache()
+    print(f"dot_with_stats at the {len(shapes)} band shapes of {sp} ranks (the fused step's "
+          f"{len(set(calls))} shapes, strided 1x1s on their fetched rows), bf16 and fp32: "
+          f"within the bounds, y max_abs_err {worst:.3e}")
+    return len(shapes)
+
+
+def _hold_band_hist(cuda_gen, sp: int = SP_WORLD) -> None:
+    """The confusion matrix at the eval leg's bands of H x W (one image,
+    19 classes, 10% ignore labels): the kernel exactly equal to the plain
+    version."""
+    from mrfp_tpu_torch.ops import cuda_hist
+    from mrfp_tpu_torch.parallel.dist import band
+    for r in range(sp):
+        lo, hi = band(H, sp, r)
+        pred = torch.randint(0, 19, (1, hi - lo, W), device=DEV, generator=cuda_gen)
+        label = torch.randint(0, 19, (1, hi - lo, W), device=DEV, generator=cuda_gen)
+        label[torch.rand(label.shape, device=DEV, generator=cuda_gen) < 0.1] = 255
+        got = cuda_hist.confusion_matrix_cuda(torch.zeros(19, 19, dtype=torch.int32, device=DEV),
+                                              pred, label, 19)
+        if not torch.equal(got, cuda_hist.confusion_matrix_plain(pred, label, 19)):
+            raise AssertionError(f"confusion_matrix band {r} of {sp} (1,{hi - lo},{W}): "
+                                 f"kernel != plain")
+    print(f"confusion_matrix at the {sp} bands of 1x{H}x{W}: exactly equal to plain")
+
+
+def _spz_fp64_grads(masks, nrc) -> dict:
+    """The gradients of the one-process fp32 step ``_zoo_dp_step(...,
+    SPZ_FP32_N, "float32")`` taken in fp64 (the model, the images, the
+    losses, with the fp32 pass's masks; the resizes' plain versions
+    interpolate in fp32), on the host in fp32: the reference of the fp32
+    rule's fallback, as ``_sp_fp64_grads`` is the MRFP leg's."""
+    from mrfp_tpu_torch.train.zoo_step import zoo_train_step
+    cfg, state, _pairs, img, lbl = _zoo_dp_setup(SPZ_FP32_N, "float32")
+    state.model.double()
+    zoo_train_step(state, img.double(), lbl, cfg, [m.to(DEV) for m in masks], nrc,
+                   impl="plain")
+    return {k: p.grad.float().to("cpu") for k, p in state.model.named_parameters()}
+
+
+def _spx_cfg():
+    """The extras leg: the bf16 MRFP+ recipe at TRAIN_N with the border-relaxed
+    CE (window 1), the PHOT transform and the fused BN statistics."""
+    cfg = _train_cfg(TRAIN_N, "bfloat16")
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, jointwtborder=True, freq_transform="phot"),
+        train=dataclasses.replace(cfg.train, fuse_bn_stats=True))
+
+
+def _spz_eval(mesh=None):
+    """``SPZ_EVAL_ARCH`` with ``cli.eval``'s seeded weights, fp32 (TF32 off,
+    cuDNN deterministic): ``SegEvaluator`` over one synthetic H x W image, on
+    the whole image or this rank's bands; every resize call recorded and the
+    run's launches counted: ``(hist, calls, launches)``."""
+    from mrfp_tpu_torch.cli import eval as cli_eval
+    from mrfp_tpu_torch.data import SyntheticDataset
+    from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
+    from mrfp_tpu_torch.train.evaluator import SegEvaluator
+    model = cli_eval.build_model(cli_eval.parse_args(["--arch", SPZ_EVAL_ARCH]),
+                                 torch.Generator().manual_seed(0)).to(DEV).eval()
+    with _strict_fp32(), _recording() as calls:
+        torch.cuda.synchronize()
+        reset_launches()
+        res = SegEvaluator(model, device=DEV, mesh=mesh).run(
+            SyntheticDataset(length=1, hw=(H, W)), log=lambda *a, **k: None)
+        launched = dict(LAUNCHES)
+    return (torch.as_tensor(res["hist"]),
+            [(c[0], _dtype_name(c[1])) + tuple(c[2:]) for c in calls], launched)
+
+
+def _spx_counted(fn):
+    """``fn()``'s result with the launches, the ``dot_with_stats`` calls and
+    the peak GiB above what was held before it (its set-up included) of
+    the run."""
+    from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with _dot_recording() as dots:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, {"launched": dict(LAUNCHES), "dots": dots,
+                 "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+
+
+def spx_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
+    """One rank of ``phase_spatial_zoo_extras`` (its own process): joins the
+    gloo group, lays out one spatial group, takes the fp32 and the bf16 zoo
+    steps (and one timed bf16 step), the bf16 extras step and the eval
+    leg's evaluator on its bands, and writes what it saw to
+    ``out/rank<rank>.pt``."""
+    from mrfp_tpu_torch.core.config import MeshConfig
+    from mrfp_tpu_torch.core.mesh import create_mesh
+    from mrfp_tpu_torch.parallel import dist
+    from mrfp_tpu_torch.parallel.audit import Collective, count_collectives, summarize_by_group
+    dist.initialize_distributed(rendezvous, world, rank, DEV, backend="gloo", timeout_s=600)
+    try:
+        mesh = create_mesh(MeshConfig(data_parallel=1, spatial_parallel=world))
+        with _strict_fp32():
+            z32 = _zoo_dp_step(slice(None), batch=SPZ_FP32_N, dtype="float32", mesh=mesh)
+        zoo, zoo_run = _spx_counted(lambda: _zoo_dp_step(slice(None), steps=1, mesh=mesh))
+        zoo_run["collectives"] = summarize_by_group(
+            [Collective(**{**c, "shape": tuple(c["shape"])}) for c in zoo["collectives"]])
+        with count_collectives() as log:
+            (_, loss, after, _, calls), extras_run = _spx_counted(
+                lambda: _sp_step(TRAIN_N, "bfloat16", mesh, cfg=_spx_cfg()))
+        extras_run["collectives"] = summarize_by_group(log)
+        hist, eval_calls, eval_launched = _spz_eval(mesh)
+        launched = {k: zoo["launched"][k] + extras_run["launched"][k] + eval_launched[k]
+                    for k in zoo["launched"]}
+        torch.save({"z32": {k: z32[k] for k in ("losses", "grads", "masks", "nrc")},
+                    "zoo": {**{k: zoo[k] for k in ("losses", "after", "masks", "nrc", "ms")},
+                            **zoo_run},
+                    "extras": {"loss": loss, "after": after, **extras_run},
+                    "hist": hist, "launched": launched,
+                    "calls": z32["calls"] + zoo["calls"] + eval_calls
+                    + [(c[0], _dtype_name(c[1])) + tuple(c[2:]) for c in calls]},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_spatial_zoo_extras(cuda_gen) -> dict:
+    """Spatial parallelism for the zoo and the training extras on the one
+    card: ``SP_WORLD`` ranks, each a process of its own (``spx_rank``),
+    share the card through gloo and split every image's rows.
+
+    One process first takes the same runs on whole images, recording every
+    resize and ``dot_with_stats`` call; every band table and band shape the
+    ranks will make of them is held against the plain versions
+    (``_hold_band_resizes``, ``_hold_band_dots``, ``_hold_band_hist``), and
+    every resize call of the ranks must be at a held band, every
+    ``dot_with_stats`` call at a held shape.
+
+    - Zoo leg (``_zoo_dp_setup``: DeepR50V3PlusD, ISW slots 2-3,
+      SwitchWhiten slot 4, the whitening loss, the DSN head, 768x768): the
+      statistics pass's masks on the ranks' bands equal one process's; fp32
+      on the damped fixture at batch ``SPZ_FP32_N``: each loss within 1e-5
+      relative of one process's, every gradient within 3x a 1e-7-input
+      control + 1e-4 of its norm, or no further from the step in fp64
+      (``_spz_fp64_grads``) than 3x one process's distance + 1e-4; bf16 at
+      batch ``TRAIN_N``: the loss within 2^-9 or 3x the half-ulp-input
+      control, the ranks bit-identical, each running statistic's move
+      within 3x the control + 2e-2. Each rank's peak GiB above its set-up
+      beside one process's, its collectives a step by group (halo rows
+      apart from statistics) and its step ms (gloo through the host: a
+      correctness time).
+    - Extras leg (``_spx_cfg``): the bf16 MRFP+ step with the relaxed CE,
+      PHOT and the fused BN statistics: the loss within 2^-9 or 3x the
+      control, the ranks bit-identical, the statistics' moves within 3x
+      the control + 1e-2 and the parameters' within 3x + 2e-2
+      (``phase_spatial_parallel``'s rules).
+    - Eval leg: ``SegEvaluator`` over one H x W image of ``SPZ_EVAL_ARCH``
+      (its ceil-mode stem pool and SE pools on bands) against one process:
+      the histograms equal or apart in at most 0.01% of the pixels (argmax
+      ties); then ``cli.eval --arch SPZ_EVAL_ARCH --spatial-parallel 2``
+      against ``cli.eval``: the pixels equal and the accuracy within 1e-4.
+
+    Returns the ranks' summed launches of the zoo and extras steps and the
+    evaluator."""
+    t0 = time.perf_counter()
+    with _strict_fp32(), _resizes_run() as fp32_resizes:
+        one32 = _zoo_dp_step(slice(None), batch=SPZ_FP32_N, dtype="float32")
+        ctrl32 = _zoo_dp_step(slice(None), 1e-7, batch=SPZ_FP32_N, dtype="float32")
+    with _strict_fp32():
+        ref64 = _spz_fp64_grads(one32["masks"], one32["nrc"])
+    with _resizes_run() as bf16_resizes:
+        zoo, zoo_run = _spx_counted(lambda: _zoo_dp_step(slice(None), steps=1))
+    zoo_ctrl = _zoo_dp_step(slice(None), 2.0 ** -9)
+    with _resizes_run() as extras_resizes:
+        (x_before, x_loss, x_after, _, _), extras_run = _spx_counted(
+            lambda: _sp_step(TRAIN_N, "bfloat16", cfg=_spx_cfg()))
+    _, x_ctrl_loss, x_ctrl_after, _, _ = _sp_step(TRAIN_N, "bfloat16", noise=2.0 ** -9,
+                                                  cfg=_spx_cfg())
+    torch.cuda.empty_cache()
+    with _resizes_run() as eval_resizes:
+        one_hist, _, _ = _spz_eval()
+    torch.cuda.empty_cache()
+    held = (_hold_band_resizes(fp32_resizes | bf16_resizes | extras_resizes, True, cuda_gen)
+            + _hold_band_resizes(eval_resizes, False, cuda_gen))
+    dot_shapes = _hold_band_dots(extras_run["dots"], cuda_gen)
+    _hold_band_hist(cuda_gen)
+    torch.cuda.empty_cache()
+    print(f"spatial zoo and extras: {held} band resize calls of {SP_WORLD} ranks held against "
+          f"the plain versions ({len(fp32_resizes | bf16_resizes)} zoo resizes fp32 and bf16, "
+          f"{len(extras_resizes)} extras resizes, forward exactly equal, backward within the "
+          f"bound; {len(eval_resizes)} eval resizes, forward exactly equal), {dot_shapes} "
+          f"dot_with_stats band shapes; one process's runs {time.perf_counter() - t0:.1f} s")
+
+    ranks, seconds = _run_ranks("spx_rank")
+    for r in ranks:
+        _all_held([(c[0], getattr(torch, c[1])) + tuple(c[2:]) for c in r["calls"]],
+                  "spatial zoo and extras: a rank's runs")
+        missing = sorted(set(map(tuple, r["extras"]["dots"])) - DOT_CHECKED, key=str)
+        if missing:
+            raise AssertionError(f"spatial extras: dot_with_stats ran at shapes no phase held: "
+                                 f"{missing}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+
+    # the zoo leg, fp32
+    r32 = ranks[0]["z32"]
+    masks_ok = all(r["z32"]["nrc"] == one32["nrc"] and r["zoo"]["nrc"] == zoo["nrc"]
+                   and all(torch.equal(a, b) for a, b in zip(r["z32"]["masks"], one32["masks"]))
+                   and all(torch.equal(a, b) for a, b in zip(r["zoo"]["masks"], zoo["masks"]))
+                   for r in ranks)
+    loss32 = {k: abs(r32["losses"][k] - v) / max(abs(v), 1e-30)
+              for k, v in one32["losses"].items()}
+    ratio32, grounded = {}, []
+    for k, g in one32["grads"].items():
+        got = r32["grads"][k]
+        ratio32[k] = float((got - g).norm()) / (3 * float((ctrl32["grads"][k] - g).norm())
+                                                + 1e-4 * float(g.norm()) + 1e-12)
+        if ratio32[k] > 1:  # the fp64-grounded rule
+            ref = ref64[k].double()
+            ratio32[k] = float((got.double() - ref).norm()) / (
+                3 * float((g.double() - ref).norm()) + 1e-4 * float(ref.norm()) + 1e-12)
+            grounded.append((k, round(ratio32[k], 3)))
+    worst32 = sorted(ratio32.items(), key=lambda kv: -kv[1])[:3]
+    print(f"spatial zoo fp32 (TF32 off, deterministic), damped fixture: DeepR50V3PlusD wt "
+          f"{''.join(ZOO_DP_WT)}, DSN, {SP_WORLD} ranks x a band of {SPZ_FP32_N} images "
+          f"against one process, {CROP}x{CROP}: masks (fp32 and bf16 passes) equal to one "
+          f"process's: {masks_ok}; losses rel {({k: float(f'{v:.3e}') for k, v in loss32.items()})}"
+          f"; gradients of {len(ratio32)} tensors, worst error / bound "
+          f"{[(k, round(v, 3)) for k, v in worst32]}, median "
+          f"{statistics.median(ratio32.values()):.3f}; held to the fp64 step instead (over 3x "
+          f"the control): {len(grounded)} {grounded[:8]}")
+
+    def moved(res: dict, base: dict, k: str) -> torch.Tensor:
+        return res[k].double() - base[k].double()
+
+    def bf16_moves(two: dict, one: dict, ctrl: dict, base: dict, stats_bound: float,
+                   param_bound: float):
+        err, control = {}, {}
+        for k, v in one.items():
+            if v.is_floating_point() and moved(one, base, k).norm() > 0:
+                err[k] = _rel(moved(two, base, k), moved(one, base, k))
+                control[k] = _rel(moved(ctrl, base, k), moved(one, base, k))
+        over = {k: (v, control[k]) for k, v in err.items()
+                if v > 3 * control[k] + (stats_bound if "running" in k else param_bound)}
+        return err, control, over
+
+    # the zoo leg, bf16
+    zr = [r["zoo"] for r in ranks]
+    same_zoo = [k for k, v in zr[0]["after"].items() if not torch.equal(v, zr[1]["after"][k])]
+    zloss, zone = zr[0]["losses"]["loss"], zoo["losses"]["loss"]
+    zloss_err = abs(zloss - zone) / abs(zone)
+    zloss_ctrl = abs(zoo_ctrl["losses"]["loss"] - zone) / abs(zone)
+    zerr, zcontrol, zover = bf16_moves(zr[0]["after"], zoo["after"], zoo_ctrl["after"],
+                                       zoo["before"], 2e-2, float("inf"))
+    zstats = [k for k in zerr if "running" in k]
+    print(f"spatial zoo bf16: {SP_WORLD} ranks x a band of {TRAIN_N} images over gloo, "
+          f"{CROP}x{CROP}, against one process: losses "
+          f"{ {k: round(v, 6) for k, v in zr[0]['losses'].items()} } vs "
+          f"{ {k: round(v, 6) for k, v in zoo['losses'].items()} }, loss rel {zloss_err:.3e} "
+          f"(bound {max(2.0 ** -9, 3 * zloss_ctrl):.3e}); running-statistic moves off one "
+          f"process's, {len(zstats)} tensors: median "
+          f"{statistics.median(zerr[k] for k in zstats):.3e} (control "
+          f"{statistics.median(zcontrol[k] for k in zstats):.3e}); ranks identical: "
+          f"{not same_zoo}")
+    for r, res in enumerate(zr):
+        print(f"spatial zoo rank {r}: peak {res['peak_gib']:.3f} GiB above what it held "
+              f"before the step's set-up (one process {zoo_run['peak_gib']:.3f} GiB); "
+              f"collectives a bf16 step {json.dumps(res['collectives'], sort_keys=True)}; "
+              f"a timed step {res['ms'][0]:.1f} ms (one process {zoo['ms'][0]:.1f} ms; gloo "
+              f"through the host: a correctness time); card {card}")
+
+    # the extras leg
+    xr = [r["extras"] for r in ranks]
+    same_x = [k for k, v in xr[0]["after"].items() if not torch.equal(v, xr[1]["after"][k])]
+    xloss_err = abs(xr[0]["loss"] - x_loss) / abs(x_loss)
+    xloss_ctrl = abs(x_ctrl_loss - x_loss) / abs(x_loss)
+    xerr, xcontrol, xover = bf16_moves(xr[0]["after"], x_after, x_ctrl_after, x_before, 1e-2,
+                                       2e-2)
+    xstats = [k for k in xerr if "running" in k]
+    print(f"spatial extras bf16 (relaxed CE, PHOT, fused BN statistics; all gates on): "
+          f"{SP_WORLD} ranks x a band of {TRAIN_N} images against one process: loss "
+          f"{xr[0]['loss']:.6f} vs {x_loss:.6f}, rel {xloss_err:.3e} (bound "
+          f"{max(2.0 ** -9, 3 * xloss_ctrl):.3e}); BN statistics' moves median "
+          f"{statistics.median(xerr[k] for k in xstats):.3e} (control "
+          f"{statistics.median(xcontrol[k] for k in xstats):.3e}); ranks identical: "
+          f"{not same_x}")
+    for r, res in enumerate(xr):
+        print(f"spatial extras rank {r}: peak {res['peak_gib']:.3f} GiB above what it held "
+              f"before the step's set-up (one process {extras_run['peak_gib']:.3f} GiB); "
+              f"collectives a step {json.dumps(res['collectives'], sort_keys=True)}; "
+              f"dot_with_stats calls {len(res['dots'])}; card {card}")
+
+    # the eval leg
+    hist_moved = [int((r["hist"].long() - one_hist.long()).abs().sum()) // 2 for r in ranks]
+    pixels = int(one_hist.sum())
+    arch = ["--arch", SPZ_EVAL_ARCH]
+    one_eval, two_eval = _cli_eval_json(arch), _cli_eval_json(arch + ["--spatial-parallel", "2"])
+    launched = {k: sum(r["launched"][k] for r in ranks) for k in ranks[0]["launched"]}
+    print(f"spatial zoo eval fp32 {SPZ_EVAL_ARCH} 1x3x{H}x{W}: SegEvaluator pixels moved "
+          f"{hist_moved} of {pixels}; cli.eval --spatial-parallel 2 {two_eval} vs cli.eval "
+          f"{one_eval}; launches (both ranks: the zoo and extras steps and the evaluator) "
+          f"{launched}; {seconds:.1f} s for the ranks end to end")
+
+    if not masks_ok:
+        raise AssertionError("spatial zoo: the statistics pass's masks differ from one "
+                             "process's")
+    if any(not math.isfinite(v) or v > 1e-5 for v in loss32.values()) or worst32[0][1] > 1:
+        raise AssertionError(f"spatial zoo fp32: losses rel {loss32}, gradients over their "
+                             f"bounds {[kv for kv in worst32 if kv[1] > 1]}")
+    if same_zoo or same_x:
+        raise AssertionError(f"spatial zoo and extras: ranks differ at {same_zoo + same_x}")
+    if not math.isfinite(zloss) or zloss_err > max(2.0 ** -9, 3 * zloss_ctrl):
+        raise AssertionError(f"spatial zoo bf16: loss {zloss} against one process's {zone}")
+    if not math.isfinite(xr[0]["loss"]) or xloss_err > max(2.0 ** -9, 3 * xloss_ctrl):
+        raise AssertionError(f"spatial extras bf16: loss {xr[0]['loss']} against one "
+                             f"process's {x_loss}")
+    if zover or xover:
+        raise AssertionError(f"spatial zoo and extras: moves off one process's beyond the "
+                             f"bounds: zoo {zover}, extras {xover}")
+    if not all(res["collectives"].get("spatial", {}).get("halo", {}).get("count", 0) > 0
+               and res["collectives"]["spatial"].get("stats", {}).get("count", 0) > 0
+               for res in zr + xr):
+        raise AssertionError("spatial zoo and extras: a rank fetched no halo rows or combined "
+                             "no band statistics")
+    if max(hist_moved) > 1e-4 * pixels:
+        raise AssertionError(f"spatial zoo eval: {hist_moved} of {pixels} pixels moved")
+    if two_eval["pixels"] != one_eval["pixels"] or \
+            not abs(two_eval["acc"] - one_eval["acc"]) <= 1e-4:
+        raise AssertionError(f"cli.eval --arch {SPZ_EVAL_ARCH} --spatial-parallel 2: "
+                             f"{two_eval} against {one_eval}")
+    if min(launched[k] for k in RESIZE_KERNELS + ("confusion_matrix", "dot_with_stats")) <= 0:
+        raise AssertionError(f"spatial zoo and extras: a kernel was not launched: {launched}")
     return launched
 
 
@@ -4182,13 +4576,16 @@ def main(argv=None) -> None:
     zoo_dp_launches = _phase(phase_zoo_data_parallel, cuda_gen, dp_bill)
     torch.cuda.empty_cache()
     sp_launches = _phase(phase_spatial_parallel, cuda_gen)
+    torch.cuda.empty_cache()
+    spx_launches = _phase(phase_spatial_zoo_extras, cuda_gen)
 
     def launches(name, *counted):
         """The kernel's count over the counted drives of its paths."""
         return sum(c[name] for c in counted)
 
     later_paths = (serving_launches, extras_launches, accum_launches, sliding_launches,
-                   zoo_launches, zoo_trunk_launches, dp_launches, zoo_dp_launches, sp_launches)
+                   zoo_launches, zoo_trunk_launches, dp_launches, zoo_dp_launches, sp_launches,
+                   spx_launches)
     src = "mrfp_tpu_torch/csrc/"
     kernels = [
         dict(name="resize_bilinear", route="cuda", source=src + "resize_bilinear.cu",
@@ -4210,12 +4607,13 @@ def main(argv=None) -> None:
         dict(name="confusion_matrix", route="cuda", source=src + "confusion_matrix.cu",
              replaces="mrfp_tpu/ops/pallas_hist.py:50",
              launches=launches("confusion_matrix", eval_launches, sliding_launches,
-                               zoo_launches, sp_launches),
+                               zoo_launches, sp_launches, spx_launches),
              **hist),
         dict(name="dot_with_stats", route="cuda", source=src + "dot_stats.cu",
              replaces="mrfp_tpu/ops/pallas_dot_stats.py:112",
-             launches=fused_launches["dot_with_stats"],
-             tensor_core_launches=fused_launches["dot_with_stats_tc"], **dot_stats),
+             launches=launches("dot_with_stats", fused_launches, spx_launches),
+             tensor_core_launches=launches("dot_with_stats_tc", fused_launches, spx_launches),
+             **dot_stats),
         dict(name="row_mix", route="cuda", source=src + "row_mix.cu",
              replaces="mrfp_tpu/ops/pallas_resize.py:74",
              launches=public_launches["row_mix"],

@@ -23,13 +23,14 @@ never falls back to the CPU.
 ``--spatial-parallel S`` splits every image's rows over S processes
 (mrfp_tpu/cli/eval.py:70,218-222; ``core/mesh.py``), the batch-1 serving
 case for an image whose activations exceed one card: each process runs the
-MRFP forward on its band, fetching the conv halos from its neighbours, and
+model's forward on its band, fetching the conv halos from its neighbours, and
 the histograms are summed. The processes come from torchrun or the flags
 ``--num-processes S --process-id R --coordinator-address``; without either,
 ``cli.eval`` starts the S ranks itself (``torch.multiprocessing``, a file
 rendezvous): on the cards through NCCL when there is one each, else
 sharing the card (or the CPU) through gloo. Rank 0 prints and writes the
-results. The zoo models refuse it (ROADMAP A14).
+results. The zoo models (``--arch``, ``--wt-layer``) take it too, their
+SwitchWhiten and instance whitening statistics spanning the bands.
 """
 
 from __future__ import annotations
@@ -189,16 +190,13 @@ def _dataset(args, domain: str):
 
 
 def check_spatial(args) -> None:
-    """Raise where ``--spatial-parallel`` cannot run: a zoo model, or a
-    process count other than S."""
+    """Raise where ``--spatial-parallel`` cannot run: a process count other
+    than S."""
     sp = args.spatial_parallel
     if sp < 1:
         raise ValueError(f"--spatial-parallel {sp}: need at least 1")
     if sp == 1:
         return
-    if getattr(args, "arch", None) or getattr(args, "wt_layer", None):
-        raise NotImplementedError("--spatial-parallel with a zoo model is not ported "
-                                  "(ROADMAP A14: spatial parallelism for the zoo)")
     nproc = args.num_processes if args.num_processes is not None else \
         int(os.environ.get("WORLD_SIZE", sp))
     if nproc != sp:

@@ -46,9 +46,11 @@ load the same samples (the data loader is sharded over the N/S data
 ranks), and each keeps its band of every image's rows; every map of the
 step is split in bands of rows, the convs, pools and resizes fetching
 their halo rows from the neighbours. ``--data-parallel`` may name N/S.
-Refused under S > 1: ``--model-parallel`` > 1 (tensor parallelism), the
-extras whose windows cross rows (``--jointwtborder``, ``--freq-transform``)
-and an S above the rows of the trunk's deepest map (ROADMAP A14).
+Every extra composes with it: ``--jointwtborder`` fetches the label rows
+its window reads, and ``--freq-transform`` runs on each sample's whole
+image before the band is cut (each rank of a spatial group repeats it).
+Refused: ``--model-parallel`` > 1 (ROADMAP A14, tensor parallelism), and
+an S above the rows of the trunk's deepest map.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ import json
 import logging
 import os
 import sys
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -166,10 +168,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def check_args(args) -> None:
-    """Raise on a flag whose code path the port does not have, and on a
-    global batch the processes cannot share."""
-    # the processes the run will have: the flag, else torchrun's, else 1
+def mesh_axes(args) -> Tuple[int, int, int]:
+    """The run's processes (``--num-processes``, else torchrun's, else 1)
+    and its data and spatial axes ``(nproc, dp, sp)``; raises where
+    ``--spatial-parallel`` does not divide the processes, the global batch
+    does not divide over the data axis, or a flag names a mesh the port
+    does not run (ROADMAP A14). ``cli.train_zoo`` takes the same flags."""
     nproc = args.num_processes if args.num_processes is not None else \
         int(os.environ.get("WORLD_SIZE", 1))
     if nproc < 1:
@@ -185,15 +189,18 @@ def check_args(args) -> None:
                                     "processes left by --spatial-parallel",
                                     args.data_parallel not in (None, -1, dp)),
                 "--model-parallel": ("A14: tensor parallelism",
-                                     args.model_parallel not in (None, 1)),
-                "--jointwtborder with --spatial-parallel": (
-                    "A14: spatial parallelism for the extras", sp > 1 and args.jointwtborder),
-                "--freq-transform with --spatial-parallel": (
-                    "A14: spatial parallelism for the extras",
-                    sp > 1 and bool(args.freq_transform))}
+                                     args.model_parallel not in (None, 1))}
     bad = [f"{flag} (ROADMAP {item})" for flag, (item, on) in unported.items() if on]
     if bad:
         raise NotImplementedError("not ported yet: " + ", ".join(bad))
+    return nproc, dp, sp
+
+
+def check_args(args) -> None:
+    """Raise on a flag whose code path the port does not have, on a global
+    batch the processes cannot share, and on a spatial split finer than
+    the smallest map."""
+    _nproc, _dp, sp = mesh_axes(args)
     from mrfp_tpu_torch.nn.resnet import check_trunk, deepest_rows
     check_trunk(args.trunk)  # the nine ResNets; the zoo's others raise JAX's ValueError
     rows = deepest_rows(args.crop_size, args.variant)
@@ -323,13 +330,13 @@ def _train(args, device: torch.device, watchdog) -> int:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     cfg = build_config(args)
-    from mrfp_tpu_torch.train.step import train_step
+    from mrfp_tpu_torch.train.step import band_batch, train_step
 
     from mrfp_tpu_torch.data.loader import TrainLoader
     from mrfp_tpu_torch.train.checkpoint import CheckpointManager
     from mrfp_tpu_torch.utils.experiment import prep_experiment
 
-    from mrfp_tpu_torch.core.mesh import create_mesh, spatial_sharding
+    from mrfp_tpu_torch.core.mesh import create_mesh
     rank, nproc = dist.rank(), dist.world()
     mesh = create_mesh(cfg.mesh)
     exp = prep_experiment(cfg, root=args.runs_dir, coordinator=dist.is_coordinator())
@@ -354,8 +361,8 @@ def _train(args, device: torch.device, watchdog) -> int:
     def step_fn(st, images, labels):
         if mesh.sp == 1:
             return train_step(st, images, labels, cfg)
-        return train_step(st, spatial_sharding(mesh, images), spatial_sharding(mesh, labels),
-                          cfg, hw=tuple(images.shape[1:3]))
+        x, y, hw = band_batch(mesh, images, labels, cfg)
+        return train_step(st, x, y, cfg, hw=hw, transformed=True)
 
     run_validation = None
     if args.eval_every:

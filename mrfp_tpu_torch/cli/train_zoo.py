@@ -28,7 +28,7 @@ Every trunk of the JAX zoo trains (``--trunk`` or ``--arch``, the 23
 factory names) with every iw code 0-5. Refused: an IRW slot (iw code 1)
 with ``--use-wtloss``, which the JAX trainer cannot run either (ROADMAP C6),
 and ``--use-wtloss`` with an ISW slot that the trunk does not read (C11);
-meshes other than one data axis (A14).
+``--model-parallel`` > 1 (A14, tensor parallelism).
 
 Data parallelism, one process per card, as ``cli.train`` runs it:
 
@@ -45,6 +45,20 @@ statistics phase over the same first ``--covstat-batches`` x (batch /
 processes) images, in batches of its local size, and then takes rank 0's
 masks. Only rank 0 writes the checkpoints, the logs and ``--json-out``;
 every rank resumes; validation splits the images across the processes.
+
+Spatial parallelism, as ``cli.train`` runs it (``core/mesh.py``):
+
+    python -m mrfp_tpu_torch.cli.train_zoo --num-processes 4 --spatial-parallel 2 ...
+
+lays the N processes out as a (N/S) x S mesh: the loader is sharded over
+the N/S data ranks, the S ranks of a spatial group load the same samples
+and each keeps its band of every image's rows, and every map of the step
+(SwitchWhiten's and ISW/IRW's statistics, the whitening loss, the DSN
+head) is split in bands of rows (``train/zoo_step.py``). ``--batch-size``
+is the global batch over the N/S data ranks; the statistics phase's pairs
+stay at the JAX trainer's batch over N. S may not exceed the rows of the
+trunk's smallest map (``models.deepv3_zoo.deepest_rows``: SE-ResNeXt's is
+at stride 32 whatever ``--variant`` says).
 ``--device cuda`` runs the hand-written kernels and exits non-zero when no
 CUDA device is present; it never falls back to the CPU. Exit 75 means the
 run was stopped by a signal and can resume.
@@ -56,7 +70,6 @@ import argparse
 import dataclasses
 import json
 import logging
-import os
 import sys
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -131,36 +144,42 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="host:port of rank 0's rendezvous, or a file:// path "
                         "(default: torchrun's MASTER_ADDR and MASTER_PORT)")
     p.add_argument("--data-parallel", type=int, default=-1,
-                   help="the data axis: -1 or the number of processes (other "
-                        "meshes are ROADMAP A14)")
-    for flag in ("--model-parallel", "--spatial-parallel"):
-        p.add_argument(flag, type=int, default=1, help="not ported: ROADMAP A14")
+                   help="the data axis: -1 or the number of processes over "
+                        "--spatial-parallel")
+    p.add_argument("--spatial-parallel", type=int, default=1,
+                   help="split every image's rows over this many processes (a band "
+                        "each), as cli.train does")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="not ported: ROADMAP A14 (tensor parallelism)")
     return p.parse_args(argv)
 
 
 def check_args(args) -> None:
     """Resolve ``--arch`` into ``--trunk``/``--variant`` and raise on what
-    the port cannot run: a global batch the processes cannot share, a mesh
-    (A14), an unknown trunk, and under ``--use-wtloss`` an IRW slot (ROADMAP C6: the
-    JAX trainer fails there with an AttributeError) or an ISW slot the
-    trunk does not read (C11: the statistics pass gets no map for it, and
-    the JAX trainer fails freezing its mask)."""
-    from mrfp_tpu_torch.models.deepv3_zoo import arch_trunk, check_zoo_trunk, iw_slots
+    the port cannot run: a mesh ``cli.train`` refuses (``mesh_axes``: a
+    global batch the data axis cannot share, a spatial axis that does not
+    divide the processes, tensor parallelism, A14), an unknown trunk, a
+    spatial split finer than the trunk's smallest map, and under
+    ``--use-wtloss`` an IRW slot (ROADMAP C6: the JAX trainer fails there
+    with an AttributeError) or an ISW slot the trunk does not read (C11:
+    the statistics pass gets no map for it, and the JAX trainer fails
+    freezing its mask). The statistics phase's batch, the global batch
+    over the processes, must be whole too."""
+    from mrfp_tpu_torch.cli.train import mesh_axes
+    from mrfp_tpu_torch.models.deepv3_zoo import (arch_trunk, check_zoo_trunk, deepest_rows,
+                                                  iw_slots)
     if args.arch:
         args.trunk, args.variant = arch_trunk(args.arch)
-    nproc = args.num_processes if args.num_processes is not None else \
-        int(os.environ.get("WORLD_SIZE", 1))
-    if nproc < 1:
-        raise ValueError(f"--num-processes {nproc}: need at least 1")
+    nproc, _dp, sp = mesh_axes(args)
     if args.batch_size % nproc:
         raise ValueError(f"--batch-size {args.batch_size} (the global batch) not divisible "
-                         f"by {nproc} processes")
-    bad = [flag for flag, on in (("--data-parallel", args.data_parallel not in (-1, nproc)),
-                                 ("--model-parallel", args.model_parallel != 1),
-                                 ("--spatial-parallel", args.spatial_parallel != 1)) if on]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)} (ROADMAP A14)")
+                         f"by {nproc} processes (the statistics phase's batch)")
     check_zoo_trunk(args.trunk)
+    rows = deepest_rows(args.trunk, args.variant, args.crop_size)
+    if sp > rows:
+        raise ValueError(f"--spatial-parallel {sp} exceeds the {rows} rows of {args.trunk}'s "
+                         f"smallest map at crop {args.crop_size}: a rank would hold no row "
+                         f"of it")
     unread = [i for i, c in enumerate(args.wt_layer) if c == 2 and i not in iw_slots(args.trunk)]
     if args.use_wtloss and unread:
         raise ValueError(
@@ -178,9 +197,10 @@ def check_args(args) -> None:
 
 
 def build_config(args):
-    from mrfp_tpu_torch.core.config import Config
+    from mrfp_tpu_torch.core.config import Config, MeshConfig
     cfg = Config()
     return cfg.replace(
+        mesh=MeshConfig(data_parallel=-1, spatial_parallel=args.spatial_parallel),
         model=dataclasses.replace(
             cfg.model, trunk=args.trunk, variant=args.variant, wt_layer=tuple(args.wt_layer),
             use_wtloss=args.use_wtloss, use_dsn_aux=args.use_dsn,
@@ -254,6 +274,16 @@ def build_view_pairs(dataset, n_batches: int, batch_size: int, seed: int
     return pairs
 
 
+def statistics_pairs(args, dataset, nproc: int) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """The statistics phase's view pairs, the same on every rank: the first
+    ``--covstat-batches`` x (global batch / processes) images in batches of
+    that size, as the JAX trainer takes them (its masks depend on the
+    process count), with a spatial axis too, where each rank of a spatial
+    group then runs its band of them."""
+    return build_view_pairs(dataset, args.covstat_batches, args.batch_size // nproc,
+                            args.seed)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -271,6 +301,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     try:
         return _train(args, dist.local_device(args.device), watchdog)
     finally:
+        from mrfp_tpu_torch.core.mesh import reset_mesh
+        reset_mesh()
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
 
@@ -281,20 +313,22 @@ def _train(args, device: torch.device, watchdog) -> int:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     from mrfp_tpu_torch.cli.train import build_dataset
+    from mrfp_tpu_torch.core.mesh import create_mesh
     from mrfp_tpu_torch.data.loader import TrainLoader
     from mrfp_tpu_torch.models.deepv3_zoo import build_cov_layers
     from mrfp_tpu_torch.parallel import dist
     from mrfp_tpu_torch.train.checkpoint import CheckpointManager
     from mrfp_tpu_torch.train.loop import run_training_loop
+    from mrfp_tpu_torch.train.step import band_batch
     from mrfp_tpu_torch.train.zoo_step import covstat_pass, zoo_train_step
     from mrfp_tpu_torch.utils.experiment import prep_experiment
 
     cfg = build_config(args)
     rank, nproc = dist.rank(), dist.world()
-    local_bs = cfg.data.batch_size // nproc
+    mesh = create_mesh(cfg.mesh)
     exp = prep_experiment(cfg, root=args.runs_dir, coordinator=dist.is_coordinator())
-    logging.info("zoo experiment %s on %s (process %d of %d)", exp["name"], device, rank,
-                 nproc)
+    logging.info("zoo experiment %s on %s (process %d of %d, mesh %dx%d)", exp["name"],
+                 device, rank, nproc, mesh.dp, mesh.sp)
     state = build_state(cfg, device)
     ckpt = CheckpointManager(exp["ckpt_dir"], keep=cfg.train.keep_checkpoints,
                              recipe=run_recipe(args))
@@ -309,9 +343,7 @@ def _train(args, device: torch.device, watchdog) -> int:
         cov_layers = build_cov_layers(cfg.model.trunk, cfg.model.wt_layer,
                                       relax_denom=cfg.model.relax_denom,
                                       clusters=cfg.model.clusters)
-        # every rank: the same images in batches of the local size, as the
-        # JAX trainer takes them (its masks depend on the process count)
-        pairs = build_view_pairs(dataset, args.covstat_batches, local_bs, args.seed)
+        pairs = statistics_pairs(args, dataset, nproc)
         t0 = time.perf_counter()
         wt_masks, wt_nrc = covstat_pass(state.model, cov_layers, pairs, cfg, device)
         if device.type == "cuda":
@@ -322,12 +354,18 @@ def _train(args, device: torch.device, watchdog) -> int:
         logging.info("covstat phase: %d masks from %d view pairs in %.3f s: %s",
                      len(wt_masks), len(pairs), covstat["seconds"], covstat["masks"])
     workers = cfg.data.num_workers if device.type == "cuda" else 0
-    loader = TrainLoader(dataset, local_bs, seed=args.seed, num_workers=workers,
-                         pin_memory=device.type == "cuda", shard_rank=rank, shard_count=nproc)
+    # the ranks of a spatial group load the same samples (the data index's
+    # shard) and keep their bands
+    loader = TrainLoader(dataset, cfg.data.batch_size // mesh.dp, seed=args.seed,
+                         num_workers=workers, pin_memory=device.type == "cuda",
+                         shard_rank=mesh.data_index, shard_count=mesh.dp)
     writer = exp["writer"]
 
     def step_fn(st, images, labels):
-        return zoo_train_step(st, images, labels, cfg, wt_masks, wt_nrc, args.aux_weight)
+        if mesh.sp == 1:
+            return zoo_train_step(st, images, labels, cfg, wt_masks, wt_nrc, args.aux_weight)
+        x, y, hw = band_batch(mesh, images, labels, cfg)
+        return zoo_train_step(st, x, y, cfg, wt_masks, wt_nrc, args.aux_weight, hw=hw)
 
     run_validation = None
     if args.eval_every:
@@ -335,16 +373,18 @@ def _train(args, device: torch.device, watchdog) -> int:
         val_dataset = build_dataset(args, cfg, train=False)
         evaluator = SegEvaluator(state.model, num_classes=cfg.model.num_classes,
                                  device=device,
-                                 autocast_dtype=torch.bfloat16 if args.bf16 else None)
+                                 autocast_dtype=torch.bfloat16 if args.bf16 else None,
+                                 mesh=mesh)
 
         def run_validation(st, step):
             st.model.eval()
-            # every process scores its stride of the images; the merged
-            # histogram gives every rank the same mIoU
+            # every data rank scores its stride of the images (its spatial
+            # group the bands of each); the merged histogram gives every
+            # rank the same mIoU
             res = evaluator.run(val_dataset, max_images=args.eval_max_images,
                                 log=lambda *a, **k: None,
                                 heartbeat=watchdog.beat if watchdog else None,
-                                shard_rank=rank, shard_count=nproc)
+                                shard_rank=mesh.data_index, shard_count=mesh.dp)
             logging.info("iter %d val mean_iu %.5f acc %.5f", step, res["mean_iu"],
                          res["acc"])
             writer.add_scalar("val/mean_iu", res["mean_iu"], step)

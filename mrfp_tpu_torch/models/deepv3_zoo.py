@@ -21,8 +21,16 @@ trace of it passes no list and keeps no state.
 The ISW/IRW state is host numpy (``nn/cov_settings.py``): ``covstat_update``
 takes each map's per-sample covariance and its variance over the batch on
 the map's device, in fp64, and copies only the C x C result to the host,
-where the JAX package copies the whole maps. ``whitening_loss_from_cov``
-and the 23 factory names (``DeepR50V3PlusD``, ...) are the JAX package's.
+where the JAX package copies the whole maps.
+
+``whitening_loss_from_cov`` and the 23 factory names (``DeepR50V3PlusD``,
+...) are the JAX package's.
+
+Under spatial parallelism (``core/mesh.py``) the forward takes this rank's
+band of rows and ``hw=``, as ``MRFP.forward`` does: every map is a band,
+the whitening maps in ``w_arr`` too, and ``covariance_variance`` sums the
+bands' ``f f^T`` over the spatial group before it divides.
+``deepest_rows`` bounds the split by the trunk's smallest map.
 """
 
 from __future__ import annotations
@@ -34,7 +42,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from mrfp_tpu_torch.models.mrfp import MRFP
+from mrfp_tpu_torch.core.mesh import active_bands
+from mrfp_tpu_torch.models.mrfp import MRFP, image_scope
 from mrfp_tpu_torch.nn.cov_settings import CovMatrixIRW, CovMatrixISW
 from mrfp_tpu_torch.nn.mnasnet import mnasnet0_5, mnasnet1_0
 from mrfp_tpu_torch.nn.mobilenet import MobileNetV2
@@ -43,6 +52,7 @@ from mrfp_tpu_torch.nn.resnet import build_trunk, variant_output_stride
 from mrfp_tpu_torch.nn.seresnext import se_resnext50_32x4d, se_resnext101_32x4d
 from mrfp_tpu_torch.nn.shufflenet import ShuffleNetV2
 from mrfp_tpu_torch.ops.resize import resize_bilinear_align_corners
+from mrfp_tpu_torch.parallel.dist import all_reduce_sum
 from mrfp_tpu_torch.train.losses import instance_whitening_loss
 
 # trunk -> the channels of the seven wt_layer slots, which size the cov
@@ -96,13 +106,29 @@ def iw_slots(trunk: str) -> Tuple[int, ...]:
     return tuple(slot for slot in range(7) if whitens(slot))
 
 
+@functools.lru_cache(maxsize=None)
+def deepest_rows(trunk: str, variant: str, h: int) -> int:
+    """The rows of ``trunk``'s smallest map (layer4's) for an input of
+    ``h`` rows, from a forward of the trunk on the meta device: every
+    trunk's own strides and pools, SE-ResNeXt's ceil-mode stem pool and
+    its stride 32 whatever the variant (ROADMAP C12) included. A spatial
+    split cannot exceed it."""
+    with torch.device("meta"):
+        net = DeepV3Plus.build_trunk(trunk, (0,) * 7, variant).eval()
+        x = torch.empty(1, 3, h, h)
+        for k in range(5):
+            x = getattr(net, f"layer{k}")(x)
+    return int(x.shape[2])
+
+
 class DeepV3Plus(MRFP):
     """DeepLabV3+ with a per-slot whitening plan and the DSN head (on by
     default, network/deepv3.py:417-424). ``forward`` returns, in train mode,
     ``{"logits", "w_arr", "dsn"}`` (fp32 logits at the input's size, the
     whitening maps, fp32 DSN logits at layer3's size when ``use_dsn``);
     with ``cal_covstat``, ``{"w_arr"}`` alone, after layer4; in eval mode,
-    the fp32 logits."""
+    the fp32 logits. On a band of rows (``hw=``) each of them is the band's
+    rows of the whole image's."""
 
     def __init__(self, num_classes: int = 19, trunk: str = "resnet-101",
                  variant: str = "D", wt_layer: Tuple[int, ...] = (0,) * 7,
@@ -122,9 +148,15 @@ class DeepV3Plus(MRFP):
 
     def forward(self, x: torch.Tensor, valid_hw: Optional[Tuple[int, int]] = None,
                 impl: Optional[str] = None, cal_covstat: bool = False,
-                dropout: Union[torch.Generator, torch.Tensor, None] = None):
-        """``valid_hw``, ``impl`` and ``dropout`` as in ``MRFP.forward``."""
-        h, w = x.shape[2], x.shape[3]
+                dropout: Union[torch.Generator, torch.Tensor, None] = None,
+                hw: Optional[Tuple[int, int]] = None):
+        """``valid_hw``, ``impl``, ``dropout`` and ``hw`` as in
+        ``MRFP.forward``."""
+        with image_scope(x, hw) as size:
+            return self._zoo_forward(x, size, valid_hw, impl, cal_covstat, dropout)
+
+    def _zoo_forward(self, x, hw, valid_hw, impl, cal_covstat, dropout):
+        h, w = hw
         w_arr: Optional[list] = [] if (self.training or cal_covstat) else None
         low_level = self.layer1(self.layer0(x, w_arr=w_arr), w_arr=w_arr)
         aux_in = self.layer3(self.layer2(low_level, w_arr=w_arr), w_arr=w_arr)
@@ -137,13 +169,18 @@ class DeepV3Plus(MRFP):
             valid_hw = tuple((int(v) + os_ - 1) // os_ for v in valid_hw)
         feat = self.aspp(feat, valid_hw=valid_hw, impl=impl)
         dec1 = self.decode(feat, low_level, impl=impl)
-        logits = resize_bilinear_align_corners(self.final2(dec1), (h, w), impl).float()
+        logits = _at_least_fp32(resize_bilinear_align_corners(self.final2(dec1), (h, w), impl))
         if not self.training:
             return logits
         out: Dict[str, object] = {"logits": logits, "w_arr": w_arr}
         if self.use_dsn:
-            out["dsn"] = self.dsn(aux_in, dropout).float()
+            out["dsn"] = _at_least_fp32(self.dsn(aux_in, dropout))
         return out
+
+
+def _at_least_fp32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in fp32, or in fp64 for an fp64 model (a reference step)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def build_cov_layers(trunk: str, wt_layer: Sequence[int], relax_denom: float = 0.0,
@@ -167,10 +204,17 @@ def covariance_variance(f_map: torch.Tensor, eps: float = 1e-5,
     """One map's variance of covariance (network/deepv3.py:534-544): per
     sample ``f_cor = f f^T / (HW - 1) + eps I`` over the (C, HW) map, times
     ``off_mask`` where given, then its variance over the batch (ddof 1).
-    Taken in fp64 on the map's device; the fp32 C x C result comes back."""
+    Taken in fp64 on the map's device; the fp32 C x C result comes back.
+    On a band of rows (``core/mesh.py``) the bands' products are summed
+    over the spatial group and divided by the global HW - 1."""
     n, c, h, w = f_map.shape
     f = f_map.detach().to(torch.float64).reshape(n, c, h * w)
-    f_cor = torch.bmm(f, f.transpose(1, 2)) / (h * w - 1)
+    f_cor = torch.bmm(f, f.transpose(1, 2))
+    bands = active_bands()
+    if bands is not None:
+        h = bands.height(h, w)
+        all_reduce_sum(f_cor, bands.group)
+    f_cor = f_cor / (h * w - 1)
     f_cor = f_cor + eps * torch.eye(c, dtype=torch.float64, device=f.device)
     if off_mask is not None:
         f_cor = f_cor * torch.as_tensor(off_mask, dtype=torch.float64, device=f.device)

@@ -49,8 +49,9 @@ band of the logits: every module on the path computes its band of rows
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Iterator, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -151,14 +152,8 @@ class MRFP(DeepLabDecoder):
         mode with ``use_dsn`` only. ``hw``: the global (h, w) of the image
         whose band of rows ``x`` is, under spatial parallelism (None: ``x``
         is the whole image)."""
-        if hw is None:
-            return self._forward(x, (x.shape[2], x.shape[3]), valid_hw, impl, perturb,
-                                 dropout)
-        with bands(*hw) as scope:
-            if scope is None and tuple(x.shape[2:]) != tuple(hw):
-                raise ValueError(f"hw {tuple(hw)} for an input of {tuple(x.shape[2:])} "
-                                 f"without spatial parallelism")
-            return self._forward(x, tuple(hw), valid_hw, impl, perturb, dropout)
+        with image_scope(x, hw) as size:
+            return self._forward(x, size, valid_hw, impl, perturb, dropout)
 
     def _forward(self, x, hw, valid_hw, impl, perturb, dropout):
         h, w = hw
@@ -204,6 +199,22 @@ class MRFP(DeepLabDecoder):
         if self.use_dsn:
             return logits, self.dsn(aux_in, dropout).float()
         return logits
+
+
+@contextlib.contextmanager
+def image_scope(x: torch.Tensor, hw: Optional[Tuple[int, int]]
+                ) -> Iterator[Tuple[int, int]]:
+    """The global (h, w) of the image whose band of rows ``x`` is, inside
+    the band scope of that image (``core/mesh.py::bands``); ``x``'s own
+    size, and no scope, for ``hw`` None."""
+    if hw is None:
+        yield x.shape[2], x.shape[3]
+        return
+    with bands(*hw) as scope:
+        if scope is None and tuple(x.shape[2:]) != tuple(hw):
+            raise ValueError(f"hw {tuple(hw)} for an input of {tuple(x.shape[2:])} "
+                             f"without spatial parallelism")
+        yield int(hw[0]), int(hw[1])
 
 
 def build_mrfp(device, generator: Optional[torch.Generator] = None,

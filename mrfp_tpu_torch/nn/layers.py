@@ -10,11 +10,13 @@ kaiming-normal fan_in (network/mynn.py:38-55), norms at weight 1, bias 0.
 Under spatial parallelism (``core/mesh.py::bands``) a conv or a max pool
 gets this rank's band of its input's rows and returns its band of the
 output's: it fetches the rows the band's windows read, whatever the
-stride, padding and dilation (``conv_rows``), pads only at the global top
-and bottom (zeros for a conv, -inf for a pool), and runs the plain op on
-them with no H padding. A 1x1 conv of stride 1 reads its own rows and runs
-as it is. ``avg_pool_global`` sums over the group and divides by the
-global count.
+stride, padding and dilation (``conv_rows``; a ceil-mode pool's last
+window may reach past the bottom), pads only at the global top and bottom
+(zeros for a conv, -inf for a pool), and runs the plain op on them with
+no H padding. A 1x1 conv of stride 1 reads its own rows and runs as it
+is; a strided one, also under ``fuse_bn_stats`` (``conv1x1_with_stats``),
+fetches the global rows its stride keeps. ``avg_pool_global`` sums over
+the group and divides by the global count.
 """
 
 from __future__ import annotations
@@ -32,13 +34,26 @@ from mrfp_tpu_torch.ops.dot_stats import dot_with_stats
 from mrfp_tpu_torch.parallel.dist import all_reduce_sum_grad, rows_from_group
 
 
+def _window_out(h: int, k: int, stride: int, pad: int, dilation: int = 1,
+               ceil: bool = False) -> int:
+    """The output length of a window op over ``h`` rows: floor mode, or
+    torch's ceil mode, which drops a last window that would start in the
+    bottom padding."""
+    span = h + 2 * pad - dilation * (k - 1) - 1
+    if not ceil:
+        return span // stride + 1
+    oh = -(-span // stride) + 1
+    return oh - 1 if (oh - 1) * stride >= h + pad else oh
+
+
 def conv_rows(bands: Bands, h: int, k: int, stride: int, pad: int,
-              dilation: int) -> Tuple[int, List[int], List[int]]:
+              dilation: int, ceil: bool = False) -> Tuple[int, List[int], List[int]]:
     """The output height of a window op (kernel ``k``, ``stride``, ``pad``,
-    ``dilation``) over ``h`` rows, and for each rank the global input rows
-    ``[lo, hi)`` that its band of the output reads (outside ``[0, h)``:
-    padding)."""
-    oh = (h + 2 * pad - dilation * (k - 1) - 1) // stride + 1
+    ``dilation``, floor or ``ceil`` mode) over ``h`` rows, and for each
+    rank the global input rows ``[lo, hi)`` that its band of the output
+    reads (outside ``[0, h)``: padding; in ceil mode the last window may
+    end past ``h + pad``)."""
+    oh = _window_out(h, k, stride, pad, dilation, ceil)
     lo, hi = [], []
     for o0, o1 in bands.every(oh):
         lo.append(o0 * stride - pad)
@@ -47,12 +62,12 @@ def conv_rows(bands: Bands, h: int, k: int, stride: int, pad: int,
 
 
 def _band_window(x: torch.Tensor, bands: Bands, k: int, stride: int, pad: int,
-                 dilation: int, fill: float) -> Tuple[torch.Tensor, int]:
+                 dilation: int, fill: float, ceil: bool = False) -> Tuple[torch.Tensor, int]:
     """The rows this rank's band of a window op's output reads, fetched,
     the global top and bottom padded with ``fill``, and the output's
     global height."""
     h, w = bands.global_hw(x)
-    oh, lo, hi = conv_rows(bands, h, k, stride, pad, dilation)
+    oh, lo, hi = conv_rows(bands, h, k, stride, pad, dilation, ceil)
     xr = rows_from_group(x, h, lo, hi, bands.group, fill)
     return xr, oh
 
@@ -90,19 +105,23 @@ class Conv2d(nn.Conv2d):
 
 
 class MaxPool2d(nn.MaxPool2d):
-    """``nn.MaxPool2d`` (floor mode) that computes its band of rows in a
-    spatial scope, the fetched rows padded with -inf at the global edges."""
+    """``nn.MaxPool2d`` (floor or ceil mode) that computes its band of rows
+    in a spatial scope, the fetched rows padded with -inf at the global
+    edges. The fetched rows hold exactly the band's windows, so the pool
+    over them gives the band's rows in either mode; ``ceil_mode`` still
+    decides the width."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bands = active_bands()
         if bands is None:
             return super().forward(x)
-        if self.ceil_mode or self.dilation != 1:
-            raise NotImplementedError("spatial bands take floor-mode max pools of dilation 1 "
-                                      "(ROADMAP A14)")
+        if self.dilation != 1:
+            raise ValueError("spatial bands take max pools of dilation 1; no module has "
+                             "another")
         k, s, p = (_pair(v)[0] for v in (self.kernel_size, self.stride, self.padding))
-        xr, oh = _band_window(x, bands, k, s, p, 1, float("-inf"))
-        out = F.max_pool2d(xr, self.kernel_size, self.stride, (0, _pair(self.padding)[1]))
+        xr, oh = _band_window(x, bands, k, s, p, 1, float("-inf"), self.ceil_mode)
+        out = F.max_pool2d(xr, self.kernel_size, self.stride, (0, _pair(self.padding)[1]),
+                           ceil_mode=self.ceil_mode)
         bands.add(oh, out.shape[3])
         return out
 
@@ -124,14 +143,24 @@ def conv1x1_with_stats(conv: nn.Conv2d, x: torch.Tensor, impl: Optional[str] = N
     channel over its ``n`` = N*H*W values (mrfp_tpu/nn/layers.py:94-124,
     ``DotConv1x1Stats``). It reads ``conv.weight`` as it is, so the state_dict
     and the checkpoints do not change. A strided conv reads only the kept
-    pixels, so the stride is a slice first. Under autocast, ``x`` and the
-    weight are cast to the autocast dtype here, since the product is an
-    autograd Function that autocast does not see."""
+    pixels, so the stride is a slice first; on a band (``core/mesh.py``)
+    the kept rows are the global rows ``stride * o`` of the output band,
+    which need not lie in this rank's band nor share its parity, so they
+    are fetched first (``conv_rows`` with ``k = 1``) and only the width is
+    sliced. The sums are then the band's, which ``batch_norm_from_stats``
+    sums over the world. Under autocast, ``x`` and the weight are cast to
+    the autocast dtype here, since the product is an autograd Function
+    that autocast does not see."""
     if (conv.kernel_size != (1, 1) or conv.bias is not None or conv.groups != 1
             or conv.padding != (0, 0) or conv.dilation != (1, 1)):
         raise ValueError(f"conv1x1_with_stats takes a bias-free 1x1 conv, got {conv}")
     sy, sx = conv.stride
-    if (sy, sx) != (1, 1):
+    bands = active_bands()
+    if bands is not None and sy != 1:
+        xr, oh = _band_window(x, bands, 1, sy, 0, 1, 0.0)
+        x = xr[:, :, ::sy, ::sx]
+        bands.add(oh, x.shape[3])
+    elif (sy, sx) != (1, 1):
         x = x[:, :, ::sy, ::sx]
     w = conv.weight[:, :, 0, 0]
     dev = x.device.type
@@ -152,8 +181,8 @@ def max_pool_3x3_s2() -> nn.MaxPool2d:
 def max_pool_ceil() -> nn.MaxPool2d:
     """torch nn.MaxPool2d(3, 2, ceil_mode=True), SENet's Caffe-style stem
     pool (mrfp_tpu/nn/seresnext.py:23-32 pads bottom/right to the same
-    windows)."""
-    return nn.MaxPool2d(kernel_size=3, stride=2, ceil_mode=True)
+    windows), computing its band of rows under spatial parallelism."""
+    return MaxPool2d(kernel_size=3, stride=2, ceil_mode=True)
 
 
 def avg_pool_global(x: torch.Tensor, valid_hw: Optional[Tuple[int, int]] = None

@@ -25,7 +25,7 @@ process both are torch's own BatchNorm, call for call. InstanceNorm is per
 sample and stays local. ``SwitchWhiten2d``'s batch (BW) mean and
 covariance are the global batch's in the same way (``_GlobalMeanCov``, the
 reference's ``SyncMeanCov``), and its instance and layer statistics stay
-local.
+local to the sample.
 
 Under spatial parallelism (``core/mesh.py``) a map is split into bands of
 rows over the spatial group. BatchNorm's moments over the world are then
@@ -34,7 +34,11 @@ whole (the ASPP image pool's 1x1 map, inside ``Bands.replicated_maps``)
 reduces over the data group only (``norm_group``). InstanceNorm's
 per-sample statistics span the bands: ``InstanceNorm2d`` combines the
 ranks' ``(n, mean, M2)`` over the spatial group, forward and backward, in
-train and in eval mode. ``SwitchWhiten2d`` refuses bands (ROADMAP A14).
+train and in eval mode. ``SwitchWhiten2d``'s BW statistics, combined over
+the world by ``_GlobalMeanCov``, are then the global batch's too, since
+the bands partition each image's pixels; its per-sample IW mean and
+covariance and LN mean and variance combine over the spatial group as
+``InstanceNorm2d``'s do (``_band_moments``), in train and in eval mode.
 """
 
 from __future__ import annotations
@@ -216,16 +220,49 @@ def batch_norm_from_stats(bn: nn.BatchNorm2d, y: torch.Tensor, s1: torch.Tensor,
     return out.to(y.dtype)
 
 
+def _band_moments(xs: torch.Tensor, counts, group: Group, cross: bool):
+    """The mean and ``M2`` over the last axis of ``xs`` (..., L) whose
+    positions are split over ``group``, ``counts`` every rank's L in rank
+    order: each rank's own in the corrected two passes, gathered by one
+    differentiable ``all_reduce`` (``all_gather_rows``) and combined by
+    Chan's rule. ``cross``: ``M2`` is the centred sum of ``d d^T`` (..., c,
+    c) over (..., c, L), else of ``d^2``. Returns (mean, M2, the total
+    count)."""
+    n_l = xs.shape[-1]
+    mean_l = xs.mean(-1)
+    d = xs - mean_l[..., None]
+    s_d = d.sum(-1)
+    mean_l = mean_l + s_d / n_l
+    if cross:
+        m2_l = (torch.matmul(d, d.transpose(-1, -2))
+                - s_d[..., :, None] * s_d[..., None, :] / n_l)
+    else:
+        m2_l = d.square().sum(-1) - s_d.square() / n_l
+    k = mean_l.numel()
+    got = all_gather_rows(torch.cat([mean_l.reshape(-1), m2_l.reshape(-1)])[None], group)
+    mean_k = got[:, :k].reshape((-1,) + tuple(mean_l.shape))
+    m2_k = got[:, k:].reshape((-1,) + tuple(m2_l.shape))
+    n_k = torch.tensor(counts, dtype=xs.dtype, device=xs.device).reshape(
+        (-1,) + (1,) * mean_l.dim())
+    total = sum(counts)
+    # the ranks' means as offsets from rank 0's, as _GlobalBatchNorm's
+    mean = mean_k[0] + (n_k * (mean_k - mean_k[0])).sum(0) / total
+    dev = mean_k - mean
+    if cross:
+        m2 = m2_k.sum(0) + (n_k[..., None] * dev[..., :, None] * dev[..., None, :]).sum(0)
+    else:
+        m2 = m2_k.sum(0) + (n_k * dev.square()).sum(0)
+    return mean, m2, total
+
+
 class InstanceNorm2d(nn.InstanceNorm2d):
     """``nn.InstanceNorm2d`` (no running statistics; its state_dict) whose
     statistics, in a spatial scope (``core/mesh.py``), are the whole
-    image's: each rank takes its band's per-sample, per-channel ``(n,
-    mean, M2)`` in the corrected two passes, in fp32 (fp64 for fp64
-    input), one differentiable ``all_reduce`` over the spatial group gathers
-    every rank's, and Chan's combination gives the mean and biased
-    variance. The gradient reaches every rank's band through the gathered
-    statistics. In train and in eval mode alike; the output is in ``x``'s
-    dtype."""
+    image's: each rank's band's per-sample, per-channel ``(n, mean, M2)``,
+    in fp32 (fp64 for fp64 input), combined over the spatial group
+    (``_band_moments``) into the mean and biased variance. The gradient
+    reaches every rank's band through the gathered statistics. In train
+    and in eval mode alike; the output is in ``x``'s dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bands = active_bands()
@@ -234,19 +271,9 @@ class InstanceNorm2d(nn.InstanceNorm2d):
         f = torch.promote_types(x.dtype, torch.float32)
         xf = x.to(f)
         h, w = bands.global_hw(x)
-        n_l = x.shape[2] * w
-        mean_l = xf.mean(dim=(2, 3))
-        d = xf - mean_l[..., None, None]
-        s_d = d.sum(dim=(2, 3))
-        mean_l = mean_l + s_d / n_l
-        m2_l = d.square().sum(dim=(2, 3)) - s_d.square() / n_l
-        mean_k, m2_k = all_gather_rows(torch.stack([mean_l, m2_l])[None],
-                                       bands.group).unbind(1)          # (sp, N, C)
-        n_k = torch.tensor([(hi - lo) * w for lo, hi in bands.every(h)], dtype=f,
-                           device=x.device)[:, None, None]
-        mean = mean_k[0] + (n_k * (mean_k - mean_k[0])).sum(0) / (h * w)
-        var = (m2_k.sum(0) + (n_k * (mean_k - mean).square()).sum(0)) / (h * w)
-        out = (xf - mean[..., None, None]) * torch.rsqrt(var + self.eps)[..., None, None]
+        per_rank = [(hi - lo) * w for lo, hi in bands.every(h)]
+        mean, m2, total = _band_moments(xf.flatten(2), per_rank, bands.group, cross=False)
+        out = (xf - mean[..., None, None]) * torch.rsqrt(m2 / total + self.eps)[..., None, None]
         if self.affine:
             out = out * _channels(self.weight.to(f)) + _channels(self.bias.to(f))
         return out.to(x.dtype)
@@ -344,17 +371,22 @@ class SwitchWhiten2d(nn.Module):
     Newton-Schulz steps, ``P = 1.5 P - 0.5 ((P @ P) @ P) @ cov_n``, in that
     association.
 
-    As in JAX, everything runs in fp32, autocast off, and the output is
-    cast back to the input's dtype. The BW statistics divide by N*H*W, the
-    IW ones by H*W, the LN variance is unbiased. With more than one process
-    the BW statistics are the global batch's (``_GlobalMeanCov``), as the
-    JAX package's are under a sharded batch. In train mode the running
-    statistics move as ``running = m * running + (1 - m) * batch`` (m =
-    ``SW_MOMENTUM``, 0.99: the opposite of BatchNorm's convention), without
-    gradient; in eval mode they stand in for the batch's. The state_dict
-    keys are the reference's: ``sw_mean_weight``, ``sw_var_weight`` (k,),
-    ``weight``, ``bias`` (C,) and the buffers ``running_mean`` (g, c, 1)
-    and ``running_cov`` (g, c, c)."""
+    As in JAX, everything runs in fp32 (fp64 for an fp64 model), autocast
+    off, and the output is cast back to the input's dtype. The BW
+    statistics divide by N*H*W, the IW ones by H*W, the LN variance is
+    unbiased. With more than one process the BW statistics are the global
+    batch's (``_GlobalMeanCov``), as the JAX package's are under a sharded
+    batch. On a band of rows (``core/mesh.py``) the IW and LN statistics
+    are the whole image's: each rank's ``(n, mean, M2)`` combine over the
+    spatial group (``_band_moments``), divided by the global H*W (IW) and
+    C*H*W - 1 (LN); the whitening matrix is then the same on every rank of
+    the group, and each rank applies it to its band. In train mode the
+    running statistics move as ``running = m * running + (1 - m) * batch``
+    (m = ``SW_MOMENTUM``, 0.99: the opposite of BatchNorm's convention),
+    without gradient; in eval mode they stand in for the batch's. The
+    state_dict keys are the reference's: ``sw_mean_weight``,
+    ``sw_var_weight`` (k,), ``weight``, ``bias`` (C,) and the buffers
+    ``running_mean`` (g, c, 1) and ``running_cov`` (g, c, c)."""
 
     def __init__(self, features: int, sw_type: int = 2):
         super().__init__()
@@ -374,11 +406,8 @@ class SwitchWhiten2d(nn.Module):
         self.register_buffer("running_cov", torch.eye(c).repeat(g, 1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if active_bands() is not None:
-            raise NotImplementedError("SwitchWhiten2d on spatial bands is not ported (ROADMAP "
-                                      "A14: spatial parallelism for the zoo)")
         with torch.autocast(x.device.type, enabled=False):
-            return self._whiten(x.float()).to(x.dtype)
+            return self._whiten(x.to(torch.promote_types(x.dtype, torch.float32))).to(x.dtype)
 
     def _whiten(self, xf: torch.Tensor) -> torch.Tensor:
         n, ch, h, w = xf.shape
@@ -399,15 +428,29 @@ class SwitchWhiten2d(nn.Module):
                 self.running_cov.mul_(SW_MOMENTUM).add_(cov_bn.detach(), alpha=1 - SW_MOMENTUM)
         else:
             mean_bn, cov_bn = self.running_mean, self.running_cov
-        mean_in = xg.mean(dim=3, keepdim=True)                              # (n,g,c,1)
-        xin = xg - mean_in
-        cov_in = torch.matmul(xin, xin.transpose(-1, -2)) / (h * w)         # (n,g,c,c)
+        bands = active_bands()
+        if bands is None:
+            mean_in = xg.mean(dim=3, keepdim=True)                          # (n,g,c,1)
+            xin = xg - mean_in
+            cov_in = torch.matmul(xin, xin.transpose(-1, -2)) / (h * w)     # (n,g,c,c)
+        else:
+            full_h = bands.height(h, w)
+            per_rank = [(hi - lo) * w for lo, hi in bands.every(full_h)]
+            mean_in, m2_in, total = _band_moments(xg, per_rank, bands.group, cross=True)
+            mean_in, cov_in = mean_in[..., None], m2_in / total
         mean_bn = mean_bn.expand(n, g, c, 1)
         cov_bn = cov_bn.expand(n, g, c, c)
         if k in (3, 5):
             flat = xf.reshape(n, -1)
-            mean_ln = flat.mean(dim=1)[:, None, None, None]                # (n,1,1,1)
-            var_ln = flat.var(dim=1, unbiased=True)[:, None, None, None] * eye
+            if bands is None:
+                mean_ln = flat.mean(dim=1)
+                var_ln = flat.var(dim=1, unbiased=True)
+            else:
+                mean_ln, m2_ln, total = _band_moments(flat, [ch * v for v in per_rank],
+                                                      bands.group, cross=False)
+                var_ln = m2_ln / (total - 1)
+            mean_ln = mean_ln[:, None, None, None]                          # (n,1,1,1)
+            var_ln = var_ln[:, None, None, None] * eye
         mw = torch.softmax(self.sw_mean_weight, 0)
         vw = torch.softmax(self.sw_var_weight, 0)
         if k == 2:

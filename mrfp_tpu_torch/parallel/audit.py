@@ -7,8 +7,12 @@ none: every collective of a data- or spatial-parallel step is an explicit
 call of ``parallel/dist.py`` (the BatchNorm and SwitchWhiten statistics,
 NP+'s gathered means, the loss denominators, the gradient, the eval
 histogram, the statistics pass's masks, and under spatial parallelism the
-halo rows of the convs, pools and resizes), so it is counted at the call
-and no parser of a program text is needed.
+halo rows of the convs, pools, resizes and the relaxed CE's label window,
+and over the spatial group the statistics that span the bands: the
+instance norms' and SwitchWhiten's per-sample moments, the whitening
+loss's and the statistics pass's ``f f^T``, the pooled means), so it is
+counted at the call and no parser of a program text is needed. A halo is
+reported as kind "halo", everything else as "stats", each with its group.
 
     with count_collectives() as log:
         train_step(...)

@@ -20,6 +20,16 @@ package takes it over the global batch: each rank's loss is then its local
 sum over the global denominator, and the ranks' losses add up to the
 global batch's. The whitening loss's batch mean is taken the same way,
 over the global sample count. With one process nothing changes.
+
+Under spatial parallelism (``core/mesh.py``) the logits and labels are
+this rank's band of rows: the numerators are the band's and the
+denominators, summed over the world, the global batch's, since the bands
+partition each image's pixels (the class histogram too). The relaxed
+target fetches the label rows its windows read from the neighbours
+(``parallel/dist.py::rows_from_group``). The whitening loss's per-sample
+``f f^T`` is the band's product summed over the spatial group, and each
+rank of the group enters a ``1/sp`` share of the per-sample terms, which
+every rank of it computes alike.
 """
 
 from __future__ import annotations
@@ -29,22 +39,28 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from mrfp_tpu_torch.parallel.dist import all_reduce_sum, world
+from mrfp_tpu_torch.core.mesh import active_bands
+from mrfp_tpu_torch.parallel.dist import (all_reduce_sum, all_reduce_sum_grad,
+                                          rows_from_group, world)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 255,
                   class_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean CE over valid pixels. ``logits`` (N, C, ...) in any float dtype
-    (upcast to fp32), ``labels`` (N, ...) integer. With ``class_weights``
-    (C,), torch's weighted mean: each pixel's NLL scaled by w[y], divided by
-    the sum of w[y] over valid pixels (floored at 1e-8)."""
+    (upcast to fp32; fp64 stays fp64), ``labels`` (N, ...) integer. With
+    ``class_weights`` (C,), torch's weighted mean: each pixel's NLL scaled
+    by w[y], divided by the sum of w[y] over valid pixels (floored at
+    1e-8)."""
     labels = labels.long()
     valid = labels != ignore_index
-    total = F.cross_entropy(logits.float(), labels, weight=class_weights,
+    lf = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    if class_weights is not None:
+        class_weights = class_weights.to(lf.dtype)
+    total = F.cross_entropy(lf, labels, weight=class_weights,
                             ignore_index=ignore_index, reduction="sum")
     if class_weights is None:
         return total / all_reduce_sum(valid.sum()).clamp_min(1)
-    w = class_weights.float()[torch.where(valid, labels, 0)] * valid
+    w = class_weights[torch.where(valid, labels, 0)] * valid
     return total / all_reduce_sum(w.sum().detach()).clamp_min(1e-8)
 
 
@@ -66,6 +82,27 @@ def batch_class_weights(labels: torch.Tensor, num_classes: int,
     return (hist > 0).float() * (1.0 - hist) + 1.0
 
 
+def _label_rows(a: torch.Tensor, extra: int, fill: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows of the (N, H, W) class map ``a`` widened by ``extra`` rows
+    above and below, ``fill`` outside the image, and which of them lie in
+    it. On a band (``core/mesh.py``) the rows come from their owners, as
+    fp32 (exact for class ids up to 2^24) cast back."""
+    bands = active_bands()
+    rows = a.shape[-2]
+    if bands is None:
+        g0, h = 0, rows
+        ext = F.pad(a, (0, 0, extra, extra), value=fill)
+    else:
+        h = bands.height(rows, a.shape[-1])
+        g0 = bands.rows(h)[0]
+        every = bands.every(h)
+        ext = rows_from_group(a[:, None].float(), h, [lo - extra for lo, _ in every],
+                              [hi + extra for _, hi in every], bands.group,
+                              float(fill))[:, 0].long()
+    g = torch.arange(g0 - extra, g0 + rows + extra, device=a.device)
+    return ext, (g >= 0) & (g < h)
+
+
 def relaxed_multihot(labels: torch.Tensor, num_classes: int, ignore_index: int,
                      border: int, reduce_now: bool,
                      strict_classes: Optional[Sequence[int]] = None
@@ -80,12 +117,16 @@ def relaxed_multihot(labels: torch.Tensor, num_classes: int, ignore_index: int,
     Returns ``(allowed, weight)``: (N, C+1, H, W) bool (channel C is
     ignore) and (N, H, W) fp32 in {1, 2}. ``reduce_now`` is a host bool,
     so only the chosen window is built (the JAX package builds both and
-    selects, one compiled program for the whole schedule)."""
+    selects, one compiled program for the whole schedule). On a band of
+    rows the target is the band's rows of the whole map's: the window and
+    the boundary read the neighbours' label rows."""
     c = num_classes
     a = torch.where(labels == ignore_index, c, labels.long())
     b = border // 2 if reduce_now else border
+    extra = max(b, int(reduce_now))
+    ext, inside = _label_rows(a, extra, c)
     h, w = a.shape[-2], a.shape[-1]
-    ap = F.pad(a, (b, b, b, b), value=c)
+    ap = F.pad(ext[:, extra - b:extra + h + b], (b, b), value=c)
     allowed = torch.zeros((a.shape[0], c + 1, h, w), dtype=torch.bool, device=a.device)
     for i in range(2 * b + 1):
         for j in range(2 * b + 1):
@@ -98,10 +139,12 @@ def relaxed_multihot(labels: torch.Tensor, num_classes: int, ignore_index: int,
         allowed = torch.where(strict[:, None], exact, allowed)
     weight = torch.ones(a.shape, dtype=torch.float32, device=a.device)
     if reduce_now:
-        boundary = torch.zeros(a.shape, dtype=torch.bool, device=a.device)
-        dh = a[:, 1:, :] != a[:, :-1, :]
+        # a row differs from the next only inside the image
+        boundary = torch.zeros(ext.shape, dtype=torch.bool, device=a.device)
+        dh = (ext[:, 1:, :] != ext[:, :-1, :]) & (inside[1:] & inside[:-1])[:, None]
         boundary[:, 1:, :] |= dh
         boundary[:, :-1, :] |= dh
+        boundary = boundary[:, extra:extra + h]
         dw = a[:, :, 1:] != a[:, :, :-1]
         boundary[:, :, 1:] |= dw
         boundary[:, :, :-1] |= dw
@@ -144,19 +187,33 @@ def instance_whitening_loss(w_arr: Sequence[torch.Tensor],
     ``mask_matrices`` (C x C arrays or tensors; None: the upper triangle),
     ``num_remove_cov`` (None: the mask's sum) and ``margin`` (a scalar, or
     one per map: with ``relax_denom`` > 0 each layer has its own) are per
-    map. The per-sample product is ``torch.bmm`` in fp32 with autocast off;
-    TF32 stays off as torch's matmul default leaves it."""
+    map. The per-sample product is ``torch.bmm`` in fp32 (fp64 for fp64
+    maps) with autocast off; TF32 stays off as torch's matmul default
+    leaves it.
+
+    On bands of rows (``core/mesh.py``) each map is this rank's band: the
+    product is summed over the spatial group (differentiable) and divided
+    by the global H*W - 1; the batch mean's count is the data group's
+    samples times ``sp``, since every rank of a spatial group computes
+    the same terms, so that the world's sum of the ranks' losses, and of
+    their gradients, takes each sample once."""
+    bands = active_bands()
     total = count = None
     for i, w in enumerate(w_arr):
         n, c, h, wd = w.shape
+        if bands is not None:
+            h = bands.height(h, wd)
         with torch.autocast(w.device.type, enabled=False):
-            f = w.float().reshape(n, c, h * wd)
-            cov = torch.bmm(f, f.transpose(1, 2)) / (h * wd - 1)
-        cov = cov + 1e-5 * torch.eye(c, dtype=torch.float32, device=w.device)
+            f = w.to(torch.promote_types(w.dtype, torch.float32)).reshape(n, c, -1)
+            prod = torch.bmm(f, f.transpose(1, 2))
+            if bands is not None:
+                prod = all_reduce_sum_grad(prod, bands.group)
+            cov = prod / (h * wd - 1)
+        cov = cov + 1e-5 * torch.eye(c, dtype=cov.dtype, device=w.device)
         if mask_matrices is not None:
-            mask = torch.as_tensor(mask_matrices[i], dtype=torch.float32, device=w.device)
+            mask = torch.as_tensor(mask_matrices[i], dtype=cov.dtype, device=w.device)
         else:
-            mask = torch.triu(torch.ones((c, c), dtype=torch.float32, device=w.device), 1)
+            mask = torch.triu(torch.ones((c, c), dtype=cov.dtype, device=w.device), 1)
         nrc = num_remove_cov[i] if num_remove_cov is not None else mask.sum()
         m = margin[i] if isinstance(margin, (list, tuple)) else margin
         off = (cov * mask).abs().sum(dim=(1, 2)) - m
@@ -165,7 +222,11 @@ def instance_whitening_loss(w_arr: Sequence[torch.Tensor],
             term = term.mean()
         else:
             if count is None:  # every map has the batch's samples
-                count = all_reduce_sum(torch.full((), n, dtype=torch.int64, device=w.device))
+                count = torch.full((), n, dtype=torch.int64, device=w.device)
+                if bands is None:
+                    count = all_reduce_sum(count)
+                else:
+                    count = all_reduce_sum(count, bands.mesh.data) * bands.sp
             term = term.sum() / count
         total = term if total is None else total + term
     if total is None:

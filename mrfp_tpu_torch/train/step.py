@@ -49,9 +49,13 @@ Under spatial parallelism (``core/mesh.py``, ``sp > 1``) ``images`` and
 ``hw`` the images' global size: the forward and the loss run inside one
 band scope, the CE's numerator is the band's and its denominator the
 world's, and the gradient all-reduce over the world sums the bands' and
-the samples' parts alike. The extras whose windows cross rows (the
-border-relaxed CE, the FFT transforms) and the fused BN statistics refuse
-bands (ROADMAP A14).
+the samples' parts alike. Every extra runs on bands: the border-relaxed
+CE fetches the label rows its window reads (``train/losses.py``), the
+class weights' histogram is a world sum, the fused BN statistics fetch
+the rows a strided 1x1 keeps (``nn/layers.py::conv1x1_with_stats``), and
+the FFT transforms, which act on whole images, run on the whole images
+before the band is cut (``band_batch``; every rank of the spatial group
+then transforms the same images, ``sp`` times the work of one).
 """
 
 from __future__ import annotations
@@ -63,7 +67,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 
 from mrfp_tpu_torch.core.config import Config
-from mrfp_tpu_torch.core.mesh import active_bands, bands, current_mesh
+from mrfp_tpu_torch.core.mesh import Mesh, active_bands, bands, current_mesh, spatial_sharding
 from mrfp_tpu_torch.core.rng import device_generator, role_seed, step_generators
 from mrfp_tpu_torch.models.mrfp import PerturbArgs
 from mrfp_tpu_torch.ops.dot_stats import bn_stats_fusion
@@ -142,24 +146,24 @@ def dsn_cross_entropy(aux: torch.Tensor, labels: torch.Tensor, ignore_index: int
     return cross_entropy(aux, small[:, 0].long(), ignore_index)
 
 
-def check_spatial(cfg: Config) -> None:
-    """Raise for a knob whose code path does not run on bands of rows."""
-    bad = [name for name, on in (("the border-relaxed CE (--jointwtborder)",
-                                  cfg.data.jointwtborder),
-                                 ("the FFT transforms (--freq-transform)",
-                                  bool(cfg.data.freq_transform)),
-                                 ("the fused BN statistics (fuse_bn_stats)",
-                                  cfg.train.fuse_bn_stats)) if on]
-    if bad:
-        raise NotImplementedError(f"spatial parallelism with {', '.join(bad)} is not ported "
-                                  f"(ROADMAP A14: spatial parallelism for the extras)")
+def band_batch(mesh: Mesh, images: torch.Tensor, labels: torch.Tensor, cfg: Config
+               ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[int, int]]:
+    """This rank's band of rows of a batch that its spatial group holds
+    whole (NHWC images, NHW labels), and the images' global (h, w), for
+    ``train_step(..., hw=, transformed=True)``. ``cfg.data.freq_transform``
+    acts on whole images, so it is applied here, before the band is cut:
+    every rank of the group transforms the same images."""
+    hw = (int(images.shape[1]), int(images.shape[2]))
+    if cfg.data.freq_transform:
+        images = apply_freq_transform(images.float(), cfg.data.freq_transform)
+    return spatial_sharding(mesh, images), spatial_sharding(mesh, labels), hw
 
 
 def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                cfg: Config, perturb: Optional[PerturbArgs] = None,
                impl: Optional[str] = None,
                dropout: Union[torch.Tensor, List[torch.Tensor], None] = None,
-               hw: Optional[Tuple[int, int]] = None
+               hw: Optional[Tuple[int, int]] = None, transformed: bool = False
                ) -> Dict[str, torch.Tensor]:
     """One SGD step on ``state`` in place; returns ``{"loss", "gate_oc",
     "gate_np", "gate_dec"}`` (the loss a device tensor, the gates bools).
@@ -173,21 +177,27 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     runs every resize, and with ``cfg.train.fuse_bn_stats`` every fused
     1x1, through its plain version. ``hw``: the images' global (h, w) when
     they are this rank's band of rows (spatial parallelism).
+    ``transformed``: ``cfg.data.freq_transform`` was already applied to the
+    whole images (``band_batch``); a band cannot be transformed alone.
     """
     model = state.model
     device = images.device
     spatial = hw is not None and current_mesh().sp > 1
-    if spatial:
-        check_spatial(cfg)
+    freq = cfg.data.freq_transform if not transformed else None
+    if spatial and freq:
+        raise ValueError("the FFT transforms act on whole images: cut the band after them "
+                         "(train.step.band_batch) and pass transformed=True")
     accum = max(1, cfg.train.accum_steps)
     if images.shape[0] % accum:
         raise ValueError(f"batch {images.shape[0]} (this process's) not divisible by "
                          f"accum_steps {accum}")
-    if cfg.data.freq_transform:
-        x = apply_freq_transform(images.float(), cfg.data.freq_transform)
+    # fp32 (exact for uint8); fp64 images stay fp64 (a reference step)
+    f = torch.float64 if images.dtype == torch.float64 else torch.float32
+    if freq:
+        x = apply_freq_transform(images.float(), freq).to(f)
         x = x.permute(0, 3, 1, 2).contiguous()
     else:
-        x = images.permute(0, 3, 1, 2).float().contiguous()  # exact for uint8
+        x = images.permute(0, 3, 1, 2).to(f).contiguous()
     labels = labels.long()
     if perturb is None:
         perturb = draw_perturb(state, cfg)

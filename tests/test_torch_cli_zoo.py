@@ -9,6 +9,8 @@ names its ROADMAP item)."""
 import json
 import os
 import shutil
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,8 @@ from mrfp_tpu_torch.data import SyntheticDataset
 from mrfp_tpu_torch.models.deepv3_zoo import DeepV3Plus
 from mrfp_tpu_torch.nn.resnet import RESNET_TRUNKS
 from mrfp_tpu_torch.train.evaluator import SegEvaluator
+
+from torch_dist_group import REPO, env
 
 torch.set_num_threads(2)
 
@@ -150,15 +154,29 @@ def test_irw_with_the_whitening_loss_fails_in_jax_and_is_refused_here(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--spatial-parallel", "2"], "A14"), (["--model-parallel", "2"], "A14"),
+    (["--spatial-parallel", "2"], "two ranks"), (["--model-parallel", "2"], "A14"),
     (["--wt-layer", "0", "0", "5", "0", "0", "0", "0"], None),
     (["--trunk", "mobilenetv2"], None), (["--arch", "DeepShuffleNetV3PlusD"], None)])
 def test_unported_zoo_flags_raise(tmp_path, capsys, flags, item):
-    """Spatial and tensor parallelism (A14) stay refused (several processes
-    train: tests/test_torch_zoo_dist.py). iw code 5, the MobileNetV2 trunk
-    and a ShuffleNetV2 factory (refused until they were ported) train: one
-    step each on the CPU, 48 px, a finite loss."""
+    """Tensor parallelism (A14) stays refused (several processes train:
+    tests/test_torch_zoo_dist.py). Spatial parallelism, iw code 5, the
+    MobileNetV2 trunk and a ShuffleNetV2 factory (refused until they were
+    ported) train: one step each on the CPU, 48 px, a finite loss; with
+    ``--spatial-parallel 2`` on two ranks (gloo, a ``file://``
+    rendezvous), which log the same loss."""
     argv = ZOO + ["--crop-size", "48"] + flags + ["--max-iter", "1", "--runs-dir", str(tmp_path)]
+    if item == "two ranks":
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "mrfp_tpu_torch.cli.train_zoo", *argv, "--num-processes",
+             "2", "--process-id", str(r), "--coordinator-address", f"file://{tmp_path}/rdv"],
+            cwd=REPO, env=env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        outs = [p.communicate(timeout=600) for p in procs]
+        assert [p.returncode for p in procs] == [0, 0], [o[1][-2000:] for o in outs]
+        results = [json.loads(o[0].strip().splitlines()[-1]) for o in outs]
+        assert results[0]["losses"] == results[1]["losses"]
+        assert results[0]["step"] == 1 and np.isfinite(results[0]["losses"]["1"])
+        return
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             train_zoo.main(argv)

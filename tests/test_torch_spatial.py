@@ -39,9 +39,10 @@ Bounds:
   bound of JAX's (atol 5e-4, rtol 1e-3); the evaluator's histograms at
   eval_batch 1 and 2 equal to one process's, bit for bit.
 - Entry points: ``cli.train --num-processes 2 --spatial-parallel 2`` (fp32)
-  takes two steps, its first loss within 1e-4 of one process's; ``cli.eval
-  --spatial-parallel 2`` prints one process's results; each refused
-  combination names its ROADMAP item.
+  takes two steps, its first loss within 1e-4 of one process's, and a step
+  with ``--jointwtborder`` or ``--freq-transform phot``; ``cli.eval
+  --spatial-parallel 2`` prints one process's results; the model axis
+  names its ROADMAP item.
 """
 
 import json
@@ -74,7 +75,7 @@ from mrfp_tpu_torch.ops.resize import (bilinear_ac_weights, bilinear_band_rows,
                                        bilinear_band_weights, bilinear_taps, nearest_band_rows,
                                        nearest_index, nearest_table)
 from mrfp_tpu_torch.parallel.dist import band
-from mrfp_tpu_torch.train.step import check_spatial
+from mrfp_tpu_torch.train.step import band_batch
 from mrfp_tpu_torch.weights import oc_state_from_jax, state_dict_from_jax
 
 import torch_spatial_cases as cases
@@ -543,37 +544,66 @@ def test_cli_eval_on_a_spatial_mesh_prints_one_process_s_results(tmp_path):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--num-processes", "2", "--spatial-parallel", "2", "--jointwtborder"], NotImplementedError),
-    (["--num-processes", "2", "--spatial-parallel", "2", "--freq-transform", "hpf"],
-     NotImplementedError),
+    (["--num-processes", "2", "--spatial-parallel", "2", "--jointwtborder"], None),
+    (["--num-processes", "2", "--spatial-parallel", "2", "--freq-transform", "phot"], None),
     (["--num-processes", "2", "--spatial-parallel", "2", "--model-parallel", "2"],
      NotImplementedError),
     (["--num-processes", "4", "--spatial-parallel", "4", "--crop-size", "48", "--batch-size",
       "4"], ValueError),
     (["--num-processes", "2", "--spatial-parallel", "3"], ValueError),
 ])
-def test_cli_train_refuses_what_bands_cannot_run(argv, error):
-    """Under --spatial-parallel the cross-row extras and the model axis name
-    ROADMAP A14; an S above the deepest map's rows (3 at crop 48, D16) or
-    one that does not divide the processes raises before any process
-    starts."""
+def test_cli_train_refuses_what_bands_cannot_run(argv, error, tmp_path):
+    """Under --spatial-parallel the model axis names ROADMAP A14; an S
+    above the deepest map's rows (3 at crop 48, D16) or one that does not
+    divide the processes raises before any process starts. The extras
+    whose windows or transforms cross rows, refused until they ran on
+    bands (``--jointwtborder``, ``--freq-transform``), now run: two ranks
+    (r18-D32 at crop 64, fp32, global batch 2) take a step with rc 0 and
+    log the same finite loss."""
+    if error is None:
+        flags = argv[4:]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "mrfp_tpu_torch.cli.train", "--device", "cpu", "--synthetic",
+             "--trunk", "resnet-18", "--variant", "D32", "--crop-size", "64", "--batch-size",
+             "2", "--no-bf16", "--log-every", "1", "--max-iter", "1", "--runs-dir",
+             str(tmp_path / "runs"), "--num-processes", "2", "--process-id", str(r),
+             "--coordinator-address", f"file://{tmp_path}/rdv", "--spatial-parallel", "2",
+             *flags], cwd=REPO, env=env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(2)]
+        outs = [p.communicate(timeout=600) for p in procs]
+        assert [p.returncode for p in procs] == [0, 0], [o[1][-2000:] for o in outs]
+        got = [_losses(o[0]) for o in outs]
+        assert got[0] == got[1] and np.isfinite(got[0]["1"]), got
+        return
     match = "A14" if error is NotImplementedError else "spatial-parallel"
     with pytest.raises(error, match=match):
         cli_train.main(["--device", "cpu", "--synthetic", *argv])
 
 
 def test_the_other_entry_points_refuse_what_bands_cannot_run():
-    """A zoo model in ``cli.eval --spatial-parallel``, and the step's knobs
-    that do not run on bands (``check_spatial``), name ROADMAP A14."""
-    with pytest.raises(NotImplementedError, match="A14"):
-        cli_eval.main(["--device", "cpu", "--synthetic", "--spatial-parallel", "2",
-                       "--arch", "DeepR50V3PlusD"])
+    """Nothing else refuses bands now: ``cli.eval --spatial-parallel`` takes
+    a zoo model (``--arch``; it runs in tests/test_torch_spatial_zoo.py),
+    and the step's knobs that used to refuse bands run on them (tests/
+    test_torch_spatial_extras.py): the FFT transforms act on the whole
+    images before the band is cut (``band_batch``), so a band is the
+    transformed image's rows. Only ``--model-parallel`` names ROADMAP
+    A14."""
+    for arch in ("DeepR50V3PlusD", "DeepSEResNext50V3PlusD"):
+        cli_eval.check_spatial(cli_eval.parse_args(["--spatial-parallel", "2", "--arch", arch]))
     import dataclasses
+
+    from mrfp_tpu_torch.core.mesh import Mesh
+    from mrfp_tpu_torch.parallel.dist import Group
+    from mrfp_tpu_torch.perturb.fft_style import apply_freq_transform
     cfg = mrfp_plus_config()
-    for knob in (dict(train=dataclasses.replace(cfg.train, fuse_bn_stats=True)),
-                 dict(data=dataclasses.replace(cfg.data, jointwtborder=True)),
-                 dict(data=dataclasses.replace(cfg.data, freq_transform="hpf"))):
-        with pytest.raises(NotImplementedError, match="A14"):
-            check_spatial(cfg.replace(**knob))
-    check_spatial(cfg)
+    img = torch.rand((2, 13, 9, 3), generator=torch.Generator().manual_seed(0)) * 255
+    lbl = torch.randint(0, 19, (2, 13, 9), generator=torch.Generator().manual_seed(1))
+    for index in (0, 1):
+        mesh = Mesh(1, 2, Group("data", None, 1, 0), Group("spatial", None, 2, index))
+        lo, hi = band(13, 2, index)
+        for transform in ("hpf", "lpf", "phot"):
+            tcfg = cfg.replace(data=dataclasses.replace(cfg.data, freq_transform=transform))
+            x, y, hw = band_batch(mesh, img, lbl, tcfg)
+            assert hw == (13, 9) and torch.equal(y, lbl[:, lo:hi])
+            assert torch.equal(x, apply_freq_transform(img, transform)[:, lo:hi])
     assert os.environ.get("WORLD_SIZE") is None

@@ -362,13 +362,15 @@ def test_unported_flags_raise():
     name their ROADMAP item (the accumulation, the training extras, the
     data-parallel flags, ``--snapshot-every`` and ``--spatial-parallel``,
     which this test named before, run since they were ported; a data axis
-    other than the processes left by the spatial one, the model axis and
-    the cross-row extras on bands are A14's)."""
-    for extra, item in ((["--data-parallel", "2"], "A14"), (["--model-parallel", "2"], "A14"),
-                        (["--num-processes", "2", "--spatial-parallel", "2", "--jointwtborder"],
-                         "A14")):
+    other than the processes left by the spatial one and the model axis
+    are A14's). The cross-row extras on bands, refused until they were
+    ported, pass the checks (they run in tests/test_torch_spatial.py)."""
+    for extra, item in ((["--data-parallel", "2"], "A14"), (["--model-parallel", "2"], "A14")):
         with pytest.raises(NotImplementedError, match=item):
             cli_train.main(["--device", "cpu", "--synthetic", *extra])
+    for extra in (["--jointwtborder"], ["--freq-transform", "phot"]):
+        cli_train.check_args(cli_train.parse_args(
+            ["--device", "cpu", "--num-processes", "2", "--spatial-parallel", "2", *extra]))
 
 
 EVERY_NEW_FLAG = ["--accum-steps", "2", "--use-dsn", "--jointwtborder", "--border-window", "2",
