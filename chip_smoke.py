@@ -131,6 +131,19 @@ process on whole images; every band resize table of those runs is held
 against its plain version first. Then ``cli.eval --spatial-parallel 2``
 against ``cli.eval``.
 
+Tensor parallelism (``phase_model_parallel``): two ranks share the card
+through gloo as above, each holding half the channels of every conv
+kernel, BN and momentum tensor and gathering every conv's input over the
+model group: the MRFP+ step (R50-D16, 768x768) in fp32 (TF32 off, the
+damped fixture, batch 2: the loss and every gradient against its own
+control) and in bf16 (batch 8: the loss, the ranks bit-identical, each
+rank's state bytes and peak memory beside one process's, its collectives
+equal to ``cli.plan --model-parallel 2``'s bill), the fused bf16 step
+(``dot_with_stats`` on Cout/2 rows), and the checkpoint written at M = 2
+loaded into one process, whose fp32 eval logits at 1x3x1024x2048 must be
+the ranks' sharded forward's; every resize and ``dot_with_stats`` call of
+the ranks is held at a model rank's shapes first.
+
 Any failure raises and exits non-zero; the last line of stdout is the JSON
 verdict, printed only when every phase passed. With ``--profile DIR`` it
 also writes torch.profiler kernel tables of one fp32 eval forward, of
@@ -2331,6 +2344,14 @@ def _floor(noise: dict) -> dict:
     return {k: max(r[k] for r in runs) for k in runs[0]}
 
 
+def _per_key_limits(noise: dict) -> dict:
+    """Each gradient's own limit, ``phase_zoo_trunks``' rule: 3x its rounding
+    floor + 1e-3, and never above 3x the largest key's floor."""
+    floor = _floor(noise)
+    top = 3 * max(floor.values())
+    return {k: min(3 * v + 1e-3, top) for k, v in floor.items()}
+
+
 def _noise_text(noise: dict) -> str:
     """The noise runs' distances as the check lines print them."""
     return ", ".join(f"{name} vs plain {({k: round(v, 6) for k, v in d.items()})}"
@@ -2374,8 +2395,9 @@ def phase_extras_step(gen) -> dict:
     classifier within 1e-3 relative. Then in bf16 at batch 8, 768x768: the
     loss within 1e-4; the gradients, whose bf16 backward differs between
     two plain runs by about 1.5% where cuDNN's backward is not
-    bit-reproducible, within 3x the largest rounding floor of that step
-    (``_floor``: the plain-again and the fp64-transpose differences). The bf16
+    bit-reproducible, each within 3x its own rounding floor of that step +
+    1e-3, and never above 3x the largest key's floor (``_per_key_limits``;
+    ``_floor``: the plain-again and the fp64-transpose differences). The bf16
     kernel path's two steps are counted: they must launch every forward
     resize kernel, the nearest one at the DSN label shape once a step, and
     only at shapes held against the plain versions. Then the extras step's
@@ -2423,18 +2445,19 @@ def phase_extras_step(gen) -> dict:
                                                     control=True)
         calls += seen
         err = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
-        limit = 3 * max(_floor(noise).values())
+        limit = _per_key_limits(noise)
         print(f"extras step bf16 {TRAIN_N}x{CROP}x{CROP} from step {start} (DSN, relaxed "
               f"CE border 1, {'halved' if start else 'full'} window; batch weights, HPF), "
               f"gates as drawn, bn3 scales x{DAMP}: loss kernel {losses['kernel']:.6f} "
               f"plain {losses['plain']:.6f} (rel {err:.3e}); gradient rel err kernel vs "
               f"plain {({k: round(v, 6) for k, v in errs.items()})}, {_noise_text(noise)}, "
-              f"limit {limit:.6f}")
+              f"limits {({k: round(v, 6) for k, v in limit.items()})}")
         if not all(math.isfinite(v) for v in losses.values()) or err > 1e-4:
             raise AssertionError(f"extras step bf16: kernel vs plain path losses {losses}")
-        bad = {k: v for k, v in errs.items() if not v <= limit}
+        bad = {k: v for k, v in errs.items() if not v <= limit[k]}
         if bad:
-            raise AssertionError(f"extras step bf16: gradient rel err above {limit:.6f}: {bad}")
+            raise AssertionError(f"extras step bf16: gradient rel err above its limit {limit}: "
+                                 f"{bad}")
     torch.cuda.synchronize()
     launched = dict(LAUNCHES)
     dsn_key = ("resize_nearest", torch.float32, DSN_LABELS, (TRAIN_N, 1, *DSN_HW))
@@ -2616,9 +2639,8 @@ def phase_trunks(gen, cuda_gen) -> dict:
     logits within 1e-4 and argmax 99.99%, its kernel path's median ms of 5;
     then one bf16 MRFP+ step at ``TRUNK_STEP_N`` x 768x768 on the damped
     fixture, kernel path against plain path from one state (the same drawn
-    gates), with ``phase_extras_step``'s bound: loss within 1e-4, the
-    gradients of ``GRAD_KEYS`` within 3x the largest rounding floor
-    (``_floor``).
+    gates), with ``phase_extras_step``'s bound: loss within 1e-4, each
+    gradient of ``GRAD_KEYS`` within its own limit (``_per_key_limits``).
     resnet-101 takes the baseline step: its deep stem gives 128 channels
     and the OC branch reads 64, so the JAX package cannot trace its
     perturbed step and the port refuses the OC buffers (ROADMAP C8), which
@@ -2670,7 +2692,7 @@ def phase_trunks(gen, cuda_gen) -> dict:
         losses, errs, noise, calls = _extras_compare(base, img, lbl, cfg, 0, record=True,
                                                      keys=GRAD_KEYS, control=True)
         loss_err = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
-        limit = 3 * max(_floor(noise).values())
+        limit = _per_key_limits(noise)
         print(f"trunk {trunk} ({n_params / 1e6:.1f} M parameters): eval fp32 1x3x{H}x{W} "
               f"kernel vs plain argmax agreement {agree}, kernel path {eval_ms[trunk]:.3f} "
               f"ms (median of 5); bf16 {'MRFP+' if cfg.perturb.enabled else 'baseline'} "
@@ -2678,12 +2700,13 @@ def phase_trunks(gen, cuda_gen) -> dict:
               f"x{DAMP}: loss kernel {losses['kernel']:.6f} plain {losses['plain']:.6f} "
               f"(rel {loss_err:.3e}); gradient rel err kernel vs plain "
               f"{({k: round(v, 6) for k, v in errs.items()})}, {_noise_text(noise)}, "
-              f"limit {limit:.6f}")
+              f"limits {({k: round(v, 6) for k, v in limit.items()})}")
         if not all(math.isfinite(v) for v in losses.values()) or loss_err > 1e-4:
             raise AssertionError(f"{trunk} step: kernel vs plain path losses {losses}")
-        bad = {k: v for k, v in errs.items() if not v <= limit}
+        bad = {k: v for k, v in errs.items() if not v <= limit[k]}
         if bad:
-            raise AssertionError(f"{trunk} step: gradient rel err above {limit:.6f}: {bad}")
+            raise AssertionError(f"{trunk} step: gradient rel err above its limit {limit}: "
+                                 f"{bad}")
         _all_held(calls, f"{trunk} step")
         del base
         torch.cuda.empty_cache()
@@ -4521,6 +4544,398 @@ def phase_spatial_zoo_extras(cuda_gen) -> dict:
     return launched
 
 
+# the tensor-parallel phase: MP_WORLD ranks on one model group, all on the
+# one card; the fp32 comparison's batch, the bf16 recipe's and the fused
+# leg's (every rank holds every sample; the fused leg only has to put
+# dot_with_stats on a rank's shapes, so it takes the smaller batch: each
+# sample costs the ranks about 1.5 GB of gathers through the host)
+MP_WORLD = 2
+MP_FP32_N, MP_N, MP_FUSED_N = 2, 8, 2
+
+
+def _hold_channel_resizes(resizes, backward: bool, cuda_gen, mp: int = MP_WORLD) -> int:
+    """Holds each whole-map resize of ``resizes`` (``_resizes_run``'s
+    records of one process's runs) at the channel counts a model rank
+    gives it, ``c / mp`` (the sliced maps: the ASPP image pool's
+    broadcast, the decoder's upsample and injection), and ``c`` (the
+    replicated ones: the OC branch, the logits), against the plain
+    versions on the card: the forward exactly equal, and with ``backward``
+    the bilinear backward within ``_bilinear_bwd_close``'s bound and the
+    nearest one exactly equal. Returns the calls held."""
+    from mrfp_tpu_torch.ops import cuda_resize
+    from mrfp_tpu_torch.ops.resize import bilinear_taps, nearest_table
+    held = 0
+    for kind, dtype, n, c, sy, sx in sorted(resizes, key=str):
+        h, w = sy[1], sx[1]
+        if kind == "bilinear":
+            ty, tx = bilinear_taps(h, sy[2], DEV), bilinear_taps(w, sx[2], DEV)
+            fwd, bwd = cuda_resize.resize_bilinear_cuda, cuda_resize.resize_bilinear_bwd_cuda
+            fwd_p, bwd_p = cuda_resize.resize_bilinear_plain, cuda_resize.resize_bilinear_bwd_plain
+        else:
+            ty, tx = nearest_table(h, sy[2], sy[3], DEV), nearest_table(w, sx[2], sx[3], DEV)
+            fwd, bwd = cuda_resize.resize_nearest_cuda, cuda_resize.resize_nearest_bwd_cuda
+            fwd_p, bwd_p = cuda_resize.resize_nearest_plain, cuda_resize.resize_nearest_bwd_plain
+        for ch in sorted({c, c // mp} if c % mp == 0 else {c}):
+            x = torch.randn((n, ch, h, w), device=DEV, generator=cuda_gen).to(dtype)
+            y = fwd(x, ty, tx)
+            what = f"model rank: {kind} {_dtype_name(dtype)} ({n},{ch},{h},{w})->{tuple(y.shape)}"
+            if not torch.equal(y, fwd_p(x, ty, tx)):
+                raise AssertionError(f"{what}: the forward is not the plain version's")
+            _held(f"resize_{kind}", x, y)
+            held += 1
+            if backward:
+                g = torch.randn(y.shape, device=DEV, generator=cuda_gen).to(dtype)
+                gx = bwd(g, ty, tx, h, w)
+                if kind == "bilinear":
+                    _bilinear_bwd_close(gx, g, ty, tx, h, w, what)
+                elif not torch.equal(gx, bwd_p(g, ty, tx, h, w)):
+                    raise AssertionError(f"{what}: the backward is not the plain version's")
+                _held(f"resize_{kind}_bwd", g, gx)
+                held += 1
+    torch.cuda.synchronize()
+    return held
+
+
+def _hold_rank_dots(calls, cuda_gen, mp: int = MP_WORLD) -> int:
+    """Holds ``dot_with_stats`` at every shape a model rank gives the whole
+    kernel's calls ``calls`` (``_dot_recording``'s keys): the same input,
+    the kernel's rows ``Cout / mp``, in bf16 and fp32, against the plain
+    version within ``_dot_stats_check``'s bounds. Returns the shapes
+    held."""
+    shapes = {(x_shape, (cout // mp, cin)) for _k, _dt, x_shape, (cout, cin) in set(calls)}
+    worst = 0.0
+    with _strict_fp32():
+        for x_shape, w_shape in sorted(shapes):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(x_shape, device=DEV, generator=cuda_gen).to(dtype)
+                w = (torch.randn(w_shape, device=DEV, generator=cuda_gen)
+                     * w_shape[1] ** -0.5).to(dtype)
+                worst = max(worst, _dot_stats_check(f"model rank (Cout/{mp})", x, w)[1])
+                DOT_CHECKED.add(_dot_key(dtype, x.shape, w.shape))
+    del x, w
+    torch.cuda.empty_cache()
+    print(f"dot_with_stats at the {len(shapes)} model-rank shapes of {mp} ranks (the fused "
+          f"step's {len(set(calls))} shapes, Cout / {mp} rows of each kernel), bf16 and fp32: "
+          f"within the bounds, y max_abs_err {worst:.3e}")
+    return len(shapes)
+
+
+def _mp_step(batch: int, dtype: str, noise: float = 0.0, cfg=None) -> dict:
+    """One step of ``_dp_setup(batch, dtype)`` (damped in fp32), with ``cfg``
+    in place of its config where given, on the whole batch x (1 + ``noise``
+    x N(0, 1)); under a model axis this process's shards of the state.
+    Returns ``before``, ``loss``, ``after`` and ``grads`` (the state and
+    gradients whole, the model group's shards gathered, on the host), the
+    step's resize and ``dot_with_stats`` calls (``calls``, ``dots``), its
+    collectives by group (``collectives``), its ms and the ``state``."""
+    from mrfp_tpu_torch.core.mesh import current_mesh
+    from mrfp_tpu_torch.parallel.audit import count_collectives, summarize_by_group
+    from mrfp_tpu_torch.parallel.dist import gather_rows
+    from mrfp_tpu_torch.train.step import train_step
+    from mrfp_tpu_torch.weights import whole_state_dict
+    setup_cfg, state, perturb, img, lbl = _dp_setup(batch, dtype, dtype == "float32")
+    cfg = cfg or setup_cfg
+    eps = torch.randn(img.shape, generator=torch.Generator().manual_seed(2)).to(img.device)
+    img = (img.float() * (1 + noise * eps)).contiguous()
+    mesh, model = current_mesh(), state.model
+    keys = getattr(model, "tp_keys", frozenset())
+    host = lambda d: {k: v.detach().to("cpu", copy=True) for k, v in d.items()}  # noqa: E731
+    before = host(whole_state_dict(model, mesh))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _recording() as calls, _dot_recording() as dots, count_collectives() as log:
+        loss = train_step(state, img, lbl.contiguous(), cfg, perturb=perturb)["loss"].item()
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = host({k: gather_rows(p.grad, mesh.model) if k in keys else p.grad
+                  for k, p in model.named_parameters()})
+    return {"before": before, "loss": loss, "after": host(whole_state_dict(model, mesh)),
+            "grads": grads, "calls": calls, "dots": dots,
+            "collectives": summarize_by_group(log), "ms": ms, "state": state}
+
+
+def _mp_fused_cfg():
+    """The bf16 MRFP+ recipe at ``MP_FUSED_N`` with the fused BN statistics."""
+    cfg = _train_cfg(MP_FUSED_N, "bfloat16")
+    return cfg.replace(train=dataclasses.replace(cfg.train, fuse_bn_stats=True))
+
+
+def _mp_eval_logits(model) -> tuple:
+    """``model``'s fp32 eval forward (TF32 off, cuDNN deterministic) of the
+    seeded 1x3xHxW image, on the host, and its resize calls."""
+    x = (torch.rand((1, 3, H, W), generator=torch.Generator().manual_seed(21)) * 255).to(DEV)
+    with _strict_fp32(), torch.inference_mode(), _recording() as calls:
+        logits = model.eval()(x).to("cpu")
+    return logits, calls
+
+
+def _state_bytes(state) -> int:
+    """The bytes this process holds of the parameters, their momentum and
+    the BN statistics."""
+    model = state.model
+    return (nbytes(*model.parameters())
+            + nbytes(*(s["momentum_buffer"] for s in state.optimizer.state.values()))
+            + nbytes(*(b for k, b in model.named_buffers() if "running" in k)))
+
+
+def mp_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
+    """One rank of ``phase_model_parallel`` (its own process): joins the gloo
+    group, lays out one model group, and on its shards of the state takes
+    the fp32 step, the counted and recorded bf16 step, whose whole state it
+    checkpoints (``CheckpointManager``: every rank gathers, rank 0 writes)
+    and evaluates, and the fused bf16 step; writes what it saw, and rank 0
+    the checkpoint it wrote, to ``out/rank<rank>.pt``."""
+    from mrfp_tpu_torch.core.config import MeshConfig
+    from mrfp_tpu_torch.core.mesh import create_mesh
+    from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
+    from mrfp_tpu_torch.parallel import dist
+    from mrfp_tpu_torch.parallel.audit import count_collectives, summarize_by_group
+    from mrfp_tpu_torch.train.checkpoint import CheckpointManager
+    dist.initialize_distributed(rendezvous, world, rank, DEV, backend="gloo", timeout_s=900)
+    try:
+        create_mesh(MeshConfig(data_parallel=1, model_parallel=world))
+        with _strict_fp32():
+            fp32 = _mp_step(MP_FP32_N, "float32")
+        del fp32["state"]
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        bf16 = _mp_step(MP_N, "bfloat16")
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        state = bf16.pop("state")
+        state_bytes = _state_bytes(state)
+        ckpt = CheckpointManager(os.path.join(out, "ckpt"), keep=1)
+        ckpt.save(state)
+        ckpt.close()
+        blob = (torch.load(os.path.join(out, "ckpt", f"step_{state.step}.pt"),
+                           weights_only=True) if rank == 0 else None)
+        logits, eval_calls = _mp_eval_logits(state.model)
+        del state
+        torch.cuda.empty_cache()
+        fused = _mp_step(MP_FUSED_N, "bfloat16", cfg=_mp_fused_cfg())
+        del fused["state"]
+        torch.cuda.synchronize()
+        launched = dict(LAUNCHES)
+        torch.save({"fp32_loss": fp32["loss"], "fp32_grads": fp32["grads"],
+                    "loss": bf16["loss"], "state": bf16["after"],
+                    "collectives": bf16["collectives"], "step_ms": bf16["ms"],
+                    "peak_gib": peak, "state_bytes": state_bytes, "ckpt": blob,
+                    "logits": logits, "fused_loss": fused["loss"], "dots": fused["dots"],
+                    "launched": launched,
+                    "calls": [(c[0], _dtype_name(c[1])) + c[2:] for c in fp32["calls"]
+                              + bf16["calls"] + eval_calls + fused["calls"]]},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _plan_bill(batch: int):
+    """``cli.plan --model-parallel 2``'s report of the MRFP+ R50-D16 bf16
+    launch of global batch ``batch`` at 768x768 on one model group of
+    ``MP_WORLD`` ranks (sharing the card through gloo), run in processes of
+    its own while the block runs; yields a dict that holds the report once
+    the block has ended."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "plan.json")
+        cmd = [sys.executable, "-m", "mrfp_tpu_torch.cli.plan", "--device", DEV, "--trunk",
+               "resnet-50", "--variant", "D16", "--batch-size", str(batch), "--crop-size",
+               str(CROP), "--data-parallel", "1", "--model-parallel", str(MP_WORLD),
+               "--json-out", out]
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        report = {}
+        try:
+            yield report
+            log = proc.communicate(timeout=900)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode != 0:
+            raise AssertionError(f"cli.plan --model-parallel {MP_WORLD}: rc {proc.returncode}: "
+                                 f"{log[-3000:]}")
+        report.update(json.load(open(out)))
+
+
+def phase_model_parallel(cuda_gen) -> dict:
+    """Tensor parallelism on the one card there is: ``MP_WORLD`` ranks, each
+    a process of its own, share the card through gloo (as
+    ``phase_spatial_parallel``'s) and split every conv's output channels,
+    each holding its shards of the state (``weights.shard_model``) and
+    gathering every conv's input map over the model group.
+
+    One process first takes the same runs, recording every resize and
+    ``dot_with_stats`` call; each is then held against its plain version
+    at the shapes a model rank gives it (``_hold_channel_resizes``,
+    ``_hold_rank_dots``), and every call of the ranks must be at a held
+    shape.
+
+    - fp32 (TF32 off, cuDNN deterministic), the damped fixture, batch
+      ``MP_FP32_N`` at 768x768, all gates on: the loss within 1e-5
+      relative of one process's; each gradient within 3x its own
+      1e-7-input control distance + 1e-4 of its norm, or, where the control
+      understates the rounding of every layer, no further from the same
+      step in fp64 (``_sp_fp64_grads``) than 3x the one-process step's
+      distance + 1e-4 of its norm.
+    - bf16, the recipe at batch ``MP_N`` (its bill from ``cli.plan
+      --model-parallel 2``): the ranks end bit-identical (the whole state
+      gathered: every replicated tensor equal); the loss within 2^-9 or 3x
+      the half-ulp-input control; each rank's state bytes and peak memory
+      beside one process's; each rank's collectives by group and kind equal
+      to ``cli.plan --model-parallel 2``'s bill, byte for byte.
+    - The checkpoint of that step, written at M = 2, loads ``strict=True``
+      into one process, its momentum whole, and its fp32 eval logits at
+      1x3xHxW equal the ranks' sharded forward's within atol 2e-4, rtol
+      1e-4 (the ranks' bit-equal).
+    - The fused leg (``fuse_bn_stats``, bf16, batch ``MP_FUSED_N``):
+      ``dot_with_stats`` on each rank's Cout / 2 rows, the loss within 2^-9
+      or 3x the control of one process's fused step.
+
+    Returns the ranks' summed kernel launches."""
+    from mrfp_tpu_torch.models import MRFP, build_mrfp
+    t0 = time.perf_counter()
+    with _plan_bill(MP_N) as bill:  # cli.plan's processes run beside these runs
+        with _strict_fp32(), _resizes_run() as fp32_resizes:
+            one32 = _mp_step(MP_FP32_N, "float32")
+            ctrl32 = _mp_step(MP_FP32_N, "float32", 1e-7)
+        one32_loss, ctrl32_loss = one32["loss"], ctrl32["loss"]
+        one32, ctrl32 = one32["grads"], ctrl32["grads"]
+        with _strict_fp32():
+            ref64 = _sp_fp64_grads(MP_FP32_N)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with _resizes_run() as bf16_resizes:
+            run = _mp_step(MP_N, "bfloat16")
+        torch.cuda.synchronize()
+        one_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        one_bytes = _state_bytes(run["state"])
+        before, one_loss, one = run["before"], run["loss"], run["after"]
+        run = _mp_step(MP_N, "bfloat16", 2.0 ** -9)
+        before_ctrl, ctrl_loss = run["before"], run["loss"]
+        with _resizes_run() as fused_resizes:
+            run = _mp_step(MP_FUSED_N, "bfloat16", cfg=_mp_fused_cfg())
+        fused_loss, one_dots = run["loss"], run["dots"]
+        fused_ctrl = _mp_step(MP_FUSED_N, "bfloat16", 2.0 ** -9, cfg=_mp_fused_cfg())["loss"]
+        del run
+        torch.cuda.empty_cache()
+        with _resizes_run() as eval_resizes:
+            _mp_eval_logits(build_mrfp(DEV, generator=torch.Generator().manual_seed(0),
+                                       oc_branch=True))
+        torch.cuda.empty_cache()
+        train_resizes = fp32_resizes | bf16_resizes | fused_resizes
+        held = (_hold_channel_resizes(train_resizes, True, cuda_gen)
+                + _hold_channel_resizes(eval_resizes, False, cuda_gen))
+        dot_shapes = _hold_rank_dots(one_dots, cuda_gen)
+        print(f"model parallel: {held} resize calls at a model rank's channel counts held "
+              f"against the plain versions ({len(train_resizes)} train resizes fp32 and bf16, "
+              f"forward exactly equal, backward within the bound; {len(eval_resizes)} eval "
+              f"resizes, forward exactly equal), {dot_shapes} dot_with_stats shapes; one "
+              f"process's runs {time.perf_counter() - t0:.1f} s")
+    print(f"model parallel: cli.plan --model-parallel {MP_WORLD} beside them, "
+          f"{time.perf_counter() - t0:.1f} s in all")
+
+    ranks, seconds = _run_ranks("mp_rank")
+    for r in ranks:
+        _all_held([(c[0], getattr(torch, c[1])) + tuple(c[2:]) for c in r["calls"]],
+                  "model parallel: a rank's runs")
+        missing = sorted(set(r["dots"]) - DOT_CHECKED)
+        if missing:
+            raise AssertionError(f"model parallel: dot_with_stats ran at shapes no phase held: "
+                                 f"{missing}")
+    fp32_loss_err = abs(ranks[0]["fp32_loss"] - one32_loss) / abs(one32_loss)
+    fp32_ratio, grounded = {}, []
+    for k, g in one32.items():
+        got = ranks[0]["fp32_grads"][k]
+        fp32_ratio[k] = float((got - g).norm()) / (3 * float((ctrl32[k] - g).norm())
+                                                   + 1e-4 * float(g.norm()) + 1e-12)
+        if fp32_ratio[k] > 1:  # the fp64-grounded rule
+            ref = ref64[k].double()
+            fp32_ratio[k] = float((got.double() - ref).norm()) / (
+                3 * float((g.double() - ref).norm()) + 1e-4 * float(ref.norm()) + 1e-12)
+            grounded.append((k, round(fp32_ratio[k], 3)))
+    fp32_worst = sorted(fp32_ratio.items(), key=lambda kv: -kv[1])[:3]
+    if any(not torch.equal(v, before_ctrl[k]) for k, v in before.items()):
+        raise AssertionError("model parallel: the control started from another state")
+    same = [k for k, v in ranks[0]["state"].items() if not torch.equal(v, ranks[1]["state"][k])]
+    loss = ranks[0]["loss"]
+    loss_err = abs(loss - one_loss) / abs(one_loss)
+    loss_ctrl = abs(ctrl_loss - one_loss) / abs(one_loss)
+    fused_err = abs(ranks[0]["fused_loss"] - fused_loss) / abs(fused_loss)
+    fused_bound = max(2.0 ** -9, 3 * abs(fused_ctrl - fused_loss) / abs(fused_loss))
+    counters = [k for k, v in one.items() if not v.is_floating_point()
+                and not torch.equal(ranks[0]["state"][k], v)]
+    launched = {k: sum(r["launched"][k] for r in ranks) for k in ranks[0]["launched"]}
+    blob = ranks[0]["ckpt"]
+    loaded = MRFP(oc_branch=True)
+    loaded.load_state_dict(blob["model"], strict=True)
+    params = [p for p in loaded.parameters() if p.requires_grad]
+    momentum = blob["optimizer"]["state"]
+    whole_momentum = len(momentum) == len(params) and all(
+        momentum[i]["momentum_buffer"].shape == p.shape for i, p in enumerate(params))
+    ckpt_logits, _ = _mp_eval_logits(loaded.to(DEV))
+    del loaded
+    torch.cuda.empty_cache()
+    logit_err = (ranks[0]["logits"] - ckpt_logits).abs().max().item()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(f"model parallel fp32 (TF32 off, deterministic), damped fixture: {MP_WORLD} ranks "
+          f"x half the channels of {MP_FP32_N} images against one process, {CROP}x{CROP}, "
+          f"all gates on: loss {ranks[0]['fp32_loss']:.7f} vs {one32_loss:.7f} (rel "
+          f"{fp32_loss_err:.3e}; 1e-7-input control "
+          f"{abs(ctrl32_loss - one32_loss) / abs(one32_loss):.3e}); gradients of {len(one32)} "
+          f"tensors, each to its own control, worst error / bound "
+          f"{[(k, round(v, 3)) for k, v in fp32_worst]}, median "
+          f"{statistics.median(fp32_ratio.values()):.3f}; held to the fp64 step instead "
+          f"(over 3x the control): {len(grounded)} {grounded[:8]}")
+    print(f"model parallel bf16: {MP_WORLD} ranks x half the channels of {MP_N} images over "
+          f"gloo, {CROP}x{CROP}, all gates on, against one process: loss {loss:.6f} vs "
+          f"{one_loss:.6f}, rel {loss_err:.3e} (bound {max(2.0 ** -9, 3 * loss_ctrl):.3e}); "
+          f"ranks identical: {not same}; fused leg (dot_with_stats on Cout/{MP_WORLD} rows) "
+          f"loss {ranks[0]['fused_loss']:.6f} vs {fused_loss:.6f}, rel {fused_err:.3e} "
+          f"(bound {fused_bound:.3e})")
+    for r, res in enumerate(ranks):
+        print(f"model parallel rank {r}: state {res['state_bytes'] / 1e6:.3f} MB (one process "
+              f"{one_bytes / 1e6:.3f} MB); peak {res['peak_gib']:.3f} GiB above its set-up (one "
+              f"process {one_peak:.3f} GiB); collectives a bf16 step "
+              f"{json.dumps(res['collectives'], sort_keys=True)}; counted step "
+              f"{res['step_ms']:.1f} ms (gloo through the host: a correctness time); card "
+              f"{card.strip()}")
+    print(f"model parallel: cli.plan --model-parallel {MP_WORLD} bill "
+          f"{json.dumps(bill['collectives_by_group'], sort_keys=True)}, state bytes a rank "
+          f"{bill['per_chip_bytes']}; checkpoint at M = {MP_WORLD} loaded strict into one "
+          f"process (momentum whole: {whole_momentum}), its fp32 eval logits 1x3x{H}x{W} vs "
+          f"the ranks' max_abs_err {logit_err:.3e}; launches (both ranks) {launched}; "
+          f"{seconds:.1f} s for the ranks end to end")
+    if not math.isfinite(fp32_loss_err) or fp32_loss_err > 1e-5 or fp32_worst[0][1] > 1:
+        raise AssertionError(f"model parallel fp32: loss rel {fp32_loss_err}, gradients over "
+                             f"their bounds {[kv for kv in fp32_worst if kv[1] > 1]}")
+    if same or counters:
+        raise AssertionError(f"model parallel: ranks differ at {same}; counters differ from "
+                             f"one process at {counters}")
+    if not math.isfinite(loss) or loss_err > max(2.0 ** -9, 3 * loss_ctrl):
+        raise AssertionError(f"model parallel: loss {loss} against one process's {one_loss}")
+    if not math.isfinite(ranks[0]["fused_loss"]) or fused_err > fused_bound:
+        raise AssertionError(f"model parallel fused: loss {ranks[0]['fused_loss']} against "
+                             f"one process's {fused_loss}")
+    if any(r["collectives"] != bill["collectives_by_group"] for r in ranks):
+        raise AssertionError(f"model parallel: the ranks' collectives "
+                             f"{[r['collectives'] for r in ranks]} are not cli.plan's bill "
+                             f"{bill['collectives_by_group']}")
+    if not whole_momentum or not torch.equal(ranks[0]["logits"], ranks[1]["logits"]):
+        raise AssertionError("model parallel: the checkpoint's momentum is not whole, or the "
+                             "ranks' logits differ")
+    torch.testing.assert_close(ranks[0]["logits"], ckpt_logits, atol=2e-4, rtol=1e-4,
+                               msg=lambda m: f"model parallel checkpoint eval logits: {m}")
+    if min(launched[k] for k in RESIZE_KERNELS + ("dot_with_stats",)) <= 0:
+        raise AssertionError(f"model parallel: a kernel was not launched: {launched}")
+    return launched
+
+
 def _phase(fn, *args):
     """``fn(*args)``, its seconds printed on a line of their own."""
     t0 = time.perf_counter()
@@ -4578,6 +4993,8 @@ def main(argv=None) -> None:
     sp_launches = _phase(phase_spatial_parallel, cuda_gen)
     torch.cuda.empty_cache()
     spx_launches = _phase(phase_spatial_zoo_extras, cuda_gen)
+    torch.cuda.empty_cache()
+    mp_launches = _phase(phase_model_parallel, cuda_gen)
 
     def launches(name, *counted):
         """The kernel's count over the counted drives of its paths."""
@@ -4585,7 +5002,7 @@ def main(argv=None) -> None:
 
     later_paths = (serving_launches, extras_launches, accum_launches, sliding_launches,
                    zoo_launches, zoo_trunk_launches, dp_launches, zoo_dp_launches, sp_launches,
-                   spx_launches)
+                   spx_launches, mp_launches)
     src = "mrfp_tpu_torch/csrc/"
     kernels = [
         dict(name="resize_bilinear", route="cuda", source=src + "resize_bilinear.cu",
@@ -4611,8 +5028,9 @@ def main(argv=None) -> None:
              **hist),
         dict(name="dot_with_stats", route="cuda", source=src + "dot_stats.cu",
              replaces="mrfp_tpu/ops/pallas_dot_stats.py:112",
-             launches=launches("dot_with_stats", fused_launches, spx_launches),
-             tensor_core_launches=launches("dot_with_stats_tc", fused_launches, spx_launches),
+             launches=launches("dot_with_stats", fused_launches, spx_launches, mp_launches),
+             tensor_core_launches=launches("dot_with_stats_tc", fused_launches, spx_launches,
+                                           mp_launches),
              **dot_stats),
         dict(name="row_mix", route="cuda", source=src + "row_mix.cu",
              replaces="mrfp_tpu/ops/pallas_resize.py:74",

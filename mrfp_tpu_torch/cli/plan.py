@@ -1,6 +1,6 @@
 """Preflight launch planner, PyTorch port (mrfp_tpu/cli/plan.py): what one
-step of a data- or spatial-parallel ``cli.train`` launch pays, before the
-launch.
+step of a data-, tensor- or spatial-parallel ``cli.train`` launch pays,
+before the launch.
 
     python -m mrfp_tpu_torch.cli.plan --trunk resnet-50 --variant D16 \
         --batch-size 8 --data-parallel 2            # on the card(s)
@@ -11,12 +11,18 @@ launch.
     python -m mrfp_tpu_torch.cli.plan --device cpu --batch-size 4 \
         --crop-size 64 --data-parallel 1 --spatial-parallel 2
 
+    python -m mrfp_tpu_torch.cli.plan --device cpu --trunk resnet-18 \
+        --variant D32 --batch-size 2 --crop-size 64 --data-parallel 1 \
+        --model-parallel 2
+
 It builds what ``cli.train`` would run (its config factories, ``build_state``
 and ``train_step``) and reports
 
   - the mesh and each rank's bytes of parameters, momentum and running
-    statistics (every rank holds all of them: data and spatial parallelism
-    replicate the state);
+    statistics (data and spatial parallelism replicate the state; under
+    ``--model-parallel M`` each tensor that ``core.mesh.tp_spec`` shards
+    counts its bytes / M, as the JAX planner counts each leaf's shard on
+    one device);
   - every collective of one step, rolled up by op with its bytes, and by
     dtype: the gradient's flat ``all_reduce``, the BatchNorm statistics
     forward and backward, NP+'s gathered means, the loss denominators; and
@@ -28,7 +34,7 @@ plus one JSON line with the JAX report's keys (``--json-out`` writes it to
 a file too).
 
 The collectives are counted, not parsed: the port issues each of them
-explicitly through ``parallel/dist.py``, so N = dp x S rank processes
+explicitly through ``parallel/dist.py``, so N = dp x M x S rank processes
 (``torch.multiprocessing``, a file rendezvous) join a process group, lay
 out the mesh and take one step of ``cli.train``'s own step on a seeded
 synthetic batch, the gates forced on (every collective a step can pay),
@@ -36,7 +42,8 @@ under ``parallel/audit.py``'s count. Under data parallelism alone that
 step runs at ``AUDIT_CROP`` (64 px): no collective of data parallelism
 depends on the crop (``tests/test_torch_plan.py`` holds the rollups at two
 crops equal). The halo rows of spatial parallelism are as wide as the
-maps, so with S > 1 the ranks' step runs at ``--crop-size``. By
+maps, and tensor parallelism gathers whole maps, so with S > 1 or M > 1
+the ranks' step runs at ``--crop-size``. By
 default the ranks run on the card, through NCCL with a card each, else
 sharing it through gloo; ``--device cpu`` runs gloo ranks on the CPU, the
 counterpart of the JAX planner's simulated CPU slice.
@@ -55,8 +62,7 @@ not depend on the device the pass runs on. It is an upper bound that
 assumes no fusion; XLA's ``bytes accessed`` is counted after fusion, so
 the two bytes figures do not compare.
 
-Tensor parallelism (``--model-parallel`` > 1) is not ported (ROADMAP
-A14), nor is the JAX planner's ``--live``.
+The JAX planner's ``--live`` is not ported (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -90,7 +96,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--data-parallel", type=int, default=-1,
                    help="ranks of the data axis; -1 takes --devices")
-    p.add_argument("--model-parallel", type=int, default=1, help="not ported: ROADMAP A14")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="ranks that split every conv's output channels (cli.train's flag)")
     p.add_argument("--spatial-parallel", type=int, default=1,
                    help="ranks that split each image's rows (cli.train's flag)")
     p.add_argument("--devices", type=int, default=None,
@@ -103,22 +110,21 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def ranks(args) -> int:
     """The data axis's size; raises on a mesh the port cannot run."""
-    if args.model_parallel != 1:
-        raise NotImplementedError("not ported yet: --model-parallel (ROADMAP A14: tensor "
-                                  "parallelism across processes)")
-    sp = args.spatial_parallel
-    if sp < 1:
-        raise ValueError(f"--spatial-parallel {sp}: need at least 1")
+    sp, mp = args.spatial_parallel, args.model_parallel
+    if sp < 1 or mp < 1:
+        raise ValueError(f"--spatial-parallel {sp}, --model-parallel {mp}: need at least 1")
+    if 16 % mp:
+        raise ValueError(f"--model-parallel {mp} must divide every channel count of the "
+                         f"model: 1, 2, 4, 8 or 16")
     if args.data_parallel > 0:
         n = args.data_parallel
     elif args.devices is not None:
-        n = args.devices // sp
+        n = args.devices // (mp * sp)
     else:
         raise SystemExit("--data-parallel is -1 (fill): pass --devices N or an explicit "
                          "--data-parallel")
-    if args.devices is not None and args.devices != n * sp:
-        raise ValueError(f"--devices {args.devices} with --data-parallel {n} x "
-                         f"--spatial-parallel {sp}: the mesh takes every device")
+    if args.devices is not None and args.devices != n * mp * sp:
+        raise ValueError(f"mesh {n}x{mp}x{sp} != {args.devices} devices")
     if n < 1 or args.batch_size % n:
         raise ValueError(f"--batch-size {args.batch_size} (the global batch) not divisible "
                          f"by {n} ranks")
@@ -144,6 +150,7 @@ def train_config(args, crop: int):
     argv = ["--trunk", args.trunk, "--variant", args.variant, "--mode", args.mode,
             "--batch-size", str(args.batch_size), "--crop-size", str(crop),
             "--accum-steps", str(args.accum_steps),
+            "--model-parallel", str(args.model_parallel),
             "--spatial-parallel", str(args.spatial_parallel)] + ([] if args.bf16 else
                                                                  ["--no-bf16"])
     cfg = cli_train.build_config(cli_train.parse_args(argv))
@@ -173,14 +180,14 @@ def _rank(rank: int, args, n: int, tmp: str) -> None:
     from mrfp_tpu_torch.parallel import dist
     from mrfp_tpu_torch.parallel.audit import count_collectives
     from mrfp_tpu_torch.train.step import train_step
-    sp = args.spatial_parallel
-    world = n * sp
+    sp, mp = args.spatial_parallel, args.model_parallel
+    world = n * mp * sp
     shared = args.device == "cpu" or torch.cuda.device_count() < world
     dist.initialize_distributed(f"file://{tmp}/rendezvous", world, rank, args.device,
                                 backend="gloo" if shared else None, timeout_s=600)
     try:
         device = dist.local_device(args.device)
-        crop = AUDIT_CROP if sp == 1 else args.crop_size
+        crop = AUDIT_CROP if sp == mp == 1 else args.crop_size
         cfg = train_config(args, crop)
         mesh = create_mesh(cfg.mesh)
         state = build_state(cfg, device)
@@ -197,17 +204,17 @@ def _rank(rank: int, args, n: int, tmp: str) -> None:
 
 
 def run_ranks(args, n: int) -> list:
-    """Run the ``n`` x ``--spatial-parallel`` ranks of this plan and return
-    each one's collectives (``parallel.audit.Collective``), in rank order.
-    The ranks of a data group issue the same collectives; those of a
-    spatial group the same calls, their halos as large as their bands
-    read."""
-    import torch.multiprocessing as mp
+    """Run the ``n`` x ``--model-parallel`` x ``--spatial-parallel`` ranks of
+    this plan and return each one's collectives
+    (``parallel.audit.Collective``), in rank order. The ranks of a data or
+    model group issue the same collectives; those of a spatial group the
+    same calls, their halos as large as their bands read."""
+    import torch.multiprocessing as tmp_mp
 
     from mrfp_tpu_torch.parallel.audit import Collective
-    world = n * args.spatial_parallel
+    world = n * args.model_parallel * args.spatial_parallel
     with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(_rank, args=(args, n, tmp), nprocs=world, start_method="spawn")
+        tmp_mp.start_processes(_rank, args=(args, n, tmp), nprocs=world, start_method="spawn")
         got = []
         for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
@@ -255,13 +262,23 @@ class OpBytes(TorchDispatchMode):
         return super().__exit__(*exc)
 
 
+def _shard_bytes(named, place: dict, mp: int) -> int:
+    """The bytes of ``(key, tensor)`` pairs on one rank: a tensor that
+    ``place`` shards counts 1/``mp`` of its bytes (JAX's
+    ``_bytes_per_chip``)."""
+    return sum(t.numel() * t.element_size() // (mp if place.get(k) is not None else 1)
+               for k, t in named)
+
+
 def work(args, n: int) -> dict:
-    """One rank's step at ``--crop-size`` in this process, counted: its
-    FLOPs and bytes times ``n``, and a rank's state bytes."""
+    """One data rank's step at ``--crop-size`` in this process, counted: its
+    FLOPs and bytes times ``n``, and a rank's state bytes (under
+    ``--model-parallel`` the shards' of the whole state)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from mrfp_tpu_torch.cli.train import build_state
     from mrfp_tpu_torch.train.step import train_step
+    from mrfp_tpu_torch.weights import tp_placement
     device = torch.device("cuda", torch.cuda.current_device()) if args.device == "cuda" \
         else torch.device("cpu")
     cfg = train_config(args, args.crop_size)
@@ -270,10 +287,15 @@ def work(args, n: int) -> dict:
     flops, moved = FlopCounterMode(display=False), OpBytes()
     with flops, moved:
         float(train_step(state, img, lbl, cfg)["loss"])
-    model = state.model
-    return {"params": _nbytes(list(model.parameters())),
-            "momentum": _nbytes(list(state.optimizer.state.values())),
-            "batch_stats": _nbytes([b for k, b in model.named_buffers() if "running" in k]),
+    model, mp = state.model, args.model_parallel
+    place = tp_placement(model.state_dict(), mp)
+    params = list(model.named_parameters())
+    momentum = [(k, t) for k, p in params for t in tree_leaves(state.optimizer.state[p])
+                if isinstance(t, torch.Tensor)]
+    return {"params": _shard_bytes(params, place, mp),
+            "momentum": _shard_bytes(momentum, place, mp),
+            "batch_stats": _shard_bytes([(k, b) for k, b in model.named_buffers()
+                                         if "running" in k], place, mp),
             "fp32_grad_set_bytes": sum(p.numel() * 4 for p in model.parameters()
                                        if p.requires_grad),
             "flops": float(flops.get_total_flops() * n), "bytes": float(moved.total * n)}
@@ -287,14 +309,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "(use --device cpu to plan on the CPU)")
     from mrfp_tpu_torch.parallel.audit import (summarize, summarize_by_dtype,
                                                 summarize_by_group)
-    sp = args.spatial_parallel
+    sp, mp = args.spatial_parallel, args.model_parallel
     log = run_ranks(args, n)[0]
     colls, by_dtype, by_group = summarize(log), summarize_by_dtype(log), summarize_by_group(log)
     w = work(args, n)
     platform = "gpu" if args.device == "cuda" else "cpu"
     report = {
-        "mesh": {"data": n, "model": 1, "spatial": sp},
-        "devices": n * sp,
+        "mesh": {"data": n, "model": mp, "spatial": sp},
+        "devices": n * mp * sp,
         "platform": platform,
         "global_batch": args.batch_size,
         "crop": args.crop_size,
@@ -316,7 +338,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     def mb(b: float) -> str:
         return f"{b / 1e6:,.1f} MB"
 
-    print(f"mesh {report['mesh']} over {n * sp} {platform} devices; global batch "
+    print(f"mesh {report['mesh']} over {n * mp * sp} {platform} devices; global batch "
           f"{args.batch_size} @ {args.crop_size}x{args.crop_size}"
           + (f", {args.accum_steps} microbatches" if args.accum_steps > 1 else ""))
     print(f"per-chip state: params {mb(w['params'])}, momentum {mb(w['momentum'])}, "

@@ -49,8 +49,21 @@ their halo rows from the neighbours. ``--data-parallel`` may name N/S.
 Every extra composes with it: ``--jointwtborder`` fetches the label rows
 its window reads, and ``--freq-transform`` runs on each sample's whole
 image before the band is cut (each rank of a spatial group repeats it).
-Refused: ``--model-parallel`` > 1 (ROADMAP A14, tensor parallelism), and
-an S above the rows of the trunk's deepest map.
+Refused: an S above the rows of the trunk's deepest map.
+
+Tensor parallelism (``core/mesh.py``): ``--model-parallel M`` lays the N
+processes out as a (N/(M S)) x M x S mesh, JAX's device order. The M ranks
+of a model group load the same samples (and bands) and each holds its
+slice of the channels of every conv kernel, BN affine and statistic and
+momentum buffer (``weights.shard_model``, JAX's ``state_shardings``); each
+conv gathers its whole input map over the group and computes its slice of
+output channels. The checkpoints stay whole. ``--data-parallel`` may name
+N/(M S); any other value raises JAX's ValueError. M must divide every
+channel count of the trunk and heads (1, 2, 4, 8 or 16).
+
+    python -m mrfp_tpu_torch.cli.train --device cpu --synthetic --trunk resnet-18 \
+        --variant D32 --crop-size 64 --batch-size 2 --num-processes 2 \
+        --process-id R --coordinator-address file:///tmp/rdv --model-parallel 2
 """
 
 from __future__ import annotations
@@ -163,46 +176,49 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "for the watchdog to persist if the device wedges (a relaunch "
                         "then loses at most N steps); needs the watchdog "
                         "(--step-timeout) and one process, else ignored with a warning")
-    # a flag of the JAX trainer whose code path is not ported yet
-    p.add_argument("--model-parallel", type=int, default=None, help="not ported: ROADMAP A14")
+    p.add_argument("--model-parallel", type=int, default=None,
+                   help="split every conv's output channels over this many processes "
+                        "(tensor parallelism; the ranks of a model group take the same "
+                        "samples)")
     return p.parse_args(argv)
 
 
-def mesh_axes(args) -> Tuple[int, int, int]:
+def mesh_axes(args) -> Tuple[int, int, int, int]:
     """The run's processes (``--num-processes``, else torchrun's, else 1)
-    and its data and spatial axes ``(nproc, dp, sp)``; raises where
-    ``--spatial-parallel`` does not divide the processes, the global batch
-    does not divide over the data axis, or a flag names a mesh the port
-    does not run (ROADMAP A14). ``cli.train_zoo`` takes the same flags."""
+    and its data, model and spatial axes ``(nproc, dp, mp, sp)``; raises
+    where ``--model-parallel`` x ``--spatial-parallel`` does not divide the
+    processes, an explicit ``--data-parallel`` is not the processes left
+    over (JAX's ``mesh dp x mp x sp != n``), or the global batch does not
+    divide over the data axis. ``cli.train_zoo`` takes the same flags."""
     nproc = args.num_processes if args.num_processes is not None else \
         int(os.environ.get("WORLD_SIZE", 1))
     if nproc < 1:
         raise ValueError(f"--num-processes {nproc}: need at least 1")
+    mp = args.model_parallel or 1
     sp = args.spatial_parallel or 1
-    if sp < 1 or nproc % sp:
-        raise ValueError(f"--spatial-parallel {sp} does not divide {nproc} processes")
-    dp = nproc // sp
+    if sp < 1 or mp < 1 or nproc % (mp * sp):
+        raise ValueError(f"--spatial-parallel {sp}" + (f" x --model-parallel {mp}" if mp != 1
+                                                       else "")
+                         + f" does not divide {nproc} processes")
+    dp = nproc // (mp * sp)
+    if args.data_parallel not in (None, -1) and args.data_parallel != dp:
+        raise ValueError(f"mesh {args.data_parallel}x{mp}x{sp} != {nproc} processes")
     if args.batch_size % dp:
         raise ValueError(f"--batch-size {args.batch_size} (the global batch) not divisible "
                          f"by the {dp} ranks of the data axis")
-    unported = {"--data-parallel": ("A14: a mesh other than the data axis over the "
-                                    "processes left by --spatial-parallel",
-                                    args.data_parallel not in (None, -1, dp)),
-                "--model-parallel": ("A14: tensor parallelism",
-                                     args.model_parallel not in (None, 1))}
-    bad = [f"{flag} (ROADMAP {item})" for flag, (item, on) in unported.items() if on]
-    if bad:
-        raise NotImplementedError("not ported yet: " + ", ".join(bad))
-    return nproc, dp, sp
+    return nproc, dp, mp, sp
 
 
 def check_args(args) -> None:
     """Raise on a flag whose code path the port does not have, on a global
     batch the processes cannot share, and on a spatial split finer than
     the smallest map."""
-    _nproc, _dp, sp = mesh_axes(args)
+    _nproc, _dp, mp, sp = mesh_axes(args)
     from mrfp_tpu_torch.nn.resnet import check_trunk, deepest_rows
     check_trunk(args.trunk)  # the nine ResNets; the zoo's others raise JAX's ValueError
+    if 16 % mp:  # the channel counts' divisor: 48 (bot_fine), 64, ...; ResNeXt's 32 groups
+        raise ValueError(f"--model-parallel {mp} must divide every channel count of the "
+                         f"model: 1, 2, 4, 8 or 16")
     rows = deepest_rows(args.crop_size, args.variant)
     if sp > rows:
         raise ValueError(f"--spatial-parallel {sp} exceeds the {rows} rows of the smallest "
@@ -216,7 +232,8 @@ def build_config(args):
     cfg = {"mrfp+": mrfp_plus_config, "mrfp": mrfp_config,
            "baseline": baseline_config}[args.mode]()
     return cfg.replace(
-        mesh=MeshConfig(data_parallel=-1, spatial_parallel=args.spatial_parallel or 1),
+        mesh=MeshConfig(data_parallel=-1, model_parallel=args.model_parallel or 1,
+                        spatial_parallel=args.spatial_parallel or 1),
         model=dataclasses.replace(cfg.model, trunk=args.trunk, variant=args.variant,
                                   use_dsn_aux=args.use_dsn),
         data=dataclasses.replace(
@@ -278,10 +295,14 @@ def build_dataset(args, cfg, train: bool = True):
 
 def build_state(cfg, device: torch.device):
     """The model from seeded random weights (OC buffers drawn from seed+1,
-    as the JAX trainer does), its optimizer and schedule, at step 0."""
+    as the JAX trainer does), its optimizer and schedule, at step 0. Under
+    a model axis (``core.mesh.current_mesh``) the model is this rank's
+    shards of the whole one (``weights.shard_model``)."""
+    from mrfp_tpu_torch.core.mesh import current_mesh
     from mrfp_tpu_torch.models import build_mrfp
     from mrfp_tpu_torch.perturb.oc_branch import oc_init
     from mrfp_tpu_torch.train.state import create_train_state
+    from mrfp_tpu_torch.weights import shard_model
 
     m = cfg.model
     model = build_mrfp("cpu", generator=torch.Generator().manual_seed(cfg.train.seed),
@@ -295,6 +316,7 @@ def build_state(cfg, device: torch.device):
     if cfg.perturb.enabled:
         model.load_state_dict(oc_init(torch.Generator().manual_seed(cfg.train.seed + 1),
                                       cfg.perturb.oc_bn_std), strict=False)
+    model = shard_model(model, current_mesh())
     return create_train_state(model.to(device), cfg.train)
 
 
@@ -340,8 +362,8 @@ def _train(args, device: torch.device, watchdog) -> int:
     rank, nproc = dist.rank(), dist.world()
     mesh = create_mesh(cfg.mesh)
     exp = prep_experiment(cfg, root=args.runs_dir, coordinator=dist.is_coordinator())
-    logging.info("experiment %s on %s (process %d of %d, mesh %dx%d)", exp["name"], device,
-                 rank, nproc, mesh.dp, mesh.sp)
+    logging.info("experiment %s on %s (process %d of %d, mesh %dx%dx%d)", exp["name"], device,
+                 rank, nproc, mesh.dp, mesh.mp, mesh.sp)
     state = build_state(cfg, device)
     ckpt = CheckpointManager(exp["ckpt_dir"], keep=cfg.train.keep_checkpoints,
                              recipe=run_recipe(args))
@@ -350,8 +372,9 @@ def _train(args, device: torch.device, watchdog) -> int:
     # the host makes the batches; on the CPU the workers would only take
     # cores from the step itself
     workers = cfg.data.num_workers if device.type == "cuda" else 0
-    # the ranks of a spatial group load the same samples (the data index's
-    # shard) and keep their bands: the host work is repeated sp times
+    # the ranks of a spatial or model group load the same samples (the data
+    # index's shard) and keep their bands: the host work is repeated mp x sp
+    # times
     loader = TrainLoader(build_dataset(args, cfg), cfg.data.batch_size // mesh.dp,
                          seed=args.seed, num_workers=workers,
                          pin_memory=device.type == "cuda", shard_rank=mesh.data_index,

@@ -28,7 +28,7 @@ Every trunk of the JAX zoo trains (``--trunk`` or ``--arch``, the 23
 factory names) with every iw code 0-5. Refused: an IRW slot (iw code 1)
 with ``--use-wtloss``, which the JAX trainer cannot run either (ROADMAP C6),
 and ``--use-wtloss`` with an ISW slot that the trunk does not read (C11);
-``--model-parallel`` > 1 (A14, tensor parallelism).
+``--model-parallel`` > 1 (ROADMAP A1', tensor parallelism for the zoo).
 
 Data parallelism, one process per card, as ``cli.train`` runs it:
 
@@ -150,7 +150,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="split every image's rows over this many processes (a band "
                         "each), as cli.train does")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="not ported: ROADMAP A14 (tensor parallelism)")
+                   help="not ported: ROADMAP A1' (tensor parallelism for the zoo)")
     return p.parse_args(argv)
 
 
@@ -158,7 +158,7 @@ def check_args(args) -> None:
     """Resolve ``--arch`` into ``--trunk``/``--variant`` and raise on what
     the port cannot run: a mesh ``cli.train`` refuses (``mesh_axes``: a
     global batch the data axis cannot share, a spatial axis that does not
-    divide the processes, tensor parallelism, A14), an unknown trunk, a
+    divide the processes), tensor parallelism (ROADMAP A1'), an unknown trunk, a
     spatial split finer than the trunk's smallest map, and under
     ``--use-wtloss`` an IRW slot (ROADMAP C6: the JAX trainer fails there
     with an AttributeError) or an ISW slot the trunk does not read (C11:
@@ -170,7 +170,13 @@ def check_args(args) -> None:
                                                   iw_slots)
     if args.arch:
         args.trunk, args.variant = arch_trunk(args.arch)
-    nproc, _dp, sp = mesh_axes(args)
+    mp = args.model_parallel or 1
+    if mp > 1:
+        raise NotImplementedError(
+            f"--model-parallel {mp}: not ported for the zoo (ROADMAP A1': SwitchWhiten's and "
+            f"ISW's C x C covariances across channel slices, the depthwise and grouped convs, "
+            f"ShuffleNetV2's channel shuffle); cli.train runs it for MRFP")
+    nproc, _dp, _mp, sp = mesh_axes(args)
     if args.batch_size % nproc:
         raise ValueError(f"--batch-size {args.batch_size} (the global batch) not divisible "
                          f"by {nproc} processes (the statistics phase's batch)")

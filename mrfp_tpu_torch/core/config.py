@@ -3,9 +3,9 @@
 It is a copy because ``mrfp_tpu.core``'s ``__init__`` imports jax. The
 knobs and their defaults are the JAX package's, so one recipe names the
 same run in both packages. ``MeshConfig`` lays the processes out as the
-JAX mesh lays out devices (``core/mesh.py``): data parallelism and
-spatial parallelism run one process per card (``parallel/dist.py``), and
-the model axis waits for ROADMAP item A14. ``trunk`` takes
+JAX mesh lays out devices (``core/mesh.py``): data, tensor and spatial
+parallelism run one process per card (``parallel/dist.py``); the zoo's
+model axis waits for ROADMAP item A1'. ``trunk`` takes
 the nine ResNet trunks for MRFP and the zoo's 15 for ``DeepV3Plus``
 (``models/deepv3_zoo.py``), and ``wt_layer`` iw codes 0-5; MRFP raises the
 JAX package's ValueError for a zoo-only trunk (``nn/resnet.py``). The zoo's knobs
@@ -146,8 +146,13 @@ class MeshConfig:
     the parity strategy; the 'spatial' axis splits image H across processes,
     each computing its band of rows of every map and fetching the halo rows
     it reads (``core/mesh.py``): for resolutions whose activations exceed
-    one card's memory. The 'model' axis (tensor parallelism) is not ported
-    (ROADMAP A14)."""
+    one card's memory. The 'model' axis (tensor parallelism) splits the
+    channels: each process of a model group holds a slice of every conv
+    kernel's output channels, its BN affines and statistics and their
+    momentum, and computes that slice of every map from the whole input
+    map, gathered over the group (MRFP on the ResNet trunks; the zoo's is
+    ROADMAP A1'). Rank ``(d * model_parallel + m) * spatial_parallel + s``
+    has index d, m, s on the three axes."""
 
     data_axis: str = "data"
     model_axis: str = "model"

@@ -1,14 +1,23 @@
-"""The process mesh and the bands of a spatially split forward
-(mrfp_tpu/core/mesh.py:23-111).
+"""The process mesh, the bands of a spatially split forward and the channel
+slices of a tensor-parallel one (mrfp_tpu/core/mesh.py:23-186).
 
 The JAX package builds a (data, model, spatial) device mesh and lets GSPMD
-shard image H over the 'spatial' axis, inserting the conv halo exchanges.
-The port runs one process per card and lays the processes out as the JAX
-mesh lays out devices (``reshape(dp, mp, sp)`` with ``mp = 1``): rank
-``r = d * sp + s``. The ranks that share ``d`` form a spatial group: they
-take the same samples, and rank ``s`` of the group owns the rows
-``band(H, sp, s)`` of every map of height ``H``, the even split of that
-map's own height. The ranks that share ``s`` form a data group.
+shard image H over the 'spatial' axis and channels over the 'model' axis,
+inserting the conv halo exchanges and the channel collectives. The port
+runs one process per card and lays the processes out as the JAX mesh lays
+out devices (``reshape(dp, mp, sp)``): rank ``r = (d * mp + m) * sp + s``.
+Four groups follow from it:
+
+- the spatial group, the ranks that share ``(d, m)``: they take the same
+  samples, and rank ``s`` of the group owns the rows ``band(H, sp, s)`` of
+  every map of height ``H``, the even split of that map's own height;
+- the model group, the ranks that share ``(d, s)``: they take the same
+  samples and rows, and rank ``m`` of the group holds slice ``m`` of the
+  channels of every map whose producer's weight is sharded (``tp_spec``);
+- the data group, the ranks that share ``(m, s)``;
+- the replica group, the ranks that share ``m``: data x spatial, the
+  ranks whose samples and rows partition the global batch, over which the
+  batch's statistics, the loss denominators and the gradient reduce.
 
 Inside ``bands(h, w)`` (entered by the model's forward when it is handed
 a band, and by the train step around its loss) the convs, pools, resizes,
@@ -22,35 +31,56 @@ read back as the one map of its width whose band on this rank has its rows.
 Where two maps of one width could be told apart on no rank, the lookup
 raises, on every rank alike.
 
-With one process, or ``sp == 1``, every helper is the identity and no scope
-is entered: today's paths compute what they computed before this module.
+Inside ``channels()`` (entered by the model's forward when the mesh has
+``mp > 1``) each conv of a sharded model computes its slice of output
+channels from the whole input map, which ``Channels`` gathers over the
+model group once per map, however many convs read it.
+
+With one process, or ``sp == mp == 1``, every helper is the identity and
+no scope is entered: today's paths compute what they computed before this
+module.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as tdist
 
 from mrfp_tpu_torch.core.config import MeshConfig
-from mrfp_tpu_torch.parallel.dist import Group, band, rank, world, world_group
+from mrfp_tpu_torch.parallel.dist import (Group, band, copy_to_group, gather_channels, rank,
+                                          slice_channels, world, world_group)
 
-__all__ = ["Mesh", "Bands", "active_bands", "band", "bands", "create_mesh", "current_mesh",
-           "shard_batch", "spatial_sharding"]
+__all__ = ["Mesh", "Bands", "Channels", "active_bands", "active_channels", "band", "bands",
+           "channels", "create_mesh", "current_mesh", "shard_batch", "spatial_sharding",
+           "state_placement", "tp_spec"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This process's place in the (data, spatial) layout: the axis sizes,
-    its data group (the ranks with its spatial index) and its spatial group
-    (the ranks with its data index)."""
+    """This process's place in the (data, model, spatial) layout: the axis
+    sizes and its four groups (the data group: the ranks with its model
+    and spatial indices; the spatial group: those with its data and model
+    indices; the model group: those with its data and spatial indices;
+    the replica group: those with its model index). A mesh without a model
+    axis may leave ``model`` and ``replica`` out: a group of one and the
+    world."""
     dp: int
     sp: int
     data: Group
     spatial: Group
+    mp: int = 1
+    model: Optional[Group] = None
+    replica: Optional[Group] = None
+
+    def __post_init__(self):
+        if self.model is None:
+            object.__setattr__(self, "model", Group("model", None, 1, 0))
+        if self.replica is None:
+            object.__setattr__(self, "replica", world_group())
 
     @property
     def data_index(self) -> int:
@@ -60,44 +90,59 @@ class Mesh:
     def spatial_index(self) -> int:
         return self.spatial.rank
 
+    @property
+    def model_index(self) -> int:
+        return self.model.rank
+
 
 _MESH: Optional[Mesh] = None
 
 
 def create_mesh(cfg: Optional[MeshConfig] = None) -> Mesh:
-    """The (dp, sp) layout over the processes of the default group, which
-    becomes this process's mesh (``current_mesh``). Every rank must call it,
-    with the same ``cfg``: it creates every data and spatial subgroup with
-    ``dist.new_group`` in one order on every rank. Raises where ``dp * sp``
-    is not the number of processes, or for a model axis above 1."""
+    """The (dp, mp, sp) layout over the processes of the default group,
+    which becomes this process's mesh (``current_mesh``). Every rank must
+    call it, with the same ``cfg``: it creates every data, spatial, model
+    and replica subgroup with ``dist.new_group`` in one order on every
+    rank. Raises, as the JAX package's does, where ``dp * mp * sp`` is not
+    the number of processes."""
     global _MESH
     cfg = cfg or MeshConfig()
-    if cfg.model_parallel > 1:
-        raise NotImplementedError(f"model_parallel {cfg.model_parallel}: tensor parallelism "
-                                  f"is not ported (ROADMAP A14)")
     n = world()
+    mp = max(1, cfg.model_parallel)
     sp = max(1, cfg.spatial_parallel)
-    dp = cfg.data_parallel if cfg.data_parallel > 0 else n // sp
-    if dp * sp != n:
-        raise ValueError(f"mesh {dp}x1x{sp} != {n} processes")
+    dp = cfg.data_parallel if cfg.data_parallel > 0 else n // (mp * sp)
+    if dp * mp * sp != n:
+        raise ValueError(f"mesh {dp}x{mp}x{sp} != {n} processes")
+
+    def at(d: int, m: int, s: int) -> int:
+        return (d * mp + m) * sp + s
+
+    layouts = (
+        ("data", [[at(e, m, t) for e in range(dp)] for m in range(mp) for t in range(sp)]),
+        ("spatial", [[at(e, m, t) for t in range(sp)] for e in range(dp) for m in range(mp)]),
+        ("model", [[at(e, k, t) for k in range(mp)] for e in range(dp) for t in range(sp)]),
+        # data x spatial: with mp == 1 the world, under its old name
+        ("replica" if mp > 1 else "world",
+         [[at(e, m, t) for e in range(dp) for t in range(sp)] for m in range(mp)]),
+    )
     me = rank()
     mine = {}
-    for kind, layout in (("data", [[e * sp + t for e in range(dp)] for t in range(sp)]),
-                         ("spatial", [[e * sp + t for t in range(sp)] for e in range(dp)])):
+    for kind, layout in layouts:
         for members in layout:
             # a group of every process is the default one, a group of one
             # needs none; torch wants every rank to create every other
             pg = tdist.new_group(members) if 1 < len(members) < n else None
             if me in members:
                 mine[kind] = Group(kind, pg, len(members), members.index(me))
-    _MESH = Mesh(dp, sp, mine["data"], mine["spatial"])
+    _MESH = Mesh(dp, sp, mine["data"], mine["spatial"], mp, mine["model"],
+                 mine["replica" if mp > 1 else "world"])
     return _MESH
 
 
 def current_mesh() -> Mesh:
     """This process's mesh: the one ``create_mesh`` made, else data
-    parallelism over every process (``sp = 1``)."""
-    if _MESH is not None and _MESH.dp * _MESH.sp == world():
+    parallelism over every process (``mp = sp = 1``)."""
+    if _MESH is not None and _MESH.dp * _MESH.mp * _MESH.sp == world():
         return _MESH
     return Mesh(world(), 1, world_group(), Group("spatial", None, 1, 0))
 
@@ -211,3 +256,113 @@ def bands(h: int, w: int, mesh: Optional[Mesh] = None) -> Iterator[Optional[Band
         yield scope
     finally:
         _BANDS = outer
+
+
+def tp_spec(t: torch.Tensor, mp: int) -> Optional[int]:
+    """The dim of a state tensor that tensor parallelism shards over ``mp``
+    ranks, or None (replicated): JAX's ``_tp_spec`` (mrfp_tpu/core/mesh.py:
+    122-141) by shape and dtype alone, in the port's layout. A float tensor
+    of 2 or more dims shards its output features, dim 0 of an OIHW conv
+    kernel (HWIO's last dim), where they divide by ``mp``; a 1-D float
+    tensor (a BN scale, bias or running statistic, a conv bias) shards its
+    only dim where it divides; anything else is replicated: integer
+    counters (``num_batches_tracked``) and the 19-channel classifier."""
+    if mp <= 1 or not t.is_floating_point() or t.dim() == 0:
+        return None
+    return 0 if t.shape[0] % mp == 0 and t.shape[0] >= mp else None
+
+
+def state_placement(sd: Mapping[str, torch.Tensor], mp: int,
+                    replicated: Sequence[str] = ()) -> Dict[str, Optional[int]]:
+    """``tp_spec`` of every entry of a whole state_dict (parameters, BN
+    buffers, or the momentum of each parameter, which mirrors it), JAX's
+    ``state_shardings`` (:144-168): the entries under a module named in
+    ``replicated`` stay whole, as JAX keeps ``oc_params`` whole."""
+    out = {}
+    for k, t in sd.items():
+        whole = any(k == r or k.startswith(r + ".") for r in replicated)
+        out[k] = None if whole else tp_spec(t, mp)
+    return out
+
+
+class Channels:
+    """The channel slices of one forward under tensor parallelism: the
+    model group, its size ``mp`` and this rank's ``index`` in it.
+
+    A map that a sharded conv made holds this rank's slice of its channels.
+    ``whole`` gathers it over the group, once per map (for a consumer that
+    every rank computes alike: the OC branch, the classifier, a map's
+    maximum); ``shared`` hands the whole map to a consumer of which each
+    rank computes its own output channels (a sharded conv), whose backward
+    sums the ranks' cotangents, once per map however many convs read it.
+    ``cat`` concatenates slices and remembers the blocks, so the whole map
+    is the concatenation of the whole blocks (the global channel order of
+    the ASPP and decoder concatenations); ``own`` slices a map every rank
+    holds whole down to this rank's channels."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh, self.group = mesh, mesh.model
+        self.mp, self.index = mesh.mp, mesh.model_index
+        # id(map) -> (map, result): the map is held, so its id stays its own
+        self._whole: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._shared: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._parts: Dict[int, Tuple[torch.Tensor, Tuple[int, ...]]] = {}
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole map of this rank's slice ``x`` (its blocks in the
+        global order where ``cat`` made it)."""
+        got = self._whole.get(id(x))
+        if got is None:
+            parts = self._parts.get(id(x), (None, None))[1]
+            got = self._whole[id(x)] = (x, gather_channels(x, self.group, parts))
+        return got[1]
+
+    def shared(self, x: torch.Tensor, sliced: bool = True) -> torch.Tensor:
+        """The whole map of ``x`` (this rank's slice, or with ``sliced``
+        False a map it holds whole) as the input of a computation of which
+        each rank computes its own part."""
+        got = self._shared.get(id(x))
+        if got is None:
+            got = self._shared[id(x)] = (x, copy_to_group(self.whole(x) if sliced else x,
+                                                          self.group))
+        return got[1]
+
+    def cat(self, slices: Sequence[torch.Tensor]) -> torch.Tensor:
+        """``torch.cat(slices, dim=1)``, remembered as that many blocks."""
+        out = torch.cat(list(slices), dim=1)
+        self._parts[id(out)] = (out, tuple(t.shape[1] for t in slices))
+        return out
+
+    def own(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's channels of ``x``, which every rank holds whole
+        (differentiable: the backward gathers the ranks' cotangents)."""
+        return slice_channels(x, self.group)
+
+    def span(self, c: int) -> Tuple[int, int, int]:
+        """This rank's channels ``[lo, hi)`` of a map of ``c`` channels a
+        rank, and the whole map's channel count."""
+        return self.index * c, (self.index + 1) * c, self.mp * c
+
+
+_CHANNELS: Optional[Channels] = None
+
+
+def active_channels() -> Optional[Channels]:
+    """The open channel scope, or None (the forward's maps are whole)."""
+    return _CHANNELS
+
+
+@contextlib.contextmanager
+def channels(mesh: Optional[Mesh] = None) -> Iterator[Optional[Channels]]:
+    """Open the channel scope of one forward; yields it, or None where the
+    mesh has ``mp == 1``. An inner call while a scope is open keeps it."""
+    global _CHANNELS
+    mesh = mesh or current_mesh()
+    if mesh.mp == 1 or _CHANNELS is not None:
+        yield _CHANNELS
+        return
+    _CHANNELS = Channels(mesh)
+    try:
+        yield _CHANNELS
+    finally:
+        _CHANNELS = None

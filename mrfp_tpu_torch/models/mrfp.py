@@ -45,6 +45,16 @@ band of the logits: every module on the path computes its band of rows
 (``nn/layers.py``, ``nn/norms.py``, ``nn/deeplab.py``, ``ops/resize.py``,
 ``perturb/``), and every size the forward names (``int(h / 2)``,
 ``ceil(h / 4)``, the logits') comes from the global ``hw``.
+
+Under tensor parallelism (``core/mesh.py``, ``mp > 1``) the model is cut
+by ``weights.shard_model`` and ``forward`` runs in a channel scope
+(``core/mesh.py::channels``): every map of the trunk and the heads is
+this rank's slice of its channels, each conv computing its slice from the
+whole input map (``nn/layers.py::conv_input``). The frozen OC branch is
+replicated: it reads the gathered stem map, and its outputs enter the
+sliced maps through ``Channels.own`` (whose backward gathers the ranks'
+cotangents). The classifier reads the gathered decoder map, so the logits
+are whole on every rank of a model group.
 """
 
 from __future__ import annotations
@@ -56,7 +66,7 @@ from typing import Iterator, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from mrfp_tpu_torch.core.mesh import bands
+from mrfp_tpu_torch.core.mesh import active_channels, bands, channels
 from mrfp_tpu_torch.nn.deeplab import ASPP, DSNHead, DeepLabDecoder
 from mrfp_tpu_torch.nn.layers import conv2d, init_random_
 from mrfp_tpu_torch.nn.resnet import build_trunk, variant_output_stride
@@ -152,7 +162,7 @@ class MRFP(DeepLabDecoder):
         mode with ``use_dsn`` only. ``hw``: the global (h, w) of the image
         whose band of rows ``x`` is, under spatial parallelism (None: ``x``
         is the whole image)."""
-        with image_scope(x, hw) as size:
+        with image_scope(x, hw) as size, channels():
             return self._forward(x, size, valid_hw, impl, perturb, dropout)
 
     def _forward(self, x, hw, valid_hw, impl, perturb, dropout):
@@ -164,6 +174,8 @@ class MRFP(DeepLabDecoder):
         xp = self.layer0(x)
         feat = xp
         oc_dec = None
+        chans = active_channels()
+        whole, own = (lambda t: t, lambda t: t) if chans is None else (chans.whole, chans.own)
         if perturbing:
             # NP+ and the OC branch both read the unperturbed stem features
             # (deepv3.py:317-320)
@@ -172,10 +184,10 @@ class MRFP(DeepLabDecoder):
             use_dec = perturb.gate_dec and self.hrfp_plus
             if perturb.gate_oc or use_dec:
                 params = oc_params(self)
-                oc_dec = oc_encode(params, xp, (h, w), self.oc_scales_enc, impl)
+                oc_dec = oc_encode(params, whole(xp), (h, w), self.oc_scales_enc, impl)
                 if perturb.gate_oc:
-                    feat = oc_decode(params, oc_dec, (h, w), self.oc_scales_dec,
-                                     impl) + feat
+                    feat = own(oc_decode(params, oc_dec, (h, w), self.oc_scales_dec,
+                                         impl)) + feat
             if not use_dec:
                 oc_dec = None
         feat = self.layer1(feat)
@@ -192,7 +204,7 @@ class MRFP(DeepLabDecoder):
         if oc_dec is not None:
             # the decoder injection at half resolution (deepv3.py:355-360)
             dec1 = resize_bilinear_align_corners(dec1, (int(h / 2), int(w / 2)), impl)
-            dec1 = oc_dec + dec1
+            dec1 = own(oc_dec) + dec1
         logits = resize_bilinear_align_corners(self.final2(dec1), (h, w), impl)
         if not self.training:
             return logits.float()

@@ -14,6 +14,15 @@ map on every rank (its BatchNorm over the data group), and its broadcast is
 the band's slice of the bilinear resize from 1x1; the dilated convs fetch
 their halos; the decoder upsample and the DSN dropout's keep mask are the
 band's rows of the global ones.
+
+Under tensor parallelism (``core/mesh.py::channels``) every branch is this
+rank's slice of its channels. The ASPP reads layer4's output gathered once
+for its four convs, and its image pool is the slice's pooled map,
+gathered for ``img_conv`` (1/HW of the bytes). The concatenations put the
+slices side by side and remember their blocks (``Channels.cat``), so the
+map ``bot_aspp`` and ``final1`` gather is in the global channel order
+(image pool, 1x1, d6, d12, d18; bot_fine, upsampled bot_aspp). The DSN
+dropout's keep mask is this rank's channels of the global mask.
 """
 
 from __future__ import annotations
@@ -24,7 +33,7 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
-from mrfp_tpu_torch.core.mesh import active_bands, current_mesh
+from mrfp_tpu_torch.core.mesh import active_bands, active_channels, current_mesh
 from mrfp_tpu_torch.nn.layers import avg_pool_global, conv2d
 from mrfp_tpu_torch.nn.norms import batch_norm
 from mrfp_tpu_torch.ops.resize import resize_bilinear_align_corners
@@ -79,7 +88,7 @@ class ASPP(nn.Module):
             img = self.img_conv(img)
         size = x.shape[2:] if bands is None else bands.global_hw(x)
         img = resize_bilinear_align_corners(img, size, impl, replicated=bands is not None)
-        return torch.cat([img] + [f(x) for f in self.features], dim=1)
+        return _cat([img] + [f(x) for f in self.features])
 
 
 class DeepLabDecoder(nn.Module):
@@ -105,7 +114,14 @@ class DeepLabDecoder(nn.Module):
         bands = active_bands()
         size = low_level.shape[2:] if bands is None else bands.global_hw(low_level)
         dec0_up = resize_bilinear_align_corners(dec0_up, size, impl)
-        return self.final1(torch.cat([dec0_fine, dec0_up], dim=1))
+        return self.final1(_cat([dec0_fine, dec0_up]))
+
+
+def _cat(maps: list) -> torch.Tensor:
+    """The channel concatenation of ``maps``; of their slices in a channel
+    scope, with their blocks remembered for the gather."""
+    chans = active_channels()
+    return torch.cat(maps, dim=1) if chans is None else chans.cat(maps)
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -117,19 +133,21 @@ def dropout(x: torch.Tensor, rate: float,
     generator). The generator draws the mask of the global batch (``x``'s
     batch times the data axis, ``core/mesh.py``) and of the whole map, and
     this rank keeps its own samples and, under spatial parallelism, its
-    band of rows, so N ranks drop what one process drops on the same
-    batch."""
+    band of rows, and under tensor parallelism its slice of the channels
+    (an injected mask of the whole map's channels is sliced too), so N
+    ranks drop what one process drops on the same batch."""
     keep_prob = 1.0 - rate
+    chans = active_channels()
+    c0, c1, c = (0, x.shape[1], x.shape[1]) if chans is None else chans.span(x.shape[1])
     if isinstance(noise, torch.Tensor):
-        keep = noise
+        keep = noise[:, c0:c1] if noise.shape[1] == c else noise
     else:
         mesh, bands = current_mesh(), active_bands()
         b, d = x.shape[0], mesh.data_index
         h = x.shape[2] if bands is None else bands.global_hw(x)[0]
         lo, hi = (0, h) if bands is None else bands.rows(h)
-        u = torch.rand((b * mesh.dp, x.shape[1], h, x.shape[3]), generator=noise,
-                       device=x.device)
-        keep = u[d * b:(d + 1) * b, :, lo:hi] < keep_prob
+        u = torch.rand((b * mesh.dp, c, h, x.shape[3]), generator=noise, device=x.device)
+        keep = u[d * b:(d + 1) * b, c0:c1, lo:hi] < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
 
 

@@ -17,6 +17,15 @@ no H padding. A 1x1 conv of stride 1 reads its own rows and runs as it
 is; a strided one, also under ``fuse_bn_stats`` (``conv1x1_with_stats``),
 fetches the global rows its stride keeps. ``avg_pool_global`` sums over
 the group and divides by the global count.
+
+Under tensor parallelism (``core/mesh.py::channels``) a conv that
+``weights.shard_model`` cut computes its slice of output channels from the
+whole input map (``conv_input``: a sliced map is gathered over the model
+group once, however many convs read it, and the backward sums the ranks'
+parts); a grouped conv (ResNeXt's) runs on its own input slice with
+``groups / M`` groups, which read exactly that slice; a replicated conv
+(the classifiers) reads the gathered map. Bands compose: the map is
+gathered first, then its halo rows are fetched, both exact.
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mrfp_tpu_torch.core.mesh import Bands, active_bands
+from mrfp_tpu_torch.core.mesh import Bands, active_bands, active_channels
 from mrfp_tpu_torch.nn.norms import batch_norm
 from mrfp_tpu_torch.ops.dot_stats import dot_with_stats
 from mrfp_tpu_torch.parallel.dist import all_reduce_sum_grad, rows_from_group
@@ -93,11 +102,28 @@ def _pair(v) -> Tuple[int, int]:
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
+def conv_input(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """What ``conv`` reads of ``x`` in a channel scope: a grouped conv of a
+    sharded model its own slice; a conv of a sharded kernel the whole map
+    as a shared input (gathered where ``x`` is a slice: its channels are
+    fewer than the kernel's inputs); a replicated conv the whole map.
+    ``x`` itself outside a scope."""
+    chans = active_channels()
+    if chans is None or getattr(conv, "tp_local", False):
+        return x
+    sliced = x.shape[1] != conv.weight.shape[1]
+    if getattr(conv, "tp_sharded", False):
+        return chans.shared(x, sliced)
+    return chans.whole(x) if sliced else x
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` (its parameters and state_dict keys) that computes its
-    band of rows in a spatial scope (``conv2d_rows``)."""
+    band of rows in a spatial scope (``conv2d_rows``) and, in a channel
+    scope, its slice of output channels (``conv_input``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = conv_input(self, x)
         if active_bands() is None:
             return super().forward(x)
         return conv2d_rows(x, self.weight, self.bias, self.stride, self.padding,
@@ -148,12 +174,16 @@ def conv1x1_with_stats(conv: nn.Conv2d, x: torch.Tensor, impl: Optional[str] = N
     which need not lie in this rank's band nor share its parity, so they
     are fetched first (``conv_rows`` with ``k = 1``) and only the width is
     sliced. The sums are then the band's, which ``batch_norm_from_stats``
-    sums over the world. Under autocast, ``x`` and the weight are cast to
+    sums over the replica group. Under tensor parallelism the kernel is
+    this rank's rows ``(Cout / M, Cin)`` and ``x`` the whole map
+    (``conv_input``): the product and its sums are this rank's slice of
+    output channels. Under autocast, ``x`` and the weight are cast to
     the autocast dtype here, since the product is an autograd Function
     that autocast does not see."""
     if (conv.kernel_size != (1, 1) or conv.bias is not None or conv.groups != 1
             or conv.padding != (0, 0) or conv.dilation != (1, 1)):
         raise ValueError(f"conv1x1_with_stats takes a bias-free 1x1 conv, got {conv}")
+    x = conv_input(conv, x)
     sy, sx = conv.stride
     bands = active_bands()
     if bands is not None and sy != 1:

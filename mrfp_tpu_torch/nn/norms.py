@@ -39,6 +39,15 @@ the world by ``_GlobalMeanCov``, are then the global batch's too, since
 the bands partition each image's pixels; its per-sample IW mean and
 covariance and LN mean and variance combine over the spatial group as
 ``InstanceNorm2d``'s do (``_band_moments``), in train and in eval mode.
+
+Under tensor parallelism (``core/mesh.py``) a rank holds a slice of the
+channels of the batch its model group shares. BatchNorm and InstanceNorm
+are per channel, so they run on the slice with no model-group
+collective, and BatchNorm's moments reduce over the replica group (the
+ranks that share the model index, whose samples and bands partition the
+global batch), or over the data group for a replicated map.
+``SwitchWhiten2d``'s C x C covariances span the channel slices: it refuses
+a model axis (ROADMAP A1').
 """
 
 from __future__ import annotations
@@ -49,9 +58,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mrfp_tpu_torch.core.mesh import active_bands
+from mrfp_tpu_torch.core.mesh import active_bands, current_mesh
 from mrfp_tpu_torch.parallel.dist import (Group, all_gather_rows, all_reduce_sum,
-                                          all_reduce_sum_grad, rank, world, world_group)
+                                          all_reduce_sum_grad, rank, world)
 
 IW_NONE, IW_W1, IW_W2, IW_IN, IW_IN_AFFINE, IW_SW = 0, 1, 2, 3, 4, 5
 
@@ -61,13 +70,14 @@ def _channels(t: torch.Tensor) -> torch.Tensor:
 
 
 def norm_group() -> Group:
-    """The processes a train-mode BatchNorm reduces over: the world, or the
-    data group for a map that every rank of the spatial group holds whole
+    """The processes a train-mode BatchNorm reduces over: the replica group
+    (the world without a model axis), or the data group for a map that
+    every rank of the spatial group holds whole
     (``Bands.replicated_maps``)."""
     bands = active_bands()
     if bands is not None and bands.replicated:
         return bands.mesh.data
-    return world_group()
+    return current_mesh().replica
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
@@ -191,14 +201,15 @@ def batch_norm_from_stats(bn: nn.BatchNorm2d, y: torch.Tensor, s1: torch.Tensor,
     (a producer's statistics epilogue, ``ops/dot_stats.py``), as the JAX
     package's ``BatchNorm(stats=...)`` does (mrfp_tpu/nn/norms.py:43-69):
     mean = s1/n and the one-pass var = s2/n - mean^2. With more than one
-    process the sums and ``n`` are first summed over the ranks (one
+    process the sums and ``n`` are first summed over ``norm_group()`` (one
     differentiable ``all_reduce``), so the moments are the global batch's.
     The running statistics move as torch's do (momentum, unbiased var *
     n/(n-1), ``num_batches_tracked``), in ``bn``'s own buffers; the
     normalisation is fp32, cast to ``y``'s dtype. The gradient reaches
     ``y``, ``s1`` and ``s2``."""
-    if world() > 1:
-        s1, s2, n = all_reduce_sum_grad(torch.stack([s1, s2, torch.full_like(s1, n)]))
+    group = norm_group()
+    if group.size > 1:
+        s1, s2, n = all_reduce_sum_grad(torch.stack([s1, s2, torch.full_like(s1, n)]), group)
         unbias = n / (n - 1).clamp_min(1)
     else:
         unbias = n / max(n - 1, 1)
@@ -406,6 +417,10 @@ class SwitchWhiten2d(nn.Module):
         self.register_buffer("running_cov", torch.eye(c).repeat(g, 1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if current_mesh().mp > 1:
+            raise NotImplementedError("SwitchWhiten2d under --model-parallel: its C x C "
+                                      "covariances span the channel slices (ROADMAP A1': "
+                                      "tensor parallelism for the zoo)")
         with torch.autocast(x.device.type, enabled=False):
             return self._whiten(x.to(torch.promote_types(x.dtype, torch.float32))).to(x.dtype)
 

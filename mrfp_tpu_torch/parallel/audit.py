@@ -10,14 +10,18 @@ histogram, the statistics pass's masks, and under spatial parallelism the
 halo rows of the convs, pools, resizes and the relaxed CE's label window,
 and over the spatial group the statistics that span the bands: the
 instance norms' and SwitchWhiten's per-sample moments, the whitening
-loss's and the statistics pass's ``f f^T``, the pooled means), so it is
-counted at the call and no parser of a program text is needed. A halo is
-reported as kind "halo", everything else as "stats", each with its group.
+loss's and the statistics pass's ``f f^T``, the pooled means, and under
+tensor parallelism the channel gathers of every sharded map and their
+backward sums over the model group), so it is counted at the call and no
+parser of a program text is needed. A halo is reported as kind "halo", a
+channel gather or its conjugate as "channels", everything else as
+"stats", each with its group.
 
     with count_collectives() as log:
         train_step(...)
     summarize(log)            # {"all-reduce": {"count": 145, "bytes": ...}}
-    summarize_by_group(log)   # {"world": {"stats": {...}}, "spatial": {"halo": ...}}
+    summarize_by_group(log)   # {"world": {"stats": {...}}, "spatial": {"halo": ...},
+                              #  "model": {"channels": ...}}
 
 A count holds the collectives this process issues while it is open, in
 order; at world size 1 the helpers issue none, so it stays empty. With no
@@ -44,8 +48,9 @@ class Collective:
     dtype: str               # "f32", "f64" or "s64"
     bytes: int               # the tensor's bytes, sent once by each rank
     shape: Tuple[int, ...]
-    group: str = "world"     # "world", "data" or "spatial" (core/mesh.py)
-    kind: str = "stats"      # "halo" (rows_from_group) or "stats" (everything else)
+    group: str = "world"     # "world", "data", "spatial", "model" or "replica"
+    kind: str = "stats"      # "halo" (rows_from_group), "channels" (the model group's
+                             # gathers and sums) or "stats" (everything else)
 
 
 @contextlib.contextmanager
@@ -89,7 +94,7 @@ def summarize_by_dtype(colls: List[Collective]) -> Dict[str, Dict[str, Dict[str,
 
 def summarize_by_group(colls: List[Collective]) -> Dict[str, Dict[str, Dict[str, int]]]:
     """``{group: {kind: {"count", "bytes"}}}``: the rollup by process group,
-    the halo rows apart from the statistics."""
+    the halo rows and the channel gathers apart from the statistics."""
     out: Dict[str, Dict[str, Dict[str, int]]] = {}
     for c in colls:
         d = out.setdefault(c.group, {}).setdefault(c.kind, {"count": 0, "bytes": 0})

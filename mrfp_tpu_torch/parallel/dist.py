@@ -9,11 +9,16 @@ spread of the channel means (``perturb/np_plus.py``), the loss
 denominators (``train/losses.py``), the gradient (``train/step.py``) and the
 eval histogram (``train/evaluator.py``).
 
-Every collective takes a ``Group``: the world (the default), or the data or
-spatial group of the process mesh (``core/mesh.py``). Under spatial
-parallelism the ranks of a spatial group hold the bands of rows of one
-image's maps, and ``rows_from_group`` fetches the rows an operation reads
-from their owners: the halo of a conv, a pool or a resize.
+Every collective takes a ``Group``: the world (the default), or the data,
+spatial, model or replica group of the process mesh (``core/mesh.py``).
+Under spatial parallelism the ranks of a spatial group hold the bands of
+rows of one image's maps, and ``rows_from_group`` fetches the rows an
+operation reads from their owners: the halo of a conv, a pool or a resize.
+Under tensor parallelism the ranks of a model group hold slices of the
+channels of one batch's maps, and three conjugate operations move them:
+``gather_channels`` (all-gather forward, the rank's slice backward),
+``copy_to_group`` (identity forward, the group's sum backward) and
+``slice_channels`` (the rank's slice forward, all-gather backward).
 
 Only ``all_reduce`` and ``broadcast`` are used, on fp32, fp64 or int64
 tensors: gloo supports those two collectives on CUDA tensors, so two ranks
@@ -23,7 +28,7 @@ group, or a group of one, every helper returns its input as it is: a
 single-process run computes what it computed before this module existed.
 
 Every collective goes through ``_issue``, which also reports it (its op,
-dtype, bytes, group and kind: a halo or statistics) to the count that
+dtype, bytes, group and kind: a halo, channels or statistics) to the count that
 ``parallel/audit.py`` opens; with no count open that is one ``is None``
 test a call.
 """
@@ -47,10 +52,10 @@ _audit: Optional[Callable[[str, torch.Tensor, str, str], None]] = None
 
 @dataclasses.dataclass(frozen=True)
 class Group:
-    """Processes that reduce together: ``name`` ("world", "data" or
-    "spatial"), the torch process group (None: the default group, or no
-    group at all for a group of one), its ``size`` and this process's
-    ``rank`` in it."""
+    """Processes that reduce together: ``name`` ("world", "data",
+    "spatial", "model" or "replica"), the torch process group (None: the
+    default group, or no group at all for a group of one), its ``size`` and
+    this process's ``rank`` in it."""
     name: str
     pg: Optional[object]
     size: int
@@ -154,7 +159,7 @@ def broadcast(t: torch.Tensor) -> torch.Tensor:
 def _issue(op: str, t: torch.Tensor, group: Group, kind: str) -> torch.Tensor:
     """Run the collective ``op`` ("all-reduce", a sum, or "broadcast" from
     rank 0) on ``t`` in place over ``group``, reported to the open count
-    as ``kind`` ("halo" or "stats")."""
+    as ``kind`` ("halo", "channels" or "stats")."""
     if t.dtype not in _COLLECTIVE_DTYPES:
         raise TypeError(f"{op} takes {_COLLECTIVE_DTYPES}, got {t.dtype}")
     if _audit is not None:
@@ -205,6 +210,144 @@ def all_gather_rows(t: torch.Tensor, group: Optional[Group] = None) -> torch.Ten
     return _AllReduceSum.apply(buf, group, "stats")
 
 
+def _wire(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a tensor crosses in: its own where collectives take it,
+    else fp32 (bf16 and fp16 exactly)."""
+    return dtype if dtype in _COLLECTIVE_DTYPES else torch.float32
+
+
+def _channel_spans(parts: Tuple[int, ...], n: int, r: int):
+    """Where rank ``r``'s channels lie in the whole map: for each part of
+    its local channels (``parts``, in order), ``(local offset, global
+    offset, size)``. The whole map puts every rank's part 0 first, in rank
+    order, then every rank's part 1, and so on: the channel order of the
+    concatenation of the whole parts."""
+    spans, local, base = [], 0, 0
+    for size in parts:
+        spans.append((local, base + r * size, size))
+        local += size
+        base += n * size
+    return spans
+
+
+def _gather_channels(x: torch.Tensor, group: Group, parts: Tuple[int, ...]) -> torch.Tensor:
+    """Every rank's ``x`` put in its place of the whole map (dim 1), by one
+    ``all_reduce`` of a zeroed buffer; in the wire dtype."""
+    n = group.size
+    buf = x.new_zeros((x.shape[0], n * x.shape[1]) + tuple(x.shape[2:]), dtype=_wire(x.dtype))
+    for lo, at, size in _channel_spans(parts, n, group.rank):
+        buf[:, at:at + size] = x[:, lo:lo + size]
+    return _issue("all-reduce", buf, group, "channels")
+
+
+def _own_channels(t: torch.Tensor, group: Group, parts: Tuple[int, ...]) -> torch.Tensor:
+    """This rank's channels of the whole map ``t`` (dim 1), in its local
+    order."""
+    spans = _channel_spans(parts, group.size, group.rank)
+    return torch.cat([t[:, at:at + size] for _lo, at, size in spans], dim=1)
+
+
+class _GatherChannels(torch.autograd.Function):
+    """The whole map of the channel slices of a model group: forward the
+    all-gather, backward this rank's slice of the cotangent, which every
+    rank of the group holds whole (the map's consumers compute alike)."""
+
+    @staticmethod
+    def forward(ctx, x, group: Group, parts: Tuple[int, ...]):
+        ctx.group, ctx.parts = group, parts
+        return _gather_channels(x, group, parts).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_channels(g, ctx.group, ctx.parts).contiguous(), None, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """A map every rank of a model group holds whole, handed to a
+    computation of which each rank computes its own part (a conv's slice of
+    output channels): forward the identity, backward the group's sum of
+    the ranks' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group: Group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _issue("all-reduce", g.to(_wire(g.dtype), copy=True).contiguous(), ctx.group,
+                      "channels").to(g.dtype), None
+
+
+class _SliceChannels(torch.autograd.Function):
+    """This rank's channels of a map every rank of a model group holds
+    whole: forward the slice, backward the all-gather of the ranks'
+    cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group: Group):
+        ctx.group = group
+        c = x.shape[1] // group.size
+        return x[:, group.rank * c:(group.rank + 1) * c].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_channels(g.contiguous(), ctx.group, (g.shape[1],)).to(g.dtype), None
+
+
+def gather_channels(x: torch.Tensor, group: Group,
+                    parts: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """The whole NC... map whose channels (dim 1) are split over the model
+    ``group``, ``x`` this rank's slice: one ``all_reduce`` of a zeroed
+    buffer into which each rank writes its channels. ``parts``: the sizes
+    of the blocks of ``x``'s channels when ``x`` is a concatenation of
+    slices (``ASPP``'s five branches), so that the whole map is the
+    concatenation of the whole blocks; one block by default.
+    Differentiable: the backward is this rank's slice of the cotangent, for
+    consumers that every rank of the group computes alike (wrap the result
+    in ``copy_to_group`` for consumers of which each rank computes a part).
+    bf16 crosses as fp32, exactly. ``x`` itself in a group of one."""
+    if group.size == 1:
+        return x
+    parts = (x.shape[1],) if parts is None else tuple(int(p) for p in parts)
+    if sum(parts) != x.shape[1]:
+        raise ValueError(f"gather_channels: parts {parts} of {x.shape[1]} channels")
+    return _GatherChannels.apply(x, group, parts)
+
+
+def copy_to_group(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``x``, which every rank of the model ``group`` holds whole, as the
+    input of a computation of which each rank computes its own part: the
+    backward sums the ranks' cotangents over the group (one ``all_reduce``,
+    bf16 in fp32). ``x`` itself in a group of one."""
+    return x if group.size == 1 else _CopyToGroup.apply(x, group)
+
+
+def slice_channels(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """This rank's slice of the channels (dim 1) of ``x``, which every rank
+    of the model ``group`` holds whole: rank ``m`` keeps channels ``[m c,
+    (m + 1) c)``, ``c`` = C / size. The backward gathers the ranks'
+    cotangents (one ``all_reduce``). ``x`` itself in a group of one."""
+    if group.size == 1:
+        return x
+    if x.shape[1] % group.size:
+        raise ValueError(f"slice_channels: {x.shape[1]} channels over {group.size} ranks")
+    return _SliceChannels.apply(x, group)
+
+
+def gather_rows(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """The ranks' ``t`` stacked along dim 0 in rank order, not
+    differentiable (a checkpoint's shards): one ``all_reduce`` of a zeroed
+    buffer, any float dtype crossing as fp32 exactly. ``t`` itself in a
+    group of one."""
+    if group.size == 1:
+        return t
+    rows = t.shape[0]
+    buf = t.new_zeros((rows * group.size,) + tuple(t.shape[1:]), dtype=_wire(t.dtype))
+    buf[group.rank * rows:(group.rank + 1) * rows] = t
+    return _issue("all-reduce", buf, group, "stats").to(t.dtype)
+
+
 def band(h: int, parts: int, index: int) -> Tuple[int, int]:
     """The rows ``[lo, hi)`` that part ``index`` of ``parts`` owns of a map
     of ``h`` rows: the even split of that map's own height,
@@ -241,7 +384,7 @@ class _RowsFromGroup(torch.autograd.Function):
             raise ValueError(f"rows_from_group: {x.shape[2]} rows, but rank {me} of {n} owns "
                              f"{b1 - b0} of {h}")
         segments, total = _halo_segments(h, lo, hi, n)
-        wire = x.dtype if x.dtype in _COLLECTIVE_DTYPES else torch.float32
+        wire = _wire(x.dtype)
         lead, width = tuple(x.shape[:2]), x.shape[3]
         buf = None
         if segments:
@@ -317,14 +460,16 @@ def barrier() -> None:
     float(all_reduce_sum(torch.zeros(1, device=dev)))
 
 
-def all_reduce_grads(params) -> None:
-    """Sum the gradients of ``params`` over the processes, one flat
-    ``all_reduce`` per dtype, after the backward (and, under accumulation,
-    after the last microbatch's only). A parameter that got no gradient on
-    this rank takes zeros, as a dense JAX gradient has them, so every rank
-    reduces the same layout whatever its gates skipped. Nothing at world
-    size 1."""
-    if world() == 1:
+def all_reduce_grads(params, group: Optional[Group] = None) -> None:
+    """Sum the gradients of ``params`` over ``group`` (the world by default;
+    the mesh's replica group, the ranks that share the model index, under
+    tensor parallelism), one flat ``all_reduce`` per dtype, after the
+    backward (and, under accumulation, after the last microbatch's only).
+    A parameter that got no gradient on this rank takes zeros, as a dense
+    JAX gradient has them, so every rank reduces the same layout whatever
+    its gates skipped. Nothing in a group of one."""
+    group = group or world_group()
+    if group.size == 1:
         return
     groups = {}
     for p in params:
@@ -334,6 +479,6 @@ def all_reduce_grads(params) -> None:
             p.grad = torch.zeros_like(p)
         groups.setdefault(p.grad.dtype, []).append(p.grad)
     for grads in groups.values():
-        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]))
+        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
         for g, part in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(part.view_as(g))

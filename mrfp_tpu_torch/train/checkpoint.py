@@ -24,9 +24,16 @@ utils/misc.py:162-231).
 
 Under data parallelism (``parallel/dist.py``) every rank holds the same
 state, so only the coordinator (rank 0) snapshots and writes, the best
-record included; every rank restores. ``wait`` ends in a barrier, after the
-coordinator's writes have finished, so no rank reads a step that is still
-being written (``restore`` waits first).
+record included; every rank restores. Under tensor parallelism
+(``core/mesh.py``, ``mp > 1``) a rank holds its shards of the parameters,
+the momentum and the BN statistics: every rank gathers the whole state
+over its model group (``weights.whole_state_dict``), which rank 0 writes
+in the reference key layout, so a checkpoint loads ``strict=True`` into
+one process; ``restore`` reads the whole state and keeps this rank's
+shards (``weights.shard_state_dict``), so a run resumes at any M.
+``wait`` ends in a barrier, after the coordinator's writes have finished,
+so no rank reads a step that is still being written (``restore`` waits
+first).
 """
 
 from __future__ import annotations
@@ -40,8 +47,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from mrfp_tpu_torch.parallel.dist import barrier, is_coordinator
+from mrfp_tpu_torch.core.mesh import current_mesh
+from mrfp_tpu_torch.parallel.dist import barrier, gather_rows, is_coordinator
 from mrfp_tpu_torch.train.state import TrainState
+from mrfp_tpu_torch.weights import shard_state_dict, whole_state_dict
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -99,6 +108,31 @@ def find_checkpoint(path: str) -> str:
         f"one with python -m mrfp_tpu.cli.convert --run and pass the .pth (ROADMAP A13)")
 
 
+def _optimizer_state(state: TrainState, mesh, whole: bool = False,
+                     blob: Optional[dict] = None) -> dict:
+    """The optimizer's state_dict with each momentum buffer whole (gathered
+    over the model group, ``whole``), or ``blob``'s whole buffers cut to
+    this rank's shards: a buffer mirrors its parameter, whose placement
+    the whole model's state_dict gives. As it is at ``mp == 1``."""
+    sd = state.optimizer.state_dict() if blob is None else blob
+    if mesh.mp == 1:
+        return sd
+    names = [k for k, p in state.model.named_parameters() if p.requires_grad]
+
+    def placed(v, sharded: bool):
+        if not (sharded and isinstance(v, torch.Tensor) and v.dim() > 0):
+            return v
+        if whole:
+            return gather_rows(v, mesh.model)
+        return v.chunk(mesh.mp, 0)[mesh.model_index].clone()
+
+    out = {**sd, "state": {}}
+    for i, entry in sd["state"].items():
+        sharded = names[int(i)] in state.model.tp_keys
+        out["state"][i] = {k: placed(v, sharded) for k, v in entry.items()}
+    return out
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3, best_metric: str = "mean_iu",
                  recipe: Optional[Dict[str, object]] = None):
@@ -140,19 +174,25 @@ class CheckpointManager:
         if state.step == self._last_saved and not best:
             return
         self._last_saved = state.step
+        sharded = bool(getattr(state.model, "tp_keys", None))
+        if not is_coordinator() and not sharded:
+            return
+        blob = self.host_blob(state)  # under a model axis, a gather every rank joins
         if not is_coordinator():
             return
-        blob = self.host_blob(state)
         if best:
             self._best_value = float(metrics[self.best_metric])
         self._pending.append(self._pool.submit(self._write, blob, state.step,
                                                self._best_value if best else None))
 
     def host_blob(self, state: TrainState) -> dict:
-        """What a checkpoint of ``state`` holds, copied to host memory now."""
+        """What a checkpoint of ``state`` holds, copied to host memory now:
+        the whole state, gathered over the model group where the model is
+        sharded (every rank of the group must call it then)."""
+        mesh = current_mesh()
         return _to_host({"step": state.step, "seed": state.seed,
-                         "model": state.model.state_dict(),
-                         "optimizer": state.optimizer.state_dict(),
+                         "model": whole_state_dict(state.model, mesh),
+                         "optimizer": _optimizer_state(state, mesh, whole=True),
                          "scheduler": state.scheduler.state_dict(),
                          "recipe": self.recipe})
 
@@ -205,8 +245,9 @@ class CheckpointManager:
                 f"{self._path(step)} was written by a run of recipe {blob.get('recipe')}, "
                 f"not this run's {self.recipe}: refusing to resume it. Give this run "
                 f"another --runs-dir, or remove {self.directory}")
-        state.model.load_state_dict(blob["model"], strict=True)
-        state.optimizer.load_state_dict(blob["optimizer"])
+        mesh = current_mesh()
+        state.model.load_state_dict(shard_state_dict(blob["model"], mesh), strict=True)
+        state.optimizer.load_state_dict(_optimizer_state(state, mesh, blob=blob["optimizer"]))
         sched = state.scheduler
         sched.load_state_dict(blob["scheduler"])
         # the rate follows this run's schedule, as optax's does: a run

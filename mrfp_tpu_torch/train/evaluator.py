@@ -88,7 +88,10 @@ class SegEvaluator:
     already on ``device``. ``autocast_dtype``: run the forward under
     ``torch.autocast`` in that dtype (e.g. ``torch.bfloat16``); None keeps
     float32. ``mesh``: a process mesh with a spatial axis, each image split
-    in bands of rows across its spatial group (the model takes ``hw=``).
+    in bands of rows across its spatial group (the model takes ``hw=``), or
+    with a model axis, each image scored by every rank of its model group
+    (a model that ``weights.shard_model`` cut), whose histograms merge over
+    the data group only.
     """
 
     def __init__(self, model, num_classes: int = 19, bucket: Optional[int] = None,
@@ -102,6 +105,8 @@ class SegEvaluator:
         self.device = torch.device(device)
         self.autocast_dtype = autocast_dtype
         self.mesh = mesh if mesh is not None and mesh.sp > 1 else None
+        # the ranks that score different images: the data group under a model axis
+        self.data_group = mesh.data if mesh is not None and mesh.mp > 1 else None
 
     def _band(self, img: np.ndarray, lbl: np.ndarray):
         """This rank's rows of a host batch (NHWC images, NHW labels), and
@@ -207,7 +212,7 @@ class SegEvaluator:
                 "eval_batch=1 or bucket mode for this domain", eb, n_shapes,
                 pad_total, scored)
         return self._result(hist, dataset, log, t0, tally["dropped"], scored, shard_count,
-                            self.mesh)
+                            self.mesh, self.data_group)
 
     def _host_samples(self, dataset, max_images: Optional[int], tally: Dict[str, int],
                       shard_rank: int = 0, shard_count: int = 1
@@ -238,14 +243,16 @@ class SegEvaluator:
 
     @staticmethod
     def _result(hist: torch.Tensor, dataset, log, t0: float, dropped: int,
-                scored: int, shard_count: int = 1, mesh=None) -> Dict[str, object]:
+                scored: int, shard_count: int = 1, mesh=None,
+                data_group: Optional[Group] = None) -> Dict[str, object]:
         shape = hist.shape
         hist = hist.reshape(-1).long()
         if mesh is not None:  # the bands' histograms: the images' whole
             hist = all_reduce_sum(hist, mesh.spatial)
         counts = torch.cat([hist, torch.tensor([dropped, scored], device=hist.device)])
         counts = merge_shard_hists(counts, shard_count,
-                                   None if mesh is None else mesh.data).cpu()  # syncs the device
+                                   mesh.data if mesh is not None else data_group
+                                   ).cpu()  # syncs the device
         hist_np = counts[:-2].numpy().reshape(shape)
         dropped, scored = (int(v) for v in counts[-2:])
         seconds = time.perf_counter() - t0

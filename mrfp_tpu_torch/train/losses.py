@@ -30,6 +30,13 @@ target fetches the label rows its windows read from the neighbours
 ``f f^T`` is the band's product summed over the spatial group, and each
 rank of the group enters a ``1/sp`` share of the per-sample terms, which
 every rank of it computes alike.
+
+Under tensor parallelism (``core/mesh.py``) the logits are whole on every
+rank of a model group, which hold the same samples: every denominator
+sums over the replica group (the ranks that share the model index), so
+each model rank computes the same loss and no sample counts M times. The
+whitening loss's C x C covariances span the channel slices: it refuses a
+model axis (ROADMAP A1').
 """
 
 from __future__ import annotations
@@ -39,9 +46,15 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from mrfp_tpu_torch.core.mesh import active_bands
-from mrfp_tpu_torch.parallel.dist import (all_reduce_sum, all_reduce_sum_grad,
+from mrfp_tpu_torch.core.mesh import active_bands, current_mesh
+from mrfp_tpu_torch.parallel.dist import (Group, all_reduce_sum, all_reduce_sum_grad,
                                           rows_from_group, world)
+
+
+def _batch() -> Group:
+    """The ranks whose samples and bands make up the global batch: the
+    replica group (the world without a model axis)."""
+    return current_mesh().replica
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 255,
@@ -59,9 +72,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int 
     total = F.cross_entropy(lf, labels, weight=class_weights,
                             ignore_index=ignore_index, reduction="sum")
     if class_weights is None:
-        return total / all_reduce_sum(valid.sum()).clamp_min(1)
+        return total / all_reduce_sum(valid.sum(), _batch()).clamp_min(1)
     w = class_weights[torch.where(valid, labels, 0)] * valid
-    return total / all_reduce_sum(w.sum().detach()).clamp_min(1e-8)
+    return total / all_reduce_sum(w.sum().detach(), _batch()).clamp_min(1e-8)
 
 
 def batch_class_weights(labels: torch.Tensor, num_classes: int,
@@ -77,7 +90,7 @@ def batch_class_weights(labels: torch.Tensor, num_classes: int,
     bins = torch.where(counted, labels, num_classes)
     counts = torch.zeros(num_classes + 1, dtype=torch.long, device=labels.device)
     counts.scatter_add_(0, bins, torch.ones_like(bins))
-    hist = all_reduce_sum(counts)[:num_classes].float()
+    hist = all_reduce_sum(counts, _batch())[:num_classes].float()
     hist = hist / hist.sum().clamp_min(1.0)
     return (hist > 0).float() * (1.0 - hist) + 1.0
 
@@ -170,7 +183,7 @@ def relaxed_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, num_classe
                                   dim=1)
     w = torch.where(valid, weight, 0.0)
     nll = torch.where(valid, lse - lse_allowed, 0.0)
-    return (nll * w).sum() / all_reduce_sum(w.sum().detach()).clamp_min(1.0)
+    return (nll * w).sum() / all_reduce_sum(w.sum().detach(), _batch()).clamp_min(1.0)
 
 
 def instance_whitening_loss(w_arr: Sequence[torch.Tensor],
@@ -197,6 +210,10 @@ def instance_whitening_loss(w_arr: Sequence[torch.Tensor],
     samples times ``sp``, since every rank of a spatial group computes
     the same terms, so that the world's sum of the ranks' losses, and of
     their gradients, takes each sample once."""
+    if current_mesh().mp > 1:
+        raise NotImplementedError("the whitening loss under --model-parallel: its C x C "
+                                  "covariances span the channel slices (ROADMAP A1': tensor "
+                                  "parallelism for the zoo)")
     bands = active_bands()
     total = count = None
     for i, w in enumerate(w_arr):

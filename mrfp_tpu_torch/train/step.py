@@ -56,6 +56,16 @@ the rows a strided 1x1 keeps (``nn/layers.py::conv1x1_with_stats``), and
 the FFT transforms, which act on whole images, run on the whole images
 before the band is cut (``band_batch``; every rank of the spatial group
 then transforms the same images, ``sp`` times the work of one).
+
+Under tensor parallelism (``core/mesh.py``, ``mp > 1``) the model is cut
+by ``weights.shard_model`` and the ranks of a model group take the same
+images (or bands): the forward computes each rank's slice of the
+channels (``models/mrfp.py``), the logits and the loss are whole on every
+rank of the group, and the gradient all-reduce and the logged loss sum
+over the replica group only, the ranks that share the model index. The
+gates, the OC re-draw and the dropout stream come from the step's
+shared seeds, so the replicated parameters and buffers stay equal bit for
+bit across a model group.
 """
 
 from __future__ import annotations
@@ -229,14 +239,15 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
             state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         total = loss.detach() if total is None else total + loss.detach()
-    all_reduce_grads(model.parameters())
+    replica = current_mesh().replica
+    all_reduce_grads(model.parameters(), replica)
     if accum > 1:
         # the mean of the microbatch means, as the JAX package's scan takes it
         for p in model.parameters():
             if p.grad is not None:
                 p.grad.div_(accum)
         total = total / accum
-    total = all_reduce_sum(total)  # the global batch's loss on every rank
+    total = all_reduce_sum(total, replica)  # the global batch's loss on every rank
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1

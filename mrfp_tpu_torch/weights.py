@@ -37,7 +37,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from mrfp_tpu_torch.core.mesh import Mesh, state_placement
 from mrfp_tpu_torch.nn import mnasnet, mobilenet, seresnext, shufflenet
+from mrfp_tpu_torch.parallel.dist import gather_rows
 from mrfp_tpu_torch.perturb.oc_branch import REF_NAMES
 
 _STAGE_OF = (mobilenet.stage_of, shufflenet.stage_of, mnasnet.stage_of, seresnext.stage_of)
@@ -242,3 +244,90 @@ def load_torch_checkpoint(model: nn.Module, path: str) -> Dict[str, Any]:
         "loaded %d tensors from %s; dropped %d train-only OC-branch and DSN tensors",
         len(sd), path, len(dropped))
     return {"loaded": len(sd), "dropped": dropped}
+
+
+# the OC modules, whole on every rank of a model group (JAX's oc_params)
+OC_MODULES = tuple(name for pair in REF_NAMES.values() for name in pair)
+# the classifiers, whose 19 output channels do not divide: replicated
+CLASSIFIERS = ("final2.0", "dsn.4")
+
+
+def tp_placement(sd: Dict[str, torch.Tensor], mp: int) -> Dict[str, Optional[int]]:
+    """The dim each entry of a whole state_dict shards over ``mp`` ranks,
+    or None: ``core.mesh.state_placement`` with the OC buffers whole."""
+    return state_placement(sd, mp, OC_MODULES)
+
+
+def _own(t: torch.Tensor, dim: Optional[int], mesh: Mesh) -> torch.Tensor:
+    if dim is None:
+        return t
+    return t.chunk(mesh.mp, dim)[mesh.model_index].clone()
+
+
+def shard_state_dict(sd: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """A whole state_dict in the reference key layout -> this rank's
+    shards (JAX's ``shard_state``): each tensor ``tp_placement`` shards is
+    cut into ``mesh.mp`` equal slices along its dim and this rank keeps
+    slice ``mesh.model_index``; the rest stays as it is."""
+    if mesh.mp == 1:
+        return dict(sd)
+    place = tp_placement(sd, mesh.mp)
+    return {k: _own(v, place[k], mesh) for k, v in sd.items()}
+
+
+def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
+    """Cut the whole ``model`` down, in place, to this rank's shards of
+    ``shard_state_dict``: each sharded parameter and buffer is replaced by
+    its slice; a conv whose kernel is sharded computes its slice of output
+    channels (``tp_sharded``; a grouped conv takes ``groups / M`` groups of
+    its own input slice, ``tp_local``) and the norms take their slice of
+    channels. Every conv but the classifiers must shard, and every grouped
+    conv's groups divide by M: the forward (``nn/layers.py``) relies on
+    every map but the classifiers' being sliced. The model keeps the
+    sharded keys in ``tp_keys``. A model at ``mp == 1`` is returned as it
+    is."""
+    if mesh.mp == 1:
+        return model
+    mp = mesh.mp
+    place = tp_placement(model.state_dict(), mp)
+    for name, module in model.named_modules():
+        prefix = f"{name}." if name else ""
+        if isinstance(module, nn.Conv2d) and not prefix.startswith(OC_MODULES):
+            sharded = place[prefix + "weight"] is not None
+            if sharded == (name in CLASSIFIERS) or (module.groups > 1 and module.groups % mp):
+                raise ValueError(
+                    f"--model-parallel {mp}: {name} has {module.out_channels} output channels "
+                    f"in {module.groups} groups; tensor parallelism needs M to divide every "
+                    f"conv's channels and groups but the classifiers' (M in 1, 2, 4, 8, 16 for "
+                    f"the ResNet trunks), and classifiers that do not divide")
+        for kind in ("_parameters", "_buffers"):
+            for attr, t in list(getattr(module, kind).items()):
+                dim = None if t is None else place[prefix + attr]
+                if dim is None:
+                    continue
+                part = _own(t.detach(), dim, mesh)
+                getattr(module, kind)[attr] = (nn.Parameter(part, t.requires_grad)
+                                               if kind == "_parameters" else part)
+        if isinstance(module, nn.Conv2d) and place.get(prefix + "weight") is not None:
+            module.out_channels //= mp
+            module.tp_sharded = True
+            if module.groups > 1:
+                module.groups //= mp
+                module.in_channels //= mp
+                module.tp_local = True
+        elif isinstance(module, (nn.BatchNorm2d, nn.InstanceNorm2d)):
+            module.num_features //= mp  # every map but the classifiers' is sliced
+    model.tp_keys = frozenset(k for k, dim in place.items() if dim is not None)
+    return model
+
+
+def whole_state_dict(model: nn.Module, mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """The whole state_dict of a model ``shard_model`` cut, on every rank
+    of its model group: each sharded tensor's slices gathered in rank
+    order (one ``all_reduce`` a tensor, over the model group: every rank
+    must call it). ``model.state_dict()`` itself at ``mp == 1``."""
+    sd = model.state_dict()
+    keys = getattr(model, "tp_keys", frozenset())
+    if mesh.mp == 1 or not keys:
+        return sd
+    return {k: gather_rows(v, mesh.model) if k in keys else v for k, v in sd.items()}

@@ -154,14 +154,15 @@ def test_irw_with_the_whitening_loss_fails_in_jax_and_is_refused_here(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--spatial-parallel", "2"], "two ranks"), (["--model-parallel", "2"], "A14"),
+    (["--spatial-parallel", "2"], "two ranks"), (["--model-parallel", "2"], "A1'"),
     (["--wt-layer", "0", "0", "5", "0", "0", "0", "0"], None),
     (["--trunk", "mobilenetv2"], None), (["--arch", "DeepShuffleNetV3PlusD"], None)])
 def test_unported_zoo_flags_raise(tmp_path, capsys, flags, item):
-    """Tensor parallelism (A14) stays refused (several processes train:
-    tests/test_torch_zoo_dist.py). Spatial parallelism, iw code 5, the
-    MobileNetV2 trunk and a ShuffleNetV2 factory (refused until they were
-    ported) train: one step each on the CPU, 48 px, a finite loss; with
+    """Tensor parallelism for the zoo (ROADMAP A1') stays refused (several
+    processes train: tests/test_torch_zoo_dist.py). Spatial parallelism,
+    iw code 5, the MobileNetV2 trunk and a ShuffleNetV2 factory (refused
+    until they were ported) train: one step each on the CPU, 48 px, a
+    finite loss; with
     ``--spatial-parallel 2`` on two ranks (gloo, a ``file://``
     rendezvous), which log the same loss."""
     argv = ZOO + ["--crop-size", "48"] + flags + ["--max-iter", "1", "--runs-dir", str(tmp_path)]

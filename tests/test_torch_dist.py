@@ -398,11 +398,15 @@ def test_one_process_draws_and_normalises_as_before():
 
 
 def test_cli_train_checks_the_data_parallel_flags():
-    """``--data-parallel`` other than -1 or the world size names A14; a
-    global batch the processes cannot share raises."""
-    with pytest.raises(NotImplementedError, match="A14"):
+    """``--data-parallel`` other than -1 or the processes left by the other
+    axes raises JAX's ValueError (``mesh dp x mp x sp != n``), and one that
+    fits passes the checks; a global batch the processes cannot share
+    raises."""
+    with pytest.raises(ValueError, match="mesh 4x1x1 != 2 processes"):
         cli_train.main(["--device", "cpu", "--synthetic", "--num-processes", "2",
                         "--batch-size", "4", "--data-parallel", "4"])
+    cli_train.check_args(cli_train.parse_args(["--device", "cpu", "--num-processes", "2",
+                                               "--batch-size", "4", "--data-parallel", "2"]))
     with pytest.raises(ValueError, match="not divisible"):
         cli_train.main(["--device", "cpu", "--synthetic", "--num-processes", "2",
                         "--batch-size", "3"])

@@ -186,13 +186,20 @@ def test_the_count_is_what_the_modules_imply(group):
 
 
 @pytest.mark.parametrize("flag", ["--model-parallel", "--spatial-parallel"])
-def test_other_meshes_are_refused(flag):
-    """Tensor parallelism stays refused (ROADMAP A14); a spatial axis
-    wider than the rows of the deepest map (2 for r18-D32 at 64 px), where
-    a rank would hold no row of it, too."""
+def test_other_meshes_are_refused(flag, tmp_path):
+    """Tensor parallelism, refused until it was ported, reports: one data
+    rank and a model axis of 2 count the channel gathers over the model
+    group, and a rank's parameters are about half the gradient set (the
+    shards; tests/test_torch_tensor_parallel.py holds them to JAX's). A
+    spatial axis wider than the rows of the deepest map (2 for r18-D32 at
+    64 px), where a rank would hold no row of it, is refused."""
     if flag == "--model-parallel":
-        with pytest.raises(NotImplementedError, match="A14"):
-            plan.main(PLAN + [flag, "2"])
+        out = tmp_path / "plan.json"
+        assert plan.main(PLAN[:-1] + ["1", flag, "2", "--json-out", str(out)]) == 0
+        rep = json.load(open(out))
+        assert rep["mesh"] == {"data": 1, "model": 2, "spatial": 1}
+        assert rep["collectives_by_group"]["model"]["channels"]["count"] > 0
+        assert rep["per_chip_bytes"]["params"] < 0.51 * rep["fp32_grad_set_bytes"]
     else:
         with pytest.raises(ValueError, match="exceeds the 2 rows"):
             plan.main(PLAN + [flag, "4"])

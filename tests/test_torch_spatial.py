@@ -41,8 +41,8 @@ Bounds:
 - Entry points: ``cli.train --num-processes 2 --spatial-parallel 2`` (fp32)
   takes two steps, its first loss within 1e-4 of one process's, and a step
   with ``--jointwtborder`` or ``--freq-transform phot``; ``cli.eval
-  --spatial-parallel 2`` prints one process's results; the model axis
-  names its ROADMAP item.
+  --spatial-parallel 2`` prints one process's results; a model axis whose
+  product with the spatial one does not divide the processes raises.
 """
 
 import json
@@ -547,15 +547,17 @@ def test_cli_eval_on_a_spatial_mesh_prints_one_process_s_results(tmp_path):
     (["--num-processes", "2", "--spatial-parallel", "2", "--jointwtborder"], None),
     (["--num-processes", "2", "--spatial-parallel", "2", "--freq-transform", "phot"], None),
     (["--num-processes", "2", "--spatial-parallel", "2", "--model-parallel", "2"],
-     NotImplementedError),
+     ValueError),
     (["--num-processes", "4", "--spatial-parallel", "4", "--crop-size", "48", "--batch-size",
       "4"], ValueError),
     (["--num-processes", "2", "--spatial-parallel", "3"], ValueError),
 ])
 def test_cli_train_refuses_what_bands_cannot_run(argv, error, tmp_path):
-    """Under --spatial-parallel the model axis names ROADMAP A14; an S
-    above the deepest map's rows (3 at crop 48, D16) or one that does not
-    divide the processes raises before any process starts. The extras
+    """A model axis under --spatial-parallel runs where M x S divides the
+    processes (tests/test_torch_tensor_parallel.py) and raises where it does
+    not (2 x 2 over 2 processes); an S above the deepest map's rows (3 at
+    crop 48, D16) or one that does not divide the processes raises before
+    any process starts. The extras
     whose windows or transforms cross rows, refused until they ran on
     bands (``--jointwtborder``, ``--freq-transform``), now run: two ranks
     (r18-D32 at crop 64, fp32, global batch 2) take a step with rc 0 and
@@ -575,8 +577,7 @@ def test_cli_train_refuses_what_bands_cannot_run(argv, error, tmp_path):
         got = [_losses(o[0]) for o in outs]
         assert got[0] == got[1] and np.isfinite(got[0]["1"]), got
         return
-    match = "A14" if error is NotImplementedError else "spatial-parallel"
-    with pytest.raises(error, match=match):
+    with pytest.raises(error, match="spatial-parallel"):
         cli_train.main(["--device", "cpu", "--synthetic", *argv])
 
 
@@ -586,8 +587,8 @@ def test_the_other_entry_points_refuse_what_bands_cannot_run():
     and the step's knobs that used to refuse bands run on them (tests/
     test_torch_spatial_extras.py): the FFT transforms act on the whole
     images before the band is cut (``band_batch``), so a band is the
-    transformed image's rows. Only ``--model-parallel`` names ROADMAP
-    A14."""
+    transformed image's rows. ``--model-parallel`` runs with them
+    (tests/test_torch_tensor_parallel.py)."""
     for arch in ("DeepR50V3PlusD", "DeepSEResNext50V3PlusD"):
         cli_eval.check_spatial(cli_eval.parse_args(["--spatial-parallel", "2", "--arch", arch]))
     import dataclasses

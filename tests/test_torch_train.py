@@ -358,16 +358,22 @@ def test_cli_train_cpu_runs_and_resumes(tmp_path):
 
 
 def test_unported_flags_raise():
-    """Flags of the JAX trainer whose code paths stay unported raise and
-    name their ROADMAP item (the accumulation, the training extras, the
-    data-parallel flags, ``--snapshot-every`` and ``--spatial-parallel``,
-    which this test named before, run since they were ported; a data axis
-    other than the processes left by the spatial one and the model axis
-    are A14's). The cross-row extras on bands, refused until they were
-    ported, pass the checks (they run in tests/test_torch_spatial.py)."""
-    for extra, item in ((["--data-parallel", "2"], "A14"), (["--model-parallel", "2"], "A14")):
-        with pytest.raises(NotImplementedError, match=item):
+    """Flags of the JAX trainer whose code paths were unported raise and
+    named their ROADMAP item until they were ported (the accumulation, the
+    training extras, the data-parallel flags, ``--snapshot-every``,
+    ``--spatial-parallel`` and ``--model-parallel`` run now). A data axis
+    or a model axis that does not fit the processes raises JAX's
+    ValueError (``mesh dp x mp x sp != n``, or axes that do not divide
+    the processes); one that fits passes the checks. The cross-row extras
+    on bands, refused until they were ported, pass the checks (they run in
+    tests/test_torch_spatial.py)."""
+    for extra, match in ((["--data-parallel", "2"], "mesh 2x1x1 != 1 processes"),
+                         (["--model-parallel", "2"], "does not divide 1 processes")):
+        with pytest.raises(ValueError, match=match):
             cli_train.main(["--device", "cpu", "--synthetic", *extra])
+    for extra in (["--data-parallel", "1"], ["--model-parallel", "2", "--num-processes", "2"],
+                  ["--data-parallel", "1", "--model-parallel", "2", "--num-processes", "2"]):
+        cli_train.check_args(cli_train.parse_args(["--device", "cpu", *extra]))
     for extra in (["--jointwtborder"], ["--freq-transform", "phot"]):
         cli_train.check_args(cli_train.parse_args(
             ["--device", "cpu", "--num-processes", "2", "--spatial-parallel", "2", *extra]))
