@@ -70,7 +70,7 @@ process; a fresh process loads the fp32 artifact through
 imported), times 20 forwards beside the live forward, launches the bilinear
 kernel 3 times a forward through ``mrfp::resize_bilinear`` and holds its
 logits to the live model's within 1e-4; ``cli.visualize`` writes 2
-triplets; ``cli.train --snapshot-every 2`` runs 24 bf16 batch-8 steps,
+triplets; ``cli.train --snapshot-every 2`` runs 24 bf16 r18-D32 batch-2 steps,
 prints each snapshot's host-copy seconds and bytes, reads ``tb/`` back
 with the port's reader and resumes; ``cli.bench_input`` prints the
 loader's images/s beside the rate that run's step consumed.
@@ -136,13 +136,25 @@ through gloo as above, each holding half the channels of every conv
 kernel, BN and momentum tensor and gathering every conv's input over the
 model group: the MRFP+ step (R50-D16, 768x768) in fp32 (TF32 off, the
 damped fixture, batch 2: the loss and every gradient against its own
-control) and in bf16 (batch 8: the loss, the ranks bit-identical, each
+control) and in bf16 (batch 4: the loss, the ranks bit-identical, each
 rank's state bytes and peak memory beside one process's, its collectives
 equal to ``cli.plan --model-parallel 2``'s bill), the fused bf16 step
 (``dot_with_stats`` on Cout/2 rows), and the checkpoint written at M = 2
 loaded into one process, whose fp32 eval logits at 1x3x1024x2048 must be
 the ranks' sharded forward's; every resize and ``dot_with_stats`` call of
 the ranks is held at a model rank's shapes first.
+
+The zoo on channel slices (``phase_zoo_model_parallel``): two ranks share
+the card through gloo and split DeepR50V3PlusD (ISW in slots 2-3 with the
+whitening loss and its statistics pass, SwitchWhiten in slot 4, the DSN
+head, 768x768): fp32 (batch 2: the masks equal, the loss and every
+gradient against one process) and bf16 (batch 4, or 2 where the card
+lacks the memory: the loss, the ranks bit-identical, state bytes, peak
+and collectives beside one process's), the checkpoint written at M = 2
+loaded into one process, the validation's confusion matrix; every resize
+of the ranks held at a model rank's shapes. Beside them
+``cli.train_zoo --model-parallel 2 --num-processes 2`` takes 2 steps and a
+validation, its ranks' replicated tensors bit-identical after them.
 
 Any failure raises and exits non-zero; the last line of stdout is the JSON
 verdict, printed only when every phase passed. With ``--profile DIR`` it
@@ -770,6 +782,7 @@ def phase_model(gen, profile_dir) -> float:
 
 
 SERVING_FORWARDS = 20  # the fresh process's timed forwards of the artifact
+SNAPSHOT_N = 2  # the --snapshot-every run's batch (r18-D32)
 
 
 def serving_child(artifact: str, inputs: str, out: str) -> None:
@@ -895,9 +908,12 @@ def phase_serving(live_fp32_ms: float) -> dict:
             raise AssertionError(f"cli.visualize wrote {pngs}")
 
         runs = os.path.join(tmp, "runs")
-        common = ["--device", DEV, "--synthetic", "--batch-size", str(TRAIN_N), "--crop-size",
-                  str(CROP), "--log-every", "1", "--snapshot-every", "2", "--step-timeout",
-                  "900", "--runs-dir", runs, "--json-out", os.path.join(runs, "result.json")]
+        # r18-D32 at batch SNAPSHOT_N: a checkpoint is written (and synced to
+        # disk) at each of a run's last 20 steps, and a smaller state writes faster
+        common = ["--device", DEV, "--synthetic", "--trunk", "resnet-18", "--variant", "D32",
+                  "--batch-size", str(SNAPSHOT_N), "--crop-size", str(CROP), "--log-every", "1",
+                  "--snapshot-every", "2", "--step-timeout", "900", "--runs-dir", runs,
+                  "--json-out", os.path.join(runs, "result.json")]
         # a checkpoint is written at each of a run's last 20 steps, and a
         # snapshot is skipped where one was (as in JAX): 24 steps leave steps
         # 1-3 without one, so snapshots fall at steps 2 and 4
@@ -910,7 +926,8 @@ def phase_serving(live_fp32_ms: float) -> dict:
         snaps = {s: (m["train/snapshot_seconds"][s], int(m["train/snapshot_bytes"][s]))
                  for s in sorted(m.get("train/snapshot_seconds", {}))}
         consumed = m["train/images_per_sec"][3]  # no snapshot in step 3's window
-        print(f"cli.train --snapshot-every 2, 24 steps: rc {rc}, {seconds:.1f} s end to end; "
+        print(f"cli.train --snapshot-every 2, r18-D32 bf16 batch {SNAPSHOT_N}, 24 steps: rc "
+              f"{rc}, {seconds:.1f} s end to end; "
               f"snapshots (step: host-copy s, bytes) {snaps}; tb/ steps of train/loss "
               f"{sorted(tb.get('train/loss', {}))}, of train/lr {sorted(tb.get('train/lr', {}))}; "
               f"images/s at step 3 {consumed:.3f}")
@@ -934,8 +951,8 @@ def phase_serving(live_fp32_ms: float) -> dict:
     bench = cli_bench_input.main(["--images", "16", "--batch-size", "4", "--num-workers", "4"])
     print(f"cli.bench_input 1914x1052 -> 768x768: {bench['main']:.2f} images/s in the main "
           f"process, {bench['process']:.2f} with 4 worker processes (start-up included), "
-          f"beside {consumed:.2f} images/s that the bf16 batch-{TRAIN_N} step consumed "
-          f"(cli.train step 3)")
+          f"beside {consumed:.2f} images/s that the r18-D32 bf16 batch-{SNAPSHOT_N} step "
+          f"consumed (cli.train step 3)")
     launched["resize_bilinear"] += child["launches"]["resize_bilinear"]
     return launched
 
@@ -2158,22 +2175,6 @@ def phase_cli_train() -> dict:
                 or not math.isfinite(scored["mean_iu"]):
             raise AssertionError(f"cli.eval --ckpt: {scored}")
 
-    # throughput: a checkpoint is written at each of the last 20 steps, so
-    # in a 6-step run every step saves; a 26-step run saves from step 6 on
-    with tempfile.TemporaryDirectory() as runs:
-        out = os.path.join(runs, "result.json")
-        rc = cli_train.main(["--device", DEV, "--synthetic", "--batch-size", str(TRAIN_N),
-                             "--crop-size", str(CROP), "--log-every", "1", "--max-iter", "26",
-                             "--runs-dir", runs, "--json-out", out])
-        with open(out) as f:
-            ips = _metrics(json.load(f)["run_dir"])["train/images_per_sec"]
-        quiet = [ips[s] for s in range(2, 6)]
-        saving = [ips[s] for s in range(7, 27)]
-        print(f"cli.train 26 steps: rc {rc}; images/s steps 2-5 (no checkpoint) "
-              f"{[round(v, 3) for v in quiet]} (median {statistics.median(quiet):.3f}); "
-              f"steps 7-26 (a checkpoint each) median {statistics.median(saving):.3f}")
-        if rc != 0:
-            raise AssertionError(f"cli.train 26 steps: rc {rc}")
     return launched
 
 
@@ -3230,15 +3231,17 @@ def dp_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
         torch.distributed.destroy_process_group()
 
 
-def _run_ranks(target: str, timeout: float = 900) -> tuple:
+def _run_ranks(target: str, timeout: float = 900, extra: tuple = ()) -> tuple:
     """``DP_WORLD`` processes of ``chip_smoke.<target>(rank, world,
-    rendezvous, out)`` on a file rendezvous; their results and seconds."""
+    rendezvous, out, *extra)`` on a file rendezvous; their results and
+    seconds."""
+    args = "".join(f", {a!r}" for a in extra)
     with tempfile.TemporaryDirectory() as tmp:
         rendezvous = f"file://{tmp}/rendezvous"
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
             [sys.executable, "-c", f"import chip_smoke; chip_smoke.{target}({r}, {DP_WORLD}, "
-                                   f"{rendezvous!r}, {tmp!r})"],
+                                   f"{rendezvous!r}, {tmp!r}{args})"],
             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(DP_WORLD)]
         outs = []
@@ -3303,7 +3306,20 @@ def phase_data_parallel(cuda_gen) -> dict:
     print(f"the fp32 ranks' shapes, batch {n}: the five train bilinear resizes' forward "
           f"exactly equal, backward within the bound (max_abs_err {err:.3e}); the seven OC "
           f"nearest resizes exactly equal both ways")
-    ranks, seconds = _run_ranks("dp_rank")
+    with tempfile.TemporaryDirectory() as nccl_runs:
+        # cli.train on NCCL runs beside the ranks: both are correctness runs
+        nccl_out = os.path.join(nccl_runs, "result.json")
+        cmd = [sys.executable, "-m", "mrfp_tpu_torch.cli.train", "--device", DEV,
+               "--synthetic", "--batch-size", str(TRAIN_N), "--crop-size", str(CROP),
+               "--max-iter", "2", "--log-every", "1", "--runs-dir", nccl_runs, "--json-out",
+               nccl_out, "--num-processes", "1", "--process-id", "0",
+               "--coordinator-address", f"127.0.0.1:{_free_port()}", "--data-parallel", "-1"]
+        with _beside({"nccl": cmd}, timeout=600) as side:
+            ranks, seconds = _run_ranks("dp_rank")
+        rc, _out, nccl_err, nccl_s = side["nccl"]
+        result = json.load(open(nccl_out)) if rc == 0 else {}
+        ckpt = os.path.exists(os.path.join(result.get("run_dir", nccl_runs), "ckpt",
+                                           "step_2.pt"))
 
     every = slice(None)
     with _strict_fp32():
@@ -3312,13 +3328,16 @@ def phase_data_parallel(cuda_gen) -> dict:
         _, ctrl32_loss, _, ctrl32, _ = _dp_step(DP_FP32_N, "float32", every, 1e-7)
     torch.cuda.empty_cache()
     fp32_loss_err = abs(ranks[0]["fp32_loss"] - one32_loss) / abs(one32_loss)
-    fp32_ratio, grounded = {}, []
+    fp32_ratio, grounded, ref64 = {}, [], None
     for k, g in one32.items():
         got = ranks[0]["fp32_grads"][k]
         err = float((got - g).norm())
         fp32_ratio[k] = err / (3 * float((ctrl32[k] - g).norm()) + 1e-4 * float(g.norm())
                                + 1e-12)
-        if fp32_ratio[k] > 1:  # the fp64-grounded rule
+        if fp32_ratio[k] > 1:  # the fp64-grounded rule, its step taken where needed
+            if ref64 is None:
+                with _strict_fp32():
+                    ref64 = _sp_fp64_grads(DP_FP32_N)
             ref = ref64[k].double()
             fp32_ratio[k] = float((got.double() - ref).norm()) / (
                 3 * float((g.double() - ref).norm()) + 1e-4 * float(ref.norm()) + 1e-12)
@@ -3402,27 +3421,14 @@ def phase_data_parallel(cuda_gen) -> dict:
         _all_held([(k, getattr(torch, d), i, o) for k, d, i, o in r["calls"]],
                   "data parallel: a rank's steps")
 
-    with tempfile.TemporaryDirectory() as runs:
-        out = os.path.join(runs, "result.json")
-        cmd = [sys.executable, "-m", "mrfp_tpu_torch.cli.train", "--device", DEV,
-               "--synthetic", "--batch-size", str(TRAIN_N), "--crop-size", str(CROP),
-               "--max-iter", "2", "--log-every", "1", "--runs-dir", runs, "--json-out", out,
-               "--num-processes", "1", "--process-id", "0", "--coordinator-address",
-               f"127.0.0.1:{_free_port()}", "--data-parallel", "-1"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-        seconds = time.perf_counter() - t0
-        result = json.load(open(out)) if proc.returncode == 0 else {}
-        ckpt = os.path.join(result.get("run_dir", runs), "ckpt", "step_2.pt")
-        nccl = "(nccl, tcp://127.0.0.1:" in proc.stderr
-        print(f"cli.train --num-processes 1 --process-id 0 --coordinator-address "
-              f"127.0.0.1 (nccl: {nccl}): rc {proc.returncode}, {seconds:.1f} s end to end, "
-              f"losses {result.get('losses')}, checkpoint {os.path.exists(ckpt)}")
-        if proc.returncode != 0 or not nccl or result.get("step") != 2 \
-                or not os.path.exists(ckpt) \
-                or not all(math.isfinite(v) for v in result["losses"].values()):
-            raise AssertionError(f"cli.train on NCCL: rc {proc.returncode}, result {result}, "
-                                 f"stderr {proc.stderr[-3000:]}")
+    nccl = "(nccl, tcp://127.0.0.1:" in nccl_err
+    print(f"cli.train --num-processes 1 --process-id 0 --coordinator-address "
+          f"127.0.0.1 (nccl: {nccl}): rc {rc}, {nccl_s:.1f} s end to end beside the ranks, "
+          f"losses {result.get('losses')}, checkpoint {ckpt}")
+    if rc != 0 or not nccl or result.get("step") != 2 or not ckpt \
+            or not all(math.isfinite(v) for v in result["losses"].values()):
+        raise AssertionError(f"cli.train on NCCL: rc {rc}, result {result}, "
+                             f"stderr {nccl_err[-3000:]}")
     return launched, (len(sizes), sum(sizes))
 
 
@@ -3625,19 +3631,57 @@ def sp_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
         torch.distributed.destroy_process_group()
 
 
-def _cli_eval_json(extra: list) -> dict:
-    """``cli.eval --synthetic`` at H x W on one image, fp32, in a process of
-    its own: its results."""
+@contextlib.contextmanager
+def _beside(cmds: dict, timeout: float = 900, env=None):
+    """Each command of ``cmds`` (name -> argv) in a process of its own (with
+    ``env`` added to this one's environment) while the block runs, its
+    output in a file (no pipe to fill); yields a dict that holds, once the
+    block has ended, each one's ``(returncode, stdout, stderr, seconds)``,
+    the seconds from the block's start to its end."""
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "results.json")
-        cmd = [sys.executable, "-m", "mrfp_tpu_torch.cli.eval", "--device", DEV, "--synthetic",
-               "--synthetic-hw", str(H), str(W), "--domains", "cityscapes", "--max-images",
-               "1", "--json-out", out, *extra]
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"{' '.join(cmd[2:])}: rc {proc.returncode}: "
-                                 f"{proc.stderr[-3000:]}")
-        return json.load(open(out))["cityscapes"]
+        t0 = time.perf_counter()
+        procs = {}
+        for name, cmd in cmds.items():
+            out, err = (open(os.path.join(tmp, f"{name}.{k}"), "w+") for k in ("out", "err"))
+            procs[name] = (subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err, text=True,
+                                            env=env and {**os.environ, **env}), out, err)
+        done = {}
+        try:
+            yield done
+            for name, (proc, out, err) in procs.items():
+                proc.wait(timeout=timeout)
+                out.seek(0)
+                err.seek(0)
+                done[name] = (proc.returncode, out.read(), err.read(), time.perf_counter() - t0)
+        finally:
+            for proc, out, err in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                out.close()
+                err.close()
+
+
+@contextlib.contextmanager
+def _cli_evals(*extras):
+    """``cli.eval --synthetic`` at H x W on one image, fp32, once with each
+    of ``extras`` (its extra flags), in processes of their own while the
+    block runs; yields a list that holds their results, in order, once
+    the block has ended."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmds = {str(i): [sys.executable, "-m", "mrfp_tpu_torch.cli.eval", "--device", DEV,
+                         "--synthetic", "--synthetic-hw", str(H), str(W), "--domains",
+                         "cityscapes", "--max-images", "1", "--json-out",
+                         os.path.join(tmp, f"{i}.json"), *extra]
+                for i, extra in enumerate(extras)}
+        results = []
+        with _beside(cmds, timeout=600) as done:
+            yield results
+        for i, cmd in cmds.items():
+            rc, _out, err, _s = done[i]
+            if rc != 0:
+                raise AssertionError(f"{' '.join(cmd[2:])}: rc {rc}: {err[-3000:]}")
+            results.append(json.load(open(os.path.join(tmp, f"{i}.json")))["cityscapes"])
 
 
 def phase_spatial_parallel(cuda_gen) -> dict:
@@ -3685,8 +3729,6 @@ def phase_spatial_parallel(cuda_gen) -> dict:
     with _strict_fp32(), _resizes_run() as fp32_resizes:
         _, one32_loss, _, one32, _ = _sp_step(SP_FP32_N, "float32", every)
         _, ctrl32_loss, _, ctrl32, _ = _sp_step(SP_FP32_N, "float32", every, 1e-7)
-    with _strict_fp32():
-        ref64 = _sp_fp64_grads(SP_FP32_N)
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3709,18 +3751,22 @@ def phase_spatial_parallel(cuda_gen) -> dict:
           f"forward exactly equal, backward within the bound; {len(eval_resizes)} eval "
           f"resizes, forward exactly equal); one process's runs {time.perf_counter() - t0:.1f} s")
 
-    ranks, seconds = _run_ranks("sp_rank")
+    with _cli_evals([], ["--spatial-parallel", "2"]) as evals:  # beside the ranks
+        ranks, seconds = _run_ranks("sp_rank")
     for r in ranks:
         _all_held([(c[0], getattr(torch, c[1])) + tuple(c[2:]) for c in r["calls"]],
                   "spatial parallel: a rank's runs")
     fp32_loss_err = abs(ranks[0]["fp32_loss"] - one32_loss) / abs(one32_loss)
-    fp32_ratio, grounded = {}, []
+    fp32_ratio, grounded, ref64 = {}, [], None
     for k, g in one32.items():
         got = ranks[0]["fp32_grads"][k]
         err = float((got - g).norm())
         fp32_ratio[k] = err / (3 * float((ctrl32[k] - g).norm()) + 1e-4 * float(g.norm())
                                + 1e-12)
-        if fp32_ratio[k] > 1:  # the fp64-grounded rule
+        if fp32_ratio[k] > 1:  # the fp64-grounded rule, its step taken where needed
+            if ref64 is None:
+                with _strict_fp32():
+                    ref64 = _sp_fp64_grads(SP_FP32_N)
             ref = ref64[k].double()
             fp32_ratio[k] = float((got.double() - ref).norm()) / (
                 3 * float((g.double() - ref).norm()) + 1e-4 * float(ref.norm()) + 1e-12)
@@ -3754,7 +3800,7 @@ def phase_spatial_parallel(cuda_gen) -> dict:
            for k, v in (("ranks", logits), ("one", one_logits))}
     hist_moved = [int((r["hist"].long() - one_hist.long()).abs().sum()) // 2 for r in ranks]
     pixels = int(one_hist.sum())
-    one_eval, two_eval = _cli_eval_json([]), _cli_eval_json(["--spatial-parallel", "2"])
+    one_eval, two_eval = evals
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(f"spatial parallel fp32 (TF32 off, deterministic), damped fixture: {SP_WORLD} ranks "
@@ -4377,8 +4423,6 @@ def phase_spatial_zoo_extras(cuda_gen) -> dict:
     with _strict_fp32(), _resizes_run() as fp32_resizes:
         one32 = _zoo_dp_step(slice(None), batch=SPZ_FP32_N, dtype="float32")
         ctrl32 = _zoo_dp_step(slice(None), 1e-7, batch=SPZ_FP32_N, dtype="float32")
-    with _strict_fp32():
-        ref64 = _spz_fp64_grads(one32["masks"], one32["nrc"])
     with _resizes_run() as bf16_resizes:
         zoo, zoo_run = _spx_counted(lambda: _zoo_dp_step(slice(None), steps=1))
     zoo_ctrl = _zoo_dp_step(slice(None), 2.0 ** -9)
@@ -4402,7 +4446,9 @@ def phase_spatial_zoo_extras(cuda_gen) -> dict:
           f"bound; {len(eval_resizes)} eval resizes, forward exactly equal), {dot_shapes} "
           f"dot_with_stats band shapes; one process's runs {time.perf_counter() - t0:.1f} s")
 
-    ranks, seconds = _run_ranks("spx_rank")
+    arch = ["--arch", SPZ_EVAL_ARCH]
+    with _cli_evals(arch, arch + ["--spatial-parallel", "2"]) as evals:  # beside the ranks
+        ranks, seconds = _run_ranks("spx_rank")
     for r in ranks:
         _all_held([(c[0], getattr(torch, c[1])) + tuple(c[2:]) for c in r["calls"]],
                   "spatial zoo and extras: a rank's runs")
@@ -4421,12 +4467,15 @@ def phase_spatial_zoo_extras(cuda_gen) -> dict:
                    for r in ranks)
     loss32 = {k: abs(r32["losses"][k] - v) / max(abs(v), 1e-30)
               for k, v in one32["losses"].items()}
-    ratio32, grounded = {}, []
+    ratio32, grounded, ref64 = {}, [], None
     for k, g in one32["grads"].items():
         got = r32["grads"][k]
         ratio32[k] = float((got - g).norm()) / (3 * float((ctrl32["grads"][k] - g).norm())
                                                 + 1e-4 * float(g.norm()) + 1e-12)
-        if ratio32[k] > 1:  # the fp64-grounded rule
+        if ratio32[k] > 1:  # the fp64-grounded rule, its step taken where needed
+            if ref64 is None:
+                with _strict_fp32():
+                    ref64 = _spz_fp64_grads(one32["masks"], one32["nrc"])
             ref = ref64[k].double()
             ratio32[k] = float((got.double() - ref).norm()) / (
                 3 * float((g.double() - ref).norm()) + 1e-4 * float(ref.norm()) + 1e-12)
@@ -4504,8 +4553,7 @@ def phase_spatial_zoo_extras(cuda_gen) -> dict:
     # the eval leg
     hist_moved = [int((r["hist"].long() - one_hist.long()).abs().sum()) // 2 for r in ranks]
     pixels = int(one_hist.sum())
-    arch = ["--arch", SPZ_EVAL_ARCH]
-    one_eval, two_eval = _cli_eval_json(arch), _cli_eval_json(arch + ["--spatial-parallel", "2"])
+    one_eval, two_eval = evals
     launched = {k: sum(r["launched"][k] for r in ranks) for k in ranks[0]["launched"]}
     print(f"spatial zoo eval fp32 {SPZ_EVAL_ARCH} 1x3x{H}x{W}: SegEvaluator pixels moved "
           f"{hist_moved} of {pixels}; cli.eval --spatial-parallel 2 {two_eval} vs cli.eval "
@@ -4550,7 +4598,7 @@ def phase_spatial_zoo_extras(cuda_gen) -> dict:
 # dot_with_stats on a rank's shapes, so it takes the smaller batch: each
 # sample costs the ranks about 1.5 GB of gathers through the host)
 MP_WORLD = 2
-MP_FP32_N, MP_N, MP_FUSED_N = 2, 8, 2
+MP_FP32_N, MP_N, MP_FUSED_N = 2, 4, 2
 
 
 def _hold_channel_resizes(resizes, backward: bool, cuda_gen, mp: int = MP_WORLD) -> int:
@@ -4797,14 +4845,12 @@ def phase_model_parallel(cuda_gen) -> dict:
     Returns the ranks' summed kernel launches."""
     from mrfp_tpu_torch.models import MRFP, build_mrfp
     t0 = time.perf_counter()
-    with _plan_bill(MP_N) as bill:  # cli.plan's processes run beside these runs
+    with _plan_bill(MP_N) as bill:  # cli.plan's processes run beside these runs and the ranks
         with _strict_fp32(), _resizes_run() as fp32_resizes:
             one32 = _mp_step(MP_FP32_N, "float32")
             ctrl32 = _mp_step(MP_FP32_N, "float32", 1e-7)
         one32_loss, ctrl32_loss = one32["loss"], ctrl32["loss"]
         one32, ctrl32 = one32["grads"], ctrl32["grads"]
-        with _strict_fp32():
-            ref64 = _sp_fp64_grads(MP_FP32_N)
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4836,10 +4882,9 @@ def phase_model_parallel(cuda_gen) -> dict:
               f"forward exactly equal, backward within the bound; {len(eval_resizes)} eval "
               f"resizes, forward exactly equal), {dot_shapes} dot_with_stats shapes; one "
               f"process's runs {time.perf_counter() - t0:.1f} s")
-    print(f"model parallel: cli.plan --model-parallel {MP_WORLD} beside them, "
-          f"{time.perf_counter() - t0:.1f} s in all")
-
-    ranks, seconds = _run_ranks("mp_rank")
+        ranks, seconds = _run_ranks("mp_rank")
+    print(f"model parallel: cli.plan --model-parallel {MP_WORLD} beside the one-process runs "
+          f"and the ranks, {time.perf_counter() - t0:.1f} s in all")
     for r in ranks:
         _all_held([(c[0], getattr(torch, c[1])) + tuple(c[2:]) for c in r["calls"]],
                   "model parallel: a rank's runs")
@@ -4848,12 +4893,15 @@ def phase_model_parallel(cuda_gen) -> dict:
             raise AssertionError(f"model parallel: dot_with_stats ran at shapes no phase held: "
                                  f"{missing}")
     fp32_loss_err = abs(ranks[0]["fp32_loss"] - one32_loss) / abs(one32_loss)
-    fp32_ratio, grounded = {}, []
+    fp32_ratio, grounded, ref64 = {}, [], None
     for k, g in one32.items():
         got = ranks[0]["fp32_grads"][k]
         fp32_ratio[k] = float((got - g).norm()) / (3 * float((ctrl32[k] - g).norm())
                                                    + 1e-4 * float(g.norm()) + 1e-12)
-        if fp32_ratio[k] > 1:  # the fp64-grounded rule
+        if fp32_ratio[k] > 1:  # the fp64-grounded rule, its step taken where needed
+            if ref64 is None:
+                with _strict_fp32():
+                    ref64 = _sp_fp64_grads(MP_FP32_N)
             ref = ref64[k].double()
             fp32_ratio[k] = float((got.double() - ref).norm()) / (
                 3 * float((g.double() - ref).norm()) + 1e-4 * float(ref.norm()) + 1e-12)
@@ -4936,6 +4984,365 @@ def phase_model_parallel(cuda_gen) -> dict:
     return launched
 
 
+# the zoo's tensor-parallel leg: MP_WORLD ranks on the one card split every
+# conv's channels of DeepR50V3PlusD (ZOO_DP_WT: ISW in slots 2-3 with the
+# whitening loss, SwitchWhiten in slot 4, the DSN head) at 768x768: fp32 at
+# MPZ_FP32_N (damped), bf16 at MPZ_N where the phase's own memory reading says
+# two ranks fit (else MPZ_CUT_N); the entry point cli.train_zoo on the ZOO_WT
+# recipe (r18-D32) at MPZ_CLI_N crops of MPZ_CLI_CROP with one validation
+MPZ_FP32_N, MPZ_N, MPZ_CUT_N, MPZ_CLI_N, MPZ_CLI_CROP = 2, 4, 2, 2, 384
+
+
+def _zoo_mp_step(batch: int, dtype: str, noise: float = 0.0) -> dict:
+    """The statistics pass (on the whole model, gathered where this process
+    holds shards: ``cli.train_zoo.whole_model``), then one zoo step of
+    ``_zoo_dp_setup(batch, dtype)`` on the whole batch x (1 + ``noise`` x
+    N(0, 1)), every resize call recorded, the collectives and launches
+    counted; under a model axis this process's shards of the state.
+    Returns the state after the step and the gradients (whole: the model
+    group's shards gathered; on the host), the losses, masks and counts,
+    the collectives by group, the step's ms and the ``state``."""
+    from mrfp_tpu_torch.cli import train_zoo
+    from mrfp_tpu_torch.core.mesh import current_mesh
+    from mrfp_tpu_torch.models.deepv3_zoo import build_cov_layers
+    from mrfp_tpu_torch.ops import LAUNCHES, reset_launches
+    from mrfp_tpu_torch.parallel.audit import count_collectives, summarize_by_group
+    from mrfp_tpu_torch.parallel.dist import gather_rows
+    from mrfp_tpu_torch.train.zoo_step import covstat_pass, zoo_train_step
+    from mrfp_tpu_torch.weights import whole_state_dict
+    cfg, state, pairs, img, lbl = _zoo_dp_setup(batch, dtype)
+    mesh, model = current_mesh(), state.model
+    layers = build_cov_layers("resnet-50", tuple(map(int, ZOO_DP_WT)))
+    whole = train_zoo.whole_model(cfg, model, torch.device(DEV))
+    masks, nrc = covstat_pass(whole, layers, pairs, cfg, torch.device(DEV))
+    del whole
+    eps = torch.randn(img.shape, generator=torch.Generator().manual_seed(2)).to(img.device)
+    img = (img.float() * (1 + noise * eps)).contiguous()
+    keys = getattr(model, "tp_keys", frozenset())
+    host = lambda d: {k: v.detach().to("cpu", copy=True) for k, v in d.items()}  # noqa: E731
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _recording() as calls, count_collectives() as log:
+        m = zoo_train_step(state, img, lbl.contiguous(), cfg, masks, nrc)
+        losses = {k: float(v) for k, v in m.items() if k.startswith("loss")}
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = dict(LAUNCHES)
+    grads = host({k: gather_rows(p.grad, mesh.model) if k in keys else p.grad
+                  for k, p in model.named_parameters()})
+    return {"losses": losses, "after": host(whole_state_dict(model, mesh)),
+            "grads": grads, "masks": [t.cpu() for t in masks], "nrc": nrc, "ms": ms,
+            "collectives": summarize_by_group(log), "launched": launched, "state": state,
+            "calls": calls}
+
+
+def _zoo_mp_model():
+    """DeepR50V3PlusD with ``ZOO_DP_WT`` and the DSN head, on the card."""
+    from mrfp_tpu_torch.models.deepv3_zoo import DeepV3Plus
+    return DeepV3Plus(trunk="resnet-50", variant="D16", wt_layer=tuple(map(int, ZOO_DP_WT)),
+                      use_dsn=True).to(DEV)
+
+
+def _zoo_mp_hist(model, mesh, logits) -> tuple:
+    """The validation of the (sharded) ``model``: ``SegEvaluator`` with the
+    mesh over one synthetic H x W image, its launches counted; and the
+    confusion-matrix kernel held against its plain version on this rank's
+    prediction from ``logits`` (10% ignore labels): ``(hist, held, launches,
+    calls)``."""
+    from mrfp_tpu_torch.data import SyntheticDataset
+    from mrfp_tpu_torch.ops import LAUNCHES, cuda_hist, reset_launches
+    from mrfp_tpu_torch.train.evaluator import SegEvaluator
+    with _strict_fp32(), _recording() as calls:
+        torch.cuda.synchronize()
+        reset_launches()
+        res = SegEvaluator(model, device=DEV, mesh=mesh).run(
+            SyntheticDataset(length=1, hw=(H, W)), log=lambda *a, **k: None)
+        launched = dict(LAUNCHES)
+    pred = logits.to(DEV).argmax(1)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    label = torch.randint(0, 19, pred.shape, device=DEV, generator=gen)
+    label[torch.rand(label.shape, device=DEV, generator=gen) < 0.1] = 255
+    got = cuda_hist.confusion_matrix_cuda(torch.zeros(19, 19, dtype=torch.int32, device=DEV),
+                                          pred, label, 19)
+    held = torch.equal(got, cuda_hist.confusion_matrix_plain(pred, label, 19))
+    return (torch.as_tensor(res["hist"]), held, launched,
+            [(c[0], _dtype_name(c[1])) + tuple(c[2:]) for c in calls])
+
+
+def mpz_rank(rank: int, world: int, rendezvous: str, out: str, batch: int) -> None:
+    """One rank of ``phase_zoo_model_parallel`` (its own process): joins the
+    gloo group, lays out one model group, and on its shards of the state
+    takes the fp32 zoo step and the counted bf16 one at ``batch``, whose
+    whole state it checkpoints (every rank gathers, rank 0 writes) and
+    evaluates (the fp32 logits at 1x3xHxW and the validation's histogram);
+    writes what it saw, and rank 0 the checkpoint, to ``out/rank<rank>.pt``."""
+    from mrfp_tpu_torch.core.config import MeshConfig
+    from mrfp_tpu_torch.core.mesh import create_mesh
+    from mrfp_tpu_torch.parallel import dist
+    from mrfp_tpu_torch.train.checkpoint import CheckpointManager
+    dist.initialize_distributed(rendezvous, world, rank, DEV, backend="gloo", timeout_s=900)
+    try:
+        mesh = create_mesh(MeshConfig(data_parallel=1, model_parallel=world))
+        with _strict_fp32():
+            fp32 = _zoo_mp_step(MPZ_FP32_N, "float32")
+        del fp32["state"]
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        bf16 = _zoo_mp_step(batch, "bfloat16")
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        state = bf16.pop("state")
+        state_bytes = _state_bytes(state)
+        sw_grads = {k: v for k, v in bf16["grads"].items() if "sw_" in k}
+        ckpt = CheckpointManager(os.path.join(out, "ckpt"), keep=1)
+        ckpt.save(state)
+        ckpt.close()
+        blob = (torch.load(os.path.join(out, "ckpt", f"step_{state.step}.pt"),
+                           weights_only=True) if rank == 0 else None)
+        logits, eval_calls = _mp_eval_logits(state.model)
+        hist, hist_held, hist_launched, hist_calls = _zoo_mp_hist(state.model, mesh, logits)
+        launched = {k: fp32["launched"][k] + bf16["launched"][k] + hist_launched[k]
+                    for k in hist_launched}
+        torch.save({"fp32": {k: fp32[k] for k in ("losses", "grads", "masks", "nrc")},
+                    "losses": bf16["losses"], "after": bf16["after"], "grads": bf16["grads"],
+                    "masks": bf16["masks"], "nrc": bf16["nrc"], "sw_grads": sw_grads,
+                    "collectives": bf16["collectives"], "step_ms": bf16["ms"],
+                    "peak_gib": peak, "state_bytes": state_bytes, "ckpt": blob,
+                    "logits": logits, "hist": hist, "hist_held": hist_held,
+                    "launched": launched,
+                    "calls": [(c[0], _dtype_name(c[1])) + tuple(c[2:]) for c in
+                              fp32["calls"] + bf16["calls"] + eval_calls] + hist_calls},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _zoo_mp_entry_point():
+    """``python -m mrfp_tpu_torch.cli.train_zoo --model-parallel 2
+    --num-processes 2`` (``LOCAL_WORLD_SIZE=2``: the ranks share the card,
+    so they join through gloo): 2 steps of the ``ZOO_WT`` recipe (r18-D32,
+    ISW, the whitening loss and its statistics phase, bf16) at batch
+    ``MPZ_CLI_N`` of ``MPZ_CLI_CROP`` crops, with one validation at the last
+    step, run beside the block (``_beside``); yields a dict that holds the
+    ranks' results, their run's metrics and seconds once the block has
+    ended."""
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [sys.executable, "-m", "mrfp_tpu_torch.cli.train_zoo", "--device", DEV,
+                "--synthetic", "--trunk", "resnet-18", "--variant", "D32", "--wt-layer", *ZOO_WT,
+                "--use-wtloss", "--covstat-batches", "1", "--batch-size", str(MPZ_CLI_N),
+                "--crop-size", str(MPZ_CLI_CROP), "--max-iter", "2", "--log-every", "1",
+                "--eval-every", "2", "--eval-max-images", "1", "--runs-dir",
+                os.path.join(tmp, "runs"), "--num-processes", str(MP_WORLD),
+                "--coordinator-address", f"file://{tmp}/rendezvous", "--model-parallel",
+                str(MP_WORLD)]
+        report = {}
+        with _beside({str(r): argv + ["--process-id", str(r)] for r in range(MP_WORLD)},
+                     env={"LOCAL_WORLD_SIZE": str(MP_WORLD)}) as done:
+            yield report
+        bad = [(r, rc, err[-3000:]) for r, (rc, _out, err, _s) in done.items() if rc != 0]
+        if bad:
+            raise AssertionError(f"cli.train_zoo --model-parallel {MP_WORLD}: {bad}")
+        results = [json.loads(done[str(r)][1].strip().splitlines()[-1])
+                   for r in range(MP_WORLD)]
+        report.update(results=results, metrics=_metrics(results[0]["run_dir"]),
+                      seconds=max(d[3] for d in done.values()),
+                      gloo=all("(gloo, file://" in d[2] for d in done.values()))
+
+
+def phase_zoo_model_parallel(cuda_gen) -> dict:
+    """Tensor parallelism for the zoo on the one card: ``MP_WORLD`` ranks
+    (``mpz_rank``), each a process of its own, share the card through gloo
+    and split every conv's output channels of DeepR50V3PlusD (``ZOO_DP_WT``:
+    ISW in slots 2-3 with the whitening loss and its statistics pass,
+    SwitchWhiten in slot 4, whitening each rank's own groups of 16, the DSN
+    head), each holding its shards of the state.
+
+    One process first takes the same passes and steps, every resize call
+    recorded; each is then held against its plain version at the channel
+    counts a model rank gives it (``_hold_channel_resizes``: the head's
+    bilinear resizes on 128 of 256 channels and on the 19 logits, the DSN
+    labels' nearest at one process's shapes), and every call of the ranks
+    must be at a held shape.
+
+    - fp32 (TF32 off, cuDNN deterministic), the damped fixture, batch
+      ``MPZ_FP32_N`` at 768x768, the statistics pass over the same view
+      pairs: the masks and counts equal one process's; the loss within
+      1e-5 relative; each gradient within its own limit (``_per_key_limits``
+      of the 1e-7-input control's distance).
+    - bf16 at ``MPZ_N`` (``MPZ_CUT_N`` where the one-process step's peak,
+      times the ranks, does not fit the card's free memory): the masks
+      equal; the loss within 2^-9 or 3x the half-ulp-input control; the
+      ranks' whole gradients and state bit-identical (the replicated
+      tensors, SwitchWhiten's mixing weights among them, and the gathered
+      shards); each rank's state bytes, peak memory and collectives by
+      group and kind beside one process's.
+    - The checkpoint of that step, written at M = 2, loads ``strict=True``
+      into one process, its momentum whole, and its fp32 eval logits at
+      1x3xHxW equal the ranks' sharded forward's within atol 2e-4, rtol
+      1e-4; the ranks' validation (``SegEvaluator`` on the sharded model)
+      launches the confusion-matrix kernel, held exactly against the plain
+      version on a rank's prediction.
+    - ``cli.train_zoo --model-parallel 2 --num-processes 2`` (``_zoo_mp_entry_point``)
+      runs beside the ranks: 2 steps and a validation, the ranks' logged
+      losses within 2^-20 of each other and their replicated tensors
+      (``weights.replicated_digest``) bit-identical after step 2.
+
+    Returns the ranks' summed kernel launches."""
+    t0 = time.perf_counter()
+    with _strict_fp32(), _resizes_run() as fp32_resizes:
+        one32 = _zoo_mp_step(MPZ_FP32_N, "float32")
+        ctrl32 = _zoo_mp_step(MPZ_FP32_N, "float32", 1e-7)
+    del one32["state"], ctrl32["state"]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with _resizes_run() as bf16_resizes:
+        run = _zoo_mp_step(MPZ_N, "bfloat16")
+    torch.cuda.synchronize()
+    one_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    free_gib = torch.cuda.mem_get_info()[0] / 2 ** 30
+    batch = MPZ_N if MP_WORLD * one_peak < 0.8 * free_gib else MPZ_CUT_N
+    if batch != MPZ_N:
+        del run
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with _resizes_run() as bf16_resizes:
+            run = _zoo_mp_step(batch, "bfloat16")
+        torch.cuda.synchronize()
+        one_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    one_bytes = _state_bytes(run.pop("state"))
+    one = run
+    ctrl = _zoo_mp_step(batch, "bfloat16", 2.0 ** -9)
+    del ctrl["state"]
+    torch.cuda.empty_cache()
+    with _resizes_run() as eval_resizes:
+        _mp_eval_logits(_zoo_mp_model())
+    torch.cuda.empty_cache()
+    train_resizes = fp32_resizes | bf16_resizes
+    held = (_hold_channel_resizes(train_resizes, True, cuda_gen)
+            + _hold_channel_resizes(eval_resizes, False, cuda_gen))
+    print(f"zoo model parallel: {held} resize calls at a model rank's channel counts held "
+          f"against the plain versions ({len(train_resizes)} train resizes fp32 and bf16 at "
+          f"batch {MPZ_FP32_N} and {batch}, the DSN labels' nearest among them; "
+          f"{len(eval_resizes)} eval resizes); the bf16 batch {batch}: one process's step "
+          f"peaked at {one_peak:.3f} GiB, {free_gib:.3f} GiB free, {MP_WORLD} ranks "
+          f"{'fit' if batch == MPZ_N else 'do not fit: cut to ' + str(MPZ_CUT_N)}; one "
+          f"process's runs {time.perf_counter() - t0:.1f} s")
+
+    with _zoo_mp_entry_point() as entry:  # cli.train_zoo's ranks beside these
+        ranks, seconds = _run_ranks("mpz_rank", extra=(batch,))
+    for r in ranks:
+        _all_held([(c[0], getattr(torch, c[1])) + tuple(c[2:]) for c in r["calls"]],
+                  "zoo model parallel: a rank's runs")
+    r32 = ranks[0]["fp32"]
+    masks32 = all(r["fp32"]["nrc"] == one32["nrc"] and all(
+        torch.equal(a, b) for a, b in zip(r["fp32"]["masks"], one32["masks"])) for r in ranks)
+    loss32 = abs(r32["losses"]["loss"] - one32["losses"]["loss"]) / abs(one32["losses"]["loss"])
+    limits = _per_key_limits({"control": {k: _rel(ctrl32["grads"][k], g)
+                                          for k, g in one32["grads"].items()}})
+    ratio32 = {k: _rel(r32["grads"][k], g) / limits[k] for k, g in one32["grads"].items()}
+    worst32 = sorted(ratio32.items(), key=lambda kv: -kv[1])[:3]
+    masks = all(r["nrc"] == one["nrc"] and all(torch.equal(a, b) for a, b in
+                                                zip(r["masks"], one["masks"])) for r in ranks)
+    same = [k for part in ("after", "grads") for k, v in ranks[0][part].items()
+            if not torch.equal(v, ranks[1][part][k])]
+    sw = sorted(ranks[0]["sw_grads"])
+    loss, one_loss = ranks[0]["losses"]["loss"], one["losses"]["loss"]
+    loss_err = abs(loss - one_loss) / abs(one_loss)
+    loss_bound = max(2.0 ** -9, 3 * abs(ctrl["losses"]["loss"] - one_loss) / abs(one_loss))
+    launched = {k: sum(r["launched"][k] for r in ranks) for k in ranks[0]["launched"]}
+    blob = ranks[0]["ckpt"]
+    loaded = _zoo_mp_model()
+    loaded.load_state_dict(blob["model"], strict=True)
+    params = [p for p in loaded.parameters() if p.requires_grad]
+    momentum = blob["optimizer"]["state"]
+    whole_momentum = len(momentum) == len(params) and all(
+        momentum[i]["momentum_buffer"].shape == p.shape for i, p in enumerate(params))
+    ckpt_logits, _ = _mp_eval_logits(loaded)
+    del loaded
+    torch.cuda.empty_cache()
+    logit_err = (ranks[0]["logits"] - ckpt_logits).abs().max().item()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(f"zoo model parallel fp32 (TF32 off, deterministic), damped fixture: DeepR50V3PlusD "
+          f"wt {''.join(ZOO_DP_WT)}, DSN, {MP_WORLD} ranks x half the channels of "
+          f"{MPZ_FP32_N} images against one process, {CROP}x{CROP}: masks (dim, nrc) "
+          f"{[(m.shape[0], n) for m, n in zip(one32['masks'], one32['nrc'])]} equal to one "
+          f"process's: {masks32}; loss {r32['losses']['loss']:.7f} vs "
+          f"{one32['losses']['loss']:.7f} (rel {loss32:.3e}, bound 1e-5); gradients of "
+          f"{len(ratio32)} tensors, each to its own limit (3x the 1e-7-input control + 1e-3, "
+          f"at most 3x the largest control), worst error / limit "
+          f"{[(k, round(v, 3)) for k, v in worst32]}, median "
+          f"{statistics.median(ratio32.values()):.3f}")
+    print(f"zoo model parallel bf16: {MP_WORLD} ranks x half the channels of {batch} images "
+          f"over gloo, {CROP}x{CROP}, against one process: masks equal {masks}; losses "
+          f"{ {k: round(v, 6) for k, v in ranks[0]['losses'].items()} } vs "
+          f"{ {k: round(v, 6) for k, v in one['losses'].items()} }, loss rel {loss_err:.3e} "
+          f"(bound {loss_bound:.3e}); ranks' whole gradients and state identical: "
+          f"{not same} (SwitchWhiten's mixing weights {sw} among them)")
+    for r, res in enumerate(ranks):
+        print(f"zoo model parallel rank {r}: state {res['state_bytes'] / 1e6:.3f} MB (one "
+              f"process {one_bytes / 1e6:.3f} MB); peak {res['peak_gib']:.3f} GiB above its "
+              f"set-up (one process {one_peak:.3f} GiB); collectives a bf16 step "
+              f"{json.dumps(res['collectives'], sort_keys=True)} (one process "
+              f"{json.dumps(one['collectives'], sort_keys=True)}); counted step "
+              f"{res['step_ms']:.1f} ms (gloo through the host: a correctness time; one "
+              f"process {one['ms']:.1f} ms); card {card.strip()}")
+    print(f"zoo model parallel: checkpoint at M = {MP_WORLD} loaded strict into one process "
+          f"(momentum whole: {whole_momentum}), its fp32 eval logits 1x3x{H}x{W} vs the "
+          f"ranks' max_abs_err {logit_err:.3e}; the ranks' validation histograms equal: "
+          f"{torch.equal(ranks[0]['hist'], ranks[1]['hist'])}, confusion matrix on a rank's "
+          f"prediction exactly plain's: {all(r['hist_held'] for r in ranks)}; launches (both "
+          f"ranks) {launched}; {seconds:.1f} s for the ranks end to end")
+    results, metrics = entry["results"], entry["metrics"]
+    val = metrics.get("val/mean_iu", {})
+    spread = max(abs(r["losses"][k] - v) / abs(v) for r in results
+                 for k, v in results[0]["losses"].items())
+    digests = {r["replicated_sha256"] for r in results}
+    print(f"cli.train_zoo --model-parallel {MP_WORLD} --num-processes {MP_WORLD} "
+          f"(LOCAL_WORLD_SIZE={MP_WORLD} on one card, gloo: {entry['gloo']}; r18-D32 wt "
+          f"{''.join(ZOO_WT)}, ISW, bf16, batch {MPZ_CLI_N}, {MPZ_CLI_CROP}x{MPZ_CLI_CROP}): steps {[r['step'] for r in results]}, losses "
+          f"{[r['losses'] for r in results]}, covstat masks {results[0]['covstat']['masks']}, "
+          f"validation mean_iu {val}; the ranks' losses apart by {spread:.3e} relative at "
+          f"most (bound 2^-20, a few ulps); their replicated tensors after step 2 "
+          f"identical: {len(digests) == 1} (sha256 {sorted(digests)}); "
+          f"{entry['seconds']:.1f} s end to end beside the ranks")
+    if not masks32 or not math.isfinite(loss32) or loss32 > 1e-5 or worst32[0][1] > 1:
+        raise AssertionError(f"zoo model parallel fp32: masks equal {masks32}, loss rel "
+                             f"{loss32}, gradients over their limits "
+                             f"{[kv for kv in worst32 if kv[1] > 1]}")
+    if not masks or same or not sw:
+        raise AssertionError(f"zoo model parallel: masks equal {masks}; ranks differ at {same}; "
+                             f"SwitchWhiten's mixing weights {sw}")
+    if not math.isfinite(loss) or loss_err > loss_bound:
+        raise AssertionError(f"zoo model parallel: loss {loss} against one process's {one_loss}")
+    if not whole_momentum or not torch.equal(ranks[0]["logits"], ranks[1]["logits"]):
+        raise AssertionError("zoo model parallel: the checkpoint's momentum is not whole, or "
+                             "the ranks' logits differ")
+    torch.testing.assert_close(ranks[0]["logits"], ckpt_logits, atol=2e-4, rtol=1e-4,
+                               msg=lambda m: f"zoo model parallel checkpoint eval logits: {m}")
+    if not all(r["hist_held"] for r in ranks) or not torch.equal(ranks[0]["hist"],
+                                                                 ranks[1]["hist"]):
+        raise AssertionError("zoo model parallel: the validation's confusion matrix")
+    # the zoo has no OC branch: no nearest backward (the DSN labels take none)
+    if min(launched[k] for k in ("resize_bilinear", "resize_bilinear_bwd", "resize_nearest",
+                                 "confusion_matrix")) <= 0:
+        raise AssertionError(f"zoo model parallel: a kernel was not launched: {launched}")
+    if any(abs(r["losses"][k] - v) > 2.0 ** -20 * abs(v) for r in results
+           for k, v in results[0]["losses"].items()) \
+            or any(r["step"] != 2 for r in results) or sorted(val) != [2] or len(digests) != 1 \
+            or not entry["gloo"] \
+            or not all(math.isfinite(v) for v in results[0]["losses"].values()):
+        raise AssertionError(f"cli.train_zoo --model-parallel {MP_WORLD}: {results}, "
+                             f"validation {val}")
+    return launched
+
+
 def _phase(fn, *args):
     """``fn(*args)``, its seconds printed on a line of their own."""
     t0 = time.perf_counter()
@@ -4995,6 +5402,8 @@ def main(argv=None) -> None:
     spx_launches = _phase(phase_spatial_zoo_extras, cuda_gen)
     torch.cuda.empty_cache()
     mp_launches = _phase(phase_model_parallel, cuda_gen)
+    torch.cuda.empty_cache()
+    mpz_launches = _phase(phase_zoo_model_parallel, cuda_gen)
 
     def launches(name, *counted):
         """The kernel's count over the counted drives of its paths."""
@@ -5002,7 +5411,7 @@ def main(argv=None) -> None:
 
     later_paths = (serving_launches, extras_launches, accum_launches, sliding_launches,
                    zoo_launches, zoo_trunk_launches, dp_launches, zoo_dp_launches, sp_launches,
-                   spx_launches, mp_launches)
+                   spx_launches, mp_launches, mpz_launches)
     src = "mrfp_tpu_torch/csrc/"
     kernels = [
         dict(name="resize_bilinear", route="cuda", source=src + "resize_bilinear.cu",
@@ -5024,7 +5433,7 @@ def main(argv=None) -> None:
         dict(name="confusion_matrix", route="cuda", source=src + "confusion_matrix.cu",
              replaces="mrfp_tpu/ops/pallas_hist.py:50",
              launches=launches("confusion_matrix", eval_launches, sliding_launches,
-                               zoo_launches, sp_launches, spx_launches),
+                               zoo_launches, sp_launches, spx_launches, mpz_launches),
              **hist),
         dict(name="dot_with_stats", route="cuda", source=src + "dot_stats.cu",
              replaces="mrfp_tpu/ops/pallas_dot_stats.py:112",

@@ -28,7 +28,9 @@ the histograms are summed. The processes come from torchrun or the flags
 ``--num-processes S --process-id R --coordinator-address``; without either,
 ``cli.eval`` starts the S ranks itself (``torch.multiprocessing``, a file
 rendezvous): on the cards through NCCL when there is one each, else
-sharing the card (or the CPU) through gloo. Rank 0 prints and writes the
+sharing the card (or the CPU) through gloo. Ranks started otherwise that
+share a card say so with ``LOCAL_WORLD_SIZE``, as every entry point reads
+it (``parallel.dist.backend_for``). Rank 0 prints and writes the
 results. The zoo models (``--arch``, ``--wt-layer``) take it too, their
 SwitchWhiten and instance whitening statistics spanning the bands.
 """
@@ -205,7 +207,9 @@ def check_spatial(args) -> None:
 
 
 def _spawned_rank(rank: int, argv: list, sp: int, tmp: str) -> None:
-    """One rank that ``cli.eval`` started itself."""
+    """One rank that ``cli.eval`` started itself: the ``sp`` ranks run on
+    this host (``parallel.dist.backend_for`` reads it)."""
+    os.environ["LOCAL_WORLD_SIZE"] = str(sp)
     main(list(argv) + ["--num-processes", str(sp), "--process-id", str(rank),
                        "--coordinator-address", f"file://{tmp}/rendezvous",
                        "--json-out", os.path.join(tmp, "results.json")])
@@ -244,10 +248,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, dict]:
     from mrfp_tpu_torch.core.config import MeshConfig
     from mrfp_tpu_torch.core.mesh import create_mesh, reset_mesh
     from mrfp_tpu_torch.parallel import dist
-    shared = args.device == "cpu" or torch.cuda.device_count() < args.spatial_parallel
     dist.initialize_distributed(args.coordinator_address, args.num_processes,
                                 args.process_id, args.device,
-                                backend="gloo" if shared else None)
+                                backend=dist.backend_for(args.device))
     try:
         mesh = create_mesh(MeshConfig(data_parallel=1, spatial_parallel=args.spatial_parallel))
         return _evaluate(args, dist.local_device(args.device), mesh)

@@ -182,9 +182,9 @@ def _rank(rank: int, args, n: int, tmp: str) -> None:
     from mrfp_tpu_torch.train.step import train_step
     sp, mp = args.spatial_parallel, args.model_parallel
     world = n * mp * sp
-    shared = args.device == "cpu" or torch.cuda.device_count() < world
+    # every rank runs on this host
     dist.initialize_distributed(f"file://{tmp}/rendezvous", world, rank, args.device,
-                                backend="gloo" if shared else None, timeout_s=600)
+                                backend=dist.backend_for(args.device, world), timeout_s=600)
     try:
         device = dist.local_device(args.device)
         crop = AUDIT_CROP if sp == mp == 1 else args.crop_size

@@ -335,7 +335,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from mrfp_tpu_torch.parallel import dist
     # before any other device contact: it picks this process's card
     dist.initialize_distributed(args.coordinator_address, args.num_processes,
-                                args.process_id, args.device)
+                                args.process_id, args.device,
+                                backend=dist.backend_for(args.device))
     try:
         return _train(args, dist.local_device(args.device), watchdog)
     finally:

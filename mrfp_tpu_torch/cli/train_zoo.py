@@ -27,8 +27,7 @@ here. ``cli.eval --trunk/--variant --wt-layer ... --ckpt <run>`` (or
 Every trunk of the JAX zoo trains (``--trunk`` or ``--arch``, the 23
 factory names) with every iw code 0-5. Refused: an IRW slot (iw code 1)
 with ``--use-wtloss``, which the JAX trainer cannot run either (ROADMAP C6),
-and ``--use-wtloss`` with an ISW slot that the trunk does not read (C11);
-``--model-parallel`` > 1 (ROADMAP A1', tensor parallelism for the zoo).
+and ``--use-wtloss`` with an ISW slot that the trunk does not read (C11).
 
 Data parallelism, one process per card, as ``cli.train`` runs it:
 
@@ -59,6 +58,23 @@ is the global batch over the N/S data ranks; the statistics phase's pairs
 stay at the JAX trainer's batch over N. S may not exceed the rows of the
 trunk's smallest map (``models.deepv3_zoo.deepest_rows``: SE-ResNeXt's is
 at stride 32 whatever ``--variant`` says).
+
+Tensor parallelism, as ``cli.train`` runs it (``core/mesh.py``):
+
+    python -m mrfp_tpu_torch.cli.train_zoo --num-processes 4 --model-parallel 2 ...
+
+lays the N processes out as a (N/(M S)) x M x S mesh. The M ranks of a
+model group load the same samples and each holds its slice of the
+channels of every conv kernel, norm, SwitchWhiten tensor and momentum
+buffer that M divides (``weights.shard_model``, JAX's ``state_shardings``;
+SwitchWhiten's running buffers are cut by group, ROADMAP C14); what M does
+not divide stays whole and computes its whole map on every rank. The
+statistics phase runs on the whole model, gathered from the shards, so
+its masks are one process's. The checkpoints stay whole: a run resumes at
+any M. M must be 1, 2, 4, 8 or 16. The processes join through NCCL, or
+through gloo where ``LOCAL_WORLD_SIZE`` (torchrun's, or set by hand) says
+that more of them run on the host than it has cards, so that they share
+one (``parallel.dist.backend_for``, as every entry point decides it).
 ``--device cuda`` runs the hand-written kernels and exits non-zero when no
 CUDA device is present; it never falls back to the CPU. Exit 75 means the
 run was stopped by a signal and can resume.
@@ -150,15 +166,18 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="split every image's rows over this many processes (a band "
                         "each), as cli.train does")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="not ported: ROADMAP A1' (tensor parallelism for the zoo)")
+                   help="split every conv's output channels over this many processes "
+                        "(tensor parallelism; the ranks of a model group take the same "
+                        "samples)")
     return p.parse_args(argv)
 
 
 def check_args(args) -> None:
     """Resolve ``--arch`` into ``--trunk``/``--variant`` and raise on what
     the port cannot run: a mesh ``cli.train`` refuses (``mesh_axes``: a
-    global batch the data axis cannot share, a spatial axis that does not
-    divide the processes), tensor parallelism (ROADMAP A1'), an unknown trunk, a
+    global batch the data axis cannot share, a model or spatial axis that
+    does not divide the processes, a data axis that is not the processes
+    left over), a model axis that does not divide 16, an unknown trunk, a
     spatial split finer than the trunk's smallest map, and under
     ``--use-wtloss`` an IRW slot (ROADMAP C6: the JAX trainer fails there
     with an AttributeError) or an ISW slot the trunk does not read (C11:
@@ -170,13 +189,9 @@ def check_args(args) -> None:
                                                   iw_slots)
     if args.arch:
         args.trunk, args.variant = arch_trunk(args.arch)
-    mp = args.model_parallel or 1
-    if mp > 1:
-        raise NotImplementedError(
-            f"--model-parallel {mp}: not ported for the zoo (ROADMAP A1': SwitchWhiten's and "
-            f"ISW's C x C covariances across channel slices, the depthwise and grouped convs, "
-            f"ShuffleNetV2's channel shuffle); cli.train runs it for MRFP")
-    nproc, _dp, _mp, sp = mesh_axes(args)
+    nproc, _dp, mp, sp = mesh_axes(args)
+    if 16 % mp:
+        raise ValueError(f"--model-parallel {mp} must be 1, 2, 4, 8 or 16")
     if args.batch_size % nproc:
         raise ValueError(f"--batch-size {args.batch_size} (the global batch) not divisible "
                          f"by {nproc} processes (the statistics phase's batch)")
@@ -206,7 +221,8 @@ def build_config(args):
     from mrfp_tpu_torch.core.config import Config, MeshConfig
     cfg = Config()
     return cfg.replace(
-        mesh=MeshConfig(data_parallel=-1, spatial_parallel=args.spatial_parallel),
+        mesh=MeshConfig(data_parallel=-1, model_parallel=args.model_parallel or 1,
+                        spatial_parallel=args.spatial_parallel or 1),
         model=dataclasses.replace(
             cfg.model, trunk=args.trunk, variant=args.variant, wt_layer=tuple(args.wt_layer),
             use_wtloss=args.use_wtloss, use_dsn_aux=args.use_dsn,
@@ -237,16 +253,40 @@ def run_recipe(args) -> dict:
             "use_dsn": bool(args.use_dsn)}
 
 
-def build_state(cfg, device: torch.device):
-    """The zoo model from seeded random weights, its optimizer and schedule."""
+def _zoo_model(cfg):
     from mrfp_tpu_torch.models.deepv3_zoo import DeepV3Plus
+    m = cfg.model
+    return DeepV3Plus(num_classes=m.num_classes, trunk=m.trunk, variant=m.variant,
+                      wt_layer=m.wt_layer, use_dsn=m.use_dsn_aux)
+
+
+def build_state(cfg, device: torch.device):
+    """The zoo model from seeded random weights, its optimizer and schedule.
+    Under a model axis (``core.mesh.current_mesh``) the model is this rank's
+    shards of the whole one (``weights.shard_model``)."""
+    from mrfp_tpu_torch.core.mesh import current_mesh
     from mrfp_tpu_torch.nn.layers import init_random_
     from mrfp_tpu_torch.train.state import create_train_state
-    m = cfg.model
-    model = DeepV3Plus(num_classes=m.num_classes, trunk=m.trunk, variant=m.variant,
-                       wt_layer=m.wt_layer, use_dsn=m.use_dsn_aux)
+    from mrfp_tpu_torch.weights import shard_model
+    model = _zoo_model(cfg)
     init_random_(model, torch.Generator().manual_seed(cfg.train.seed))
-    return create_train_state(model.to(device), cfg.train)
+    return create_train_state(shard_model(model, current_mesh()).to(device), cfg.train)
+
+
+def whole_model(cfg, model, device: torch.device):
+    """``model`` itself, or under a model axis a whole copy of the cut
+    ``model`` (``weights.whole_state_dict``: every rank of the model group
+    must call it), on which the statistics pass computes what one process
+    computes, as the JAX trainer runs it on the whole state before
+    ``shard_state``."""
+    from mrfp_tpu_torch.core.mesh import current_mesh
+    from mrfp_tpu_torch.weights import whole_state_dict
+    mesh = current_mesh()
+    if mesh.mp == 1:
+        return model
+    whole = _zoo_model(cfg).to(device)
+    whole.load_state_dict(whole_state_dict(model, mesh), strict=True)
+    return whole
 
 
 def build_view_pairs(dataset, n_batches: int, batch_size: int, seed: int
@@ -303,7 +343,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from mrfp_tpu_torch.parallel import dist
     # before any other device contact: it picks this process's card
     dist.initialize_distributed(args.coordinator_address, args.num_processes,
-                                args.process_id, args.device)
+                                args.process_id, args.device,
+                                backend=dist.backend_for(args.device))
     try:
         return _train(args, dist.local_device(args.device), watchdog)
     finally:
@@ -333,8 +374,8 @@ def _train(args, device: torch.device, watchdog) -> int:
     rank, nproc = dist.rank(), dist.world()
     mesh = create_mesh(cfg.mesh)
     exp = prep_experiment(cfg, root=args.runs_dir, coordinator=dist.is_coordinator())
-    logging.info("zoo experiment %s on %s (process %d of %d, mesh %dx%d)", exp["name"],
-                 device, rank, nproc, mesh.dp, mesh.sp)
+    logging.info("zoo experiment %s on %s (process %d of %d, mesh %dx%dx%d)", exp["name"],
+                 device, rank, nproc, mesh.dp, mesh.mp, mesh.sp)
     state = build_state(cfg, device)
     ckpt = CheckpointManager(exp["ckpt_dir"], keep=cfg.train.keep_checkpoints,
                              recipe=run_recipe(args))
@@ -342,7 +383,7 @@ def _train(args, device: torch.device, watchdog) -> int:
         logging.info("resumed from step %d", state.step)
     dataset = build_dataset(args, cfg)
     # the statistics phase reads the (restored) weights, as RobustNet
-    # refreshes its masks from the current model
+    # refreshes its masks from the current model, whole
     wt_masks = wt_nrc = None
     covstat = None
     if cfg.model.use_wtloss and 2 in cfg.model.wt_layer:
@@ -351,7 +392,8 @@ def _train(args, device: torch.device, watchdog) -> int:
                                       clusters=cfg.model.clusters)
         pairs = statistics_pairs(args, dataset, nproc)
         t0 = time.perf_counter()
-        wt_masks, wt_nrc = covstat_pass(state.model, cov_layers, pairs, cfg, device)
+        wt_masks, wt_nrc = covstat_pass(whole_model(cfg, state.model, device), cov_layers,
+                                        pairs, cfg, device)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         covstat = {"seconds": time.perf_counter() - t0, "pairs": len(pairs),
@@ -409,6 +451,9 @@ def _train(args, device: torch.device, watchdog) -> int:
         exp["log_handler"].close()
     result = {"step": step, "preempted": preempted, "run_dir": exp["exp_dir"],
               "losses": losses, "covstat": covstat}
+    if mesh.mp > 1:  # what must be one across the model group
+        from mrfp_tpu_torch.weights import replicated_digest
+        result["replicated_sha256"] = replicated_digest(state.model)
     print(json.dumps(result))
     if args.json_out and dist.is_coordinator():
         with open(args.json_out, "w") as f:

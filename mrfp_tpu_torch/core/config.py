@@ -4,8 +4,8 @@ It is a copy because ``mrfp_tpu.core``'s ``__init__`` imports jax. The
 knobs and their defaults are the JAX package's, so one recipe names the
 same run in both packages. ``MeshConfig`` lays the processes out as the
 JAX mesh lays out devices (``core/mesh.py``): data, tensor and spatial
-parallelism run one process per card (``parallel/dist.py``); the zoo's
-model axis waits for ROADMAP item A1'. ``trunk`` takes
+parallelism run one process per card (``parallel/dist.py``), for MRFP
+and for the zoo alike. ``trunk`` takes
 the nine ResNet trunks for MRFP and the zoo's 15 for ``DeepV3Plus``
 (``models/deepv3_zoo.py``), and ``wt_layer`` iw codes 0-5; MRFP raises the
 JAX package's ValueError for a zoo-only trunk (``nn/resnet.py``). The zoo's knobs
@@ -150,8 +150,9 @@ class MeshConfig:
     channels: each process of a model group holds a slice of every conv
     kernel's output channels, its BN affines and statistics and their
     momentum, and computes that slice of every map from the whole input
-    map, gathered over the group (MRFP on the ResNet trunks; the zoo's is
-    ROADMAP A1'). Rank ``(d * model_parallel + m) * spatial_parallel + s``
+    map, gathered over the group (MRFP on the ResNet trunks, and the zoo
+    over every trunk; a tensor that M does not divide stays whole, and so
+    does the map it makes). Rank ``(d * model_parallel + m) * spatial_parallel + s``
     has index d, m, s on the three axes."""
 
     data_axis: str = "data"

@@ -34,7 +34,9 @@ raises, on every rank alike.
 Inside ``channels()`` (entered by the model's forward when the mesh has
 ``mp > 1``) each conv of a sharded model computes its slice of output
 channels from the whole input map, which ``Channels`` gathers over the
-model group once per map, however many convs read it.
+model group once per map, however many convs read it. A conv whose kernel
+M does not divide (``tp_spec`` keeps it whole, as JAX's rule does) computes
+its whole map on every rank, and its consumers read that map whole.
 
 With one process, or ``sp == mp == 1``, every helper is the identity and
 no scope is entered: today's paths compute what they computed before this
@@ -298,7 +300,12 @@ class Channels:
     ``cat`` concatenates slices and remembers the blocks, so the whole map
     is the concatenation of the whole blocks (the global channel order of
     the ASPP and decoder concatenations); ``own`` slices a map every rank
-    holds whole down to this rank's channels."""
+    holds whole down to this rank's channels, and remembers that map as
+    the slice's whole, so that gathering the slice again costs nothing.
+    ``whole_of`` reads a map of a known whole width: the map itself where
+    it holds every channel, else its gather (a slice has 1/M of them, so
+    the two cannot be confused); ``vector`` is the whole of a 1-D
+    parameter shard."""
 
     def __init__(self, mesh: Mesh):
         self.mesh, self.group = mesh, mesh.model
@@ -335,8 +342,24 @@ class Channels:
 
     def own(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's channels of ``x``, which every rank holds whole
-        (differentiable: the backward gathers the ranks' cotangents)."""
-        return slice_channels(x, self.group)
+        (differentiable: the backward gathers the ranks' cotangents).
+        ``whole`` of the result is ``x`` itself: the gather of identical
+        slices of one map, whose backward (a consumer every rank computes
+        alike) reaches ``x`` as it would through the slice's."""
+        out = slice_channels(x, self.group)
+        self._whole[id(out)] = (out, x)
+        return out
+
+    def whole_of(self, x: torch.Tensor, c: int) -> torch.Tensor:
+        """The whole map of ``c`` channels of which ``x`` is this rank's
+        slice, or ``x`` itself where it already holds all ``c``."""
+        return x if x.shape[1] == c else self.whole(x)
+
+    def vector(self, v: torch.Tensor) -> torch.Tensor:
+        """The whole of a 1-D parameter of which ``v`` is this rank's
+        shard, for a computation every rank runs alike (the backward keeps
+        this rank's part of the gradient)."""
+        return gather_channels(v[None], self.group)[0]
 
     def span(self, c: int) -> Tuple[int, int, int]:
         """This rank's channels ``[lo, hi)`` of a map of ``c`` channels a

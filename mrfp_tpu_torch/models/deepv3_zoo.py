@@ -31,10 +31,21 @@ band of rows and ``hw=``, as ``MRFP.forward`` does: every map is a band,
 the whitening maps in ``w_arr`` too, and ``covariance_variance`` sums the
 bands' ``f f^T`` over the spatial group before it divides.
 ``deepest_rows`` bounds the split by the trunk's smallest map.
+
+Under tensor parallelism (``core/mesh.py``) a model that
+``weights.shard_model`` cut runs its forward in a channel scope, as
+``MRFP.forward`` does: every map is this rank's slice of its channels
+(whole where M does not divide its width), the heads are ``MRFP``'s, and
+the whitening maps in ``w_arr`` are gathered whole (``nn.norms.apply_iw``),
+so the loss and ``covstat_update`` read the whole C x C covariances on
+every rank. A whole model under a model axis (the statistics pass of
+``cli.train_zoo``, which runs on the gathered state before the step) runs
+without the scope, as one process does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -42,7 +53,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mrfp_tpu_torch.core.mesh import active_bands
+from mrfp_tpu_torch.core.mesh import active_bands, channels
 from mrfp_tpu_torch.models.mrfp import MRFP, image_scope
 from mrfp_tpu_torch.nn.cov_settings import CovMatrixIRW, CovMatrixISW
 from mrfp_tpu_torch.nn.mnasnet import mnasnet0_5, mnasnet1_0
@@ -152,7 +163,8 @@ class DeepV3Plus(MRFP):
                 hw: Optional[Tuple[int, int]] = None):
         """``valid_hw``, ``impl``, ``dropout`` and ``hw`` as in
         ``MRFP.forward``."""
-        with image_scope(x, hw) as size:
+        sharded = bool(getattr(self, "tp_keys", None))
+        with image_scope(x, hw) as size, channels() if sharded else contextlib.nullcontext():
             return self._zoo_forward(x, size, valid_hw, impl, cal_covstat, dropout)
 
     def _zoo_forward(self, x, hw, valid_hw, impl, cal_covstat, dropout):

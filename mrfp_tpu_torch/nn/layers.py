@@ -22,10 +22,13 @@ Under tensor parallelism (``core/mesh.py::channels``) a conv that
 ``weights.shard_model`` cut computes its slice of output channels from the
 whole input map (``conv_input``: a sliced map is gathered over the model
 group once, however many convs read it, and the backward sums the ranks'
-parts); a grouped conv (ResNeXt's) runs on its own input slice with
-``groups / M`` groups, which read exactly that slice; a replicated conv
-(the classifiers) reads the gathered map. Bands compose: the map is
-gathered first, then its halo rows are fetched, both exact.
+parts); a grouped conv (ResNeXt's, the depthwise convs of MobileNetV2,
+MNASNet and ShuffleNetV2) runs on its own input slice with ``groups / M``
+groups, which read exactly that slice (taken from a whole map where it is
+handed one); a replicated conv (the classifiers, ShuffleNetV2's
+58-channel branch convs at M = 4) reads the gathered map and makes a whole
+one. Bands compose: the map is gathered first, then its halo rows are
+fetched, both exact.
 """
 
 from __future__ import annotations
@@ -104,14 +107,18 @@ def _pair(v) -> Tuple[int, int]:
 
 def conv_input(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """What ``conv`` reads of ``x`` in a channel scope: a grouped conv of a
-    sharded model its own slice; a conv of a sharded kernel the whole map
-    as a shared input (gathered where ``x`` is a slice: its channels are
-    fewer than the kernel's inputs); a replicated conv the whole map.
-    ``x`` itself outside a scope."""
+    sharded kernel its own slice (``Channels.own`` of a whole map); a conv
+    of a sharded kernel the whole map as a shared input; a whole conv the
+    whole map. ``x`` is a slice where it holds fewer channels than the
+    conv's whole input (``conv.in_channels``, times M for a ``tp_local``
+    conv, whose own slice it counts): a slice holds 1/M of them, so the two
+    cannot be confused. ``x`` itself outside a scope."""
     chans = active_channels()
-    if chans is None or getattr(conv, "tp_local", False):
+    if chans is None:
         return x
-    sliced = x.shape[1] != conv.weight.shape[1]
+    if getattr(conv, "tp_local", False):
+        return chans.own(x) if x.shape[1] == conv.in_channels * chans.mp else x
+    sliced = x.shape[1] != conv.in_channels
     if getattr(conv, "tp_sharded", False):
         return chans.shared(x, sliced)
     return chans.whole(x) if sliced else x

@@ -45,9 +45,15 @@ channels of the batch its model group shares. BatchNorm and InstanceNorm
 are per channel, so they run on the slice with no model-group
 collective, and BatchNorm's moments reduce over the replica group (the
 ranks that share the model index, whose samples and bands partition the
-global batch), or over the data group for a replicated map.
-``SwitchWhiten2d``'s C x C covariances span the channel slices: it refuses
-a model axis (ROADMAP A1').
+global batch), or over the data group for a replicated map; a norm that
+``weights.shard_model`` left whole runs on the whole map its whole conv
+made. ``SwitchWhiten2d`` whitens groups of 16 channels: where M divides
+the group count each rank whitens its own groups (BW statistics over the
+replica group, IW ones local, LN ones combined over the model group);
+where it does not, a group straddles two ranks, and every rank whitens
+the gathered map whole (its running buffers whole, as ``tp_spec`` leaves
+them) and keeps its slice. An ISW/IRW layer hands the whitening loss its
+map gathered whole (``collect_map``).
 """
 
 from __future__ import annotations
@@ -58,9 +64,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mrfp_tpu_torch.core.mesh import active_bands, current_mesh
+from mrfp_tpu_torch.core.mesh import Channels, active_bands, active_channels, current_mesh
 from mrfp_tpu_torch.parallel.dist import (Group, all_gather_rows, all_reduce_sum,
-                                          all_reduce_sum_grad, rank, world)
+                                          all_reduce_sum_grad, copy_to_group)
 
 IW_NONE, IW_W1, IW_W2, IW_IN, IW_IN_AFFINE, IW_SW = 0, 1, 2, 3, 4, 5
 
@@ -249,11 +255,19 @@ def _band_moments(xs: torch.Tensor, counts, group: Group, cross: bool):
                 - s_d[..., :, None] * s_d[..., None, :] / n_l)
     else:
         m2_l = d.square().sum(-1) - s_d.square() / n_l
+    return _combine_moments(mean_l, m2_l, counts, group, cross)
+
+
+def _combine_moments(mean_l: torch.Tensor, m2_l: torch.Tensor, counts, group: Group,
+                     cross: bool):
+    """Chan's combination over ``group`` of every rank's ``(mean, M2)`` over
+    its ``counts[r]`` positions (``_band_moments``' second half): one
+    differentiable ``all_reduce``. Returns (mean, M2, the total count)."""
     k = mean_l.numel()
     got = all_gather_rows(torch.cat([mean_l.reshape(-1), m2_l.reshape(-1)])[None], group)
     mean_k = got[:, :k].reshape((-1,) + tuple(mean_l.shape))
     m2_k = got[:, k:].reshape((-1,) + tuple(m2_l.shape))
-    n_k = torch.tensor(counts, dtype=xs.dtype, device=xs.device).reshape(
+    n_k = torch.tensor(counts, dtype=mean_l.dtype, device=mean_l.device).reshape(
         (-1,) + (1,) * mean_l.dim())
     total = sum(counts)
     # the ranks' means as offsets from rank 0's, as _GlobalBatchNorm's
@@ -299,15 +313,24 @@ class InstanceWhitening(InstanceNorm2d):
     mrfp_tpu/nn/norms.py:107-118): instance standardisation, non-affine,
     no running statistics. The block that owns it appends its output, the
     map before the ReLU, to the forward's ``w_arr`` list for the whitening
-    loss (``collects_map``)."""
+    loss (``collects_map``), whole: ``whole_features`` channels."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, affine=False)
+        self.whole_features = features
 
 
 def collects_map(module: Optional[nn.Module]) -> bool:
     """Whether ``module``'s output goes to the whitening loss's ``w_arr``."""
     return isinstance(module, InstanceWhitening)
+
+
+def collect_map(w_arr: list, layer: InstanceWhitening, x: torch.Tensor) -> None:
+    """Append ``layer``'s output ``x`` to ``w_arr``, whole: under a model
+    axis gathered over the model group where ``x`` is this rank's slice
+    (the loss and the statistics pass read its C x C covariance)."""
+    chans = active_channels()
+    w_arr.append(x if chans is None else chans.whole_of(x, layer.whole_features))
 
 
 # SwitchWhiten's settings, make_iw_layer(5)'s (mrfp_tpu/nn/norms.py:244-246):
@@ -317,14 +340,16 @@ SW_PERGROUP, SW_T, SW_EPS, SW_MOMENTUM = 16, 5, 1e-5, 0.99
 
 class _GlobalMeanCov(torch.autograd.Function):
     """SwitchWhiten's BW statistics of the grouped fp32 map ``xg`` (n, g,
-    c, L) over the batches of every process, the reference's
+    c, L) over the batches of the processes of ``group`` (the replica
+    group: the world without a model axis; under one, the ranks that hold
+    the same channel groups of other samples or rows), the reference's
     ``SyncMeanCov``: the mean (g, c, 1) and the covariance (g, c, c) over
     the N*L positions of every rank, divided by their count.
 
     Forward: each rank takes its local ``(n, mean, M2)`` per group in the
     corrected two passes (``M2`` the centred sum of ``d d^T``), writes them
-    into its row of a zero ``(world, 1 + g*c + g*c*c)`` buffer, and one
-    ``all_reduce`` gives every rank every row; Chan's combination, as
+    into its row of a zero ``(group size, 1 + g*c + g*c*c)`` buffer, and
+    one ``all_reduce`` gives every rank every row; Chan's combination, as
     ``_GlobalBatchNorm``'s, extended to the cross term, gives the global
     mean and ``M2 = sum M2_k + sum n_k (mean_k - mean)(mean_k - mean)^T``.
     No ``E[x x^T] - E[x] E[x]^T`` is taken, so a map whose spread is small
@@ -335,7 +360,7 @@ class _GlobalMeanCov(torch.autograd.Function):
     ``dx = ((G + G^T)(x - mean) + g_mean) / n``."""
 
     @staticmethod
-    def forward(ctx, xg):
+    def forward(ctx, xg, group: Group):
         b, g, c, positions = xg.shape
         n_l = b * positions
         mean_l = xg.mean(dim=(0, 3))                                        # (g,c)
@@ -345,11 +370,11 @@ class _GlobalMeanCov(torch.autograd.Function):
         m2_l = (torch.matmul(d, d.transpose(-1, -2)).sum(0)
                 - s_d[..., :, None] * s_d[..., None, :] / n_l)              # (g,c,c)
         gc = g * c
-        buf = xg.new_zeros((world(), 1 + gc + gc * c))
-        buf[rank(), 0] = n_l
-        buf[rank(), 1:1 + gc] = mean_l.reshape(-1)
-        buf[rank(), 1 + gc:] = m2_l.reshape(-1)
-        all_reduce_sum(buf)
+        buf = xg.new_zeros((group.size, 1 + gc + gc * c))
+        buf[group.rank, 0] = n_l
+        buf[group.rank, 1:1 + gc] = mean_l.reshape(-1)
+        buf[group.rank, 1 + gc:] = m2_l.reshape(-1)
+        all_reduce_sum(buf, group)
         n_k = buf[:, 0]
         mean_k = buf[:, 1:1 + gc].reshape(-1, g, c)
         m2_k = buf[:, 1 + gc:].reshape(-1, g, c, c)
@@ -361,15 +386,16 @@ class _GlobalMeanCov(torch.autograd.Function):
                             * dev[..., None, :]).sum(0)
         mean = mean[..., None]
         ctx.save_for_backward(xg, mean, n)
+        ctx.group = group
         return mean, m2 / n
 
     @staticmethod
     def backward(ctx, g_mean, g_cov):
         xg, mean, n = ctx.saved_tensors
-        grads = all_reduce_sum(torch.cat([g_mean.reshape(-1), g_cov.reshape(-1)]))
+        grads = all_reduce_sum(torch.cat([g_mean.reshape(-1), g_cov.reshape(-1)]), ctx.group)
         gm = grads[:g_mean.numel()].view_as(g_mean)
         gcov = grads[g_mean.numel():].view_as(g_cov)
-        return (torch.matmul(gcov + gcov.transpose(-1, -2), xg - mean) + gm) / n
+        return (torch.matmul(gcov + gcov.transpose(-1, -2), xg - mean) + gm) / n, None
 
 
 class SwitchWhiten2d(nn.Module):
@@ -397,7 +423,13 @@ class SwitchWhiten2d(nn.Module):
     without gradient; in eval mode they stand in for the batch's. The
     state_dict keys are the reference's: ``sw_mean_weight``,
     ``sw_var_weight`` (k,), ``weight``, ``bias`` (C,) and the buffers
-    ``running_mean`` (g, c, 1) and ``running_cov`` (g, c, c)."""
+    ``running_mean`` (g, c, 1) and ``running_cov`` (g, c, c). Under a
+    model axis (``_whiten_slices``) ``weights.shard_model`` cuts the
+    buffers by group, dim 0, where M divides g (JAX's rule cuts the last
+    dim instead: the one placement of the port that differs from JAX's,
+    ROADMAP C14, the layout its local compute needs, with the same bytes
+    of ``running_cov`` a rank), and leaves them whole where it does not;
+    ``num_features`` stays the whole C."""
 
     def __init__(self, features: int, sw_type: int = 2):
         super().__init__()
@@ -417,14 +449,55 @@ class SwitchWhiten2d(nn.Module):
         self.register_buffer("running_cov", torch.eye(c).repeat(g, 1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if current_mesh().mp > 1:
-            raise NotImplementedError("SwitchWhiten2d under --model-parallel: its C x C "
-                                      "covariances span the channel slices (ROADMAP A1': "
-                                      "tensor parallelism for the zoo)")
+        chans = active_channels()
         with torch.autocast(x.device.type, enabled=False):
-            return self._whiten(x.to(torch.promote_types(x.dtype, torch.float32))).to(x.dtype)
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            if chans is None:
+                return self._whiten(xf).to(x.dtype)
+            return self._whiten_slices(xf, chans).to(x.dtype)
 
-    def _whiten(self, xf: torch.Tensor) -> torch.Tensor:
+    def _whiten_slices(self, xf: torch.Tensor, chans: Channels) -> torch.Tensor:
+        """The layer under a model axis (``core/mesh.py::Channels``). Where
+        ``weights.shard_model`` cut the running buffers (M divides the group
+        count) this rank whitens its own groups of its own slice: the BW
+        statistics over the replica group, the IW ones local, the LN ones
+        combined over the model group; the mixing weights enter through
+        ``copy_to_group``, so their gradient sums the ranks' groups. Else a
+        group straddles two ranks: every rank whitens the whole map alike
+        (the running buffers whole, the cut weights gathered) and keeps its
+        slice."""
+        c = self.num_features
+        if self.running_mean.shape[0] * SW_PERGROUP < c:
+            if xf.shape[1] == c:
+                xf = chans.own(xf)
+            return self._whiten(xf, self._mixing(self.sw_mean_weight, chans),
+                                self._mixing(self.sw_var_weight, chans), self.weight,
+                                self.bias, chans.group)
+        sliced = xf.shape[1] != c
+        whole = lambda t, n: t if t.shape[0] == n else chans.vector(t)  # noqa: E731
+        out = self._whiten(chans.whole_of(xf, c), whole(self.sw_mean_weight, self.sw_type),
+                           whole(self.sw_var_weight, self.sw_type), whole(self.weight, c),
+                           whole(self.bias, c))
+        return chans.own(out) if sliced else out
+
+    def _mixing(self, v: torch.Tensor, chans: Channels) -> torch.Tensor:
+        """The whole mixing-weight vector of ``v`` (this rank's shard, cut
+        where M divides ``sw_type``, or the whole), as the input of a
+        computation each rank of the model group computes its part of."""
+        return copy_to_group(v if v.shape[0] == self.sw_type else chans.vector(v), chans.group)
+
+    def _whiten(self, xf: torch.Tensor, mean_weight: Optional[torch.Tensor] = None,
+                var_weight: Optional[torch.Tensor] = None,
+                weight: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
+                across: Optional[Group] = None) -> torch.Tensor:
+        """The layer on the fp32 (fp64) map ``xf``, with the layer's own
+        parameters unless given. ``across``: the model group, whose ranks
+        hold the other channels of each sample (the LN statistics combine
+        over it)."""
+        mean_weight = self.sw_mean_weight if mean_weight is None else mean_weight
+        var_weight = self.sw_var_weight if var_weight is None else var_weight
+        weight = self.weight if weight is None else weight
+        bias = self.bias if bias is None else bias
         n, ch, h, w = xf.shape
         c = SW_PERGROUP
         g = ch // c
@@ -432,8 +505,9 @@ class SwitchWhiten2d(nn.Module):
         xg = xf.reshape(n, g, c, h * w)
         eye = torch.eye(c, dtype=xf.dtype, device=xf.device)
         if self.training:
-            if world() > 1:
-                mean_bn, cov_bn = _GlobalMeanCov.apply(xg)
+            replica = current_mesh().replica
+            if replica.size > 1:
+                mean_bn, cov_bn = _GlobalMeanCov.apply(xg, replica)
             else:
                 mean_bn = xg.mean(dim=(0, 3))[..., None]                   # (g,c,1)
                 xc = xg - mean_bn
@@ -457,17 +531,24 @@ class SwitchWhiten2d(nn.Module):
         cov_bn = cov_bn.expand(n, g, c, c)
         if k in (3, 5):
             flat = xf.reshape(n, -1)
-            if bands is None:
+            if bands is None and across is None:
                 mean_ln = flat.mean(dim=1)
                 var_ln = flat.var(dim=1, unbiased=True)
             else:
-                mean_ln, m2_ln, total = _band_moments(flat, [ch * v for v in per_rank],
-                                                      bands.group, cross=False)
+                if bands is None:
+                    mean_ln, m2_ln, total = _band_moments(flat, [flat.shape[1]] * across.size,
+                                                          across, cross=False)
+                else:
+                    mean_ln, m2_ln, total = _band_moments(flat, [ch * v for v in per_rank],
+                                                          bands.group, cross=False)
+                    if across is not None:
+                        mean_ln, m2_ln, total = _combine_moments(
+                            mean_ln, m2_ln, [total] * across.size, across, cross=False)
                 var_ln = m2_ln / (total - 1)
             mean_ln = mean_ln[:, None, None, None]                          # (n,1,1,1)
             var_ln = var_ln[:, None, None, None] * eye
-        mw = torch.softmax(self.sw_mean_weight, 0)
-        vw = torch.softmax(self.sw_var_weight, 0)
+        mw = torch.softmax(mean_weight, 0)
+        vw = torch.softmax(var_weight, 0)
         if k == 2:
             mean = mw[0] * mean_bn + mw[1] * mean_in
             cov = vw[0] * cov_bn + vw[1] * cov_in + SW_EPS * eye
@@ -489,19 +570,19 @@ class SwitchWhiten2d(nn.Module):
             p = 1.5 * p - 0.5 * torch.matmul(p3, cov_n)
         wm = p * torch.sqrt(r_tr)                                           # (n,g,c,c)
         out = torch.matmul(wm, xg - mean).reshape(n, ch, h, w)
-        return out * _channels(self.weight) + _channels(self.bias)
+        return out * _channels(weight) + _channels(bias)
 
 
 def apply_iw(layer: Optional[nn.Module], x: torch.Tensor, w_arr: Optional[list]) -> torch.Tensor:
     """``layer`` (from ``make_iw_layer``; None is the identity) on ``x``; a
     whitening map goes to ``w_arr`` when one is given
-    (mrfp_tpu/nn/norms.py:250-260). The caller must not change the result
-    in place."""
+    (mrfp_tpu/nn/norms.py:250-260), whole (``collect_map``). The caller
+    must not change the result in place."""
     if layer is None:
         return x
     x = layer(x)
     if w_arr is not None and collects_map(layer):
-        w_arr.append(x)
+        collect_map(w_arr, layer, x)
     return x
 
 

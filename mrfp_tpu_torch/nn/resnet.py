@@ -27,8 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from mrfp_tpu_torch.nn.layers import conv1x1_with_stats, conv2d, max_pool_3x3_s2
-from mrfp_tpu_torch.nn.norms import (batch_norm, batch_norm_from_stats, collects_map,
-                                     make_iw_layer)
+from mrfp_tpu_torch.nn.norms import (batch_norm, batch_norm_from_stats, collect_map,
+                                     collects_map, make_iw_layer)
 from mrfp_tpu_torch.ops.dot_stats import FUSION_OFF, bn_stats_fusion_impl
 
 # variant -> {stage_index (0-based): (stride, dilation)} overrides
@@ -68,7 +68,7 @@ def _finish(block: nn.Module, out: torch.Tensor, w_arr: Optional[list]) -> torch
     if layer is not None:
         out = layer(out)
         if w_arr is not None and collects_map(layer):
-            w_arr.append(out)
+            collect_map(w_arr, layer, out)
             return F.relu(out)
     return block.relu(out)
 
@@ -201,7 +201,7 @@ class Stem(nn.Sequential):
                 continue
             x = m(x)
             if w_arr is not None and collects_map(m):
-                w_arr.append(x)
+                collect_map(w_arr, m, x)
                 kept = True
         return x
 

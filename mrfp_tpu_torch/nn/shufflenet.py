@@ -13,6 +13,16 @@ BatchNorm (``stem_iw``), ``wt_layer[3..5]`` go on the last unit of stages
 The dilation surgery (deepv3.py:194-202) rewrites only a stage's first,
 strided unit: D dilates stage 3 by 2 and stage 4 by 4, D16 stage 4 by 2;
 the later units keep dilation 1, as in JAX.
+
+Under tensor parallelism (``core/mesh.py::channels``) the split, the
+concatenation and the shuffle mix channels across the slices, so a unit
+reads its input whole (gathered once; free where the previous unit's
+output came from ``Channels.own``), splits it, gathers its branches'
+outputs where their convs are cut, concatenates and shuffles the whole
+map on every rank, and keeps its own slice where M divides the width
+(Shufflenet.py:21-35 and :76-79 on the global channel order). A branch
+conv that M does not divide (the 58 channels of stage 2 at M = 4) is
+whole, as JAX's rule keeps it, and computes its whole map on every rank.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mrfp_tpu_torch.core.mesh import active_channels
 from mrfp_tpu_torch.nn.layers import ConvBN, NamedStage, conv2d, max_pool_3x3_s2
 from mrfp_tpu_torch.nn.norms import apply_iw, batch_norm, make_iw_layer
 
@@ -59,6 +70,7 @@ class InvertedResidual(nn.Module):
     def __init__(self, inp: int, features: int, stride: int = 1, dilation: int = 1,
                  iw: int = 0):
         super().__init__()
+        self.inp, self.features = inp, features
         half = features // 2
         self.split = stride == 1 and dilation == 1
         if self.split:
@@ -72,12 +84,32 @@ class InvertedResidual(nn.Module):
         self.instance_norm_layer = make_iw_layer(iw, features)
 
     def forward(self, x: torch.Tensor, w_arr: Optional[list] = None) -> torch.Tensor:
+        chans = active_channels()
+        if chans is not None:
+            return self._forward_slices(x, w_arr, chans)
         if self.split:
             b1, b2 = x.chunk(2, dim=1)
         else:
             b1, b2 = self.b1_pw(self.b1_dw(x)), x
         out = torch.cat([b1, self.b2_pw2(self.b2_dw(self.b2_pw1(b2)))], dim=1)
         return apply_iw(self.instance_norm_layer, channel_shuffle(out, 2), w_arr)
+
+    def _forward_slices(self, x: torch.Tensor, w_arr: Optional[list], chans) -> torch.Tensor:
+        """The unit in a channel scope: the whole map's split, concatenation
+        and shuffle on every rank, then this rank's slice where M divides
+        the width. The convs take their own slice of a whole map, or gather
+        a slice (``nn/layers.py::conv_input``)."""
+        half = self.features // 2
+        xw = chans.whole_of(x, self.inp)
+        if self.split:
+            b1, b2 = xw.chunk(2, dim=1)
+        else:
+            b1, b2 = chans.whole_of(self.b1_pw(self.b1_dw(x)), half), xw
+        b2 = chans.whole_of(self.b2_pw2(self.b2_dw(self.b2_pw1(b2))), half)
+        out = channel_shuffle(torch.cat([b1, b2], dim=1), 2)
+        if self.features % chans.mp == 0:
+            out = chans.own(out)
+        return apply_iw(self.instance_norm_layer, out, w_arr)
 
 
 class ConvNormReLU(nn.Module):

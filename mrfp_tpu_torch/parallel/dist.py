@@ -126,6 +126,21 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     return size > 1
 
 
+def backend_for(device: str, local_ranks: Optional[int] = None) -> Optional[str]:
+    """The backend for ``initialize_distributed`` when ``local_ranks`` of
+    the group's processes run on this host: ``gloo`` off the card, or where
+    they outnumber the host's cards (NCCL refuses two ranks on one card),
+    else None (the device's own: NCCL). ``local_ranks`` defaults to
+    ``LOCAL_WORLD_SIZE`` (torchrun's, or set by the launcher), else 1:
+    nothing else says that ranks share a card, so a launch with a card a
+    process, on one host or several, keeps NCCL."""
+    if torch.device(device).type != "cuda":
+        return "gloo"
+    if local_ranks is None:
+        local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+    return "gloo" if torch.cuda.device_count() < local_ranks else None
+
+
 def local_device(device: str) -> torch.device:
     """The device this process computes on: its card for ``cuda`` (the one
     ``initialize_distributed`` set), else ``device`` itself."""

@@ -174,14 +174,14 @@ class CheckpointManager:
         if state.step == self._last_saved and not best:
             return
         self._last_saved = state.step
+        if best:  # on every rank: the next save's decision, and its gathers, are alike
+            self._best_value = float(metrics[self.best_metric])
         sharded = bool(getattr(state.model, "tp_keys", None))
         if not is_coordinator() and not sharded:
             return
         blob = self.host_blob(state)  # under a model axis, a gather every rank joins
         if not is_coordinator():
             return
-        if best:
-            self._best_value = float(metrics[self.best_metric])
         self._pending.append(self._pool.submit(self._write, blob, state.step,
                                                self._best_value if best else None))
 

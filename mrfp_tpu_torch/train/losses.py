@@ -35,8 +35,9 @@ Under tensor parallelism (``core/mesh.py``) the logits are whole on every
 rank of a model group, which hold the same samples: every denominator
 sums over the replica group (the ranks that share the model index), so
 each model rank computes the same loss and no sample counts M times. The
-whitening loss's C x C covariances span the channel slices: it refuses a
-model axis (ROADMAP A1').
+whitening loss reads each map whole, as ``nn.norms.apply_iw`` hands it
+over (gathered over the model group), and its batch count sums over the
+replica group.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ import torch.nn.functional as F
 
 from mrfp_tpu_torch.core.mesh import active_bands, current_mesh
 from mrfp_tpu_torch.parallel.dist import (Group, all_reduce_sum, all_reduce_sum_grad,
-                                          rows_from_group, world)
+                                          rows_from_group)
 
 
 def _batch() -> Group:
@@ -208,12 +209,12 @@ def instance_whitening_loss(w_arr: Sequence[torch.Tensor],
     product is summed over the spatial group (differentiable) and divided
     by the global H*W - 1; the batch mean's count is the data group's
     samples times ``sp``, since every rank of a spatial group computes
-    the same terms, so that the world's sum of the ranks' losses, and of
-    their gradients, takes each sample once."""
-    if current_mesh().mp > 1:
-        raise NotImplementedError("the whitening loss under --model-parallel: its C x C "
-                                  "covariances span the channel slices (ROADMAP A1': tensor "
-                                  "parallelism for the zoo)")
+    the same terms, so that the replica group's sum of the ranks' losses,
+    and of their gradients, takes each sample once. Under a model axis
+    the maps are whole (``nn.norms.apply_iw`` gathers them), every rank of
+    a model group computes the same loss, and the count sums over the
+    replica group."""
+    batch = _batch()
     bands = active_bands()
     total = count = None
     for i, w in enumerate(w_arr):
@@ -235,13 +236,13 @@ def instance_whitening_loss(w_arr: Sequence[torch.Tensor],
         m = margin[i] if isinstance(margin, (list, tuple)) else margin
         off = (cov * mask).abs().sum(dim=(1, 2)) - m
         term = (off / nrc).clamp_min(0.0)
-        if world() == 1:
+        if batch.size == 1:
             term = term.mean()
         else:
             if count is None:  # every map has the batch's samples
                 count = torch.full((), n, dtype=torch.int64, device=w.device)
                 if bands is None:
-                    count = all_reduce_sum(count)
+                    count = all_reduce_sum(count, batch)
                 else:
                     count = all_reduce_sum(count, bands.mesh.data) * bands.sp
             term = term.sum() / count

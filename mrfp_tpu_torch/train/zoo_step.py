@@ -23,13 +23,24 @@ Under spatial parallelism (``core/mesh.py``, ``sp > 1``) ``images`` and
 ``labels`` are this rank's band of rows of its data rank's samples and
 ``hw`` their global size: the forward and the losses run in one band
 scope (the CE's and the DSN CE's numerators the band's, their
-denominators the world's; the whitening loss as ``train/losses.py`` takes
-it on bands), and the world's sums give the global batch's losses and
-gradient. The statistics pass runs each view on bands too, with the
+denominators the replica group's, the world without a model axis; the
+whitening loss as ``train/losses.py`` takes it on bands), and the replica
+group's sums give the global batch's losses and gradient. The statistics pass runs each view on bands too, with the
 spatial group's sums of the maps' ``f f^T``; its pairs stay at the JAX
 trainer's local batch, the global batch over the process count (not over
 the data axis), so the masks are those of JAX launched on as many
 processes.
+
+Under tensor parallelism (``core/mesh.py``, ``mp > 1``) the model is this
+rank's shards (``weights.shard_model``) and the ranks of a model group
+take the same samples and rows: the forward runs in a channel scope
+(``DeepV3Plus.forward``), the whitening maps reach the loss whole, and
+the denominators, the gradient and the logged losses reduce over the
+replica group (the ranks that share the model index), as
+``train/step.py``'s do. The DSN keep mask is drawn for every channel and
+sliced, so the ranks of a model group drop what one process drops. The
+statistics pass runs on a whole model (``cli.train_zoo`` gathers it), so
+its masks are one process's.
 
 As in the JAX step, the whitening loss takes margin 0 for every map, where
 ``models.deepv3_zoo.whitening_loss_from_cov`` passes each layer's own
@@ -99,12 +110,13 @@ def zoo_train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor
             metrics["loss_wt"] = wl.detach()
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    all_reduce_grads(model.parameters())
+    replica = current_mesh().replica
+    all_reduce_grads(model.parameters(), replica)
     metrics["loss"] = loss.detach()
-    if world() > 1:
+    if replica.size > 1:
         # each rank's losses are its sums over the global denominators
         names = [k for k in ("loss", "loss_main", "loss_aux", "loss_wt") if k in metrics]
-        summed = all_reduce_sum(torch.stack([metrics[k] for k in names]))
+        summed = all_reduce_sum(torch.stack([metrics[k] for k in names]), replica)
         metrics.update(zip(names, summed.unbind()))
     state.optimizer.step()
     state.scheduler.step()

@@ -29,6 +29,7 @@ The port keeps the reference's state_dict key layout, so both reduce to
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import re
 from typing import Any, Dict, List, Optional, Tuple
@@ -248,8 +249,6 @@ def load_torch_checkpoint(model: nn.Module, path: str) -> Dict[str, Any]:
 
 # the OC modules, whole on every rank of a model group (JAX's oc_params)
 OC_MODULES = tuple(name for pair in REF_NAMES.values() for name in pair)
-# the classifiers, whose 19 output channels do not divide: replicated
-CLASSIFIERS = ("final2.0", "dsn.4")
 
 
 def tp_placement(sd: Dict[str, torch.Tensor], mp: int) -> Dict[str, Optional[int]]:
@@ -278,28 +277,31 @@ def shard_state_dict(sd: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch
 def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
     """Cut the whole ``model`` down, in place, to this rank's shards of
     ``shard_state_dict``: each sharded parameter and buffer is replaced by
-    its slice; a conv whose kernel is sharded computes its slice of output
+    its slice. A conv whose kernel is sharded computes its slice of output
     channels (``tp_sharded``; a grouped conv takes ``groups / M`` groups of
-    its own input slice, ``tp_local``) and the norms take their slice of
-    channels. Every conv but the classifiers must shard, and every grouped
-    conv's groups divide by M: the forward (``nn/layers.py``) relies on
-    every map but the classifiers' being sliced. The model keeps the
-    sharded keys in ``tp_keys``. A model at ``mp == 1`` is returned as it
-    is."""
+    its own input slice, ``tp_local``); a conv whose kernel M does not
+    divide stays whole and computes its whole map on every rank (JAX's
+    rule keeps such a kernel whole too: ShuffleNetV2's 58-channel branch
+    convs at M = 4, the classifiers). Each norm keeps the channels of its
+    own placement: an affine or tracking norm those of its tensors, a
+    norm without tensors those of the map its width makes, sliced where M
+    divides it (``tp_spec``'s rule for its per-channel vector). Raises for
+    a grouped conv whose kernel shards but whose groups M does not divide.
+    The model keeps the sharded keys in ``tp_keys``. A model at ``mp == 1``
+    is returned as it is."""
     if mesh.mp == 1:
         return model
     mp = mesh.mp
     place = tp_placement(model.state_dict(), mp)
     for name, module in model.named_modules():
         prefix = f"{name}." if name else ""
-        if isinstance(module, nn.Conv2d) and not prefix.startswith(OC_MODULES):
-            sharded = place[prefix + "weight"] is not None
-            if sharded == (name in CLASSIFIERS) or (module.groups > 1 and module.groups % mp):
-                raise ValueError(
-                    f"--model-parallel {mp}: {name} has {module.out_channels} output channels "
-                    f"in {module.groups} groups; tensor parallelism needs M to divide every "
-                    f"conv's channels and groups but the classifiers' (M in 1, 2, 4, 8, 16 for "
-                    f"the ResNet trunks), and classifiers that do not divide")
+        conv = isinstance(module, nn.Conv2d) and not prefix.startswith(OC_MODULES)
+        sharded = conv and place[prefix + "weight"] is not None
+        if sharded and module.groups > 1 and module.groups % mp:
+            raise ValueError(
+                f"--model-parallel {mp}: {name} has {module.out_channels} output channels in "
+                f"{module.groups} groups; its kernel shards over M but its groups do not "
+                f"divide by M")
         for kind in ("_parameters", "_buffers"):
             for attr, t in list(getattr(module, kind).items()):
                 dim = None if t is None else place[prefix + attr]
@@ -308,7 +310,7 @@ def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
                 part = _own(t.detach(), dim, mesh)
                 getattr(module, kind)[attr] = (nn.Parameter(part, t.requires_grad)
                                                if kind == "_parameters" else part)
-        if isinstance(module, nn.Conv2d) and place.get(prefix + "weight") is not None:
+        if sharded:
             module.out_channels //= mp
             module.tp_sharded = True
             if module.groups > 1:
@@ -316,9 +318,26 @@ def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
                 module.in_channels //= mp
                 module.tp_local = True
         elif isinstance(module, (nn.BatchNorm2d, nn.InstanceNorm2d)):
-            module.num_features //= mp  # every map but the classifiers' is sliced
+            held = module.weight if module.weight is not None else module.running_mean
+            if held is not None:
+                module.num_features = held.shape[0]
+            elif module.num_features % mp == 0:
+                module.num_features //= mp
     model.tp_keys = frozenset(k for k, dim in place.items() if dim is not None)
     return model
+
+
+def replicated_digest(model: nn.Module) -> str:
+    """The sha256 of every state_dict entry that ``shard_model`` left whole
+    (all of them for a model it did not cut), in key order: the ranks of a
+    model group hold these bit for bit the same, or they drift apart."""
+    h = hashlib.sha256()
+    keys = getattr(model, "tp_keys", frozenset())
+    for k, v in sorted(model.state_dict().items()):
+        if k not in keys:
+            h.update(k.encode())
+            h.update(v.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy())
+    return h.hexdigest()
 
 
 def whole_state_dict(model: nn.Module, mesh: Mesh) -> Dict[str, torch.Tensor]:

@@ -154,17 +154,16 @@ def test_irw_with_the_whitening_loss_fails_in_jax_and_is_refused_here(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--spatial-parallel", "2"], "two ranks"), (["--model-parallel", "2"], "A1'"),
+    (["--spatial-parallel", "2"], "two ranks"), (["--model-parallel", "2"], "two ranks"),
     (["--wt-layer", "0", "0", "5", "0", "0", "0", "0"], None),
     (["--trunk", "mobilenetv2"], None), (["--arch", "DeepShuffleNetV3PlusD"], None)])
 def test_unported_zoo_flags_raise(tmp_path, capsys, flags, item):
-    """Tensor parallelism for the zoo (ROADMAP A1') stays refused (several
-    processes train: tests/test_torch_zoo_dist.py). Spatial parallelism,
-    iw code 5, the MobileNetV2 trunk and a ShuffleNetV2 factory (refused
-    until they were ported) train: one step each on the CPU, 48 px, a
-    finite loss; with
-    ``--spatial-parallel 2`` on two ranks (gloo, a ``file://``
-    rendezvous), which log the same loss."""
+    """Spatial and tensor parallelism, iw code 5, the MobileNetV2 trunk and
+    a ShuffleNetV2 factory (refused until they were ported) train: one
+    step each on the CPU, 48 px, a finite loss; with
+    ``--spatial-parallel 2`` or ``--model-parallel 2`` on two ranks (gloo,
+    a ``file://`` rendezvous), which log the same loss (and under a model
+    axis end the step with the same replicated tensors)."""
     argv = ZOO + ["--crop-size", "48"] + flags + ["--max-iter", "1", "--runs-dir", str(tmp_path)]
     if item == "two ranks":
         procs = [subprocess.Popen(
@@ -176,11 +175,9 @@ def test_unported_zoo_flags_raise(tmp_path, capsys, flags, item):
         assert [p.returncode for p in procs] == [0, 0], [o[1][-2000:] for o in outs]
         results = [json.loads(o[0].strip().splitlines()[-1]) for o in outs]
         assert results[0]["losses"] == results[1]["losses"]
+        assert results[0].get("replicated_sha256") == results[1].get("replicated_sha256")
+        assert ("replicated_sha256" in results[0]) == ("--model-parallel" in flags)
         assert results[0]["step"] == 1 and np.isfinite(results[0]["losses"]["1"])
-        return
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            train_zoo.main(argv)
         return
     assert train_zoo.main(argv) == 0
     result = _result(capsys)

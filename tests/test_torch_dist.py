@@ -363,6 +363,26 @@ def test_without_a_group_every_helper_is_the_identity():
     assert not dist.initialize_distributed(device="cpu")  # no flags, no WORLD_SIZE
 
 
+@pytest.mark.parametrize("device,cards,local,want", [
+    ("cpu", 0, None, "gloo"), ("cuda", 1, None, None), ("cuda", 1, "2", "gloo"),
+    ("cuda", 8, "8", None), ("cuda", 8, "16", "gloo"), ("cuda", 1, "1", None)])
+def test_backend_for_takes_gloo_only_where_ranks_share_a_card(monkeypatch, device, cards,
+                                                              local, want):
+    """``backend_for``, the one rule of every entry point: gloo off the
+    card, or where ``LOCAL_WORLD_SIZE`` exceeds the host's cards; NCCL (the
+    default) otherwise, and without ``LOCAL_WORLD_SIZE`` (a launch of one
+    process a card, on one host or several); a count given overrides it."""
+    from mrfp_tpu_torch.parallel import dist
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    if local is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", local)
+    assert dist.backend_for(device) == want
+    assert dist.backend_for(device, cards + 1) == "gloo"
+    assert dist.backend_for(device, max(cards, 1)) == (None if device == "cuda" else "gloo")
+
+
 def test_one_process_draws_and_normalises_as_before():
     """Without a group the new paths are the old ones bit for bit: the
     global BatchNorm is ``nn.BatchNorm2d`` (output, gradients, running
