@@ -25,7 +25,7 @@ casts the uint8 NHWC wire format to float NCHW on the device.
 - ``mrfp_tpu_torch.serving`` the ``torch.export`` artifact of the eval forward
 - ``mrfp_tpu_torch.metrics`` the reference-named metrics surface
 - ``mrfp_tpu_torch.utils``   watchdog, metric sinks (JSONL, TensorBoard
-                             events), meters, probes, profiling hooks
+                             events), meters, spans and the trace exporter
 - ``mrfp_tpu_torch.cli``     ``python -m mrfp_tpu_torch.cli.`` ``eval``,
                              ``train``, ``export``, ``visualize``,
                              ``supervise``, ``bench_input``, ``shape_census``

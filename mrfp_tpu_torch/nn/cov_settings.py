@@ -24,26 +24,30 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from mrfp_tpu_torch.utils.profiling import span
+
 
 def kmeans_1d(values: np.ndarray, k: int, iters: int = 100) -> Tuple[np.ndarray, np.ndarray]:
     """Cluster 1-D values into k clusters; returns (assignments, centroids)
-    with clusters ordered by centroid value (kmeans1d convention)."""
+    with clusters ordered by centroid value (kmeans1d convention). Each call
+    is an ``isw.kmeans`` span that counts its ``values``."""
     v = np.asarray(values, np.float64).ravel()
-    k = min(k, len(np.unique(v)))
-    # quantile init over sorted data
-    centroids = np.quantile(v, np.linspace(0, 1, k))
-    for _ in range(iters):
-        d = np.abs(v[:, None] - centroids[None, :])
-        assign = np.argmin(d, axis=1)
-        new_c = np.array([v[assign == j].mean() if np.any(assign == j)
-                          else centroids[j] for j in range(k)])
-        if np.allclose(new_c, centroids):
-            break
-        centroids = new_c
-    order = np.argsort(centroids)
-    remap = np.empty_like(order)
-    remap[order] = np.arange(k)
-    return remap[assign], centroids[order]
+    with span("isw.kmeans", values=v.size):
+        k = min(k, len(np.unique(v)))
+        # quantile init over sorted data
+        centroids = np.quantile(v, np.linspace(0, 1, k))
+        for _ in range(iters):
+            d = np.abs(v[:, None] - centroids[None, :])
+            assign = np.argmin(d, axis=1)
+            new_c = np.array([v[assign == j].mean() if np.any(assign == j)
+                              else centroids[j] for j in range(k)])
+            if np.allclose(new_c, centroids):
+                break
+            centroids = new_c
+        order = np.argsort(centroids)
+        remap = np.empty_like(order)
+        remap[order] = np.arange(k)
+        return remap[assign], centroids[order]
 
 
 class CovMatrixISW:

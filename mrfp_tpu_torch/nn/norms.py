@@ -67,6 +67,7 @@ from torch import nn
 from mrfp_tpu_torch.core.mesh import Channels, active_bands, active_channels, current_mesh
 from mrfp_tpu_torch.parallel.dist import (Group, all_gather_rows, all_reduce_sum,
                                           all_reduce_sum_grad, copy_to_group)
+from mrfp_tpu_torch.utils.profiling import span
 
 IW_NONE, IW_W1, IW_W2, IW_IN, IW_IN_AFFINE, IW_SW = 0, 1, 2, 3, 4, 5
 
@@ -573,17 +574,26 @@ class SwitchWhiten2d(nn.Module):
         return out * _channels(weight) + _channels(bias)
 
 
+# what make_iw_layer builds for a code other than 0
+IW_LAYERS = (InstanceNorm2d, SwitchWhiten2d)
+
+
 def apply_iw(layer: Optional[nn.Module], x: torch.Tensor, w_arr: Optional[list]) -> torch.Tensor:
     """``layer`` (from ``make_iw_layer``; None is the identity) on ``x``; a
     whitening map goes to ``w_arr`` when one is given
     (mrfp_tpu/nn/norms.py:250-260), whole (``collect_map``). The caller
-    must not change the result in place."""
+    must not change the result in place. An iw layer runs in an
+    ``isw.whiten`` span, the map's collection included; any other norm
+    (a slot's BatchNorm for code 0) runs as it is."""
     if layer is None:
         return x
-    x = layer(x)
-    if w_arr is not None and collects_map(layer):
-        collect_map(w_arr, layer, x)
-    return x
+    if not isinstance(layer, IW_LAYERS):
+        return layer(x)
+    with span("isw.whiten"):
+        x = layer(x)
+        if w_arr is not None and collects_map(layer):
+            collect_map(w_arr, layer, x)
+        return x
 
 
 def make_iw_layer(iw: int, features: int) -> Optional[nn.Module]:

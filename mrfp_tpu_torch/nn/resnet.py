@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mrfp_tpu_torch.nn.layers import conv1x1_with_stats, conv2d, max_pool_3x3_s2
-from mrfp_tpu_torch.nn.norms import (batch_norm, batch_norm_from_stats, collect_map,
+from mrfp_tpu_torch.nn.norms import (IW_LAYERS, apply_iw, batch_norm, batch_norm_from_stats,
                                      collects_map, make_iw_layer)
 from mrfp_tpu_torch.ops.dot_stats import FUSION_OFF, bn_stats_fusion_impl
 
@@ -65,11 +65,9 @@ def _finish(block: nn.Module, out: torch.Tensor, w_arr: Optional[list]) -> torch
     A whitening map goes to ``w_arr`` and the ReLU then makes a new tensor,
     so the kept map is not overwritten."""
     layer = block.instance_norm_layer
-    if layer is not None:
-        out = layer(out)
-        if w_arr is not None and collects_map(layer):
-            collect_map(w_arr, layer, out)
-            return F.relu(out)
+    out = apply_iw(layer, out, w_arr)
+    if w_arr is not None and collects_map(layer):
+        return F.relu(out)
     return block.relu(out)
 
 
@@ -199,10 +197,11 @@ class Stem(nn.Sequential):
             if kept and isinstance(m, nn.ReLU):
                 x, kept = F.relu(x), False
                 continue
-            x = m(x)
-            if w_arr is not None and collects_map(m):
-                collect_map(w_arr, m, x)
-                kept = True
+            if isinstance(m, IW_LAYERS):
+                x = apply_iw(m, x, w_arr)
+                kept = w_arr is not None and collects_map(m)
+            else:
+                x = m(x)
         return x
 
 

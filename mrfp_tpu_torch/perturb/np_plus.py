@@ -42,6 +42,7 @@ import torch
 
 from mrfp_tpu_torch.core.mesh import active_bands, active_channels, current_mesh
 from mrfp_tpu_torch.parallel.dist import all_gather_rows, all_reduce_sum_grad
+from mrfp_tpu_torch.utils.profiling import span
 from mrfp_tpu_torch.utils.transfer import to_device
 
 Draws = Tuple[torch.Tensor, torch.Tensor]
@@ -57,11 +58,12 @@ def draw_np_plus(generator: torch.Generator, batch: int, channels: int,
     mesh, chans = current_mesh(), active_channels()
     c0, c1, c = (0, channels, channels) if chans is None else chans.span(channels)
     shape = (batch * mesh.dp, c, 1, 1)
-    alpha = 1.0 + std * torch.randn(shape, generator=generator)
-    beta_noise = std * torch.randn(shape, generator=generator)
-    rows = slice(mesh.data_index * batch, (mesh.data_index + 1) * batch)
-    return (to_device(alpha[rows, c0:c1], device),
-            to_device(beta_noise[rows, c0:c1], device))
+    with span("np_plus.draw"):
+        alpha = 1.0 + std * torch.randn(shape, generator=generator)
+        beta_noise = std * torch.randn(shape, generator=generator)
+        rows = slice(mesh.data_index * batch, (mesh.data_index + 1) * batch)
+        return (to_device(alpha[rows, c0:c1], device),
+                to_device(beta_noise[rows, c0:c1], device))
 
 
 def np_plus_coefficients(f32: torch.Tensor, noise: Union[torch.Generator, Draws],
@@ -94,7 +96,8 @@ def np_plus(feat: torch.Tensor, noise: Union[torch.Generator, Draws],
     """Apply NP+ to NCHW ``feat``. ``noise`` is a generator to draw from,
     or injected ``(alpha, beta_noise)`` of shape (B, C, 1, 1), the way the
     parity tests drive it (tests/torch_oracle.py::np_plus_injected)."""
-    f32 = feat.to(torch.promote_types(feat.dtype, torch.float32))
-    alpha, beta, feat_mean = np_plus_coefficients(f32, noise, std, scale_mult)
-    out = alpha * f32 - alpha * feat_mean + beta * feat_mean
-    return out.to(feat.dtype)
+    with span("np_plus", channels=feat.shape[1]):
+        f32 = feat.to(torch.promote_types(feat.dtype, torch.float32))
+        alpha, beta, feat_mean = np_plus_coefficients(f32, noise, std, scale_mult)
+        out = alpha * f32 - alpha * feat_mean + beta * feat_mean
+        return out.to(feat.dtype)

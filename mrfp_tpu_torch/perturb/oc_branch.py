@@ -41,6 +41,7 @@ from torch import nn
 from mrfp_tpu_torch.nn.layers import conv2d_rows
 from mrfp_tpu_torch.nn.norms import batch_norm_train
 from mrfp_tpu_torch.ops.resize import resize_nearest
+from mrfp_tpu_torch.utils.profiling import span
 
 # (name, in_ch, out_ch, dilation); padding == dilation keeps the spatial size
 _LAYERS: Tuple[Tuple[str, int, int, int], ...] = (
@@ -114,14 +115,20 @@ def oc_maybe_resample(model: nn.Module, gate: bool, generator: torch.Generator,
                       bn_std: float = 0.5) -> None:
     """Re-draw all 16 OC modules of ``model`` in place when ``gate`` is set
     (deepv3.py:290-306). The draws (3.5 MB) cross from pinned memory
-    without a sync."""
+    without a sync; the ``oc.redraw`` span counts their ``bytes`` and the
+    bytes ``pinned`` for the copy."""
     if not gate:
         return
-    for key, value in oc_init(generator, bn_std).items():
-        buf = model.get_buffer(key)
-        if buf.is_cuda:
-            value = value.pin_memory()
-        buf.copy_(value, non_blocking=True)
+    with span("oc.redraw") as s:
+        moved = pinned = 0
+        for key, value in oc_init(generator, bn_std).items():
+            buf = model.get_buffer(key)
+            moved += value.numel() * value.element_size()
+            if buf.is_cuda:
+                value = value.pin_memory()
+                pinned += value.numel() * value.element_size()
+            buf.copy_(value, non_blocking=True)
+        s.add(bytes=moved, pinned=pinned)
 
 
 def _stage(p, x: torch.Tensor, dilation: int, scale=None, size=None,
@@ -146,10 +153,11 @@ def oc_encode(params: OCParams, xp: torch.Tensor, hw: Tuple[int, int],
     the overcomplete bottleneck the decoder injection adds."""
     h, w = hw
     x = xp
-    for name, s in zip(("enc1", "enc2", "enc3"), scales_enc):
-        x = _stage(params[name], x, _dilation(name), scale=(s, s), impl=impl)
-    return _stage(params["enc4"], x, _dilation("enc4"), size=(int(h / 2), int(w / 2)),
-                  impl=impl)
+    with span("oc.encode"):
+        for name, s in zip(("enc1", "enc2", "enc3"), scales_enc):
+            x = _stage(params[name], x, _dilation(name), scale=(s, s), impl=impl)
+        return _stage(params["enc4"], x, _dilation("enc4"), size=(int(h / 2), int(w / 2)),
+                      impl=impl)
 
 
 def oc_decode(params: OCParams, oc_dec: torch.Tensor, hw: Tuple[int, int],
@@ -158,9 +166,10 @@ def oc_decode(params: OCParams, oc_dec: torch.Tensor, hw: Tuple[int, int],
     """Decoder half: OCout_dec -> OCout (N, 64, ceil(H/4), ceil(W/4)), the map
     added onto the stem features."""
     h, w = hw
-    x = _stage(params["dec1"], oc_dec, _dilation("dec1"), size=(int(h / 2), int(w / 2)),
-               impl=impl)
-    for name, s in zip(("dec2", "dec3"), scales_dec):
-        x = _stage(params[name], x, _dilation(name), scale=(s, s), impl=impl)
-    return _stage(params["dec4"], x, _dilation("dec4"),
-                  size=(math.ceil(h / 4), math.ceil(w / 4)), impl=impl)
+    with span("oc.decode"):
+        x = _stage(params["dec1"], oc_dec, _dilation("dec1"), size=(int(h / 2), int(w / 2)),
+                   impl=impl)
+        for name, s in zip(("dec2", "dec3"), scales_dec):
+            x = _stage(params[name], x, _dilation(name), scale=(s, s), impl=impl)
+        return _stage(params["dec4"], x, _dilation("dec4"),
+                      size=(math.ceil(h / 4), math.ceil(w / 4)), impl=impl)

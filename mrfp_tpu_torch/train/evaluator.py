@@ -54,6 +54,7 @@ import torch
 from mrfp_tpu_torch.core.mesh import band
 from mrfp_tpu_torch.ops.hist import confusion_matrix_update
 from mrfp_tpu_torch.parallel.dist import Group, all_reduce_sum
+from mrfp_tpu_torch.utils.profiling import span
 from mrfp_tpu_torch.utils.transfer import to_device
 
 
@@ -189,8 +190,15 @@ class SegEvaluator:
 
         # two batches in flight: batch i+1 is copied while batch i runs
         buf = []
-        for img, lbl, real, valid_hw in _groups():
-            img, lbl, hw = self._band(img, lbl)
+        groups = _groups()
+        while True:
+            with span("eval.input") as s:  # the host batch, read and stacked
+                group = next(groups, None)
+                if group is None:
+                    break
+                img, lbl, real, valid_hw = group
+                img, lbl, hw = self._band(img, lbl)
+                s.add(images=real)
             buf.append((to_device(img, self.device), to_device(lbl, self.device), real,
                         valid_hw, hw))
             if len(buf) >= 2:

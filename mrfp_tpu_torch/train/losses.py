@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from mrfp_tpu_torch.core.mesh import active_bands, current_mesh
 from mrfp_tpu_torch.parallel.dist import (Group, all_reduce_sum, all_reduce_sum_grad,
                                           rows_from_group)
+from mrfp_tpu_torch.utils.profiling import span
 
 
 def _batch() -> Group:
@@ -214,39 +215,40 @@ def instance_whitening_loss(w_arr: Sequence[torch.Tensor],
     the maps are whole (``nn.norms.apply_iw`` gathers them), every rank of
     a model group computes the same loss, and the count sums over the
     replica group."""
-    batch = _batch()
-    bands = active_bands()
-    total = count = None
-    for i, w in enumerate(w_arr):
-        n, c, h, wd = w.shape
-        if bands is not None:
-            h = bands.height(h, wd)
-        with torch.autocast(w.device.type, enabled=False):
-            f = w.to(torch.promote_types(w.dtype, torch.float32)).reshape(n, c, -1)
-            prod = torch.bmm(f, f.transpose(1, 2))
+    with span("isw.loss"):
+        batch = _batch()
+        bands = active_bands()
+        total = count = None
+        for i, w in enumerate(w_arr):
+            n, c, h, wd = w.shape
             if bands is not None:
-                prod = all_reduce_sum_grad(prod, bands.group)
-            cov = prod / (h * wd - 1)
-        cov = cov + 1e-5 * torch.eye(c, dtype=cov.dtype, device=w.device)
-        if mask_matrices is not None:
-            mask = torch.as_tensor(mask_matrices[i], dtype=cov.dtype, device=w.device)
-        else:
-            mask = torch.triu(torch.ones((c, c), dtype=cov.dtype, device=w.device), 1)
-        nrc = num_remove_cov[i] if num_remove_cov is not None else mask.sum()
-        m = margin[i] if isinstance(margin, (list, tuple)) else margin
-        off = (cov * mask).abs().sum(dim=(1, 2)) - m
-        term = (off / nrc).clamp_min(0.0)
-        if batch.size == 1:
-            term = term.mean()
-        else:
-            if count is None:  # every map has the batch's samples
-                count = torch.full((), n, dtype=torch.int64, device=w.device)
-                if bands is None:
-                    count = all_reduce_sum(count, batch)
-                else:
-                    count = all_reduce_sum(count, bands.mesh.data) * bands.sp
-            term = term.sum() / count
-        total = term if total is None else total + term
-    if total is None:
-        return torch.zeros((), dtype=torch.float32)
-    return total
+                h = bands.height(h, wd)
+            with torch.autocast(w.device.type, enabled=False):
+                f = w.to(torch.promote_types(w.dtype, torch.float32)).reshape(n, c, -1)
+                prod = torch.bmm(f, f.transpose(1, 2))
+                if bands is not None:
+                    prod = all_reduce_sum_grad(prod, bands.group)
+                cov = prod / (h * wd - 1)
+            cov = cov + 1e-5 * torch.eye(c, dtype=cov.dtype, device=w.device)
+            if mask_matrices is not None:
+                mask = torch.as_tensor(mask_matrices[i], dtype=cov.dtype, device=w.device)
+            else:
+                mask = torch.triu(torch.ones((c, c), dtype=cov.dtype, device=w.device), 1)
+            nrc = num_remove_cov[i] if num_remove_cov is not None else mask.sum()
+            m = margin[i] if isinstance(margin, (list, tuple)) else margin
+            off = (cov * mask).abs().sum(dim=(1, 2)) - m
+            term = (off / nrc).clamp_min(0.0)
+            if batch.size == 1:
+                term = term.mean()
+            else:
+                if count is None:  # every map has the batch's samples
+                    count = torch.full((), n, dtype=torch.int64, device=w.device)
+                    if bands is None:
+                        count = all_reduce_sum(count, batch)
+                    else:
+                        count = all_reduce_sum(count, bands.mesh.data) * bands.sp
+                term = term.sum() / count
+            total = term if total is None else total + term
+        if total is None:
+            return torch.zeros((), dtype=torch.float32)
+        return total

@@ -88,6 +88,7 @@ from mrfp_tpu_torch.perturb.oc_branch import oc_maybe_resample
 from mrfp_tpu_torch.train.losses import (batch_class_weights, cross_entropy,
                                          relaxed_cross_entropy)
 from mrfp_tpu_torch.train.state import TrainState
+from mrfp_tpu_torch.utils.profiling import span
 
 DSN_WEIGHT = 0.4  # network/deepv3.py:570-577
 
@@ -190,66 +191,69 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     ``transformed``: ``cfg.data.freq_transform`` was already applied to the
     whole images (``band_batch``); a band cannot be transformed alone.
     """
-    model = state.model
-    device = images.device
-    spatial = hw is not None and current_mesh().sp > 1
-    freq = cfg.data.freq_transform if not transformed else None
-    if spatial and freq:
-        raise ValueError("the FFT transforms act on whole images: cut the band after them "
-                         "(train.step.band_batch) and pass transformed=True")
-    accum = max(1, cfg.train.accum_steps)
-    if images.shape[0] % accum:
-        raise ValueError(f"batch {images.shape[0]} (this process's) not divisible by "
-                         f"accum_steps {accum}")
-    # fp32 (exact for uint8); fp64 images stay fp64 (a reference step)
-    f = torch.float64 if images.dtype == torch.float64 else torch.float32
-    if freq:
-        x = apply_freq_transform(images.float(), freq).to(f)
-        x = x.permute(0, 3, 1, 2).contiguous()
-    else:
-        x = images.permute(0, 3, 1, 2).to(f).contiguous()
-    labels = labels.long()
-    if perturb is None:
-        perturb = draw_perturb(state, cfg)
-    class_weights = (batch_class_weights(labels, cfg.model.num_classes, cfg.data.ignore_index)
-                     if cfg.data.batch_weighting else None)
-    reduce_now = cfg.data.reduce_border_iter != -1 and state.step > cfg.data.reduce_border_iter
-    if dropout is None and cfg.model.use_dsn_aux:
-        dropout = [device_generator(state.seed, state.step, "dropout", device,
-                                    None if accum == 1 else i) for i in range(accum)]
-    model.train()
-    total = None
-    for i in range(accum):
-        mb = slice(i, None, accum)  # with accum 1 a view of the whole batch: no copy
-        mb_perturb = None if perturb is None else dataclasses.replace(
-            perturb, np0=_pick(perturb.np0, i), np1=_pick(perturb.np1, i))
-        xi, li = x[mb].contiguous(), labels[mb].contiguous()
-        # fuse_bn_stats: the bottleneck 1x1 + BN pairs take their moments
-        # from the product's own sums (mrfp_tpu/train/step.py:225-238)
-        fusion = (bn_stats_fusion(impl) if cfg.train.fuse_bn_stats
-                  else contextlib.nullcontext())
-        with bands(*hw) if spatial else contextlib.nullcontext():
-            with autocast_for(cfg, device), fusion:
-                out = model(xi, impl=impl, perturb=mb_perturb, dropout=_pick(dropout, i),
-                            **({} if hw is None else {"hw": hw}))
-            loss = _loss(out, li, cfg, class_weights, reduce_now, impl)
-        if i == 0:
-            # after the first forward is queued, so the host's pass over
-            # every parameter overlaps the device's work
-            state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        total = loss.detach() if total is None else total + loss.detach()
-    replica = current_mesh().replica
-    all_reduce_grads(model.parameters(), replica)
-    if accum > 1:
-        # the mean of the microbatch means, as the JAX package's scan takes it
-        for p in model.parameters():
-            if p.grad is not None:
-                p.grad.div_(accum)
-        total = total / accum
-    total = all_reduce_sum(total, replica)  # the global batch's loss on every rank
-    state.optimizer.step()
-    state.scheduler.step()
-    state.step += 1
-    gates = (perturb.gate_oc, perturb.gate_np, perturb.gate_dec) if perturb else (False,) * 3
-    return {"loss": total, "gate_oc": gates[0], "gate_np": gates[1], "gate_dec": gates[2]}
+    with span("train.step", step=state.step):
+        model = state.model
+        device = images.device
+        spatial = hw is not None and current_mesh().sp > 1
+        freq = cfg.data.freq_transform if not transformed else None
+        if spatial and freq:
+            raise ValueError("the FFT transforms act on whole images: cut the band after them "
+                             "(train.step.band_batch) and pass transformed=True")
+        accum = max(1, cfg.train.accum_steps)
+        if images.shape[0] % accum:
+            raise ValueError(f"batch {images.shape[0]} (this process's) not divisible by "
+                             f"accum_steps {accum}")
+        # fp32 (exact for uint8); fp64 images stay fp64 (a reference step)
+        f = torch.float64 if images.dtype == torch.float64 else torch.float32
+        if freq:
+            x = apply_freq_transform(images.float(), freq).to(f)
+            x = x.permute(0, 3, 1, 2).contiguous()
+        else:
+            x = images.permute(0, 3, 1, 2).to(f).contiguous()
+        labels = labels.long()
+        if perturb is None:
+            perturb = draw_perturb(state, cfg)
+        class_weights = (batch_class_weights(labels, cfg.model.num_classes, cfg.data.ignore_index)
+                         if cfg.data.batch_weighting else None)
+        reduce_now = cfg.data.reduce_border_iter != -1 and state.step > cfg.data.reduce_border_iter
+        if dropout is None and cfg.model.use_dsn_aux:
+            dropout = [device_generator(state.seed, state.step, "dropout", device,
+                                        None if accum == 1 else i) for i in range(accum)]
+        model.train()
+        total = None
+        for i in range(accum):
+            mb = slice(i, None, accum)  # with accum 1 a view of the whole batch: no copy
+            mb_perturb = None if perturb is None else dataclasses.replace(
+                perturb, np0=_pick(perturb.np0, i), np1=_pick(perturb.np1, i))
+            xi, li = x[mb].contiguous(), labels[mb].contiguous()
+            # fuse_bn_stats: the bottleneck 1x1 + BN pairs take their moments
+            # from the product's own sums (mrfp_tpu/train/step.py:225-238)
+            fusion = (bn_stats_fusion(impl) if cfg.train.fuse_bn_stats
+                      else contextlib.nullcontext())
+            with span("train.forward", microbatch=i), \
+                    bands(*hw) if spatial else contextlib.nullcontext():
+                with autocast_for(cfg, device), fusion:
+                    out = model(xi, impl=impl, perturb=mb_perturb, dropout=_pick(dropout, i),
+                                **({} if hw is None else {"hw": hw}))
+                loss = _loss(out, li, cfg, class_weights, reduce_now, impl)
+            if i == 0:
+                # after the first forward is queued, so the host's pass over
+                # every parameter overlaps the device's work
+                state.optimizer.zero_grad(set_to_none=True)
+            with span("train.backward"):
+                loss.backward()
+            total = loss.detach() if total is None else total + loss.detach()
+        replica = current_mesh().replica
+        all_reduce_grads(model.parameters(), replica)
+        if accum > 1:
+            # the mean of the microbatch means, as the JAX package's scan takes it
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(accum)
+            total = total / accum
+        total = all_reduce_sum(total, replica)  # the global batch's loss on every rank
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        gates = (perturb.gate_oc, perturb.gate_np, perturb.gate_dec) if perturb else (False,) * 3
+        return {"loss": total, "gate_oc": gates[0], "gate_np": gates[1], "gate_dec": gates[2]}

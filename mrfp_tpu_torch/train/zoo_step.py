@@ -66,6 +66,7 @@ from mrfp_tpu_torch.parallel.dist import all_reduce_grads, all_reduce_sum, broad
 from mrfp_tpu_torch.train.losses import cross_entropy, instance_whitening_loss
 from mrfp_tpu_torch.train.state import TrainState
 from mrfp_tpu_torch.train.step import DSN_WEIGHT, autocast_for, dsn_cross_entropy
+from mrfp_tpu_torch.utils.profiling import span
 
 
 def zoo_train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
@@ -84,45 +85,49 @@ def zoo_train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor
     comes from the step's ``dropout`` stream. ``impl="plain"`` runs every
     resize through its plain version. ``hw``: the images' global (h, w)
     when they are this rank's band of rows (spatial parallelism)."""
-    model = state.model
-    device = images.device
-    # fp32 (exact for uint8); fp64 images stay fp64 (a reference step)
-    f = torch.float64 if images.dtype == torch.float64 else torch.float32
-    x = images.permute(0, 3, 1, 2).to(f).contiguous()
-    labels = labels.long()
-    if dropout is None and model.use_dsn:
-        dropout = device_generator(state.seed, state.step, "dropout", device)
-    ignore = cfg.data.ignore_index
-    model.train()
-    spatial = hw is not None and current_mesh().sp > 1
-    with bands(*hw) if spatial else contextlib.nullcontext():
-        with autocast_for(cfg, device):
-            out = model(x, impl=impl, dropout=dropout, **({} if hw is None else {"hw": hw}))
-        loss = cross_entropy(out["logits"], labels, ignore)
-        metrics: Dict[str, object] = {"loss_main": loss.detach()}
-        if "dsn" in out:
-            aux = dsn_cross_entropy(out["dsn"], labels, ignore, impl)
-            loss = loss + aux_weight * aux
-            metrics["loss_aux"] = aux.detach()
-        if cfg.model.use_wtloss and out["w_arr"]:
-            wl = instance_whitening_loss(out["w_arr"], wt_masks, 0.0, wt_nrc) / len(out["w_arr"])
-            loss = loss + cfg.model.wt_reg_weight * wl
-            metrics["loss_wt"] = wl.detach()
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    replica = current_mesh().replica
-    all_reduce_grads(model.parameters(), replica)
-    metrics["loss"] = loss.detach()
-    if replica.size > 1:
-        # each rank's losses are its sums over the global denominators
-        names = [k for k in ("loss", "loss_main", "loss_aux", "loss_wt") if k in metrics]
-        summed = all_reduce_sum(torch.stack([metrics[k] for k in names]), replica)
-        metrics.update(zip(names, summed.unbind()))
-    state.optimizer.step()
-    state.scheduler.step()
-    state.step += 1
-    metrics.update(gate_oc=False, gate_np=False, gate_dec=False)
-    return metrics
+    with span("train.step", step=state.step):
+        model = state.model
+        device = images.device
+        # fp32 (exact for uint8); fp64 images stay fp64 (a reference step)
+        f = torch.float64 if images.dtype == torch.float64 else torch.float32
+        x = images.permute(0, 3, 1, 2).to(f).contiguous()
+        labels = labels.long()
+        if dropout is None and model.use_dsn:
+            dropout = device_generator(state.seed, state.step, "dropout", device)
+        ignore = cfg.data.ignore_index
+        model.train()
+        spatial = hw is not None and current_mesh().sp > 1
+        with span("train.forward", microbatch=0), \
+                bands(*hw) if spatial else contextlib.nullcontext():
+            with autocast_for(cfg, device):
+                out = model(x, impl=impl, dropout=dropout, **({} if hw is None else {"hw": hw}))
+            loss = cross_entropy(out["logits"], labels, ignore)
+            metrics: Dict[str, object] = {"loss_main": loss.detach()}
+            if "dsn" in out:
+                aux = dsn_cross_entropy(out["dsn"], labels, ignore, impl)
+                loss = loss + aux_weight * aux
+                metrics["loss_aux"] = aux.detach()
+            if cfg.model.use_wtloss and out["w_arr"]:
+                wl = (instance_whitening_loss(out["w_arr"], wt_masks, 0.0, wt_nrc)
+                      / len(out["w_arr"]))
+                loss = loss + cfg.model.wt_reg_weight * wl
+                metrics["loss_wt"] = wl.detach()
+        state.optimizer.zero_grad(set_to_none=True)
+        with span("train.backward"):
+            loss.backward()
+        replica = current_mesh().replica
+        all_reduce_grads(model.parameters(), replica)
+        metrics["loss"] = loss.detach()
+        if replica.size > 1:
+            # each rank's losses are its sums over the global denominators
+            names = [k for k in ("loss", "loss_main", "loss_aux", "loss_wt") if k in metrics]
+            summed = all_reduce_sum(torch.stack([metrics[k] for k in names]), replica)
+            metrics.update(zip(names, summed.unbind()))
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        metrics.update(gate_oc=False, gate_np=False, gate_dec=False)
+        return metrics
 
 
 @torch.no_grad()

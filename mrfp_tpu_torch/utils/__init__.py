@@ -1,3 +1,3 @@
 """Host-side utilities: the step watchdog, host-to-device copies, the run
 directory and its metric streams (JSONL and TensorBoard events), running
-meters, feature probes and profiling hooks."""
+meters, and spans inside the program with the profiler's trace exporter."""
