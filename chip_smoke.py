@@ -28,6 +28,15 @@ bf16 batch-8 step with the gates on and off; then drives
 every resize kernel was launched there, and evaluates that run's checkpoint
 with ``mrfp_tpu_torch.cli.eval --ckpt``.
 
+Fused OC stage (``phase_oc_stage``): holds the fused stage's kernels
+(``csrc/oc_stage.cu``: statistics, apply, both backward passes, the NCHW
+transposition) against their plain versions at the eight stages of the
+batch-16 768x768 step in bf16 (enc4 in both layouts), in fp32, on a band
+table, with odd channels and long ranges, and the stem features' cast into
+channels-last exactly; times each stage beside its bytes bound, its plain
+versions and the chain it replaced, and each stage's conv NCHW against
+channels-last.
+
 Fused statistics (``cfg.train.fuse_bn_stats``): holds dot_with_stats
 against its plain version at the 15 shapes of the step's 36 bottleneck 1x1s
 and at ragged shapes, naming for each the kernel that ran (tensor-core or
@@ -277,6 +286,11 @@ GRAD_KEYS = ("layer0.0.weight", "layer1.0.conv1.weight", "aspp.img_conv.0.weight
              "final2.0.weight")
 RESIZE_KERNELS = ("resize_bilinear", "resize_bilinear_bwd", "resize_nearest",
                   "resize_nearest_bwd")
+# the kernels an MRFP+ train step with its OC gates launches: the bilinear
+# resizes and the fused OC stage, whose nearest resizes are inside it (no
+# resize_nearest call is left on that path without the DSN head)
+MRFP_TRAIN_KERNELS = ("resize_bilinear", "resize_bilinear_bwd", "oc_stage_stats", "oc_stage",
+                      "oc_stage_bwd")
 # (name, Cin, Cout, side, sites): the 15 distinct shapes of the 36 bottleneck
 # 1x1 conv + BN pairs of the batch-8 768x768 step (side: the output's H = W)
 DOT_STATS_SHAPES = [
@@ -1804,12 +1818,268 @@ def phase_np_plus(cuda_gen) -> dict:
             **cost.fields()}
 
 
+# the fused OC stage at the batch-16 768x768 step (the benchmark's train
+# cell): (name, conv (Cin, Cout, dilation), C, the conv's and the stage's
+# input (h, w), rule, the memory formats the branch writes)
+OC_N = 16
+OC_STAGES = [
+    ("enc1", (64, 64, 1), 64, (192, 192), {"scale": (1.205, 1.205)}, ("nhwc",)),
+    ("enc2", (64, 64, 1), 64, (231, 231), {"scale": (1.2, 1.2)}, ("nhwc",)),
+    ("enc3", (64, 128, 2), 128, (277, 277), {"scale": (1.2, 1.2)}, ("nhwc",)),
+    ("enc4", (128, 256, 2), 256, (332, 332), {"size": (384, 384)}, ("nhwc", "nchw")),
+    ("dec1", (256, 128, 1), 128, (384, 384), {"size": (384, 384)}, ("nhwc",)),
+    ("dec2", (128, 64, 1), 64, (384, 384), {"scale": (0.838, 0.838)}, ("nhwc",)),
+    ("dec3", (64, 64, 2), 64, (321, 321), {"scale": (0.798, 0.798)}, ("nhwc",)),
+    ("dec4", (64, 64, 2), 64, (256, 256), {"size": (192, 192)}, ("nchw",)),
+]
+# kernel against the kernels' plain versions: the same arithmetic, in the
+# same order, the sums in fp64 rounded once, so they agree bit for bit but
+# where a sum lies within fp64's error of an fp32 rounding boundary: a bf16
+# ulp, or fp32 to the closed form's cancellation
+OC_TOL = {torch.bfloat16: dict(atol=1e-2, rtol=8e-3), torch.float32: dict(atol=1e-4, rtol=1e-4)}
+
+
+def _formats(names):
+    return tuple(torch.channels_last if n == "nhwc" else torch.contiguous_format for n in names)
+
+
+def _oc_tables(y, rule, band=None):
+    """(the stage's input rows, H table, W table, identity) of ``rule`` on
+    ``y``; with ``band = (o0, o1)`` the rows that band of output rows reads
+    and its band table."""
+    from mrfp_tpu_torch.ops.resize import nearest_band_rows, nearest_input, nearest_table
+    h, w = y.shape[2:]
+    if band is not None:
+        (kind, arg), = rule.items()
+        lo, hi = nearest_band_rows(h, kind, arg[0], *band)
+        return (y[:, :, lo:hi], nearest_table(h, kind, arg[0], DEV, band),
+                nearest_table(w, kind, arg[1], DEV), False)
+    read = nearest_input(y, **rule)
+    if read is None:
+        return y, nearest_table(h, "size", h, DEV), nearest_table(w, "size", w, DEV), True
+    return (*read, False)
+
+
+def _oc_stage_pair(y, w, b, rule, layouts, cuda_gen, what, band=None):
+    """One stage through the kernels and through their plain versions (the
+    same ``OCStage``, ``kernel=False``) from one map and one set of
+    cotangents: raises unless the statistics, every output and the input
+    gradient agree (``OC_TOL``). Returns the kernel's input rows, tables,
+    statistics and cotangents for timing."""
+    from mrfp_tpu_torch.ops import cuda_oc_stage
+    from mrfp_tpu_torch.ops.oc_stage import EPS, OCStage
+    x, ty, tx, identity = _oc_tables(y, rule, band)
+    count = x.shape[0] * ty.idx.numel() * tx.idx.numel()
+    xk = cuda_oc_stage.nhwc(x).detach().requires_grad_(True)
+    xp = x.detach().contiguous().requires_grad_(True)
+    outk = OCStage.apply(xk, w, b, ty, tx, layouts, True, identity)
+    outp = OCStage.apply(xp, w, b, ty, tx, layouts, False, identity)
+    grads = [torch.randn(o.shape, device=DEV, generator=cuda_gen).to(y.dtype)
+             .contiguous(memory_format=fmt) for o, fmt in zip(outk, layouts)]
+    torch.autograd.backward(outk, grads)
+    torch.autograd.backward(outp, grads)
+    torch.cuda.synchronize()
+    tol = OC_TOL[y.dtype]
+    stats_k, local_k = cuda_oc_stage.oc_stage_stats_cuda(xk.detach(), ty, tx, count, EPS)
+    stats_p, local_p = cuda_oc_stage.oc_stage_stats_plain(xp.detach(), ty, tx, count, EPS)
+    mean_err = ((stats_k[0] - stats_p[0]).abs() * stats_p[2]).max().item()
+    inv_err = ((stats_k[2] / stats_p[2]) - 1).abs().max().item()
+    errs = [(a.float() - c.float()).abs().max().item() for a, c in zip(outk, outp)]
+    grad_err = (xk.grad.float() - xp.grad.float()).abs().max().item()
+    # the fp64 moments the ranks combine: the mean in stds, M2 relative, each
+    # within 1e-10, far inside an fp32 ulp (6e-8), so both round alike
+    std = (local_p[1] / count).sqrt().clamp_min(1e-30)
+    local_err = max(((local_k[0] - local_p[0]).abs() / std).max().item(),
+                    ((local_k[1] / local_p[1].clamp_min(1e-300)) - 1).abs().max().item())
+    if mean_err > 1e-5 or inv_err > 1e-5 or local_err > 1e-10:
+        raise AssertionError(f"oc_stage {what}: statistics kernel != plain: mean "
+                             f"{mean_err:.3e} of a std, invstd {inv_err:.3e}, fp64 moments "
+                             f"{local_err:.3e}")
+    for fmt, a, c in zip(layouts, outk, outp):
+        if not a.is_contiguous(memory_format=fmt):
+            raise AssertionError(f"oc_stage {what}: an output is not in {fmt}")
+        torch.testing.assert_close(a, c, **tol, msg=lambda m: f"oc_stage {what} forward: {m}")
+    if not xk.grad.permute(0, 2, 3, 1).is_contiguous():
+        raise AssertionError(f"oc_stage {what}: the input gradient is not channels-last")
+    # where the routes' statistics differ in a last bit (a sum within fp64's
+    # error of a rounding boundary), a source whose BN argument z lies within
+    # rounding of 0 may take the ReLU's other side in one of them (its whole
+    # cotangent sum then differs): such sources, and no others, may lie
+    # outside the bound, at most one in 10^5
+    ch = (slice(None), None, None)
+    z = ((xp.detach().float() - stats_p[0][ch]) * (stats_p[2] * w)[ch] + b[ch]).abs()
+    bad = ~torch.isclose(xk.grad.float(), xp.grad.float(), **tol)
+    flips, off = int(bad.sum()), int((bad & (z > 1e-4)).sum())
+    del z, bad
+    if off or flips > 1e-5 * xk.numel():
+        raise AssertionError(f"oc_stage {what} backward: {flips} gradients outside "
+                             f"{tol}, {off} of them where |z| > 1e-4 (max {grad_err:.3e})")
+    print(f"oc_stage {what} {_dtype_name(y.dtype)} {tuple(x.shape)}->"
+          f"{tuple(outk[0].shape[2:])} {[str(f).split('.')[-1] for f in layouts]}: kernel vs "
+          f"plain, statistics {mean_err:.2e} (mean, in stds) {inv_err:.2e} (invstd) "
+          f"{local_err:.2e} (fp64 moments), outputs "
+          f"max {max(errs):.3e}, gradient max {grad_err:.3e} ({flips} outside the bound, "
+          f"all where |z| <= 1e-4: the ReLU's edge)")
+    return xk.detach(), ty, tx, identity, stats_k, grads
+
+
+def phase_oc_stage(cuda_gen) -> dict:
+    """The fused OC stage (``csrc/oc_stage.cu``) against its plain versions
+    at the eight stages of the batch-16 step in bf16 (every layout the
+    branch writes: enc4 both), at enc2 in fp32, on a band table of enc3 (a
+    2-way spatial split's first band), with an odd channel count (single-
+    value accesses) and with ranges longer than two (the general sums).
+    Then each stage's device time, forward and backward, beside its bytes
+    bound (the map, the outputs and cotangents, the gradient, each once)
+    and beside the path it replaced (the nearest-resize kernels, fp32
+    ``F.batch_norm``, ReLU and the casts, autograd through them), and the
+    stage's conv, forward and input gradient, NCHW against channels-last."""
+    import torch.nn.functional as F
+    from mrfp_tpu_torch.nn.norms import norm_group
+    from mrfp_tpu_torch.ops import LAUNCHES, cuda_oc_stage, reset_launches
+    from mrfp_tpu_torch.ops.oc_stage import EPS
+    from mrfp_tpu_torch.ops.resize import resize_nearest
+    reset_launches()
+    group = norm_group()
+    totals = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0)
+    cost = Cost()
+
+    def draw(shape, dtype, c):
+        y = torch.randn(shape, device=DEV, generator=cuda_gen).to(dtype)
+        w = 0.5 * torch.randn(c, device=DEV, generator=cuda_gen)
+        b = 0.1 * torch.randn(c, device=DEV, generator=cuda_gen)
+        return y.contiguous(memory_format=torch.channels_last), w, b
+
+    # the stem features into the branch: fp32 NCHW -> bf16 channels-last under
+    # autocast, the gradient back; exact both ways (a cast and a copy), at the
+    # step's shape and at an odd one (the single-value route)
+    from mrfp_tpu_torch.ops.oc_stage import to_channels_last
+    for shape in ((OC_N, 64, 192, 192), (2, 3, 5, 7)):
+        xp = torch.randn(shape, device=DEV, generator=cuda_gen).requires_grad_(True)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            xc = to_channels_last(xp)
+        g = torch.randn(shape, device=DEV, generator=cuda_gen).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        xc.backward(g)
+        torch.cuda.synchronize()
+        if not (xc.dtype == torch.bfloat16 and xc.is_contiguous(memory_format=torch.channels_last)
+                and torch.equal(xc, xp.detach().to(torch.bfloat16)) and xp.grad.is_contiguous()
+                and torch.equal(xp.grad, g.float())):
+            raise AssertionError(f"oc_stage layout {shape}: the channels-last copy or its "
+                                 f"gradient is not exact")
+    xd = torch.randn((OC_N, 64, 192, 192), device=DEV, generator=cuda_gen)
+    lay = {"kernel": device_ms(lambda: cuda_oc_stage.oc_stage_layout_cuda(
+               xd, torch.channels_last, torch.bfloat16), calls=5),
+           "library": device_ms(lambda: xd.to(torch.bfloat16, memory_format=torch.channels_last),
+                                calls=5)}
+    moved = nbytes(xd) + xd.numel() * 2
+    print(f"oc_stage layout: the stem features {tuple(xd.shape)} fp32 NCHW -> bf16 channels-last "
+          f"exact both ways; kernel {lay['kernel']:.3f} ms device ({moved / lay['kernel'] / 1e6:.0f}"
+          f" GB/s, bound {moved / HBM_BYTES_PER_S * 1e3:.3f}), .to(bf16, channels_last) "
+          f"{lay['library']:.3f} ms")
+    del xd
+
+    for name, (cin, cout, dil), c, hw, rule, fmts in OC_STAGES:
+        layouts = _formats(fmts)
+        y, w, b = draw((OC_N, c, *hw), torch.bfloat16, c)
+        x, ty, tx, identity, stats, grads = _oc_stage_pair(y, w, b, rule, layouts, cuda_gen, name)
+        count = x.shape[0] * ty.idx.numel() * tx.idx.numel()
+
+        def fwd():
+            st, _ = cuda_oc_stage.oc_stage_stats_cuda(x, ty, tx, count, EPS)
+            return cuda_oc_stage.oc_stage_apply_cuda(x, st, w, b, ty, tx, layouts, identity)
+
+        def bwd():
+            return cuda_oc_stage.oc_stage_bwd_cuda(grads, layouts, x, stats, w, b, ty, tx, group,
+                                                   identity)
+
+        outs = fwd()
+        dx = bwd()
+        y_old = x.contiguous().requires_grad_(True)
+        g_old = sum(g.float() for g in grads).to(x.dtype).contiguous()
+
+        def old():  # the replaced chain: the resize kernels, fp32 BN, ReLU, casts
+            r = resize_nearest(y_old, **rule)
+            out = F.relu(F.batch_norm(r.float(), None, None, w, b, training=True, eps=EPS))
+            return torch.autograd.grad(out.to(x.dtype), y_old, g_old)
+
+        def plain():  # the kernels' plain versions, forward and backward
+            st, _ = cuda_oc_stage.oc_stage_stats_plain(x, ty, tx, count, EPS)
+            cuda_oc_stage.oc_stage_apply_plain(x, st, w, b, ty, tx, layouts)
+            return cuda_oc_stage.oc_stage_bwd_plain(grads, x, st, w, b, ty, tx, group)
+
+        new = {"fwd": median_ms(fwd, runs=10), "bwd": median_ms(bwd, runs=10),
+               "fwd_dev": device_ms(fwd, calls=5), "bwd_dev": device_ms(bwd, calls=5),
+               "old": median_ms(old, runs=5), "plain": median_ms(plain, runs=3)}
+        fb = nbytes(x, *outs)
+        bb = nbytes(x, dx, *grads)
+        bound = cost.add(fb) + cost.add(bb)
+        totals["ms"] += new["fwd"] + new["bwd"]
+        totals["device_ms"] += new["fwd_dev"] + new["bwd_dev"]
+        totals["library_ms"] += new["old"]
+        totals["plain_ms"] += new["plain"]
+        print(f"oc_stage {name} bf16 {tuple(x.shape)}: forward {new['fwd']:.3f} ms (device "
+              f"{new['fwd_dev']:.3f}, {fb / new['fwd_dev'] / 1e6:.0f} GB/s, bound "
+              f"{fb / HBM_BYTES_PER_S * 1e3:.3f}), backward {new['bwd']:.3f} ms (device "
+              f"{new['bwd_dev']:.3f}, {bb / new['bwd_dev'] / 1e6:.0f} GB/s, bound "
+              f"{bb / HBM_BYTES_PER_S * 1e3:.3f}); together bound {bound:.3f} ms; plain "
+              f"versions {new['plain']:.3f} ms; the replaced chain forward + backward "
+              f"{new['old']:.3f} ms")
+
+        # the stage's conv, forward and input gradient, in either layout
+        xin = torch.randn((OC_N, cin, *hw), device=DEV, generator=cuda_gen).to(torch.bfloat16)
+        wt = (0.05 * torch.randn((cout, cin, 3, 3), device=DEV, generator=cuda_gen)
+              ).to(torch.bfloat16)
+        conv_ms = {}
+        for fmt in ("nchw", "nhwc"):
+            xi = xin.contiguous(memory_format=_formats([fmt])[0]).requires_grad_(True)
+            go = torch.randn((OC_N, cout, *xin.shape[2:]), device=DEV, generator=cuda_gen
+                             ).to(torch.bfloat16).contiguous(memory_format=_formats([fmt])[0])
+
+            def conv():
+                out = F.conv2d(xi, wt, None, 1, dil, dil)
+                return torch.autograd.grad(out, xi, go)
+
+            conv_ms[fmt] = median_ms(conv, runs=5)
+        print(f"oc_stage {name} conv {cin}->{cout} d{dil} at {tuple(xin.shape[2:])} bf16 "
+              f"forward + input gradient: NCHW {conv_ms['nchw']:.3f} ms, channels-last "
+              f"{conv_ms['nhwc']:.3f} ms")
+        del y, x, outs, dx, y_old, grads, xin, xi, go
+        torch.cuda.empty_cache()
+
+    # fp32 at enc2, a band of enc3, single-value accesses, long ranges
+    y, w, b = draw((OC_N, 64, 231, 231), torch.float32, 64)
+    _oc_stage_pair(y, w, b, {"scale": (1.2, 1.2)}, _formats(["nhwc", "nchw"]), cuda_gen,
+                   "enc2 fp32")
+    y, w, b = draw((OC_N, 128, 277, 277), torch.bfloat16, 128)
+    _oc_stage_pair(y, w, b, {"scale": (1.2, 1.2)}, _formats(["nhwc"]), cuda_gen,
+                   "enc3 band 0 of 2", band=(0, 166))
+    for dtype in (torch.bfloat16, torch.float32):
+        y, w, b = draw((2, 3, 37, 45), dtype, 3)
+        _oc_stage_pair(y, w, b, {"scale": (1.2, 1.2)}, _formats(["nhwc", "nchw"]), cuda_gen,
+                       "odd channels")
+        y, w, b = draw((2, 4, 5, 6), dtype, 4)
+        _oc_stage_pair(y, w, b, {"scale": (3.0, 3.0)}, _formats(["nchw"]), cuda_gen,
+                       "x3 (ranges of 3)")
+    del y
+    torch.cuda.empty_cache()
+    launched = {k: LAUNCHES[k] for k in ("oc_stage_stats", "oc_stage", "oc_stage_bwd",
+                                         "oc_stage_layout")}
+    print(f"oc_stage bf16, the eight stages of the batch-{OC_N} step: kernels forward + backward "
+          f"{totals['ms']:.3f} ms (device {totals['device_ms']:.3f}), bound "
+          f"{cost.bound_ms:.3f} ms, plain versions {totals['plain_ms']:.3f} ms, the replaced "
+          f"chain {totals['library_ms']:.3f} ms; launches {launched}")
+    return {"ms": totals["ms"], "device_ms": totals["device_ms"], "plain_ms": totals["plain_ms"],
+            "library_ms": totals["library_ms"], **cost.fields()}
+
+
 def phase_public_paths(cuda_gen) -> dict:
-    """The public functions of the three kernels no train or eval path runs
-    (as in the JAX package), driven as a user calls them, with the counts
-    set to 0 just before and read just after: the OC branch's first nearest
-    resize (x1.205, (8,64,192,192) bf16) as two take_rows and its gradient,
-    checked against resize_nearest (the forward exactly; the gradient, which
+    """The public functions of the kernels no train or eval path runs (as in
+    the JAX package), driven as a user calls them, with the counts set to 0
+    just before and read just after: the OC branch's first nearest resize
+    (x1.205, (8,64,192,192) bf16) as two take_rows and its gradient,
+    checked against resize_nearest and its gradient (the nearest backward
+    kernel's one caller; the forward exactly; the gradient, which
     the two take_rows round twice, within 2^-6 of its summed magnitudes); channel_stats of
     the layer1 conv3 output and its gradient, checked against the plain
     version; NP+ with the fused apply at both NP+ sites, checked against the
@@ -1842,6 +2112,10 @@ def phase_public_paths(cuda_gen) -> dict:
     compactions = LAUNCHES["row_mix_compact"]
     ref = resize_nearest(xb, scale=(1.205, 1.205))
     ref.backward(g)
+    torch.cuda.synchronize()
+    # the nearest backward kernel's one caller: no train path differentiates
+    # a nearest resize since the OC branch's stages fuse theirs
+    launched["resize_nearest_bwd"] = LAUNCHES["resize_nearest_bwd"]
     mean_p, var_p = channel_stats(big, impl="plain")
     for f, nz, got in zip((x, big), noise, nps):
         torch.testing.assert_close(got, np_plus(f, nz), atol=1e-2, rtol=8e-3)
@@ -2102,10 +2376,10 @@ def phase_fused_step(gen) -> dict:
           f"{loss:.6f}; launches {launched}")
     if not math.isfinite(loss) or launched["dot_with_stats"] != 36 \
             or launched["dot_with_stats_tc"] != 36 \
-            or min(launched[k] for k in RESIZE_KERNELS) <= 0:
+            or min(launched[k] for k in MRFP_TRAIN_KERNELS) <= 0:
         raise AssertionError(f"fused step: loss {loss}, launches {launched} (want 36 "
                              f"dot_with_stats, all 36 on the tensor-core kernel, and every "
-                             f"resize kernel)")
+                             f"bilinear and OC-stage kernel)")
     del state
     torch.cuda.empty_cache()
     return launched
@@ -2152,8 +2426,9 @@ def phase_cli_train() -> dict:
         ckpt = os.path.join(result["run_dir"], "ckpt", "step_6.pt")
         if not os.path.exists(ckpt):
             raise AssertionError(f"cli.train: no checkpoint at step 6 ({ckpt})")
-        if min(launched[k] for k in RESIZE_KERNELS) <= 0:
-            raise AssertionError(f"cli.train: a resize kernel was not launched: {launched}")
+        if min(launched[k] for k in MRFP_TRAIN_KERNELS) <= 0:
+            raise AssertionError(f"cli.train: a resize or OC-stage kernel was not launched: "
+                                 f"{launched}")
         if not any(g[0] == "o" for g in gates.values()) or \
                 not any(g[2] == "d" for g in gates.values()):
             raise AssertionError(f"cli.train: gate_oc or gate_dec never fired: {gates}")
@@ -3126,7 +3401,7 @@ DP_WORLD = 2  # ranks of the data-parallel phase, all on the one card
 DP_FP32_N = 4  # the fp32 comparison's global batch (2 a rank)
 # a rank's all_reduce calls and bytes in the MRFP+ bf16 step (R50-D16, global
 # batch 8 on 2 ranks) as phase_data_parallel counts them on an H100
-DP_BILL = (145, 162374872)
+DP_BILL = (145, 162401496)
 
 
 def _dp_setup(batch: int, dtype: str, damped: bool):
@@ -3415,8 +3690,9 @@ def phase_data_parallel(cuda_gen) -> dict:
     if over:
         raise AssertionError(f"data parallel: moves off the one-process step's beyond 3x "
                              f"the control's + 1e-2 (statistics) / 2e-2: {over}")
-    if min(launched[k] for k in RESIZE_KERNELS) <= 0:
-        raise AssertionError(f"data parallel: a resize kernel was not launched: {launched}")
+    if min(launched[k] for k in MRFP_TRAIN_KERNELS) <= 0:
+        raise AssertionError(f"data parallel: a resize or OC-stage kernel was not launched: "
+                             f"{launched}")
     for r in ranks:
         _all_held([(k, getattr(torch, d), i, o) for k, d, i, o in r["calls"]],
                   "data parallel: a rank's steps")
@@ -3856,7 +4132,7 @@ def phase_spatial_parallel(cuda_gen) -> dict:
     if two_eval["pixels"] != one_eval["pixels"] or \
             not abs(two_eval["acc"] - one_eval["acc"]) <= 1e-4:
         raise AssertionError(f"cli.eval --spatial-parallel 2: {two_eval} against {one_eval}")
-    if min(launched[k] for k in RESIZE_KERNELS + ("confusion_matrix",)) <= 0:
+    if min(launched[k] for k in MRFP_TRAIN_KERNELS + ("confusion_matrix",)) <= 0:
         raise AssertionError(f"spatial parallel: a kernel was not launched: {launched}")
     return launched
 
@@ -4587,7 +4863,8 @@ def phase_spatial_zoo_extras(cuda_gen) -> dict:
             not abs(two_eval["acc"] - one_eval["acc"]) <= 1e-4:
         raise AssertionError(f"cli.eval --arch {SPZ_EVAL_ARCH} --spatial-parallel 2: "
                              f"{two_eval} against {one_eval}")
-    if min(launched[k] for k in RESIZE_KERNELS + ("confusion_matrix", "dot_with_stats")) <= 0:
+    if min(launched[k] for k in MRFP_TRAIN_KERNELS + ("resize_nearest", "confusion_matrix",
+                                                      "dot_with_stats")) <= 0:
         raise AssertionError(f"spatial zoo and extras: a kernel was not launched: {launched}")
     return launched
 
@@ -4979,7 +5256,7 @@ def phase_model_parallel(cuda_gen) -> dict:
                              "ranks' logits differ")
     torch.testing.assert_close(ranks[0]["logits"], ckpt_logits, atol=2e-4, rtol=1e-4,
                                msg=lambda m: f"model parallel checkpoint eval logits: {m}")
-    if min(launched[k] for k in RESIZE_KERNELS + ("dot_with_stats",)) <= 0:
+    if min(launched[k] for k in MRFP_TRAIN_KERNELS + ("dot_with_stats",)) <= 0:
         raise AssertionError(f"model parallel: a kernel was not launched: {launched}")
     return launched
 
@@ -5380,6 +5657,7 @@ def main(argv=None) -> None:
     row_mix = _phase(phase_row_mix, cuda_gen)
     channel_sums = _phase(phase_channel_sums, cuda_gen)
     np_plus = _phase(phase_np_plus, cuda_gen)
+    oc_stage = _phase(phase_oc_stage, cuda_gen)
     public_launches = _phase(phase_public_paths, cuda_gen)
     _phase(phase_train_step, gen, args.profile)
     fused_launches = _phase(phase_fused_step, gen)
@@ -5428,8 +5706,15 @@ def main(argv=None) -> None:
              **nearest["resize_nearest"]),
         dict(name="resize_nearest_bwd", route="cuda", source=src + "resize_nearest.cu",
              replaces="mrfp_tpu/ops/pallas_resize.py:250",
-             launches=launches("resize_nearest_bwd", train_launches, *later_paths),
+             launches=launches("resize_nearest_bwd", train_launches, public_launches,
+                               *later_paths),
              **nearest["resize_nearest_bwd"]),
+        dict(name="oc_stage", route="cuda", source=src + "oc_stage.cu",
+             replaces="mrfp_tpu/ops/pallas_resize.py:235, :250 with "
+                      "mrfp_tpu/perturb/oc_branch.py:121-127",
+             launches=launches("oc_stage", train_launches, *later_paths),
+             backward_launches=launches("oc_stage_bwd", train_launches, *later_paths),
+             **oc_stage),
         dict(name="confusion_matrix", route="cuda", source=src + "confusion_matrix.cu",
              replaces="mrfp_tpu/ops/pallas_hist.py:50",
              launches=launches("confusion_matrix", eval_launches, sliding_launches,

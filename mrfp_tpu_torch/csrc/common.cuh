@@ -59,17 +59,18 @@ inline int grid_for(int64_t items, int64_t per_block, int per_sm) {
 
 // Second pass of a two-pass column sum: out1[c] = sum over p of
 // part1[p * cols + c], the same for part2, for p = 0 .. parts - 1, summed in
-// Acc (float or double) and rounded once to float. Each of 8 thread rows sums
+// Acc (float or double) and rounded once to Out (float, or double to keep
+// the sums for a later reduction across processes). Each of 8 thread rows sums
 // every 8th partial in order, then one thread adds the 8 row sums in order: a
 // fixed order, so two runs agree bit for bit (no atomics). Consecutive
 // threads take consecutive columns, so the loads coalesce.
 constexpr int kReduceCols = 32;
 constexpr int kReduceRows = 8;
 
-template <typename Acc>
+template <typename Acc, typename Out>
 __global__ void reduce_partials_kernel(const Acc* __restrict__ part1,
                                        const Acc* __restrict__ part2, int parts, int cols,
-                                       float* __restrict__ out1, float* __restrict__ out2) {
+                                       Out* __restrict__ out1, Out* __restrict__ out2) {
   __shared__ Acc sh1[kReduceRows][kReduceCols + 1];
   __shared__ Acc sh2[kReduceRows][kReduceCols + 1];
   const int c = blockIdx.x * kReduceCols + threadIdx.x;
@@ -89,16 +90,16 @@ __global__ void reduce_partials_kernel(const Acc* __restrict__ part1,
       s1 += sh1[r][threadIdx.x];
       s2 += sh2[r][threadIdx.x];
     }
-    out1[c] = (float)s1;
-    out2[c] = (float)s2;
+    out1[c] = (Out)s1;
+    out2[c] = (Out)s2;
   }
 }
 
-template <typename Acc>
+template <typename Acc, typename Out = float>
 void launch_reduce_partials(const Acc* part1, const Acc* part2, int parts, int cols,
-                            float* out1, float* out2, cudaStream_t s) {
+                            Out* out1, Out* out2, cudaStream_t s) {
   const dim3 block(kReduceCols, kReduceRows);
-  reduce_partials_kernel<Acc><<<(cols + kReduceCols - 1) / kReduceCols, block, 0, s>>>(
+  reduce_partials_kernel<Acc, Out><<<(cols + kReduceCols - 1) / kReduceCols, block, 0, s>>>(
       part1, part2, parts, cols, out1, out2);
 }
 

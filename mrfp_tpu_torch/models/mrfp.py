@@ -70,6 +70,7 @@ from mrfp_tpu_torch.core.mesh import active_channels, bands, channels
 from mrfp_tpu_torch.nn.deeplab import ASPP, DSNHead, DeepLabDecoder
 from mrfp_tpu_torch.nn.layers import conv2d, init_random_
 from mrfp_tpu_torch.nn.resnet import build_trunk, variant_output_stride
+from mrfp_tpu_torch.ops.cuda_oc_stage import NCHW, NHWC
 from mrfp_tpu_torch.ops.resize import resize_bilinear_align_corners
 from mrfp_tpu_torch.perturb.np_plus import Draws, np_plus
 from mrfp_tpu_torch.perturb.oc_branch import (add_oc_buffers, oc_decode, oc_encode,
@@ -184,12 +185,14 @@ class MRFP(DeepLabDecoder):
             use_dec = perturb.gate_dec and self.hrfp_plus
             if perturb.gate_oc or use_dec:
                 params = oc_params(self)
-                oc_dec = oc_encode(params, whole(xp), (h, w), self.oc_scales_enc, impl)
+                # channels-last for the decoder half, NCHW for the injection
+                layouts = ((NHWC,) if perturb.gate_oc else ()) + ((NCHW,) if use_dec else ())
+                maps = oc_encode(params, whole(xp), (h, w), self.oc_scales_enc, impl, layouts)
                 if perturb.gate_oc:
-                    feat = own(oc_decode(params, oc_dec, (h, w), self.oc_scales_dec,
+                    feat = own(oc_decode(params, maps[0], (h, w), self.oc_scales_dec,
                                          impl)) + feat
-            if not use_dec:
-                oc_dec = None
+                if use_dec:
+                    oc_dec = maps[-1]
         feat = self.layer1(feat)
         if perturbing and perturb.gate_np:
             feat = self._np_plus(feat, perturb.np1)

@@ -87,13 +87,36 @@ def norm_group() -> Group:
     return current_mesh().replica
 
 
+def chan_combine(n_k: torch.Tensor, mean_k: torch.Tensor, m2_k: torch.Tensor):
+    """Chan's combination of the per-channel ``(n, mean, M2)`` of K parts,
+    stacked on dim 0: the whole's count, mean and ``M2 = sum M2_k + sum
+    n_k (mean_k - mean)^2``."""
+    n = n_k.sum(0)
+    # the parts' means as offsets from the first's: small terms, no
+    # rounding at the mean's own magnitude
+    mean = mean_k[0] + (n_k * (mean_k - mean_k[0])).sum(0) / n
+    m2 = m2_k.sum(0) + (n_k * (mean_k - mean).square()).sum(0)
+    return n, mean, m2
+
+
+def global_moments(n_l, mean_l: torch.Tensor, m2_l: torch.Tensor, group: Group):
+    """The per-channel ``(n, mean, M2)`` over every process of ``group``
+    from this rank's: its row of a zero ``(group size, 3, C)`` buffer, one
+    ``all_reduce``, then ``chan_combine``. ``n`` comes back as a (C,)
+    tensor."""
+    buf = mean_l.new_zeros((group.size, 3, mean_l.shape[0]))
+    buf[group.rank, 0] = n_l
+    buf[group.rank, 1] = mean_l
+    buf[group.rank, 2] = m2_l
+    return chan_combine(*all_reduce_sum(buf, group).unbind(1))
+
+
 class _GlobalBatchNorm(torch.autograd.Function):
     """Train-mode BatchNorm of NCHW ``x`` over the batches of every process.
 
     Forward: each rank takes its local ``(n, mean, M2)`` per channel in two
-    passes, in fp32 (fp64 for fp64 input), writes them into its row of a zero
-    ``(world, 3, C)`` buffer, and one ``all_reduce`` gives every rank every
-    row; Chan's combination then gives the global mean and
+    passes, in fp32 (fp64 for fp64 input), and ``global_moments`` combines
+    every rank's (one ``all_reduce``, Chan's rule) into the global mean and
     ``M2 = sum M2_k + sum n_k (mean_k - mean)^2``. No ``E[x^2] - E[x]^2`` is
     taken, so a channel whose spread is small beside its mean keeps its
     variance (ROADMAP C1); the output is ``(x - mean) * scale + bias``,
@@ -120,16 +143,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         s_d = d.sum(dim=(0, 2, 3))
         mean_l = mean_l + s_d / n_l
         m2_l = d.square().sum(dim=(0, 2, 3)) - s_d.square() / n_l
-        buf = xf.new_zeros((group.size, 3, c))
-        buf[group.rank, 0] = n_l
-        buf[group.rank, 1] = mean_l
-        buf[group.rank, 2] = m2_l
-        n_k, mean_k, m2_k = all_reduce_sum(buf, group).unbind(1)
-        n = n_k.sum(0)
-        # the ranks' means as offsets from rank 0's: small terms, no
-        # rounding at the mean's own magnitude
-        mean = mean_k[0] + (n_k * (mean_k - mean_k[0])).sum(0) / n
-        m2 = m2_k.sum(0) + (n_k * (mean_k - mean).square()).sum(0)
+        n, mean, m2 = global_moments(n_l, mean_l, m2_l, group)
         invstd = torch.rsqrt(m2 / n + eps)
         scale = invstd if weight is None else invstd * weight.to(f)
         out = (xf - _channels(mean)) * _channels(scale)  # centred first, as torch's

@@ -1,7 +1,8 @@
 """Compute primitives: the bilinear and nearest resizes (each with its
 backward), the confusion matrix, the 1x1 product with BatchNorm sums, the
-row mix, the per-channel sums and the NP+ apply, each a hand-written CUDA
-kernel on CUDA tensors and a plain PyTorch version on CPU tensors.
+row mix, the per-channel sums, the NP+ apply and the OC branch's fused
+stage (``oc_stage``), each a hand-written CUDA kernel on CUDA tensors and a
+plain PyTorch version on CPU tensors.
 ``LAUNCHES`` counts kernel launches per wrapper. Importing the package
 registers ``mrfp::resize_bilinear`` (``ops/library.py``), the op through
 which the bilinear forward runs, live and in an exported program."""

@@ -12,7 +12,10 @@ it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels. ``dot_with_stats_tc`` counts the subset of
 ``dot_with_stats`` launches that took the tensor-core kernel;
 ``row_mix_compact`` counts the compactions of a caller's general P, which
-``take_rows`` never launches.
+``take_rows`` never launches. The fused OC stage counts its statistics
+(``oc_stage_stats``), its apply (``oc_stage``) and its backward
+(``oc_stage_bwd``, both passes), one each a stage, and its transpositions
+between NCHW and channels-last (``oc_stage_layout``).
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from pathlib import Path
 LAUNCHES = {"resize_bilinear": 0, "resize_bilinear_bwd": 0, "resize_nearest": 0,
             "resize_nearest_bwd": 0, "confusion_matrix": 0, "dot_with_stats": 0,
             "dot_with_stats_tc": 0, "row_mix": 0, "row_mix_compact": 0, "channel_sums": 0,
-            "np_plus_apply": 0}
+            "np_plus_apply": 0, "oc_stage_stats": 0, "oc_stage": 0, "oc_stage_bwd": 0,
+            "oc_stage_layout": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -71,6 +75,18 @@ _SIGNATURES = {
     # x, alpha, shift, out, planes, hw, vec, dtype, stream
     "mrfp_np_plus_apply": [_P] * 4 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                                       ctypes.c_int, _P],
+    # y, ly, hy, lx, hx, part, parts, n, h, w, c, count, eps, stats, local, dtype, pack,
+    # stream
+    "mrfp_oc_stage_stats": [_P] * 6 + [ctypes.c_int] * 5
+                           + [ctypes.c_double, ctypes.c_double, _P, _P, ctypes.c_int,
+                              ctypes.c_int, _P],
+    # y, out, stats, w, b, iy, ix, n, h, w, c, oh, ow, identity, dtype, pack, stream
+    "mrfp_oc_stage_apply": [_P] * 7 + [ctypes.c_int] * 9 + [_P],
+    # dy, y, stats, w, b, ly, hy, lx, hx, part, parts, sums, dx, n, h, w, c, oh, ow,
+    # identity, short_ranges, passes, dtype, pack, stream
+    "mrfp_oc_stage_bwd": [_P] * 10 + [ctypes.c_int, _P, _P] + [ctypes.c_int] * 11 + [_P],
+    # in, add, out, images, rows, cols, in_dtype, out_dtype, stream
+    "mrfp_oc_stage_layout": [_P] * 3 + [ctypes.c_int] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -299,9 +299,10 @@ def resize_nearest_plain(x: torch.Tensor, ty, tx) -> torch.Tensor:
 
 
 def resize_nearest_bwd_plain(g: torch.Tensor, ty, tx, h: int, w: int) -> torch.Tensor:
-    """Sum-scatter of the cotangent: fp32 ``index_add_`` over the W table,
-    then the H table; rounded once. An input no output reads gets 0."""
-    gf = g.float()
+    """Sum-scatter of the cotangent: fp32 (fp64 for fp64) ``index_add_``
+    over the W table, then the H table; rounded once. An input no output
+    reads gets 0."""
+    gf = g.to(torch.promote_types(g.dtype, torch.float32))
     n, c, oh, _ow = gf.shape
     gw = gf.new_zeros((n, c, oh, w)).index_add_(3, tx.idx.long(), gf)
     gx = gf.new_zeros((n, c, h, w)).index_add_(2, ty.idx.long(), gw)

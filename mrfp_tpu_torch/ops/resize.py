@@ -451,16 +451,14 @@ def take_rows(x: torch.Tensor, idx: Tuple[int, ...], dim: int,
     return TakeRows.apply(x, idx, dim, impl)
 
 
-def resize_nearest(x: torch.Tensor, size: Optional[Tuple[int, int]] = None,
-                   scale: Optional[Tuple[float, float]] = None,
-                   impl: Optional[str] = None) -> torch.Tensor:
-    """Nearest resize of NCHW ``x`` matching torch F.interpolate defaults.
-
-    Exactly one of ``size`` / ``scale`` must be given; the source-index rule
-    differs between the two (module docstring). With ``size`` equal to the
-    input's size it returns ``x`` itself (mrfp_tpu/ops/resize.py:136-137).
-    ``impl="plain"`` as for the bilinear resize.
-    """
+def nearest_input(x: torch.Tensor, size: Optional[Tuple[int, int]] = None,
+                  scale: Optional[Tuple[float, float]] = None
+                  ) -> Optional[Tuple[torch.Tensor, NearestTable, NearestTable]]:
+    """What a nearest resize of NCHW ``x`` (``resize_nearest``'s rules) reads:
+    None for a resize by ``size`` to the input's own size, else the input
+    (outside a spatial scope ``x`` itself; inside one, the rows this rank's
+    band of the output reads, fetched from their owners), its H table (the
+    band table inside a scope) and its W table."""
     if (size is None) == (scale is None):
         raise ValueError("pass exactly one of size= or scale=")
     if x.dim() != 4:
@@ -471,17 +469,32 @@ def resize_nearest(x: torch.Tensor, size: Optional[Tuple[int, int]] = None,
     if size is not None:
         size = (int(size[0]), int(size[1]))
         if (h, w) == size:
-            return x
+            return None
         rule_y, arg_y, rule_x, arg_x = "size", size[0], "size", size[1]
     else:
         rule_y, arg_y, rule_x, arg_x = "scale", float(scale[0]), "scale", float(scale[1])
     tx = nearest_table(w, rule_x, arg_x, x.device)
     if bands is None:
-        ty = nearest_table(h, rule_y, arg_y, x.device)
-        return ResizeNearest.apply(x, ty, tx, _use_kernel(x, impl))
+        return x, nearest_table(h, rule_y, arg_y, x.device), tx
     oh = len(nearest_index(h, rule_y, arg_y))
     bands.add(oh, tx.idx.numel())
     xr, band = _band_input(x, bands, h, oh,
                            lambda a, b: nearest_band_rows(h, rule_y, arg_y, a, b), False)
-    ty = nearest_table(h, rule_y, arg_y, x.device, band)
+    return xr, nearest_table(h, rule_y, arg_y, x.device, band), tx
+
+
+def resize_nearest(x: torch.Tensor, size: Optional[Tuple[int, int]] = None,
+                   scale: Optional[Tuple[float, float]] = None,
+                   impl: Optional[str] = None) -> torch.Tensor:
+    """Nearest resize of NCHW ``x`` matching torch F.interpolate defaults.
+
+    Exactly one of ``size`` / ``scale`` must be given; the source-index rule
+    differs between the two (module docstring). With ``size`` equal to the
+    input's size it returns ``x`` itself (mrfp_tpu/ops/resize.py:136-137).
+    ``impl="plain"`` as for the bilinear resize.
+    """
+    read = nearest_input(x, size, scale)
+    if read is None:
+        return x
+    xr, ty, tx = read
     return ResizeNearest.apply(xr, ty, tx, _use_kernel(x, impl))

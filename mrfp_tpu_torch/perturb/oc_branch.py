@@ -14,7 +14,14 @@ reference writes it: the BN moments are taken on the resized map (nearest
 duplication reweights them, so the order matters). The BNs run in train
 mode with no running buffers: batch statistics, biased variance, eps 1e-5,
 in fp32, cast back to the compute dtype. With more than one process the
-statistics are the global batch's (``nn.norms.batch_norm_train``).
+statistics are the global batch's. On the card the chain after each conv
+is one fused kernel pair (``ops/oc_stage.py``), and the maps stay
+channels-last between the convs: the stem features enter enc1's conv as a
+channels-last bf16 copy (``to_channels_last``), dec4 writes NCHW for the
+add onto the stem features, and enc4 writes what its readers take
+(channels-last for dec1's conv, NCHW for the decoder injection, or both);
+the convs there take no bias, which each stage's BN cancels. On the CPU
+each stage is the reference's composition (``oc_stage_plain``), NCHW.
 
 The tensors are buffers of the model under the reference's names
 (``OClayer1..4``, ``OCdeclayer1..4`` with ``weight``/``bias``;
@@ -32,15 +39,15 @@ the BN moments stay world-global, and every size comes from the global
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from mrfp_tpu_torch.nn.layers import conv2d_rows
-from mrfp_tpu_torch.nn.norms import batch_norm_train
-from mrfp_tpu_torch.ops.resize import resize_nearest
+from mrfp_tpu_torch.ops.cuda_oc_stage import NCHW, NHWC
+from mrfp_tpu_torch.ops.oc_stage import oc_stage, to_channels_last
+from mrfp_tpu_torch.ops.resize import _use_kernel
 from mrfp_tpu_torch.utils.profiling import span
 
 # (name, in_ch, out_ch, dilation); padding == dilation keeps the spatial size
@@ -132,14 +139,20 @@ def oc_maybe_resample(model: nn.Module, gate: bool, generator: torch.Generator,
 
 
 def _stage(p, x: torch.Tensor, dilation: int, scale=None, size=None,
-           impl: Optional[str] = None) -> torch.Tensor:
-    """relu(bn(resize(conv(x)))) — the reference's per-layer pattern."""
+           impl: Optional[str] = None, layouts: Sequence = (NHWC,)) -> Tuple[torch.Tensor, ...]:
+    """relu(bn(resize(conv(x)))) — the reference's per-layer pattern
+    (``ops/oc_stage.py``), one output per entry of ``layouts``. On the card,
+    through the kernels or their plain versions alike, the conv reads and
+    writes channels-last and takes no bias: train-mode BN subtracts the
+    batch mean, so a per-channel constant added before it leaves its output
+    as it is (and cuDNN adds a bias to a channels-last map in a pass of its
+    own). On the CPU it is the reference's conv, NCHW, with its bias."""
     weight, bias, bn_weight, bn_bias = p
+    if x.device.type != "cpu":
+        x = to_channels_last(x) if _use_kernel(x, impl) else x.contiguous(memory_format=NHWC)
+        bias = None
     y = conv2d_rows(x, weight, bias, padding=dilation, dilation=dilation)
-    y = resize_nearest(y, size=size, scale=scale, impl=impl)
-    yf = y.to(torch.promote_types(y.dtype, torch.float32))  # bf16 -> fp32 math
-    yf = batch_norm_train(yf, bn_weight, bn_bias, eps=1e-5)  # global-batch moments
-    return F.relu(yf).to(y.dtype)
+    return oc_stage(y, bn_weight, bn_bias, size=size, scale=scale, impl=impl, layouts=layouts)
 
 
 def _dilation(name: str) -> int:
@@ -148,28 +161,32 @@ def _dilation(name: str) -> int:
 
 def oc_encode(params: OCParams, xp: torch.Tensor, hw: Tuple[int, int],
               scales_enc: Tuple[float, ...] = (1.205, 1.2, 1.2),
-              impl: Optional[str] = None) -> torch.Tensor:
+              impl: Optional[str] = None,
+              layouts: Sequence = (NHWC,)) -> Tuple[torch.Tensor, ...]:
     """Encoder half: stem features -> OCout_dec (N, 256, int(H/2), int(W/2)),
-    the overcomplete bottleneck the decoder injection adds."""
+    the overcomplete bottleneck the decoder injection adds: one map per
+    entry of ``layouts`` (channels-last for the decoder's first conv, NCHW
+    for the injection), all from one stage."""
     h, w = hw
     x = xp
     with span("oc.encode"):
         for name, s in zip(("enc1", "enc2", "enc3"), scales_enc):
-            x = _stage(params[name], x, _dilation(name), scale=(s, s), impl=impl)
+            x, = _stage(params[name], x, _dilation(name), scale=(s, s), impl=impl)
         return _stage(params["enc4"], x, _dilation("enc4"), size=(int(h / 2), int(w / 2)),
-                      impl=impl)
+                      impl=impl, layouts=layouts)
 
 
 def oc_decode(params: OCParams, oc_dec: torch.Tensor, hw: Tuple[int, int],
               scales_dec: Tuple[float, ...] = (0.838, 0.798),
               impl: Optional[str] = None) -> torch.Tensor:
     """Decoder half: OCout_dec -> OCout (N, 64, ceil(H/4), ceil(W/4)), the map
-    added onto the stem features."""
+    added onto the stem features (NCHW, as they are)."""
     h, w = hw
     with span("oc.decode"):
-        x = _stage(params["dec1"], oc_dec, _dilation("dec1"), size=(int(h / 2), int(w / 2)),
-                   impl=impl)
+        x, = _stage(params["dec1"], oc_dec, _dilation("dec1"), size=(int(h / 2), int(w / 2)),
+                    impl=impl)
         for name, s in zip(("dec2", "dec3"), scales_dec):
-            x = _stage(params[name], x, _dilation(name), scale=(s, s), impl=impl)
-        return _stage(params["dec4"], x, _dilation("dec4"),
-                      size=(math.ceil(h / 4), math.ceil(w / 4)), impl=impl)
+            x, = _stage(params[name], x, _dilation(name), scale=(s, s), impl=impl)
+        out, = _stage(params["dec4"], x, _dilation("dec4"),
+                      size=(math.ceil(h / 4), math.ceil(w / 4)), impl=impl, layouts=(NCHW,))
+        return out

@@ -78,7 +78,7 @@ def test_oc_encode_decode_match_jax(h, w):
         (2, math.ceil(h / 4), math.ceil(w / 4), 64)).astype(np.float32)
     ref_out, ref_dec = oc_apply(jparams, jnp.asarray(xp), (h, w))
     params = _port_oc(jparams)
-    dec = oc_encode(params, _nchw(xp), (h, w))
+    dec, = oc_encode(params, _nchw(xp), (h, w))
     out = oc_decode(params, dec, (h, w))
     assert dec.shape == (2, 256, h // 2, w // 2)
     assert out.shape == (2, 64, math.ceil(h / 4), math.ceil(w / 4))
@@ -92,7 +92,8 @@ def test_oc_gradient_reaches_the_input_only():
     holder.load_state_dict(oc_init(torch.Generator().manual_seed(0)))
     xp = torch.randn(2, 64, 12, 12, requires_grad=True)
     params = oc_params(holder)
-    oc_decode(params, oc_encode(params, xp, (48, 48)), (48, 48)).square().sum().backward()
+    dec, = oc_encode(params, xp, (48, 48))
+    oc_decode(params, dec, (48, 48)).square().sum().backward()
     assert xp.grad is not None and xp.grad.abs().sum() > 0
     assert all(not b.requires_grad and b.grad is None for b in holder.buffers())
     assert list(holder.parameters()) == []

@@ -16,10 +16,12 @@ import torch
 from mrfp_tpu_torch.cli import eval as cli_eval
 from mrfp_tpu_torch.ops import _build
 from mrfp_tpu_torch.ops.hist import confusion_matrix_update
-from mrfp_tpu_torch.ops import (cuda_channel_sums, cuda_dot_stats, cuda_np_plus, cuda_resize,
-                                cuda_row_mix)
+from mrfp_tpu_torch.nn.norms import norm_group
+from mrfp_tpu_torch.ops import (cuda_channel_sums, cuda_dot_stats, cuda_np_plus,
+                                cuda_oc_stage, cuda_resize, cuda_row_mix)
 from mrfp_tpu_torch.ops.dot_stats import dot_with_stats
 from mrfp_tpu_torch.ops.np_plus import np_plus_apply
+from mrfp_tpu_torch.ops.oc_stage import oc_stage, to_channels_last
 from mrfp_tpu_torch.ops.resize import (bilinear_taps, nearest_table, onehot_table,
                                        resize_bilinear_align_corners, resize_nearest, take_rows)
 from mrfp_tpu_torch.ops.stats import channel_sums
@@ -128,13 +130,27 @@ def _wrapper_calls(wrapper):
                               lambda: channel_sums(x)],
         "np_plus_apply_cuda": [lambda: cuda_np_plus.np_plus_apply_cuda(x, coef, coef),
                                lambda: np_plus_apply(x, coef, coef)],
+        "oc_stage_cuda": [lambda: cuda_oc_stage.oc_stage_stats_cuda(
+                              x, nearest_table(5, "size", 7, meta),
+                              nearest_table(6, "size", 8, meta), 112, 1e-5),
+                          lambda: cuda_oc_stage.oc_stage_apply_cuda(
+                              x, _meta(4, 4), _meta(4), _meta(4), nearest_table(5, "size", 7, meta),
+                              nearest_table(6, "size", 8, meta), (cuda_oc_stage.NHWC,)),
+                          lambda: cuda_oc_stage.oc_stage_bwd_cuda(
+                              [_meta(2, 4, 7, 8)], (cuda_oc_stage.NCHW,), x, _meta(4, 4),
+                              _meta(4), _meta(4), nearest_table(5, "size", 7, meta),
+                              nearest_table(6, "size", 8, meta), norm_group()),
+                          lambda: cuda_oc_stage.oc_stage_layout_cuda(x, cuda_oc_stage.NHWC),
+                          lambda: oc_stage(x, _meta(4), _meta(4), scale=(1.2, 1.2)),
+                          lambda: oc_stage(x, _meta(4), _meta(4), size=(5, 6)),
+                          lambda: to_channels_last(x)],
     }[wrapper]
 
 
 @pytest.mark.parametrize("wrapper", ["resize_nearest_cuda", "resize_nearest_bwd_cuda",
                                      "resize_bilinear_bwd_cuda", "dot_with_stats_cuda",
                                      "row_mix_cuda", "channel_sums_cuda",
-                                     "np_plus_apply_cuda"])
+                                     "np_plus_apply_cuda", "oc_stage_cuda"])
 def test_train_wrappers_raise_instead_of_falling_back(monkeypatch, wrapper):
     """Each wrapper added after the eval slice, called on a tensor off the
     CPU with the library loader failing, raises; none returns the plain
@@ -154,11 +170,12 @@ def test_library_name_tracks_the_sources():
     assert so.parent == _build.BUILD_DIR and so.name.startswith("libmrfp_kernels-")
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "resize_bilinear.cu", "resize_nearest.cu", "confusion_matrix.cu", "dot_stats.cu",
-        "row_mix.cu", "channel_sums.cu", "np_plus_apply.cu"}
+        "row_mix.cu", "channel_sums.cu", "np_plus_apply.cu", "oc_stage.cu"}
     assert set(_build.LAUNCHES) == {"resize_bilinear", "resize_bilinear_bwd", "resize_nearest",
                                     "resize_nearest_bwd", "confusion_matrix", "dot_with_stats",
                                     "dot_with_stats_tc", "row_mix", "row_mix_compact",
-                                    "channel_sums", "np_plus_apply"}
+                                    "channel_sums", "np_plus_apply", "oc_stage_stats",
+                                    "oc_stage", "oc_stage_bwd", "oc_stage_layout"}
     # every entry point the wrappers call has a ctypes signature
     calls = set()
     for src in (_build._PKG / "ops").glob("cuda_*.py"):

@@ -88,10 +88,12 @@ def covstat_case(sd: dict, pairs: list) -> dict:
 def module_counts(model):
     """What ``model``'s own modules imply of a step's collectives while
     open, in the yielded dict: its train-mode forwards of the global
-    BatchNorm (``bn``; the OC branch's functional ones too) and of
-    SwitchWhiten (``sw``), and NP+'s gathered means (``gathers``); each
-    pays one ``all_reduce`` forward and one backward."""
-    from mrfp_tpu_torch.perturb import np_plus, oc_branch
+    BatchNorm (``bn``; the OC branch's functional ones too, which its
+    stages run through ``ops/oc_stage.py``) and of SwitchWhiten (``sw``),
+    and NP+'s gathered means (``gathers``); each pays one ``all_reduce``
+    forward and one backward."""
+    from mrfp_tpu_torch.ops import oc_stage
+    from mrfp_tpu_torch.perturb import np_plus
     seen = {"bn": 0, "sw": 0, "gathers": 0}
 
     def hook(kind):
@@ -101,7 +103,7 @@ def module_counts(model):
 
     handles = [m.register_forward_hook(hook("bn" if isinstance(m, GlobalBatchNorm2d) else "sw"))
                for m in model.modules() if isinstance(m, (GlobalBatchNorm2d, SwitchWhiten2d))]
-    patched = [(np_plus, "all_gather_rows", "gathers"), (oc_branch, "batch_norm_train", "bn")]
+    patched = [(np_plus, "all_gather_rows", "gathers"), (oc_stage, "batch_norm_train", "bn")]
     originals = [getattr(mod, name) for mod, name, _ in patched]
 
     def counting(fn, kind):
